@@ -1,0 +1,160 @@
+"""GQA attention: full-sequence and one-token decode paths.
+
+Shapes as in `src/repro/models/attention.py`: x (B, S, D); q (B, S, H, hd);
+k/v (B, T, KV, hd).  GQA is computed with grouped einsums (no
+materialized KV repeat); scores and softmax are f32.
+
+Off this slice's path, and so not ported yet: `chunked_attention` (the
+reference takes it for prompts of `cfg.chunked_attn_threshold` tokens or
+more; here such a prompt raises), sliding windows, cross attention and
+MLA.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import P, apply_rope, linear, rms_norm
+
+NEG_INF = -1e30
+
+
+def gqa_spec(cfg: ModelConfig):
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = cfg.param_dtype
+    spec = {
+        "wq": P((D, H * hd), ("embed", "heads"), dtype=dt),
+        "wk": P((D, KV * hd), ("embed", "kv_heads"), dtype=dt),
+        "wv": P((D, KV * hd), ("embed", "kv_heads"), dtype=dt),
+        "wo": P((H * hd, D), ("heads", "embed"), dtype=dt),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = P((hd,), (None,), init="ones", dtype=dt)
+        spec["k_norm"] = P((hd,), (None,), init="ones", dtype=dt)
+    return spec
+
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor):
+    """Bool mask (..., S, T): True = attend."""
+    return k_pos[..., None, :] <= q_pos[..., :, None]
+
+
+def _grouped_scores(q, k, scale):
+    """q (B,S,KV,G,hd), k (B,T,KV,hd) -> (B,KV,G,S,T) in f32."""
+    return torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
+
+
+def _grouped_out(probs, v):
+    """probs (B,KV,G,S,T), v (B,T,KV,hd) -> (B,S,KV,G,hd)."""
+    return torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v)
+
+
+def full_attention(q, k, v, mask, scale):
+    """q (B,S,H,hd) grouped against k/v (B,T,KV,hd); mask (S,T) bool."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    scores = _grouped_scores(q.reshape(B, S, KV, H // KV, hd), k, scale)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _grouped_out(probs, v).reshape(B, S, H, hd)
+
+
+def decode_attention(q1, k, v, scale, *, valid):
+    """Single-token decode: q1 (B,1,H,hd), k/v (B,T,KV,hd).  `valid` bool
+    masks unfilled cache slots: (T,) shared, or (B, T) per row (continuous
+    batching serves lanes at different positions)."""
+    B, _, H, hd = q1.shape
+    KV = k.shape[2]
+    s = _grouped_scores(q1.reshape(B, 1, KV, H // KV, hd), k, scale)  # (B,KV,G,1,T)
+    if valid.ndim == 2:
+        valid = valid[:, None, None, None, :]                       # (B,1,1,1,T)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _grouped_out(p, v).reshape(B, 1, H, v.shape[-1])
+
+
+def cache_valid_mask(T: int, pos: torch.Tensor):
+    """Valid cache slots after writing at slot (pos % T): every slot j <= pos,
+    or all slots once a rolling buffer has wrapped (pos >= T).  pos () ->
+    (T,); pos (B,) -> (B, T) per-row masks."""
+    p = pos[..., None]
+    return (torch.arange(T, device=pos.device) <= p) | (p >= T)
+
+
+def _decode_positions(pos: torch.Tensor):
+    """Rope positions for one decode step: () -> (1,) shared; (B,) ->
+    (B, 1) per row (each lane rotates by its own position)."""
+    return pos[None] if pos.ndim == 0 else pos[:, None]
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor):
+    """Write this step's (B, 1, ...) entry at slot pos % T, IN PLACE (the
+    reference rebuilds the leaf functionally; the port updates the serving
+    cache where it lies).  Scalar pos writes one slot for every row; a (B,)
+    pos writes one slot per row (continuous-batching lanes)."""
+    T = cache.shape[1]
+    slot = torch.remainder(pos, T).long()
+    if slot.ndim:
+        cache[torch.arange(cache.shape[0], device=cache.device), slot] = \
+            new[:, 0].to(cache.dtype)
+    else:
+        cache.index_copy_(1, slot[None], new.to(cache.dtype))
+    return cache
+
+
+def _maybe_qk_norm(params, q, k, cfg):
+    if cfg.qk_norm and "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    return q, k
+
+
+def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
+                return_kv=False):
+    """Causal self attention over a full sequence at positions 0..S-1."""
+    B, S, D = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if S >= cfg.chunked_attn_threshold:
+        raise NotImplementedError(
+            f"prompt of {S} tokens needs chunked attention (threshold "
+            f"{cfg.chunked_attn_threshold}), which the port does not have yet")
+    lget = (lora or {}).get
+    q = linear(x, params["wq"], lget("wq"), lora_scale).reshape(B, S, H, hd)
+    k = linear(x, params["wk"], lget("wk"), lora_scale).reshape(B, S, KV, hd)
+    v = linear(x, params["wv"], lget("wv"), lora_scale).reshape(B, S, KV, hd)
+    q, k = _maybe_qk_norm(params, q, k, cfg)
+    positions = torch.arange(S, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = full_attention(q, k, v, causal_mask(positions, positions),
+                         1.0 / math.sqrt(hd))
+    y = linear(out.reshape(B, S, H * hd), params["wo"], lget("wo"), lora_scale)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def gqa_decode(params, x1, cache, pos, cfg: ModelConfig, *, lora=None,
+               lora_scale=1.0):
+    """One-token decode. cache = (k, v) with k/v (B, T, KV, hd), written in
+    place at slot pos % T.  pos is () shared across the batch, or (B,) per
+    row (continuous batching: each lane decodes at its own position)."""
+    B = x1.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    lget = (lora or {}).get
+    k_cache, v_cache = cache
+    T = k_cache.shape[1]
+    q = linear(x1, params["wq"], lget("wq"), lora_scale).reshape(B, 1, H, hd)
+    k = linear(x1, params["wk"], lget("wk"), lora_scale).reshape(B, 1, KV, hd)
+    v = linear(x1, params["wv"], lget("wv"), lora_scale).reshape(B, 1, KV, hd)
+    q, k = _maybe_qk_norm(params, q, k, cfg)
+    q = apply_rope(q, _decode_positions(pos), cfg.rope_theta)
+    k = apply_rope(k, _decode_positions(pos), cfg.rope_theta)
+    _cache_write(k_cache, k, pos)
+    _cache_write(v_cache, v, pos)
+    out = decode_attention(q, k_cache, v_cache, 1.0 / math.sqrt(hd),
+                           valid=cache_valid_mask(T, pos))
+    y = linear(out.reshape(B, 1, H * hd), params["wo"], lget("wo"), lora_scale)
+    return y, (k_cache, v_cache)
