@@ -21,8 +21,31 @@ Phases, each fatal on failure:
                  single-adapter prefill + decode reference: completions
                  must match, except where the reference's top-2 logit gap
                  is below 1e-3 (each such case is printed).
---profile adds a torch.profiler window over a few decode steps of phase
-3's engine and writes its trace under chiprun_out/.
+  5. transport -- the five Top-K transport kernels (csrc/transport.cu)
+                 against their plain versions, BITWISE, at the Yi-9B LoRA
+                 vector length (9,830,400), 1,000,003 and 50, one and four
+                 rows, normal / tied / all-zero rows, bits 0 and 4, nearest
+                 and stochastic rounding; then each kernel's device time at
+                 the Yi-9B length beside its bound, its plain version and a
+                 library call.
+  6. train    -- the port's `Experiment` (sim engine) on Yi-9B at full
+                 width and depth in bf16: flasc, selector "fused", 4-bit
+                 uploads, rank 8, density 0.25 both ways, 4 clients x 4 x
+                 32 random tokens, 2 rounds.  The transport launch counts
+                 are zeroed just before and read just after and must equal
+                 the expected count per round x 2; every loss must be
+                 finite and every client must upload at least k entries.
+                 Then one round with selector "pallas" (the count kernel),
+                 its counts zeroed and read the same way.
+  7. round-parity -- phase 6's round-0 client deltas, as its round handed
+                 them to the upload pipeline, uploaded, aggregated and
+                 FedAdam-stepped twice on the card, through the fused stage
+                 (the kernels) and through topk(histogram, 12 iterations)
+                 + quantize(4) (plain torch), with one uniform draw: masks,
+                 nnz and the new flatP must be bitwise equal.
+--profile adds torch.profiler windows over a few decode steps of phase
+3's engine and over one more round of phase 6, and writes their traces
+under chiprun_out/.
 
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.  With no CUDA device, or
@@ -32,6 +55,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -39,6 +63,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -297,9 +322,19 @@ def profile_decode(eng, seed: int, steps: int = 4):
                 eng._decode(cache, tokens, pos, gidx)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
+    summarize_trace(prof, "serve_decode_trace.json",
+                    f"{steps} decode steps x {n} lanes", steps, wall_ms)
+
+
+def summarize_trace(prof, fname: str, label: str, steps: int,
+                    wall_ms: float) -> None:
+    """Write the profiler's trace to chiprun_out/<fname>.gz and print the
+    device busy share of the wall time (union of kernel intervals), the
+    kernel and launch-call counts per step, and the ten kernels that take
+    the most device time."""
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "serve_decode_trace.json")
+    path = os.path.join(out_dir, fname)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -314,7 +349,7 @@ def profile_decode(eng, seed: int, steps: int = 4):
         end = max(end, e)
     launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
                    and e.get("name", "").startswith("cudaLaunchKernel"))
-    print(f"[profile] {steps} decode steps x {n} lanes under the profiler: "
+    print(f"[profile] {label} under the profiler: "
           f"wall {wall_ms / steps:.3f} ms/step, device busy "
           f"{busy / 1e3 / steps:.3f} ms/step "
           f"({100 * busy / 1e3 / wall_ms:.1f}% of wall), "
@@ -327,6 +362,29 @@ def profile_decode(eng, seed: int, steps: int = 4):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"[profile]   {t / 1e3 / steps:8.3f} ms/step {c // steps:5d} "
               f"launches/step  {name[:80]}")
+
+
+def profile_round(state, data) -> None:
+    """torch.profiler over one more FLASC round from phase 6's trained
+    state (round 0's batch), the metrics pull included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import fedround
+    from repro_torch.federated.engine import SimEngine
+    plan = state.plan
+    step = SimEngine().compile(plan)
+    seed = fedround.fold_in(plan.seed + 2, 0)
+    batch = data(0)
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step(plan.params, state.flatP, state.server, state.sstate,
+                   batch, seed)
+        {k: v.cpu() for k, v in out[3].items() if isinstance(v, torch.Tensor)}
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    summarize_trace(prof, "train_round_trace.json",
+                    "1 FLASC round of 4 clients", 1, wall_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +445,458 @@ def parity_phase(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the Top-K transport kernels
+# ---------------------------------------------------------------------------
+
+# the flat LoRA vector of Yi-9B at rank 8 on wq/wk/wv/wo: 48 layers x
+# (4096x8 + 8x4096 + 2 x (4096x8 + 8x512) + 4096x8 + 8x4096)
+P_LEN = 48 * (65_536 + 36_864 + 36_864 + 65_536)
+LEVELS = 12
+TRANSPORT = (   # (kernel, the TPU kernel it replaces)
+    ("threshold_count", "src/repro/kernels/topk_mask.py:69"),
+    ("topk_mask", "src/repro/kernels/topk_mask.py:37"),
+    ("absmax", "src/repro/kernels/fused_transport.py:86"),
+    ("bin_counts", "src/repro/kernels/fused_transport.py:122"),
+    ("mask_quantize", "src/repro/kernels/fused_transport.py:201"),
+)
+
+
+def transport_functions():
+    """kernel name -> the `CudaFunction` that launches and counts it."""
+    from repro_torch.kernels import fused_transport as ft
+    from repro_torch.kernels import topk_mask as tm
+    return {"threshold_count": tm.THRESHOLD_COUNT, "topk_mask": tm.TOPK_MASK,
+            "absmax": ft.ABSMAX, "bin_counts": ft.BIN_COUNTS,
+            "mask_quantize": ft.MASK_QUANTIZE}
+
+
+def transport_rows(gen, B: int, n: int, kind: str):
+    """(B, n) f32 rows (normal draws, heavy ties, or all zeros) and a
+    (B, n) uniform draw for stochastic rounding, from one generator."""
+    import torch
+    if kind == "zeros":
+        x = torch.zeros(B, n, device="cuda")
+    elif kind == "ties":
+        x = torch.randint(-3, 4, (B, n), generator=gen, device="cuda"
+                          ).float() * 0.5
+    else:
+        x = torch.randn(B, n, generator=gen, device="cuda")
+    return x, torch.rand(B, n, generator=gen, device="cuda")
+
+
+def transport_bound(name: str, B: int, n: int, kept: int, stochastic: bool):
+    """(bound_ms, bound_by) of one call on (B, n) rows: each input read
+    once and each output written once over the HBM rate, against the f32
+    operations these rows need over the f32 rate (`kept` survivors are
+    quantized).  Per-row operands and outputs count their few bytes."""
+    row, small = 4 * B * n, 16 * B
+    ops = {
+        "absmax": (row + small, 2 * B * n),                 # abs, max
+        "threshold_count": (row + small, 3 * B * n),        # abs, >=, add
+        "topk_mask": (2 * row + small, 4 * B * n),          # + select
+        # abs, then 12 x (add, mul, >=, two selects, index shift-add)
+        "bin_counts": (row + small + 4 * B * (1 << LEVELS),
+                       B * n * (1 + 6 * LEVELS)),
+        # abs, >=, select, add for every entry; divide, add, floor, two
+        # clamps and a multiply for each survivor
+        "mask_quantize": ((3 if stochastic else 2) * row + small,
+                          4 * B * n + 6 * kept),
+    }
+    nbytes, flops = ops[name]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def transport_phase(seed: int):
+    """Every transport kernel against its plain version, bitwise, at the
+    Yi-9B vector length, an odd length and a tiny one, one and four rows,
+    normal / tied / all-zero rows and per-row counts k in {0, 1, n/4, n};
+    then each kernel's device time at the Yi-9B length (B = 1 and 4)."""
+    import torch
+    from repro_torch.core import quantization as qz
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import fused_transport as ft
+    from repro_torch.kernels import topk_mask as tm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    errs = {name: 0.0 for name, _ in TRANSPORT}
+
+    def same(name, got, want, what):
+        a, b = got.contiguous(), want.contiguous()
+        if a.dtype == torch.float32:
+            equal = torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            equal = torch.equal(a, b)
+        if a.numel():
+            errs[name] = max(errs[name],
+                             (a.double() - b.double()).abs().max().item())
+        check(equal, f"{name} differs from its plain version ({what})")
+
+    cases = 0
+    for n in (P_LEN, 1_000_003, 50):
+        kd = sp.density_count(n, 0.25)
+        for B in (1, 4):
+            ks = [kd] if B == 1 else [0, 1, kd, n]
+            k = torch.tensor(ks, dtype=torch.int32, device="cuda")
+            for kind in ("normal", "ties", "zeros"):
+                what = f"n={n} B={B} {kind}"
+                x, u = transport_rows(gen, B, n, kind)
+                hi0 = ft.absmax(x)
+                same("absmax", hi0, ft.absmax_plain(x), what)
+                hist = ft.bin_counts(x, hi0, LEVELS)
+                same("bin_counts", hist, ft.bin_counts_plain(x, hi0, LEVELS),
+                     what)
+                check(bool((hist.sum(-1) == n).all()),
+                      f"bin_counts lost entries ({what})")
+                thr = torch.clamp_min(
+                    ft.threshold_from_bins(hist, hi0, k, LEVELS), sp.TINY)
+                same("threshold_count", tm.threshold_count(x, thr),
+                     tm.threshold_count_plain(x, thr), what)
+                got, gcnt = tm.topk_mask(x, thr)
+                want, wcnt = tm.topk_mask_plain(x, thr)
+                same("topk_mask", got, want, what)
+                same("topk_mask", gcnt, wcnt, what + " count")
+                for bits in (0, 4):
+                    scale = qz.scale_of(hi0, bits) if bits else \
+                        torch.ones_like(hi0)
+                    for uu in ((None, u) if bits else (None,)):
+                        tag = f"{what} bits={bits} " + \
+                            ("stochastic" if uu is not None else "nearest")
+                        got, gcnt = ft.fused_mask_quantize(x, thr, scale, uu,
+                                                           bits)
+                        want, wcnt = ft.fused_mask_quantize_plain(
+                            x, thr, scale, uu, bits)
+                        same("mask_quantize", got, want, tag)
+                        same("mask_quantize", gcnt, wcnt, tag + " count")
+                torch.cuda.synchronize()
+                cases += 1
+    print(f"[transport] {cases} cases (n in {{{P_LEN}, 1000003, 50}} x B in "
+          f"{{1, 4}} x normal/ties/zeros, bits 0 and 4, nearest and "
+          f"stochastic): every kernel bitwise equal to its plain version")
+
+    # device times at the Yi-9B vector: the kernel alone (its C entry point
+    # on preallocated outputs), the wrapper (which also zeroes its count /
+    # max / histogram output), the plain version and, where PyTorch has
+    # one, a library call computing the same function.  Calls alternate
+    # between two input sets: one row (39.3 MB) fits the 50 MB L2, and the
+    # round reads its rows from HBM.
+    fns = transport_functions()
+    dev = torch.device("cuda")
+    timings = {name: {} for name, _ in TRANSPORT}
+    for B in (1, 4):
+        k = torch.full((B,), sp.density_count(P_LEN, 0.25), dtype=torch.int32,
+                       device="cuda")
+        sets = []
+        for _ in range(2):
+            x, u = transport_rows(gen, B, P_LEN, "normal")
+            hi0 = ft.absmax(x)
+            thr = torch.clamp_min(ft.threshold_from_bins(
+                ft.bin_counts(x, hi0, LEVELS), hi0, k, LEVELS), sp.TINY)
+            sets.append(types.SimpleNamespace(
+                x=x, u=u, hi0=hi0, thr=thr, scale=qz.scale_of(hi0, 4),
+                kept=int(tm.threshold_count(x, thr).sum())))
+        out = torch.empty_like(sets[0].x)
+        cnt = torch.zeros(B, dtype=torch.int32, device="cuda")
+        hout = torch.zeros((B, 1 << LEVELS), dtype=torch.int32, device="cuda")
+        amax = torch.zeros(B, device="cuda")
+        op, cp = out.data_ptr(), cnt.data_ptr()
+        calls = {   # (kernel alone, wrapper, plain, library) on one set
+            "absmax": (
+                lambda s: fns["absmax"](dev, s.x.data_ptr(), amax.data_ptr(),
+                                        P_LEN, B),
+                lambda s: ft.absmax(s.x), lambda s: ft.absmax_plain(s.x),
+                lambda s: torch.amax(s.x.abs(), -1)),
+            "threshold_count": (
+                lambda s: fns["threshold_count"](dev, s.x.data_ptr(),
+                                                 s.thr.data_ptr(), cp, P_LEN,
+                                                 B),
+                lambda s: tm.threshold_count(s.x, s.thr),
+                lambda s: tm.threshold_count_plain(s.x, s.thr),
+                lambda s: (s.x.abs() >= s.thr[:, None]).sum(-1)),
+            "topk_mask": (
+                lambda s: fns["topk_mask"](dev, s.x.data_ptr(),
+                                           s.thr.data_ptr(), op, cp, P_LEN, B),
+                lambda s: tm.topk_mask(s.x, s.thr),
+                lambda s: tm.topk_mask_plain(s.x, s.thr), None),
+            "bin_counts": (
+                lambda s: fns["bin_counts"](dev, s.x.data_ptr(),
+                                            s.hi0.data_ptr(), hout.data_ptr(),
+                                            P_LEN, B, LEVELS),
+                lambda s: ft.bin_counts(s.x, s.hi0, LEVELS),
+                lambda s: ft.bin_counts_plain(s.x, s.hi0, LEVELS), None),
+            "mask_quantize": (
+                lambda s: fns["mask_quantize"](dev, s.x.data_ptr(),
+                                               s.u.data_ptr(),
+                                               s.thr.data_ptr(),
+                                               s.scale.data_ptr(), op, cp,
+                                               P_LEN, B, 4, 1),
+                lambda s: ft.fused_mask_quantize(s.x, s.thr, s.scale, s.u, 4),
+                lambda s: ft.fused_mask_quantize_plain(s.x, s.thr, s.scale,
+                                                       s.u, 4),
+                None),
+        }
+
+        def on_sets(f):
+            return lambda i: f(sets[i % len(sets)])
+
+        for name, (raw, wrapper, plain, library) in calls.items():
+            bounds = [transport_bound(name, B, P_LEN, s.kept, True)
+                      for s in sets]
+            row = {"ms": device_ms(on_sets(raw), 20),
+                   "wrapper_ms": device_ms(on_sets(wrapper), 20),
+                   "plain_ms": device_ms(on_sets(plain), 6),
+                   "library_ms": (device_ms(on_sets(library), 20)
+                                  if library is not None else None),
+                   "bound_ms": sum(b for b, _ in bounds) / len(bounds),
+                   "bound_by": bounds[0][1]}
+            timings[name][B] = row
+            print(f"[transport] timing {name} B={B} n={P_LEN}: "
+                  f"{json.dumps(row)}")
+        del sets, out
+    return errs, timings
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train Yi-9B with FLASC at full width and depth
+# ---------------------------------------------------------------------------
+
+FED = dict(n_clients=4, local_batch=4, local_steps=1, client_lr=1e-3,
+           server_lr=2e-3)
+SEQ = 32
+TRAIN_ROUNDS = 2
+# transport launches per round of flasc with selector="fused": the download
+# mask (one row) and the upload of the stacked client deltas (B = 4)
+FUSED_PER_ROUND = {"threshold_count": 0, "topk_mask": 1, "absmax": 2,
+                   "bin_counts": 2, "mask_quantize": 1}
+# ... and with selector="pallas" (24 bisection count passes each way)
+PALLAS_PER_ROUND = {"threshold_count": 48, "topk_mask": 2, "absmax": 0,
+                    "bin_counts": 0, "mask_quantize": 0}
+
+
+class RoundProbe:
+    """Callback: host time at the end of every round (after the metrics
+    pull), the per-client upload sizes, and the run state."""
+
+    def __init__(self):
+        self.t = [time.perf_counter()]
+        self.up_nnz = []
+        self.state = None
+
+    def on_round_end(self, ev):
+        import numpy as np
+        self.t.append(time.perf_counter())
+        self.up_nnz.append(np.asarray(ev.metrics["up_nnz_clients"]).tolist())
+        self.state = ev.state
+
+    def on_eval(self, ev):
+        pass
+
+
+class UploadCapture:
+    """Keeps the stacked client deltas that a run's first round hands to
+    its upload pipeline.  Inside `around()`, `transport.upload_pipeline`
+    (which the round calls to build the upload) returns pipelines that
+    record their first input and then run as they would."""
+
+    def __init__(self):
+        self.deltas = None
+
+    @contextlib.contextmanager
+    def around(self):
+        from repro_torch.core import transport as tp
+        make = tp.upload_pipeline
+
+        def recording(*args, **kwargs):
+            pipe = make(*args, **kwargs)
+
+            def run(x, rng=None):
+                if self.deltas is None:
+                    self.deltas = x
+                return pipe(x, rng=rng)
+            return run
+
+        tp.upload_pipeline = recording
+        try:
+            yield self
+        finally:
+            tp.upload_pipeline = make
+
+
+def yi_backbone(seed: int):
+    """Yi-9B at full width and depth, bf16, random weights from `seed`."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import init_params
+    cfg = get_config("yi-9b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, init_params(mdl.model_spec(cfg), device="cuda", generator=gen)
+
+
+def token_batches(cfg, seed: int):
+    """data(r): random tokens (n_clients, local_steps, local_batch, SEQ),
+    drawn on the card from a generator seeded by (seed, r)."""
+    import torch
+
+    def data(r):
+        gen = torch.Generator(device="cuda").manual_seed(1_000_003 * seed + r)
+        shape = (FED["n_clients"], FED["local_steps"], FED["local_batch"], SEQ)
+        return {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                        generator=gen, device="cuda")}
+    return data
+
+
+def run_flasc(cfg, params, data, seed: int, selector: str, rounds: int,
+              capture: UploadCapture = None):
+    """One `Experiment` of the port on the card; returns (result, probe,
+    {kernel: launches in this run}, wall seconds).  `capture`, if given,
+    keeps round 0's upload input."""
+    import torch
+    from repro_torch.federated import Experiment
+    from repro_torch.models.config import FederatedConfig
+    fns = transport_functions()
+    probe = RoundProbe()
+    exp = (Experiment(None, federation=FederatedConfig(**FED))
+           .with_strategy("flasc", selector=selector, quant_bits_up=4,
+                          density_down=0.25, density_up=0.25)
+           .with_lora(rank=8)
+           .with_training(rounds=rounds, seed=seed)
+           .with_params(params, cfg)
+           .with_data(data)
+           .with_engine("sim")
+           .with_callbacks(probe))
+    torch.cuda.synchronize()
+    for f in fns.values():
+        f.launches = 0
+    probe.t = [time.perf_counter()]
+    with (capture.around() if capture else contextlib.nullcontext()):
+        res = exp.run()
+    launches = {name: f.launches for name, f in fns.items()}
+    return res, probe, launches, probe.t[-1] - probe.t[0]
+
+
+def train_phase(seed: int, cfg, params):
+    import numpy as np
+    import torch
+    from repro_torch.core import sparsity as sp
+
+    data = token_batches(cfg, seed)
+    k = sp.density_count(P_LEN, 0.25)
+    torch.cuda.reset_peak_memory_stats()
+    capture = UploadCapture()
+    res, probe, launches, wall = run_flasc(cfg, params, data, seed, "fused",
+                                           TRAIN_ROUNDS, capture)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    led = res.ledger
+    check(led.total_params == P_LEN,
+          f"flat LoRA vector has {led.total_params} entries, not {P_LEN}")
+    C = FED["n_clients"]
+    for r, h in enumerate(res.history):
+        ph = h["phase_ms"]
+        transport = ph["download_mask"] + ph["download"] + ph["upload"]
+        print(f"[train] round {r}: loss {h['loss']:.6f}, wall "
+              f"{1e3 * (probe.t[r + 1] - probe.t[r]):.3f} ms; device-event "
+              f"phases: local update {ph['local_update'] / C:.3f} ms/client, "
+              f"transport {transport:.3f} ms (download mask "
+              f"{ph['download_mask']:.3f}, download {ph['download']:.3f}, "
+              f"upload {ph['upload']:.3f}), server step {ph['server']:.3f} ms;"
+              f" up_nnz per client {probe.up_nnz[r]}")
+    print(f"[train] {cfg.name} {cfg.num_layers}L d{cfg.d_model} "
+          f"{cfg.param_dtype}: {TRAIN_ROUNDS} FLASC rounds (fused selector, "
+          f"4-bit uploads, density 0.25/0.25, {C} clients x "
+          f"{FED['local_batch']} x {SEQ} tokens) in {1e3 * wall:.3f} ms; "
+          f"p_len {led.total_params}, k {k}; ledger {led.total_bytes} B "
+          f"value-only, {led.total_coded_bytes} B coded (down "
+          f"{led.down_coded_bytes} / up {led.up_coded_bytes}); peak device "
+          f"memory {peak:.2f} GiB (round 0's upload input kept for phase 7)")
+    print(f"[train] launches in the fused run: {json.dumps(launches)}")
+    check(len(res.history) == TRAIN_ROUNDS, "the run stopped early")
+    check(all(np.isfinite(h["loss"]) for h in res.history),
+          "a round's loss is not finite")
+    check(all(v >= k for row in probe.up_nnz for v in row),
+          f"a client uploaded fewer than k = {k} entries: {probe.up_nnz}")
+    for name, per_round in FUSED_PER_ROUND.items():
+        check(launches[name] == per_round * TRAIN_ROUNDS,
+              f"{name} launched {launches[name]} times in the fused run, "
+              f"expected {per_round} x {TRAIN_ROUNDS}")
+    state = probe.state
+
+    # the `pallas` selector's path: the count kernel, one round
+    pres, _, plaunch, pwall = run_flasc(cfg, params, data, seed, "pallas", 1)
+    print(f"[train] selector=pallas: 1 round in {1e3 * pwall:.3f} ms, loss "
+          f"{pres.history[0]['loss']:.6f}; launches {json.dumps(plaunch)}")
+    check(np.isfinite(pres.history[0]["loss"]), "pallas-round loss not finite")
+    for name, per_round in PALLAS_PER_ROUND.items():
+        check(plaunch[name] == per_round,
+              f"{name} launched {plaunch[name]} times in the pallas round, "
+              f"expected {per_round}")
+    return state, capture.deltas, launches, plaunch
+
+
+# ---------------------------------------------------------------------------
+# phase 7: round parity on the card, fused stage against two stages
+# ---------------------------------------------------------------------------
+
+def round_parity_phase(state, deltas, seed: int):
+    """Round 0's client deltas of full-width Yi-9B, as phase 6's round
+    handed them to its upload pipeline, uploaded, aggregated and
+    FedAdam-stepped (from the run's final server state) twice on the card:
+    through the `fused_topk_quantize` stage (the kernels) and through
+    `topk` with `HistogramSelector(iters=12)` then `quantize(4)` (plain
+    torch), with one injected uniform draw.  Everything must be bitwise
+    equal."""
+    import torch
+    from repro_torch.core import selectors as sel
+    from repro_torch.core import strategies as st
+    from repro_torch.core import transport as tp
+    from repro_torch.optim import adam_update
+
+    plan, flatP, server = state.plan, state.flatP, state.server
+    strat, meta, fed = plan.strategy, plan.meta, plan.fed
+    s = strat.spec
+    C = FED["n_clients"]
+    check(deltas is not None and tuple(deltas.shape) == (C, P_LEN),
+          "phase 6 handed no (n_clients, p_len) upload input to its pipeline")
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        u = torch.rand(deltas.shape, generator=gen, device="cuda")
+        ctx = meta.plan_context(C, round_idx=server["round"])
+        fused = tp.upload_pipeline(st.UploadRule.topk(s.density_up), 4,
+                                   selector=sel.FusedSelector(levels=LEVELS))
+        check([type(x).__name__ for x in fused.stages] == ["FusedTopKQuantize"],
+              f"fused upload pipeline is {fused.stages}")
+        two = tp.Pipeline((tp.TopKSparsify(
+            density=s.density_up,
+            selector=sel.HistogramSelector(iters=LEVELS)), tp.Quantize(4)))
+        out = {}
+        for name, pipe in (("fused", fused), ("two-stage", two)):
+            msg = pipe(deltas, rng=u)
+            pg = strat.aggregate(msg.values, ctx)
+            newP, opt = adam_update(flatP, pg, server["opt"], fed.server_lr,
+                                    fed.adam_b1, fed.adam_b2, fed.adam_eps)
+            out[name] = (msg.values, msg.nnz, newP, opt["m"], opt["v"])
+        torch.cuda.synchronize()
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    (fv, fn, fp, fm, fvv), (tv, tn, tp_, tm_, tvv) = out["fused"], \
+        out["two-stage"]
+    masks_equal = torch.equal(fv != 0, tv != 0)
+    print(f"[round-parity] {C} client deltas of {deltas.shape[1]} entries: "
+          f"nnz fused {fn.tolist()} two-stage {tn.tolist()}; masks equal "
+          f"{masks_equal}; uploads, flatP and Adam moments bitwise equal "
+          f"{torch.equal(bits(fv), bits(tv)) and torch.equal(bits(fp), bits(tp_))}")
+    check(masks_equal and torch.equal(fn, tn),
+          "fused and two-stage uploads keep different entries")
+    check(torch.equal(bits(fv), bits(tv)), "upload values differ")
+    check(torch.equal(bits(fm), bits(tm_)) and torch.equal(bits(fvv), bits(tvv))
+          and torch.equal(bits(fp), bits(tp_)),
+          "FedAdam results differ between the fused and two-stage uploads")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -434,9 +944,43 @@ def main() -> int:
     t0 = time.perf_counter()
     parity_phase(args.seed)
     print(f"[parity] done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    errs, timings = transport_phase(args.seed)
+    print(f"[transport] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    cfg, params = yi_backbone(args.seed)
+    torch.cuda.synchronize()
+    print(f"[train] backbone built in {time.perf_counter() - t0:.1f}s")
+    state, deltas, launches, plaunch = train_phase(args.seed, cfg, params)
+    if args.profile:
+        profile_round(state, token_batches(cfg, args.seed))
+    print(f"[train] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    round_parity_phase(state, deltas, args.seed)
+    print(f"[round-parity] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
 
-    print(json.dumps({"kernels": [entry]}))
+    entries = [entry]
+    for name, replaces in TRANSPORT:
+        t1, t4 = timings[name][1], timings[name][4]
+        on_pallas = name == "threshold_count"
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/transport.cu",
+            "replaces": replaces,
+            "launches": plaunch[name] if on_pallas else launches[name],
+            "path": ("train, selector=pallas, 1 round" if on_pallas else
+                     f"train, selector=fused, {TRAIN_ROUNDS} rounds"),
+            "max_abs_err": errs[name], "ms": t4["ms"],
+            "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
+            "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
+            "shape": f"(4, {P_LEN}) f32", "B1": t1,
+            "wrapper_ms": t4["wrapper_ms"]})
+    print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

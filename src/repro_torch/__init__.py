@@ -5,10 +5,11 @@ its file names so each module's counterpart is easy to find.  It imports
 `torch` and numpy only, never `jax` and nothing of `repro`.
 
 Entry points (`serving.ServingEngine`, `models.layers.init_params`, the
-`launch.serve` CLI) run on the card unless the caller passes
-`device="cpu"`; on the CPU every kernel wrapper takes its plain PyTorch
-version.  The slice ported so far is multi-tenant LoRA serving of dense
-GQA decoder models (see `serving/`).
+`launch.serve` CLI, `federated.Experiment`) run on the card unless the
+caller passes `device="cpu"`; on the CPU every kernel wrapper takes its
+plain PyTorch version.  Ported so far: multi-tenant LoRA serving of dense
+GQA decoder models (`serving/`) and the FLASC federated round on the
+`sim` engine with its Top-K transport kernels (`core/`, `federated/`).
 """
 from __future__ import annotations
 

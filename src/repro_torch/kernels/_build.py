@@ -7,6 +7,9 @@ edited source rebuilds and a stale library is never loaded.  Libraries are
 loaded with `ctypes`; the wrappers in `kernels/*.py` declare every pointer
 and the stream as `c_void_p`.
 
+`CudaFunction` binds one C entry point of a library and counts its
+launches; every kernel wrapper of the port holds one.
+
 Nothing here runs on import: the CPU tests import every module, and a
 host without `nvcc` only fails when a kernel is actually asked for.
 """
@@ -18,7 +21,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -98,3 +103,32 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LOADED:
         _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
     return _LOADED[name]
+
+
+class CudaFunction:
+    """One C entry point of `csrc/<source>.cu`: `int symbol(args..., void*
+    stream)`, returning `cudaGetLastError()`.  Bound with ctypes at its
+    first call (building the source if needed); `launches` counts the
+    successful launches and nothing else adds to it."""
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on `device`'s current stream; raises if the launch is
+        refused.  Does not synchronise."""
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = self._fn(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
+        self.launches += 1

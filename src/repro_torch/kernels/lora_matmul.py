@@ -139,8 +139,7 @@ class GatherGroupedKernel(GroupedLoraKernel):
         return (scale * torch.einsum("mr,mrn->mn", xa, bg)).to(x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
 MAX_RANK = 64
 
 
@@ -153,16 +152,16 @@ class CudaGroupedKernel(GroupedLoraKernel):
     launches this instance made; nothing else adds to it."""
 
     def __init__(self):
-        self.launches = 0
-        self._fn = None
+        self.fn = _build.CudaFunction("grouped_lora", "grouped_lora_delta_f32",
+                                      _ARGTYPES)
 
-    def _function(self):
-        if self._fn is None:
-            fn = _build.load("grouped_lora").grouped_lora_delta_f32
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
 
     def delta(self, x, a, b, gidx, scale):
         if not x.is_cuda:
@@ -193,13 +192,6 @@ class CudaGroupedKernel(GroupedLoraKernel):
         out = torch.empty((M, N), dtype=torch.float32, device=x.device)
         if M == 0 or N == 0:
             return out
-        fn = self._function()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), gidx.data_ptr(),
-                    out.data_ptr(), M, K, R, N, G, float(scale), stream)
-        if rc != 0:
-            raise RuntimeError(f"grouped_lora kernel launch failed: CUDA error "
-                               f"{rc} (M={M} K={K} R={R} N={N} G={G})")
-        self.launches += 1
+        self.fn(x.device, x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                gidx.data_ptr(), out.data_ptr(), M, K, R, N, G, float(scale))
         return out

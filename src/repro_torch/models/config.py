@@ -4,7 +4,8 @@ Field for field the same as `src/repro/models/config.py`, so a reference
 config converts with `ModelConfig(**dataclasses.asdict(cfg))`.  The port
 builds only the dense `attn_mlp` block so far (`models/model.py` raises
 for the other kinds); the fields of the other families stay so that every
-config in the reference zoo still constructs.
+config in the reference zoo still constructs.  `FederatedConfig` is the
+reference's too (one FLASC round's geometry and optimizer settings).
 """
 from __future__ import annotations
 
@@ -146,3 +147,31 @@ class LoRAConfig:
     @property
     def scale(self) -> float:
         return self.alpha / self.rank
+
+
+@dataclasses.dataclass(frozen=True)
+class FederatedConfig:
+    """One FLASC round: federation geometry and optimizer settings."""
+    n_clients: int = 16
+    local_batch: int = 16
+    local_steps: int = 1
+    client_lr: float = 5e-4
+    client_momentum: float = 0.9
+    server_lr: float = 1e-3
+    server_opt: str = "adam"         # adam (FedAdam) | sgd (FedAvg rule, Appx A)
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    density_down: float = 0.25
+    density_up: float = 0.25
+    # differential privacy (0 => off)
+    dp_clip: float = 0.0
+    dp_noise: float = 0.0
+
+    def split_batch(self, global_batch: int):
+        n = min(self.n_clients, max(global_batch // self.local_batch, 1))
+        lb = global_batch // n
+        if n * lb != global_batch:
+            raise ValueError(f"global batch {global_batch} does not split "
+                             f"into {n} clients of {lb}")
+        return n, lb

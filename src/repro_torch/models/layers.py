@@ -210,6 +210,65 @@ def mlp_apply(params, x, activation: str, lora=None, lora_scale=1.0):
 
 
 # ---------------------------------------------------------------------------
+# token cross-entropy
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+    """Mean token cross-entropy. logits (..., V) upcast to f32, labels int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """(N, D) @ (D, V) with f32 products and accumulation (the reference's
+    `preferred_element_type=f32`: bf16 inputs upcast exactly)."""
+    return torch.matmul(x.float(), head.to(x.dtype).float())
+
+
+def chunked_softmax_ce(x, head, labels, mask=None, chunk: int = 1024):
+    """Mean token CE of `x @ head` without materializing (N, V) logits.
+
+    x (..., D) hidden states; head (D, V); labels (...) int.  Tokens are
+    flattened; up to `chunk` tokens take one plain `cross_entropy`, more
+    run in `chunk`-sized slices, each recomputed in the backward pass
+    (`torch.utils.checkpoint`), so peak memory is O(chunk * V)."""
+    D = x.shape[-1]
+    xf = x.reshape(-1, D)
+    lf = labels.reshape(-1)
+    mf = torch.ones(lf.shape, dtype=torch.float32, device=lf.device) \
+        if mask is None else mask.reshape(-1).float()
+    n = xf.shape[0]
+    if n <= chunk:
+        return cross_entropy(_head_logits(xf, head), lf, mf)
+    pad = (-n) % chunk
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+        lf = F.pad(lf, (0, pad))
+        mf = F.pad(mf, (0, pad))
+
+    def body(xc, lc, mc):
+        logits = _head_logits(xc, head)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc[:, None].long())[:, 0]
+        return torch.sum((logz - gold) * mc)
+
+    from torch.utils.checkpoint import checkpoint
+    tot = torch.zeros((), dtype=torch.float32, device=xf.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=xf.device)
+    for s in range(0, xf.shape[0], chunk):
+        tot = tot + checkpoint(body, xf[s:s + chunk], lf[s:s + chunk],
+                               mf[s:s + chunk], use_reentrant=False)
+        cnt = cnt + torch.sum(mf[s:s + chunk])
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+# ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
 

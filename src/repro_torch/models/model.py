@@ -16,9 +16,9 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models.config import ATTN_MLP, ModelConfig
-from repro_torch.models.layers import (P, layer_slice, linear, mlp_apply,
-                                       mlp_spec, param_count, rms_norm,
-                                       stack_spec)
+from repro_torch.models.layers import (P, chunked_softmax_ce, layer_slice,
+                                       linear, mlp_apply, mlp_spec,
+                                       param_count, rms_norm, stack_spec)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -115,9 +115,12 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, lora=None,
-            lora_scale: float = 1.0, want_cache: bool = False):
+            lora_scale: float = 1.0, want_cache: bool = False,
+            want_logits: bool = True):
     """Full-sequence forward over batch['tokens'] (B, S).  Returns
-    dict(hidden, logits, cache); cache leaves are stacked (L, B, S, ...)."""
+    dict(hidden, logits, cache); cache leaves are stacked (L, B, S, ...).
+    want_logits=False skips the (B, S, V) logits (the loss path takes the
+    chunked vocab CE on `hidden` instead)."""
     check_supported(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
     gp = params["groups"]["g0"]
@@ -131,10 +134,28 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, lora=None,
             ks.append(c["self"][0])
             vs.append(c["self"][1])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out: Dict[str, Any] = {"hidden": x, "logits": linear(x, _lm_head(params, cfg))}
+    out: Dict[str, Any] = {"hidden": x}
+    if want_logits:
+        out["logits"] = linear(x, _lm_head(params, cfg))
     if want_cache:
         out["cache"] = {"g0": {"self": (torch.stack(ks), torch.stack(vs))}}
     return out
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, lora=None,
+            lora_scale: float = 1.0, loss_chunk: int = 1024):
+    """Mean next-token CE of batch['tokens'] (..., S), masked by
+    batch['loss_mask'] when present: the LM branch of the reference's
+    `loss_fn` (classifier heads and multi-token prediction raise in
+    `check_supported`; the dense block adds no auxiliary loss)."""
+    out = forward(params, cfg, batch, lora=lora, lora_scale=lora_scale,
+                  want_logits=False)
+    tokens = batch["tokens"]
+    mask = batch.get("loss_mask", None)
+    return chunked_softmax_ce(out["hidden"][..., :-1, :], _lm_head(params, cfg),
+                              tokens[..., 1:],
+                              None if mask is None else mask[..., 1:],
+                              chunk=loss_chunk)
 
 
 def prefill(params, cfg: ModelConfig, batch, *, lora=None, lora_scale=1.0,

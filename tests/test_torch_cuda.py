@@ -5,14 +5,18 @@ the port's dependencies:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance rtol 1e-4, atol 1e-5 in f32: the kernel sums in another order
-than the plain version (strided K partials, then a tree reduction), at
-K up to 4096.
+The grouped LoRA delta holds to rtol 1e-4, atol 1e-5 in f32: the kernel
+sums in another order than the plain version (strided K partials, then a
+tree reduction), at K up to 4096.  The transport kernels hold bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quantization as qz
+from repro_torch.core import selectors as sel
+from repro_torch.kernels import fused_transport as ft
+from repro_torch.kernels import topk_mask as tm
 from repro_torch.kernels.lora_matmul import (grouped_lora_delta,
                                              resolve_grouped_kernel)
 
@@ -92,3 +96,115 @@ def test_cuda_tensors_resolve_to_the_kernel():
     want = _port("grouped_gather", x.reshape(2, 3, -1), a, b, gidx, 1.0)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the Top-K transport kernels (csrc/transport.cu) against their plain
+# versions: bitwise.  Counts and bins are integer sums (order-free), absmax
+# a max, and the masked / quantized values elementwise f32 chains with the
+# same IEEE ops, so nothing may differ in a single bit.
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu()
+
+
+def _rows(seed, B, n, kind="normal"):
+    rng = np.random.default_rng(seed)
+    if kind == "zeros":
+        x = np.zeros((B, n), np.float32)
+    elif kind == "ties":
+        x = rng.integers(-3, 4, (B, n)).astype(np.float32) * np.float32(0.25)
+    else:
+        x = rng.standard_normal((B, n), dtype=np.float32)
+    u = rng.random((B, n), dtype=np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(u).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 50, 4096, 70001, 1_000_003])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+def test_transport_kernels_match_plain_bitwise(n, B, kind):
+    _need_card()
+    x, u = _rows(n + B, B, n, kind)
+    hi0 = ft.absmax(x)
+    assert torch.equal(_bits(hi0), _bits(ft.absmax_plain(x)))
+    t = hi0 * 0.3
+    assert torch.equal(tm.threshold_count(x, t),
+                       tm.threshold_count_plain(x, t))
+    got, cnt = tm.topk_mask(x, t)
+    want, wcnt = tm.topk_mask_plain(x, t)
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(cnt, wcnt)
+    assert torch.equal(ft.bin_counts(x, hi0, 12),
+                       ft.bin_counts_plain(x, hi0, 12))
+    scale = torch.clamp_min(hi0 / 7.0, 1e-12)
+    for bits in (0, 4, 8):
+        for uu in (None, u):
+            got, cnt = ft.fused_mask_quantize(x, t, scale, uu, bits)
+            want, wcnt = ft.fused_mask_quantize_plain(
+                x, t, scale, uu if bits else None, bits)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(want)), (bits, uu is None)
+            assert torch.equal(cnt, wcnt)
+
+
+@pytest.mark.cuda
+def test_transport_kernels_unaligned_rows_and_counters():
+    # a view starting one float in is not 16-byte aligned: the scalar path
+    _need_card()
+    x, u = _rows(3, 1, 4097)
+    x1, u1 = x[0, 1:], u[0, 1:]
+    before = {f.symbol: f.launches for f in (
+        tm.THRESHOLD_COUNT, tm.TOPK_MASK, ft.ABSMAX, ft.BIN_COUNTS,
+        ft.MASK_QUANTIZE)}
+    hi0 = ft.absmax(x1)
+    assert torch.equal(_bits(hi0), _bits(x1.abs().amax()))
+    t = hi0 * 0.5
+    assert int(tm.threshold_count(x1, t)) == int((x1.abs() >= t).sum())
+    got, _ = tm.topk_mask(x1, t)
+    assert torch.equal(_bits(got), _bits(torch.where(x1.abs() >= t, x1, 0.0)))
+    assert torch.equal(ft.bin_counts(x1, hi0, 7),
+                       ft.bin_counts_plain(x1[None], hi0[None], 7)[0])
+    got, _ = ft.fused_mask_quantize(x1, t, hi0 / 7.0, u1, 4)
+    want, _ = ft.fused_mask_quantize_plain(x1[None], t[None], (hi0 / 7.0)[None],
+                                           u1[None], 4)
+    assert torch.equal(_bits(got), _bits(want[0]))
+    after = {f.symbol: f.launches for f in (
+        tm.THRESHOLD_COUNT, tm.TOPK_MASK, ft.ABSMAX, ft.BIN_COUNTS,
+        ft.MASK_QUANTIZE)}
+    assert all(after[k] == before[k] + 1 for k in after), (before, after)
+
+
+@pytest.mark.cuda
+def test_transport_kernels_validate_inputs():
+    _need_card()
+    x, _ = _rows(4, 2, 100)
+    with pytest.raises(TypeError, match="f32"):
+        ft.absmax(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.absmax(x[:, ::2])
+    with pytest.raises(ValueError, match="levels"):
+        ft.bin_counts(x, ft.absmax(x), 13)
+    with pytest.raises(ValueError, match="on cpu"):
+        tm.topk_mask(x, torch.ones(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 70001, 1_000_003])
+def test_kernel_selectors_match_histogram_on_the_card(n):
+    # FusedSelector(levels=L) == HistogramSelector(iters=L) and
+    # PallasSelector(iters=L) == HistogramSelector(iters=L), per row with
+    # per-row counts including k = 0 and k = n
+    _need_card()
+    x, u = _rows(n, 4, n, "ties" if n == 50 else "normal")
+    k = torch.tensor([0, 1, n // 4, n], dtype=torch.int32, device="cuda")
+    for kern, levels in ((sel.FusedSelector(levels=12), 12),
+                         (sel.PallasSelector(iters=16), 16)):
+        got, gn = kern.sparsify_by_count(x, k)
+        want, wn = sel.HistogramSelector(iters=levels).sparsify_by_count(x, k)
+        assert torch.equal(got, want) and torch.equal(gn, wn)
+    got, gn = sel.FusedSelector().sparsify_quantized(x, count=k, bits=4, rng=u)
+    v, wn = sel.HistogramSelector(iters=12).sparsify_by_count(x, k)
+    want = qz.quantize_roundtrip(v, 4, u) * (k > 0)[:, None]
+    assert torch.equal(got, want) and torch.equal(gn, wn)

@@ -16,7 +16,11 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.launch.serve, repro_torch.kernels.lora_matmul, "
-            "repro_torch.checkpoint.io; "
+            "repro_torch.checkpoint.io, repro_torch.core, "
+            "repro_torch.core.fedround, repro_torch.core.selectors, "
+            "repro_torch.core.transport, repro_torch.federated, "
+            "repro_torch.optim, repro_torch.kernels.fused_transport, "
+            "repro_torch.kernels.topk_mask; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -75,3 +79,6 @@ def test_entry_points_default_to_the_card():
         ServingEngine(params, cfg, cache)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "yi-9b", "--smoke"])
+    from repro_torch.federated import Experiment
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment(None)
