@@ -43,6 +43,28 @@ Phases, each fatal on failure:
                  (the kernels) and through topk(histogram, 12 iterations)
                  + quantize(4) (plain torch), with one uniform draw: masks,
                  nnz and the new flatP must be bitwise equal.
+  8. pack     -- the two pack kernels (csrc/transport.cu) against their
+                 plain versions, BITWISE: pack_batch at n in {9,830,400,
+                 1,000,003, 50}, B in {1, 4}, normal / -0.0-and-NaN /
+                 tied / all-zero rows, the Yi-9B capacity and an
+                 overflowing one; mask_quantize_pack at bits 0 and 4,
+                 nearest and stochastic, k in {0, 1, n/4, n}.  Flat ==
+                 hierarchical accumulate (edges 1, 4, 7) bitwise, the
+                 sparse mean against the dense one (atol 1e-6); then both
+                 kernels' device times at the Yi-9B length beside their
+                 bounds, plain versions and torch.nonzero.
+  9. sparse-async -- phase 6's setting plus sparse_aggregate=True on
+                 full-width Yi-9B: (a) the sim engine, 2 rounds; (b) the
+                 async engine at its defaults, 2 events, which must equal
+                 (a) bit for bit (flatP, history, ledger); (c) async with
+                 concurrency 4, buffer 2, a tiered profile and a 4-edge
+                 accumulate, 4 events, finite losses and some stale
+                 update.  pack_batch launches once per round in (a) and
+                 once per client-phase launch in (b) and (c); every pack's
+                 pnnz / cap is printed with the branch it took.  The
+                 selector's packed entry point (mask_quantize_pack) runs on
+                 (a)'s round-0 client deltas and must reproduce the round's
+                 uploads.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine and over one more round of phase 6, and writes their traces
 under chiprun_out/.
@@ -229,7 +251,8 @@ def kernel_phase(seed: int):
     return {"name": "grouped_lora_delta", "route": "cuda",
             "source": "src/repro_torch/csrc/grouped_lora.cu",
             "replaces": "src/repro/kernels/lora_matmul.py:248",
-            "launches": None, "max_abs_err": max_err, "ms": main["ms"],
+            "launches": None, "path": "serve, Yi-9B, 16 requests",
+            "max_abs_err": max_err, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library": "torch.bmm x2 on pre-gathered pages",
@@ -897,6 +920,444 @@ def round_parity_phase(state, deltas, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the two pack kernels
+# ---------------------------------------------------------------------------
+
+PACK = (   # (kernel, the TPU kernel it replaces)
+    ("mask_quantize_pack", "src/repro/kernels/fused_transport.py:269"),
+    ("pack_batch", "src/repro/kernels/fused_transport.py:365"),
+)
+
+
+def pack_functions():
+    from repro_torch.kernels import fused_transport as ft
+    return {"mask_quantize_pack": ft.MASK_QUANTIZE_PACK,
+            "pack_batch": ft.PACK_BATCH}
+
+
+def pack_rows(gen, B: int, n: int, kind: str):
+    """(B, n) rows as a cohort's uploads look: 25% nonzero normal draws;
+    with -0.0 entries and a NaN mixed in ("negzero"); tied magnitudes; or
+    all zeros."""
+    import torch
+    x = torch.randn(B, n, generator=gen, device="cuda")
+    x = torch.where(torch.rand(B, n, generator=gen, device="cuda") < 0.25,
+                    x, 0.0)
+    if kind == "negzero":
+        x = torch.where(torch.rand(B, n, generator=gen, device="cuda") < 0.2,
+                        -0.0, x)
+        x[0, n // 2] = float("nan")
+    elif kind == "ties":
+        x = torch.sign(x) * 0.5
+    elif kind == "zeros":
+        x.zero_()
+    return x.contiguous()
+
+
+def pack_bound(name: str, B: int, n: int, cap: int, stochastic: bool):
+    """(bound_ms, bound_by): each input read once, each output written
+    once (every slot of the packed buffer is written), over the HBM rate,
+    against the f32 operations over the f32 rate."""
+    row, slots = 4 * B * n, 8 * B * cap
+    ops = {"pack_batch": (row + slots + 4 * B, 2 * B * n),
+           # x, u, the masked row; abs, >=, select, count for every entry,
+           # six ops to quantize it
+           "mask_quantize_pack": ((3 if stochastic else 2) * row + slots
+                                  + 16 * B, 10 * B * n)}
+    nbytes, flops = ops[name]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def pack_phase(seed: int):
+    """Both pack kernels against their plain versions, bitwise, at the
+    Yi-9B vector length, an odd length and a tiny one, one and four rows,
+    normal / tied / all-zero / -0.0-bearing rows, the Yi-9B capacity and
+    an overflowing one, bits 0 and 4, nearest and stochastic rounding, k
+    in {0, 1, n/4, n}; flat == hierarchical accumulate on the card; then
+    each kernel's device time at the Yi-9B length (B = 1 and 4)."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core import quantization as qz
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import fused_transport as ft
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    errs = {name: 0.0 for name, _ in PACK}
+
+    def same(name, got, want, what):
+        for a, b in zip(got, want):
+            a, b = a.contiguous(), b.contiguous()
+            if a.dtype == torch.float32:
+                equal = torch.equal(a.view(torch.int32), b.view(torch.int32))
+                diff = (a.double() - b.double()).abs().nan_to_num(0.0)
+            else:
+                equal = torch.equal(a, b)
+                diff = (a.double() - b.double()).abs()
+            if a.numel():
+                errs[name] = max(errs[name], diff.max().item())
+            check(equal, f"{name} differs from its plain version ({what})")
+
+    cases = 0
+    for n in (P_LEN, 1_000_003, 50):
+        kd = sp.density_count(n, 0.25)
+        caps = (comm.pack_capacity(n, kd), n // 64 + 1)
+        for B in (1, 4):
+            for kind in ("normal", "negzero", "ties", "zeros"):
+                x = pack_rows(gen, B, n, kind)
+                for cap in caps:
+                    what = f"n={n} B={B} {kind} cap={cap}"
+                    got = ft.pack_values_batch(x, cap)
+                    same("pack_batch", got,
+                         ft.pack_rows_plain(x, x != 0, cap, n), what)
+                    if kind == "normal" and cap == caps[1]:
+                        check(bool((got[2] > cap).all()),
+                              f"pack_batch did not flag overflow ({what})")
+                    cases += 1
+            # kernel 7: per-row thresholds for k in {0, 1, n/4, n}
+            ks = [kd] if B == 1 else [0, 1, kd, n]
+            k = torch.tensor(ks, dtype=torch.int32, device="cuda")
+            for kind in ("normal", "ties", "zeros"):
+                x, u = transport_rows(gen, B, n, kind)
+                if kind == "normal":
+                    x[0, n // 3] = 100.0        # survivors round to zero
+                hi0 = ft.absmax(x)
+                thr = torch.clamp_min(ft.threshold_from_bins(
+                    ft.bin_counts(x, hi0, LEVELS), hi0, k, LEVELS), sp.TINY)
+                for bits in (0, 4):
+                    scale = qz.scale_of(hi0, bits) if bits else \
+                        torch.ones_like(hi0)
+                    for uu in ((None, u) if bits else (None,)):
+                        for cap in caps:
+                            what = (f"n={n} B={B} {kind} bits={bits} "
+                                    f"{'stochastic' if uu is not None else 'nearest'}"
+                                    f" cap={cap}")
+                            same("mask_quantize_pack",
+                                 ft.fused_mask_quantize_pack(
+                                     x, thr, scale, uu, bits, cap),
+                                 ft.fused_mask_quantize_pack_plain(
+                                     x, thr, scale, uu, bits, cap, n), what)
+                            cases += 1
+            torch.cuda.synchronize()
+    print(f"[pack] {cases} cases (n in {{{P_LEN}, 1000003, 50}} x B in "
+          f"{{1, 4}}; pack_batch on normal/-0.0+NaN/tied/zero rows, "
+          f"mask_quantize_pack on normal/tied/zero rows at bits 0 and 4, "
+          f"nearest and stochastic, k in {{0, 1, n/4, n}}; the Yi-9B "
+          f"capacity and an overflowing one): both kernels bitwise equal "
+          f"to their plain versions")
+
+    # the server side on the card: flat == edge tree, bitwise, and the
+    # sparse mean against the dense one
+    cap = comm.pack_capacity(P_LEN, sp.density_count(P_LEN, 0.25))
+    rows = pack_rows(gen, 4, P_LEN, "normal")
+    idx, val, nnz = ft.pack_values_batch(rows, cap)
+    check(bool((nnz <= cap).all()), "cohort rows overflow the Yi-9B cap")
+    flat = ft.sparse_accumulate(idx, val, P_LEN)
+    for edges in (1, 4, 7):
+        tree = ft.hierarchical_accumulate(idx, val, P_LEN, edges)
+        check(torch.equal(tree.view(torch.int32), flat.view(torch.int32)),
+              f"hierarchical_accumulate({edges} edges) != sparse_accumulate")
+    mean_err = (flat * 0.25 - rows.mean(0)).abs().max().item()
+    print(f"[pack] flat == hierarchical (edges 1, 4, 7) bitwise at (4, "
+          f"{P_LEN}), cap {cap}; sparse mean vs dense mean max|err| "
+          f"{mean_err:.3e} (tolerance 1e-6: another summation order)")
+    check(mean_err <= 1e-6, "the sparse sum disagrees with the dense mean")
+    del rows, idx, val, flat
+
+    # device times at the Yi-9B vector, two input sets alternating (as in
+    # phase 5): the kernel alone on preallocated outputs, the wrapper, the
+    # plain version and torch.nonzero of the same rows' keep mask (indices
+    # only; it syncs with the host for its output size, so it is timed
+    # call to call, host round trip included)
+    fns = pack_functions()
+    dev = torch.device("cuda")
+    nt = -(-P_LEN // ft.PACK_TILE)
+    kd = sp.density_count(P_LEN, 0.25)
+    timings = {name: {} for name, _ in PACK}
+    for B in (1, 4):
+        k = torch.full((B,), kd, dtype=torch.int32, device="cuda")
+        sets = []
+        for _ in range(2):
+            x, u = transport_rows(gen, B, P_LEN, "normal")
+            hi0 = ft.absmax(x)
+            thr = torch.clamp_min(ft.threshold_from_bins(
+                ft.bin_counts(x, hi0, LEVELS), hi0, k, LEVELS), sp.TINY)
+            sets.append(types.SimpleNamespace(
+                x=x, u=u, thr=thr, scale=qz.scale_of(hi0, 4),
+                sparse=ft.fused_mask_quantize(x, thr, qz.scale_of(hi0, 4), u,
+                                              4)[0]))
+        out = torch.empty_like(sets[0].x)
+        idx = torch.empty((B, cap), dtype=torch.int32, device="cuda")
+        val = torch.empty((B, cap), device="cuda")
+        cnt = torch.zeros(B, dtype=torch.int32, device="cuda")
+        scratch = torch.empty((B, nt), dtype=torch.int32, device="cuda")
+        op, ip, vp, cp, sp_ = (out.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                               cnt.data_ptr(), scratch.data_ptr())
+        calls = {   # (kernel alone, wrapper, plain, library) on one set
+            "pack_batch": (
+                lambda s: fns["pack_batch"](dev, s.sparse.data_ptr(), ip, vp,
+                                            cp, sp_, P_LEN, B, cap, P_LEN),
+                lambda s: ft.pack_values_batch(s.sparse, cap),
+                lambda s: ft.pack_rows_plain(s.sparse, s.sparse != 0, cap,
+                                             P_LEN),
+                lambda s: torch.nonzero(s.sparse)),
+            "mask_quantize_pack": (
+                lambda s: fns["mask_quantize_pack"](
+                    dev, s.x.data_ptr(), s.u.data_ptr(), s.thr.data_ptr(),
+                    s.scale.data_ptr(), op, ip, vp, cp, sp_, P_LEN, B, 4, 1,
+                    cap, P_LEN),
+                lambda s: ft.fused_mask_quantize_pack(s.x, s.thr, s.scale,
+                                                      s.u, 4, cap),
+                lambda s: ft.fused_mask_quantize_pack_plain(
+                    s.x, s.thr, s.scale, s.u, 4, cap, P_LEN),
+                lambda s: torch.nonzero(s.x.abs() >= s.thr[:, None])),
+        }
+
+        def on_sets(f):
+            return lambda i: f(sets[i % len(sets)])
+
+        for name, (raw, wrapper, plain, library) in calls.items():
+            bound, by = pack_bound(name, B, P_LEN, cap, True)
+            row = {"ms": device_ms(on_sets(raw), 20),
+                   "wrapper_ms": device_ms(on_sets(wrapper), 20),
+                   "plain_ms": device_ms(on_sets(plain), 6),
+                   "library_ms": cuda_ms(on_sets(library), 10),
+                   "library": "torch.nonzero (indices only, host-synchronizing)",
+                   "bound_ms": bound, "bound_by": by, "cap": cap}
+            if name == "mask_quantize_pack" and B == 1:
+                row["nearest_ms"] = device_ms(on_sets(
+                    lambda s: fns[name](dev, s.x.data_ptr(), None,
+                                        s.thr.data_ptr(), s.scale.data_ptr(),
+                                        op, ip, vp, cp, sp_, P_LEN, B, 4, 0,
+                                        cap, P_LEN)), 20)
+                row["nearest_bound_ms"] = pack_bound(name, B, P_LEN, cap,
+                                                     False)[0]
+            timings[name][B] = row
+            print(f"[pack] timing {name} B={B} n={P_LEN}: {json.dumps(row)}")
+        del sets, out
+    return errs, timings
+
+
+# ---------------------------------------------------------------------------
+# phase 9: sparse aggregation on sim and async, full-width Yi-9B
+# ---------------------------------------------------------------------------
+
+SPARSE_ROUNDS = 2
+ASYNC_EVENTS = 4
+
+
+class PackProbe:
+    """Inside `around()`, records the (pnnz, cap) of every cohort pack
+    (`fused_transport.pack_values_batch`, which the round and the client
+    phase call through the module) and counts the client-phase calls the
+    async engine makes; the device tensors are read after the run."""
+
+    def __init__(self):
+        self.packs = []
+        self.phase_calls = 0
+
+    @contextlib.contextmanager
+    def around(self):
+        from repro_torch.core import fedround
+        from repro_torch.kernels import fused_transport as ft
+        pack, make = ft.pack_values_batch, fedround.make_client_phase_fn
+
+        def recording_pack(values, cap):
+            out = pack(values, cap)
+            self.packs.append((out[2], cap))
+            return out
+
+        def counting_make(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def run(*a, **kw):
+                self.phase_calls += 1
+                return fn(*a, **kw)
+            return run
+
+        ft.pack_values_batch = recording_pack
+        fedround.make_client_phase_fn = counting_make
+        try:
+            yield self
+        finally:
+            ft.pack_values_batch = pack
+            fedround.make_client_phase_fn = make
+
+    def report(self, label: str) -> list:
+        """Print each pack's pnnz / cap; returns the overflow flags."""
+        flags = []
+        for i, (pnnz, cap) in enumerate(self.packs):
+            p = pnnz.cpu().tolist()
+            over = any(v > cap for v in p)
+            flags.append(over)
+            print(f"[sparse-async] {label} pack {i}: pnnz/cap "
+                  f"{[round(v / cap, 4) for v in p]} (cap {cap}); "
+                  f"{'DENSE overflow branch' if over else 'sparse branch'}")
+        return flags
+
+
+def run_sparse(cfg, params, data, seed: int, engine: str, rounds: int,
+               capture: UploadCapture = None, edge_shards: int = 0,
+               **engine_kw):
+    """One sparse-aggregation `Experiment` of the port on the card (the
+    phase-6 setting plus sparse_aggregate=True); returns (result, probe,
+    pack probe, pack-kernel launches, final flatP)."""
+    import torch
+    from repro_torch.federated import Experiment
+    from repro_torch.models.config import FederatedConfig
+    fns = pack_functions()
+    probe, packs = RoundProbe(), PackProbe()
+    exp = (Experiment(None, federation=FederatedConfig(**FED))
+           .with_strategy("flasc", selector="fused", quant_bits_up=4,
+                          density_down=0.25, density_up=0.25,
+                          sparse_aggregate=True, edge_shards=edge_shards)
+           .with_lora(rank=8)
+           .with_training(rounds=rounds, seed=seed)
+           .with_params(params, cfg)
+           .with_data(data)
+           .with_engine(engine, **engine_kw)
+           .with_callbacks(probe))
+    torch.cuda.synchronize()
+    for f in fns.values():
+        f.launches = 0
+    probe.t = [time.perf_counter()]
+    with packs.around(), (capture.around() if capture
+                          else contextlib.nullcontext()):
+        res = exp.run()
+    launches = {name: f.launches for name, f in fns.items()}
+    return res, probe, packs, launches, probe.state.flatP.clone()
+
+
+def sparse_async_phase(seed: int, cfg, params):
+    import numpy as np
+    import torch
+    from repro_torch.core import comm, fedround
+    from repro_torch.core import selectors as sel
+    from repro_torch.core import sparsity as sp
+    from repro_torch.core import strategies as st
+    from repro_torch.core import transport as tp
+    from repro_torch.federated import async_clock as ac
+    from repro_torch.kernels import fused_transport as ft
+
+    data = token_batches(cfg, seed)
+    k = sp.density_count(P_LEN, 0.25)
+    cap = comm.pack_capacity(P_LEN, k)
+    C = FED["n_clients"]
+    ledger_keys = ("down_bytes", "up_bytes", "total_bytes", "coded_bytes",
+                   "down_coded_bytes", "up_coded_bytes")
+    async_keys = {"sim_time", "staleness", "applied", "dropped",
+                  "launch_bytes", "phase_ms"}
+
+    def strip(h):
+        return {key: v for key, v in h.items() if key not in async_keys}
+
+    # (a) sim, 2 rounds
+    capture = UploadCapture()
+    res_a, probe_a, packs_a, la, flat_a = run_sparse(
+        cfg, params, data, seed, "sim", SPARSE_ROUNDS, capture)
+    for r, h in enumerate(res_a.history):
+        print(f"[sparse-async] (a) sim round {r}: loss {h['loss']:.6f}, wall "
+              f"{1e3 * (probe_a.t[r + 1] - probe_a.t[r]):.3f} ms, phases "
+              f"{json.dumps({key: round(v, 3) for key, v in h['phase_ms'].items()})}"
+              f", up_nnz {probe_a.up_nnz[r]}")
+    over_a = packs_a.report("(a)")
+    print(f"[sparse-async] (a) launches {json.dumps(la)}; ledger "
+          f"{json.dumps({key: res_a.history[-1][key] for key in ledger_keys})}")
+    check(all(np.isfinite(h["loss"]) for h in res_a.history),
+          "(a) a sparse round's loss is not finite")
+    check(la["pack_batch"] == SPARSE_ROUNDS,
+          f"(a) pack_batch launched {la['pack_batch']} times, expected one "
+          f"per round ({SPARSE_ROUNDS})")
+
+    # kernel 7's path: the selector's packed entry point on each client's
+    # round-0 upload, with the round's own upload generators.  Its values
+    # must be the round's upload row, its unpack the same row, its total
+    # the round's nnz
+    deltas = capture.deltas
+    check(deltas is not None and tuple(deltas.shape) == (C, P_LEN),
+          "(a) handed no (n_clients, p_len) upload input to its pipeline")
+    round_seed = fedround.fold_in(seed + 2, 0)
+    gens = [fedround.generator(fedround.fold_in(round_seed, c), "cuda")
+            for c in range(C)]
+    with torch.no_grad():
+        up = tp.upload_pipeline(st.UploadRule.topk(0.25), 4,
+                                selector="fused")(deltas, rng=gens)
+        fused = sel.FusedSelector()
+        f7 = pack_functions()["mask_quantize_pack"]
+        f7.launches = 0
+        outs = [fused.sparsify_quantized_packed(
+            deltas[c], count=k, bits=4,
+            rng=fedround.generator(fedround.fold_in(round_seed, c), "cuda"),
+            cap=cap) for c in range(C)]
+        l7 = f7.launches
+        torch.cuda.synchronize()
+    for c, (vals, tot, idx, val) in enumerate(outs):
+        check(torch.equal(vals.view(torch.int32), up.values[c].view(torch.int32)),
+              f"packed entry point: client {c} values differ from the round's")
+        check(int(tot) == int(up.nnz[c]),
+              f"packed entry point: client {c} total {int(tot)} != nnz "
+              f"{int(up.nnz[c])}")
+        if int(tot) <= cap:
+            check(torch.equal(ft.unpack_values(idx, val, P_LEN), vals),
+                  f"packed entry point: client {c} unpack differs")
+    print(f"[sparse-async] sparsify_quantized_packed on round 0's {C} "
+          f"uploads: totals {[int(o[1]) for o in outs]} (cap {cap}), values "
+          f"bitwise equal to the round's uploads; mask_quantize_pack "
+          f"launches {l7}")
+    check(l7 == C, f"mask_quantize_pack launched {l7} times, expected {C}")
+    del capture, deltas, up, outs
+
+    # (b) async at its defaults from the same start: the sync anchor
+    res_b, probe_b, packs_b, lb, flat_b = run_sparse(
+        cfg, params, data, seed, "async", SPARSE_ROUNDS)
+    for r, h in enumerate(res_b.history):
+        print(f"[sparse-async] (b) async event {r}: loss {h['loss']:.6f}, "
+              f"wall {1e3 * (probe_b.t[r + 1] - probe_b.t[r]):.3f} ms, "
+              f"launch bytes pulled {h['launch_bytes']}, phases "
+              f"{json.dumps({key: round(v, 3) for key, v in h['phase_ms'].items()})}")
+    packs_b.report("(b)")
+    equal = (torch.equal(flat_a.view(torch.int32), flat_b.view(torch.int32))
+             and [strip(h) for h in res_a.history]
+             == [strip(h) for h in res_b.history])
+    print(f"[sparse-async] (b) launches {json.dumps(lb)}, client-phase "
+          f"calls {packs_b.phase_calls}; flatP, history and ledger bitwise "
+          f"equal to (a): {equal}")
+    check(equal, "(b) async at its defaults differs from the sim engine")
+    check(lb["pack_batch"] == packs_b.phase_calls == SPARSE_ROUNDS,
+          f"(b) pack_batch launched {lb['pack_batch']} times for "
+          f"{packs_b.phase_calls} client-phase launches")
+    del flat_b
+
+    # (c) async with staleness and the edge tree
+    res_c, probe_c, packs_c, lc, _ = run_sparse(
+        cfg, params, data, seed, "async", ASYNC_EVENTS, edge_shards=4,
+        concurrency=4, buffer_size=2,
+        profile=ac.ClientSystemProfile.tiered(4, 2))
+    for r, h in enumerate(res_c.history):
+        print(f"[sparse-async] (c) async event {r}: loss {h['loss']:.6f}, "
+              f"wall {1e3 * (probe_c.t[r + 1] - probe_c.t[r]):.3f} ms, "
+              f"sim_time {h['sim_time']:.6f}, staleness {h['staleness']}, "
+              f"applied {h['applied']}, dropped {h['dropped']}, launch "
+              f"bytes pulled {h['launch_bytes']}, phases "
+              f"{json.dumps({key: round(v, 3) for key, v in h['phase_ms'].items()})}")
+    over_c = packs_c.report("(c)")
+    print(f"[sparse-async] (c) launches {json.dumps(lc)}, client-phase "
+          f"calls {packs_c.phase_calls}")
+    check(len(res_c.history) == ASYNC_EVENTS, "(c) the run stopped early")
+    check(all(np.isfinite(h["loss"]) for h in res_c.history),
+          "(c) an event's loss is not finite")
+    check(any(h["staleness"] > 0 for h in res_c.history),
+          "(c) no event aggregated a stale update")
+    check(lc["pack_batch"] == packs_c.phase_calls > 0,
+          f"(c) pack_batch launched {lc['pack_batch']} times for "
+          f"{packs_c.phase_calls} client-phase launches")
+    return {"pack_batch": la["pack_batch"], "pack_batch_b": lb["pack_batch"],
+            "pack_batch_c": lc["pack_batch"], "mask_quantize_pack": l7,
+            "overflow_a": over_a, "overflow_c": over_c}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -962,6 +1423,20 @@ def main() -> int:
     t0 = time.perf_counter()
     round_parity_phase(state, deltas, args.seed)
     print(f"[round-parity] done in {time.perf_counter() - t0:.1f}s")
+    del state, deltas
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    perrs, ptimings = pack_phase(args.seed)
+    print(f"[pack] done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    slaunch = sparse_async_phase(args.seed, cfg, params)
+    print(f"[sparse-async] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; done in "
+          f"{time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
 
     entries = [entry]
@@ -980,6 +1455,27 @@ def main() -> int:
             "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
             "shape": f"(4, {P_LEN}) f32", "B1": t1,
             "wrapper_ms": t4["wrapper_ms"]})
+    paths = {
+        "pack_batch": (slaunch["pack_batch"],
+                       f"sparse-async (a): sim, sparse_aggregate, "
+                       f"{SPARSE_ROUNDS} rounds (b: {slaunch['pack_batch_b']}"
+                       f", c: {slaunch['pack_batch_c']} launches)"),
+        "mask_quantize_pack": (slaunch["mask_quantize_pack"],
+                               "sparse-async: FusedSelector."
+                               "sparsify_quantized_packed on round 0's "
+                               f"{FED['n_clients']} client uploads")}
+    for name, replaces in PACK:
+        t1, t4 = ptimings[name][1], ptimings[name][4]
+        launches_, path = paths[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/transport.cu",
+            "replaces": replaces, "launches": launches_, "path": path,
+            "max_abs_err": perrs[name], "ms": t4["ms"],
+            "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
+            "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
+            "library": t4["library"], "shape": f"(4, {P_LEN}) f32",
+            "B1": t1, "wrapper_ms": t4["wrapper_ms"]})
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ Entry points (`serving.ServingEngine`, `models.layers.init_params`, the
 `launch.serve` CLI, `federated.Experiment`) run on the card unless the
 caller passes `device="cpu"`; on the CPU every kernel wrapper takes its
 plain PyTorch version.  Ported so far: multi-tenant LoRA serving of dense
-GQA decoder models (`serving/`) and the FLASC federated round on the
-`sim` engine with its Top-K transport kernels (`core/`, `federated/`).
+GQA decoder models (`serving/`); the FLASC federated round on the `sim`
+engine with its Top-K transport kernels (`core/`, `federated/`); and
+sparse aggregation of packed uploads with the pack kernels, on `sim` and
+on the event-driven `async` engine (`federated/async_clock.py`).
 """
 from __future__ import annotations
 

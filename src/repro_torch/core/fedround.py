@@ -29,10 +29,23 @@ host; generators live on the vector's device).  Torch and JAX draw
 different numbers, so runs that quantize stochastically compare across
 packages only in distribution.
 
-Not ported yet: DP clipping (`core/dp.py`, `dp_clip > 0` raises), the
-population / momentum-carrying round, sparse aggregation
-(`sparse_aggregate=True` raises) and the split-phase round of the async
-engine (ROADMAP queue 1).
+With `StrategySpec(sparse_aggregate=True)` the uploads are packed into
+(index, value) rows (`fused_transport.pack_values_batch`, one kernel
+launch) and scatter-added by `Strategy.aggregate_sparse`; a message that
+overflows the packed capacity flips the round to the dense mean with a
+`torch.where`, so the overflow test stays on the device too.
+
+The split-phase round of the async engine (`make_client_phase_fn`,
+`make_server_phase_fn`) reuses the client block `_run_clients`.  Its
+version seed is `fold_in(seed + 2, version)`; slot c's upload generator is
+seeded with `fold_in(version_seed, c)`, and with
+`fold_in(fold_in(version_seed, c), rep)` for its rep-th repeat job against
+the same version (rep > 0); the download's with
+`fold_in(version_seed, n_clients)`.  With every slot and no repeats the
+client phase computes exactly one round's client block.
+
+Not ported yet: DP clipping (`core/dp.py`, `dp_clip > 0` raises) and the
+population / momentum-carrying round (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -47,6 +60,7 @@ import torch
 from repro_torch.core import sparsity as sp
 from repro_torch.core import strategies as st
 from repro_torch.core import transport as tp
+from repro_torch.kernels import fused_transport as ft
 from repro_torch.models.config import FederatedConfig
 from repro_torch.optim import adam_init, adam_update
 
@@ -279,13 +293,20 @@ def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
 
 
 def _aggregate_uploads(strat: st.Strategy, deltas, ctx):
-    """`Strategy.aggregate` on the dense (C, p_len) uploads.  The packed
-    sparse aggregation of `sparse_aggregate=True` is port slice 3."""
-    if st.sparse_aggregate_capacity(strat, ctx.p_len):
-        raise NotImplementedError(
-            "sparse_aggregate=True needs pack_values / sparse_accumulate, "
-            "which are port slice 3 (ROADMAP queue 1)")
-    return strat.aggregate(deltas, ctx)
+    """`Strategy.aggregate` on the (C, p_len) uploads, or, when the strategy
+    opts in (`StrategySpec.sparse_aggregate`), their packed form through
+    `Strategy.aggregate_sparse`: each row packed to the static capacity
+    (`fused_transport.pack_values_batch`) and scatter-added.  A message
+    whose support exceeds the capacity flips the round to the dense rule,
+    chosen on the device (`torch.where`), so nothing is truncated and the
+    host is not asked."""
+    cap = st.sparse_aggregate_capacity(strat, ctx.p_len)
+    if cap == 0:
+        return strat.aggregate(deltas, ctx)
+    idx, val, pnnz = ft.pack_values_batch(deltas, cap)
+    overflow = (pnnz > cap).any()
+    return torch.where(overflow, strat.aggregate(deltas, ctx),
+                       strat.aggregate_sparse(idx, val, ctx))
 
 
 def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
@@ -385,3 +406,120 @@ def make_round_fn(loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
     if with_params:
         return fn
     return functools.partial(fn, None)
+
+
+# ---------------------------------------------------------------------------
+# split-phase round (the async engine): client compute and the server update
+# are separate calls, so clients run against stale server snapshots and the
+# server aggregates a buffer of updates from mixed versions
+# ---------------------------------------------------------------------------
+
+def make_client_phase_fn(loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
+                         strategy: st.StrategyLike, slots: Tuple[int, ...],
+                         repeats: Optional[Tuple[int, ...]] = None,
+                         pack_cap: Optional[int] = None, *,
+                         with_params: bool = False):
+    """Client side of the split round: run the cohort slots `slots` (global
+    client indices) against one server snapshot.
+
+        fn(flatP, sstate, round_idx, client_batches, rng_seed, phases=None)
+            -> (deltas, up_nnzs, losses, down_nnzs)
+
+    with the frozen backbone first when `with_params=True`, and three more
+    outputs (idx, val, pnnz) with `pack_cap` set: each upload row packed
+    to `pack_cap` (index, value) slots by `fused_transport.
+    pack_values_batch` (one launch).  `client_batches` leaves are
+    (len(slots), local_steps, local_bs, ...); `rng_seed` is the version
+    seed (see the module doc) or None; `phases`, a `PhaseTimes`, gets one
+    mark per phase.  `repeats[i] > 0` marks slot i's repeat-th job against
+    the same version, whose upload generator folds the repeat in."""
+    strat = st.resolve(strategy)
+    s = strat.spec
+    repeats = tuple(repeats) if repeats is not None else (0,) * len(slots)
+    if len(repeats) != len(slots):
+        raise ValueError(f"{len(repeats)} repeats for {len(slots)} slots")
+
+    def phase(params, flatP, sstate, round_idx, client_batches, rng_seed,
+              phases: Optional[PhaseTimes] = None):
+        loss = loss_of if params is None else functools.partial(loss_of,
+                                                                params)
+        phases = PhaseTimes(flatP.device) if phases is None else phases
+        m_down_global = strat.download_mask(flatP, sstate, round_idx)
+        P_base = strat.download_base(flatP, sstate)
+        ctx = meta.plan_context(fed.n_clients, round_idx=round_idx)
+        plans = [strat.client_plan(m_down_global, c, ctx) for c in slots]
+        phases.mark("download_mask")
+
+        kdown = upgens = None
+        if rng_seed is not None and (s.quant_bits_up or s.quant_bits_down):
+            dev = flatP.device
+            kdown = generator(fold_in(rng_seed, fed.n_clients), dev)
+            upgens = [generator(fold_in(rng_seed, c) if rep == 0 else
+                                fold_in(fold_in(rng_seed, c), rep), dev)
+                      for c, rep in zip(slots, repeats)]
+
+        (deltas, nnzs, losses, down_nnzs), _ = _run_clients(
+            P_base, plans, client_batches, s, loss_of=loss, meta=meta,
+            fed=fed, phases=phases, kdown=kdown, upgens=upgens)
+        if pack_cap:
+            idx, val, pnnz = ft.pack_values_batch(deltas, pack_cap)
+            phases.mark("pack")
+            return deltas, nnzs, losses, down_nnzs, idx, val, pnnz
+        return deltas, nnzs, losses, down_nnzs
+
+    if with_params:
+        return phase
+    return functools.partial(phase, None)
+
+
+def make_server_phase_fn(meta: FlatMeta, fed: FederatedConfig,
+                         strategy: st.StrategyLike, *, sparse: bool = False,
+                         cohort_slots: Optional[Tuple[int, ...]] = None):
+    """Server side of the split round: one buffered aggregation event (the
+    aggregate / server-optimizer / `post_round` tail of `federated_round`).
+
+        fn(flatP, server_state, sstate, deltas, weights)
+            -> (flatP', server_state', sstate')
+
+    `deltas` (k, p_len) are the buffered uploads and `weights` (k,) f32
+    their staleness discounts; each row is scaled by its weight before
+    `Strategy.aggregate`, and `x * 1.0` is exact, so unit weights give the
+    synchronous update bit for bit.  With `sparse=True` (only when
+    `strategies.supports_sparse_aggregate` holds) the buffer is packed,
+
+        fn(flatP, server_state, sstate, idx, val, weights)
+
+    with (k, cap) rows, the weights scale the packed values, and the
+    pseudo-gradient comes from `Strategy.aggregate_sparse`.
+    `cohort_slots` names the client slot of each buffered row for the
+    plan context (None: the full cohort)."""
+    strat = st.resolve(strategy)
+    if sparse and not st.supports_sparse_aggregate(strat):
+        raise ValueError(f"{strat} does not aggregate packed uploads")
+
+    def fn(flatP, server_state, sstate, *rest):
+        round_idx = server_state["round"]
+        m_down = strat.download_mask(flatP, sstate, round_idx)
+        P_base = strat.download_base(flatP, sstate)
+        ctx = meta.plan_context(fed.n_clients, round_idx=round_idx,
+                                cohort_slots=cohort_slots)
+        if sparse:
+            idx, val, weights = rest
+            pseudo_grad = strat.aggregate_sparse(idx, val * weights[:, None],
+                                                 ctx)
+        else:
+            deltas, weights = rest
+            pseudo_grad = strat.aggregate(deltas * weights[:, None], ctx)
+
+        if fed.server_opt == "adam":
+            flatP2, opt = adam_update(flatP, pseudo_grad, server_state["opt"],
+                                      fed.server_lr, fed.adam_b1, fed.adam_b2,
+                                      fed.adam_eps)
+        else:   # FedAvg/FedSGD rule (paper Appendix A)
+            flatP2 = flatP - fed.server_lr * pseudo_grad
+            opt = server_state["opt"]
+        sstate2, flatP2 = st.call_post_round(strat, sstate, flatP2,
+                                             P_base=P_base, m_down=m_down,
+                                             round_idx=round_idx, ctx=ctx)
+        return flatP2, {"opt": opt, "round": round_idx + 1}, sstate2
+    return fn

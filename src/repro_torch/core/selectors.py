@@ -26,6 +26,7 @@ row).  The kernel-backed selectors run a batch as one launch per pass.
   is bit-identical to `HistogramSelector(iters=L)`.
   `sparsify_quantized` folds the direction's quantization into the third
   pass: the `transport.FusedTopKQuantize` stage rides it.
+  `sparsify_quantized_packed` also packs the survivors in that pass.
 
 On CUDA tensors ``pallas`` and ``fused`` launch the CUDA kernels (or
 raise); on CPU tensors the kernel wrappers run their plain versions.
@@ -269,22 +270,41 @@ class FusedSelector(PallasSelector):
                                           dtype=torch.int32,
                                           device=flat.device)
             count = sp.density_count(n, density)
+        x, kk, thr, scale, u = self._fused_setup(flat, count, bits, rng)
+        masked, cnt = ft.fused_mask_quantize(x, thr, scale, u, bits)
+        return _finish(flat, masked, cnt, kk)
+
+    def _fused_setup(self, flat, count, bits: int, rng: qz.Rng):
+        """(B, n) f32 rows, clamped counts, thresholds, quantizer scales
+        and the uniform draw (None unless stochastic) of the third pass."""
         x, kk = _rows_and_counts(flat, count)
         hi0 = ft.absmax(x)
         thr = torch.clamp_min(self._threshold(x, kk, hi0), sp.TINY)
         scale = qz.scale_of(hi0, bits) if bits else torch.ones_like(hi0)
         u = qz.uniform_like(x, rng) if bits else None
-        if u is not None:
-            u = u.contiguous()
-        masked, cnt = ft.fused_mask_quantize(x, thr, scale, u, bits)
-        return _finish(flat, masked, cnt, kk)
+        return x, kk, thr, scale, None if u is None else u.contiguous()
 
     def sparsify_quantized_packed(self, flat, *, count, bits: int = 0,
                                   rng: qz.Rng = None, cap: int):
-        raise NotImplementedError(
-            "sparsify_quantized_packed needs the pack kernel "
-            "(fused_mask_quantize_pack_pallas), which is port slice 3 "
-            "(ROADMAP queue 1)")
+        """`sparsify_quantized` that also packs the coded wire form in the
+        same kernel, for one 1-D vector: returns (values, nnz, idx (cap,),
+        val (cap,)).  Survivors past `cap` are dropped from the packed
+        buffer (nnz still counts them, so nnz > cap flags overflow); empty
+        slots sit at the sentinel index n.  A survivor that quantized to
+        zero keeps its slot, with value 0.  With k == 0 every slot holds
+        the sentinel."""
+        if flat.ndim != 1:
+            raise ValueError(f"sparsify_quantized_packed takes one (n,) "
+                             f"vector, got {tuple(flat.shape)}")
+        if bits <= 0 or bits >= 32:
+            bits = 0
+        n = flat.shape[-1]
+        x, kk, thr, scale, u = self._fused_setup(flat, count, bits, rng)
+        masked, idx, val, tot = ft.fused_mask_quantize_pack(
+            x, thr, scale, u, bits, cap, n)
+        keep = kk[0] > 0                    # clamp_count contract: k=0 -> {}
+        return (masked[0].to(flat.dtype) * keep, tot[0] * keep,
+                torch.where(keep, idx[0], n), val[0] * keep)
 
     def __repr__(self):
         return f"FusedSelector(levels={self.levels})"

@@ -191,9 +191,22 @@ class Strategy:
         return deltas.mean(0)
 
     def aggregate_sparse(self, idx, val, ctx: PlanContext) -> torch.Tensor:
-        raise NotImplementedError(
-            "sparse aggregation (pack_values / sparse_accumulate) is port "
-            "slice 3 (ROADMAP queue 1)")
+        """`aggregate` over packed upload messages, (n_clients, cap)
+        index/value rows with the sentinel index >= p_len in empty slots,
+        without densifying them: one scatter-add
+        (`fused_transport.sparse_accumulate`, or the edge tree
+        `hierarchical_accumulate` when `spec.edge_shards > 0`, bitwise
+        equal to it), then the uniform 1/C scaling.  Only called when
+        `supports_sparse_aggregate` holds.  The scaling multiplies by the
+        f32 reciprocal of C, as the reference's jitted `acc / C` is
+        folded."""
+        from repro_torch.kernels import fused_transport as ft
+        if self.spec.edge_shards > 0:
+            acc = ft.hierarchical_accumulate(idx, val, ctx.p_len,
+                                             self.spec.edge_shards)
+        else:
+            acc = ft.sparse_accumulate(idx, val, ctx.p_len)
+        return acc * float(np.float32(1.0) / np.float32(idx.shape[0]))
 
     @property
     def uniform_aggregation(self) -> bool:

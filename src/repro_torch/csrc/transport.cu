@@ -1,7 +1,7 @@
-// The Top-K transport kernels of FLASC for Hopper, sm_90a: one source, four
-// kernel bodies, five C entry points.  Every input is a (rows, n) f32 matrix,
-// row-major and contiguous; each row is one message (the download vector,
-// or one client's upload delta), with its own threshold, bound and scale.
+// The Top-K transport kernels of FLASC for Hopper, sm_90a: one source, seven
+// C entry points.  Every input is a (rows, n) f32 matrix, row-major and
+// contiguous; each row is one message (the download vector, or one client's
+// upload delta), with its own threshold, bound and scale.
 //
 // TPU kernels replaced (src/repro/kernels/...):
 //   topk_mask.py::threshold_count_pallas      -> threshold_count_f32
@@ -11,6 +11,10 @@
 //   fused_transport.py::absmax_pallas         -> absmax_f32
 //   fused_transport.py::bin_counts_pallas     -> bin_counts_f32
 //   fused_transport.py::fused_mask_quantize_pallas -> mask_quantize_f32
+//   fused_transport.py::fused_mask_quantize_pack_pallas
+//                                             -> mask_quantize_pack_f32
+//   fused_transport.py::pack_values_batched_pallas -> pack_batch_f32
+//       (the two pack kernels: see "pack" below)
 //
 // What bounds them on an H100: each is one streaming pass over the rows
 // with a handful of operations per element, far below the f32 rate, so all
@@ -394,5 +398,259 @@ extern "C" int mask_quantize_f32(const void* x, const void* u, const void* thr,
     mask_quantize_kernel<true, false><<<grid, kThreads, 0, s>>>(
         xf, nullptr, tf, sf, of, cf, n, qmax, vec);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// pack: stream compaction of each row's survivors into a (cap,) buffer
+// ---------------------------------------------------------------------------
+//
+// pack_batch_f32 (keep rule x != 0.0f as a float compare: -0.0 is dropped,
+// NaN kept) and mask_quantize_pack_f32 (keep rule |x| >= t; the packed value
+// is the masked, quantized one, so a survivor that quantized to zero still
+// takes a slot).  Survivor i of a row, counted in ascending index order,
+// goes to slot i when i < cap; slots [min(total, cap), cap) hold
+// (sentinel, 0.0f); the row's total is written even when it exceeds cap.
+//
+// The Pallas kernels carry the running offset across a sequential grid.
+// CUDA blocks run in no order, so each entry point launches three kernels
+// on its stream, all over one fixed tiling (tile j of a row is elements
+// [j * kPackTile, (j + 1) * kPackTile), one block per tile):
+//   1. count: the keep count of every tile (mask_quantize_pack also writes
+//      the masked, quantized row here, with mask_quantize's device code);
+//   2. scan: one block per row turns the tile counts into exclusive
+//      offsets in place and writes the row total;
+//   3. scatter: each block recomputes its keep mask, ranks its survivors
+//      with a warp ballot / popc and a prefix over the block's warps, and
+//      writes (index, value) at row offset + rank when that is < cap; then
+//      the row's blocks fill the empty slots.
+// Bound by bytes on an H100: pack_batch reads x and writes 8 B per slot;
+// mask_quantize_pack reads x (and u) and writes the masked row and the
+// slots.  This design reads x twice (and the masked row once more), so
+// it needs about 1.5-2x the bytes of its bound.  Counts, offsets and
+// indices are int32: n < 2^31.
+
+constexpr int kPackItems = 16;                     // elements per thread
+constexpr int kPackTile = kThreads * kPackItems;   // 4096 elements per tile
+constexpr int kScanThreads = 1024;
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads)
+pack_count_kernel(const float* __restrict__ x, int* __restrict__ counts,
+                  long long n, int ntiles) {
+  const int b = blockIdx.y, j = blockIdx.x;
+  const float* row = x + b * n;
+  const long long base = static_cast<long long>(j) * kPackTile;
+  int c = 0;
+#pragma unroll
+  for (int r = 0; r < kPackItems; ++r) {
+    const long long e = base + r * kThreads + threadIdx.x;
+    if (e < n) c += row[e] != 0.0f;
+  }
+  c = block_sum(c);
+  if (threadIdx.x == 0) counts[static_cast<long long>(b) * ntiles + j] = c;
+}
+
+template <bool QUANT, bool STOCHASTIC>
+__global__ void __launch_bounds__(kThreads)
+mask_quantize_tile_kernel(const float* __restrict__ x,
+                          const float* __restrict__ u,
+                          const float* __restrict__ thr,
+                          const float* __restrict__ scale,
+                          float* __restrict__ out, int* __restrict__ counts,
+                          long long n, int ntiles, float qmax) {
+  const int b = blockIdx.y, j = blockIdx.x;
+  const float* row = x + b * n;
+  const float* urow = STOCHASTIC ? u + b * n : nullptr;
+  float* orow = out + b * n;
+  const float t = thr[b];
+  const float s = QUANT ? scale[b] : 1.0f;
+  const long long base = static_cast<long long>(j) * kPackTile;
+  int c = 0;
+#pragma unroll
+  for (int r = 0; r < kPackItems; ++r) {
+    const long long e = base + r * kThreads + threadIdx.x;
+    if (e < n) {
+      const float v = row[e];
+      c += fabsf(v) >= t;
+      orow[e] = masked_level<QUANT, STOCHASTIC>(
+          v, STOCHASTIC ? urow[e] : 0.0f, t, s, qmax);
+    }
+  }
+  c = block_sum(c);
+  if (threadIdx.x == 0) counts[static_cast<long long>(b) * ntiles + j] = c;
+}
+
+// exclusive scan of one row's tile counts, in place; total -> tot[row]
+__global__ void __launch_bounds__(kScanThreads)
+scan_tiles_kernel(int* __restrict__ counts, int* __restrict__ tot,
+                  int ntiles) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* row = counts + static_cast<long long>(blockIdx.x) * ntiles;
+  int carry = 0;
+  for (int base = 0; base < ntiles; base += kScanThreads) {
+    const int i = base + threadIdx.x;
+    const int v = i < ntiles ? row[i] : 0;
+    int s = v;                                   // inclusive, in the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane == 31) warp_sums[warp] = s;
+    __syncthreads();
+    if (warp == 0) {                             // inclusive over the warps
+      int w = warp_sums[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_sums[lane] = w;
+    }
+    __syncthreads();
+    if (i < ntiles) row[i] = carry + (warp ? warp_sums[warp - 1] : 0) + s - v;
+    carry += warp_sums[kScanThreads / 32 - 1];
+    __syncthreads();                             // warp_sums is reused
+  }
+  if (threadIdx.x == 0) tot[blockIdx.x] = carry;
+}
+
+// NONZERO: keep x != 0, pack x (pack_batch).  Else keep |x| >= thr[row],
+// pack vals (the masked row that mask_quantize_tile_kernel wrote).
+template <bool NONZERO>
+__global__ void __launch_bounds__(kThreads)
+pack_scatter_kernel(const float* __restrict__ x,
+                    const float* __restrict__ vals,
+                    const float* __restrict__ thr,
+                    const int* __restrict__ offsets,
+                    const int* __restrict__ tot, int* __restrict__ idx,
+                    float* __restrict__ val, long long n, int ntiles, int cap,
+                    int sentinel) {
+  __shared__ int warp_tot[kWarps];
+  const int b = blockIdx.y, j = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* row = x + b * n;
+  const float* vrow = NONZERO ? row : vals + b * n;
+  const float t = NONZERO ? 0.0f : thr[b];
+  int* irow = idx + static_cast<long long>(b) * cap;
+  float* orow = val + static_cast<long long>(b) * cap;
+  // warp w ranks elements [sub, sub + 32 * kPackItems) of the tile, in
+  // ascending order: element sub + 32 * r + lane is its (r, lane)-th
+  const long long sub = static_cast<long long>(j) * kPackTile +
+                        warp * (32 * kPackItems);
+  unsigned masks[kPackItems];
+  int count = 0;
+#pragma unroll
+  for (int r = 0; r < kPackItems; ++r) {
+    const long long e = sub + 32 * r + lane;
+    bool keep = false;
+    if (e < n) {
+      const float v = row[e];
+      keep = NONZERO ? (v != 0.0f) : (fabsf(v) >= t);
+    }
+    masks[r] = __ballot_sync(0xffffffffu, keep);
+    count += __popc(masks[r]);
+  }
+  if (lane == 0) warp_tot[warp] = count;
+  __syncthreads();
+  int rank = offsets[static_cast<long long>(b) * ntiles + j];
+  for (int w = 0; w < warp; ++w) rank += warp_tot[w];
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < kPackItems; ++r) {
+    const unsigned m = masks[r];
+    if ((m >> lane) & 1u) {
+      const int pos = rank + __popc(m & below);
+      if (pos < cap) {
+        const long long e = sub + 32 * r + lane;
+        irow[pos] = static_cast<int>(e);
+        orow[pos] = vrow[e];
+      }
+    }
+    rank += __popc(m);
+  }
+  const int filled = min(tot[b], cap);
+  for (long long s = filled + static_cast<long long>(j) * kThreads +
+                     threadIdx.x;
+       s < cap; s += static_cast<long long>(gridDim.x) * kThreads) {
+    irow[s] = sentinel;
+    orow[s] = 0.0f;
+  }
+}
+
+bool bad_pack(long long n, int rows, int cap) {
+  return bad_shape(n, rows) || n > 0x7fffffffLL || cap < 0;
+}
+
+int tiles_of(long long n) {
+  return static_cast<int>((n + kPackTile - 1) / kPackTile);
+}
+
+}  // namespace
+
+// Pack each row of x (rows, n) with keep rule x != 0.  idx, val: (rows, cap)
+// int32 / f32, fully written; nnz: (rows,) int32; scratch: (rows,
+// ceil(n / 4096)) int32.  One call = three kernels on `stream`.
+extern "C" int pack_batch_f32(const void* x, void* idx, void* val, void* nnz,
+                              void* scratch, long long n, int rows, int cap,
+                              int sentinel, void* stream) {
+  if (bad_pack(n, rows, cap)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = tiles_of(n);
+  const dim3 grid(nt, rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* counts = static_cast<int*>(scratch);
+  pack_count_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(x),
+                                              counts, n, nt);
+  scan_tiles_kernel<<<rows, kScanThreads, 0, s>>>(counts,
+                                                  static_cast<int*>(nnz), nt);
+  pack_scatter_kernel<true><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(x), nullptr, nullptr, counts,
+      static_cast<const int*>(nnz), static_cast<int*>(idx),
+      static_cast<float*>(val), n, nt, cap, sentinel);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mask_quantize_f32 (same arguments and device code) that also packs the
+// survivors: out (rows, n) masked row; idx, val (rows, cap) fully written;
+// tot (rows,) int32 kept count; scratch (rows, ceil(n / 4096)) int32.
+extern "C" int mask_quantize_pack_f32(const void* x, const void* u,
+                                      const void* thr, const void* scale,
+                                      void* out, void* idx, void* val,
+                                      void* tot, void* scratch, long long n,
+                                      int rows, int bits, int stochastic,
+                                      int cap, int sentinel, void* stream) {
+  if (bad_pack(n, rows, cap) || bits < 0 || bits == 1 || bits > 8 ||
+      (stochastic && (bits == 0 || u == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nt = tiles_of(n);
+  const dim3 grid(nt, rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float qmax = bits ? static_cast<float>((1 << (bits - 1)) - 1) : 0.0f;
+  const float* xf = static_cast<const float*>(x);
+  const float* uf = static_cast<const float*>(u);
+  const float* tf = static_cast<const float*>(thr);
+  const float* sf = static_cast<const float*>(scale);
+  float* of = static_cast<float*>(out);
+  int* counts = static_cast<int*>(scratch);
+  if (bits == 0) {
+    mask_quantize_tile_kernel<false, false><<<grid, kThreads, 0, s>>>(
+        xf, nullptr, tf, sf, of, counts, n, nt, qmax);
+  } else if (stochastic) {
+    mask_quantize_tile_kernel<true, true><<<grid, kThreads, 0, s>>>(
+        xf, uf, tf, sf, of, counts, n, nt, qmax);
+  } else {
+    mask_quantize_tile_kernel<true, false><<<grid, kThreads, 0, s>>>(
+        xf, nullptr, tf, sf, of, counts, n, nt, qmax);
+  }
+  scan_tiles_kernel<<<rows, kScanThreads, 0, s>>>(counts,
+                                                  static_cast<int*>(tot), nt);
+  pack_scatter_kernel<false><<<grid, kThreads, 0, s>>>(
+      xf, of, tf, counts, static_cast<const int*>(tot),
+      static_cast<int*>(idx), static_cast<float*>(val), n, nt, cap, sentinel);
   return static_cast<int>(cudaGetLastError());
 }

@@ -142,7 +142,10 @@ class Experiment:
         return self
 
     def with_engine(self, engine: eng.EngineLike, **kwargs) -> "Experiment":
-        """Execution backend: "sim" (the only one ported)."""
+        """Execution backend: "sim", or "async" with the `AsyncEngine`
+        arguments (concurrency, buffer_size, staleness_alpha,
+        max_staleness, allow_version_repeats, profile).  "sharded" and the
+        async engine's `sampler=` raise (ROADMAP queue 1)."""
         self.engine = eng.resolve_engine(engine, **kwargs)
         return self
 

@@ -208,3 +208,108 @@ def test_kernel_selectors_match_histogram_on_the_card(n):
     v, wn = sel.HistogramSelector(iters=12).sparsify_by_count(x, k)
     want = qz.quantize_roundtrip(v, 4, u) * (k > 0)[:, None]
     assert torch.equal(got, want) and torch.equal(gn, wn)
+
+
+# ---------------------------------------------------------------------------
+# the two pack kernels (csrc/transport.cu) against their plain versions:
+# bitwise.  Counts and offsets are integer sums, slots are positions, and
+# kernel 7 quantizes with mask_quantize's device code.
+# ---------------------------------------------------------------------------
+
+def _sparse(seed, B, n, kind):
+    """(B, n) rows for the pack: 25% nonzero normal draws, with -0.0 and a
+    NaN mixed in, tied, or all zeros."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, n), dtype=np.float32)
+    x = np.where(rng.random((B, n)) < 0.25, x, np.float32(0.0))
+    if kind == "negzero":
+        x = np.where(rng.random((B, n)) < 0.2, np.float32(-0.0), x)
+        x[0, n // 2] = np.nan
+    elif kind == "ties":
+        x = np.where(x != 0, np.sign(x) * np.float32(0.5), x)
+    elif kind == "zeros":
+        x[:] = 0.0
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 50, 4096, 70001, 1_000_003])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kind", ["normal", "negzero", "ties", "zeros"])
+def test_pack_batch_kernel_matches_plain_bitwise(n, B, kind):
+    _need_card()
+    x = _sparse(n + B, B, n, kind)
+    for cap in (max(n // 3, 1), n // 64, n + 5):    # fits, overflows, spare
+        got = ft.pack_values_batch(x, cap)
+        want = ft.pack_rows_plain(x, x != 0, cap, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), cap
+        assert torch.equal(_bits(got[1]), _bits(want[1])), cap
+        assert torch.equal(got[2], want[2]), cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 70001, 1_000_003])
+@pytest.mark.parametrize("B", [1, 4])
+def test_mask_quantize_pack_kernel_matches_plain_bitwise(n, B):
+    _need_card()
+    x, u = _rows(n + 7, B, n)
+    x[0, n // 3] = 100.0                # other survivors round to zero
+    hi0 = ft.absmax(x)
+    for frac in (0.3, 0.0):             # 0.0: every entry survives
+        t = torch.clamp_min(hi0 * frac, 1e-30)
+        for bits in (0, 4, 8):
+            scale = qz.scale_of(hi0, bits) if bits else torch.ones_like(hi0)
+            for uu in ((None, u) if bits else (None,)):
+                for cap in (n // 2, n // 50 + 1):
+                    got = ft.fused_mask_quantize_pack(x, t, scale, uu, bits,
+                                                      cap)
+                    want = ft.fused_mask_quantize_pack_plain(
+                        x, t, scale, uu, bits, cap, n)
+                    torch.cuda.synchronize()
+                    what = (frac, bits, uu is None, cap)
+                    assert torch.equal(_bits(got[0]), _bits(want[0])), what
+                    assert torch.equal(got[1], want[1]), what
+                    assert torch.equal(_bits(got[2]), _bits(want[2])), what
+                    assert torch.equal(got[3], want[3]), what
+
+
+@pytest.mark.cuda
+def test_pack_kernels_count_launches_and_validate():
+    _need_card()
+    x = _sparse(5, 2, 10_000, "normal")
+    before = (ft.PACK_BATCH.launches, ft.MASK_QUANTIZE_PACK.launches)
+    ft.pack_values_batch(x, 3000)
+    ft.fused_mask_quantize_pack(x, torch.full((2,), 0.5, device="cuda"),
+                                torch.ones(2, device="cuda"), None, 0, 3000)
+    assert (ft.PACK_BATCH.launches, ft.MASK_QUANTIZE_PACK.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError, match="f32"):
+        ft.pack_values_batch(x.double(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        ft.pack_values_batch(x[:, ::2], 10)
+
+
+@pytest.mark.cuda
+def test_packed_selector_and_accumulate_on_the_card():
+    # the packed entry point on the card equals the same call on the CPU
+    # (plain versions), and the flat and edge accumulates agree bitwise
+    _need_card()
+    x, u = _rows(11, 1, 1_000_003)
+    k = 250_000
+    for bits, uu in ((0, None), (4, u[0])):
+        got = sel.FusedSelector().sparsify_quantized_packed(
+            x[0], count=k, bits=bits, rng=uu, cap=281_250)
+        want = sel.FusedSelector().sparsify_quantized_packed(
+            x[0].cpu(), count=k, bits=bits,
+            rng=None if uu is None else uu.cpu(), cap=281_250)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    rows = _sparse(12, 4, 1_000_003, "normal")   # no NaN: its payload
+    idx, val, _ = ft.pack_values_batch(rows, 300_000)  # differs by device
+    flat = ft.sparse_accumulate(idx, val, 1_000_003)
+    for edges in (1, 4, 7):
+        assert torch.equal(_bits(ft.hierarchical_accumulate(
+            idx, val, 1_000_003, edges)), _bits(flat))
+    assert torch.equal(_bits(flat.cpu()), _bits(ft.sparse_accumulate(
+        idx.cpu(), val.cpu(), 1_000_003)))

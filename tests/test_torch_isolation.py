@@ -20,7 +20,8 @@ def test_import_leaves_jax_out():
             "repro_torch.core.fedround, repro_torch.core.selectors, "
             "repro_torch.core.transport, repro_torch.federated, "
             "repro_torch.optim, repro_torch.kernels.fused_transport, "
-            "repro_torch.kernels.topk_mask; "
+            "repro_torch.kernels.topk_mask, repro_torch.federated.engine, "
+            "repro_torch.federated.async_clock, repro_torch.core.strategies; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -46,6 +47,8 @@ def test_no_port_file_imports_jax_or_repro():
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    # the numpy-only modules the port copies from the reference too
+    assert os.path.join(PORT, "federated", "async_clock.py") in files
     for path in files:
         bad = {m for m in _imported_roots(path)
                if m in ("jax", "jaxlib", "repro", "flax", "optax")}

@@ -302,6 +302,6 @@ def test_port_experiment_runs_end_to_end_on_cpu():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(None, device="cpu").with_engine("async")
+        Experiment(None, device="cpu").with_engine("sharded")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(None, device="cpu").with_checkpoint("/nonexistent")

@@ -274,9 +274,14 @@ def test_spec_migration_and_unported_kinds():
         tst.resolve(tst.StrategySpec(sparse_aggregate=True)), 9_830_400) == \
         jst.sparse_aggregate_capacity(
             jst.resolve(jst.StrategySpec(sparse_aggregate=True)), 9_830_400)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tsel.FusedSelector().sparsify_quantized_packed(
-            torch.zeros(8), count=2, cap=4)
+    x, _ = _draw(17, 1, 3000)
+    got = tsel.FusedSelector().sparsify_quantized_packed(
+        _t(x[0]), count=750, cap=900)
+    want = jax.jit(lambda v: jsel.FusedSelector(
+        block=1024, interpret=True).sparsify_quantized_packed(
+            v, count=750, cap=900))(jnp.asarray(x[0]))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 def test_sparsity_helpers_and_byte_formulas_match_reference():
