@@ -20,7 +20,13 @@ Phases, each fatal on failure:
   4. parity   -- a 2-layer full-width f32 engine against the port's
                  single-adapter prefill + decode reference: completions
                  must match, except where the reference's top-2 logit gap
-                 is below 1e-3 (each such case is printed).
+                 is below 1e-3 (each such case is printed).  Then one
+                 8192-token prompt on the same weights: prefill logits and
+                 greedy completion through the flash kernel, and through
+                 `chunked_attention` (plain torch on the card) put in the
+                 kernel's place for this one comparison; completions must
+                 match under the same near-tie rule, the largest logit
+                 difference is printed.
   5. transport -- the five Top-K transport kernels (csrc/transport.cu)
                  against their plain versions, BITWISE, at the Yi-9B LoRA
                  vector length (9,830,400), 1,000,003 and 50, one and four
@@ -65,9 +71,32 @@ Phases, each fatal on failure:
                  selector's packed entry point (mask_quantize_pack) runs on
                  (a)'s round-0 client deltas and must reproduce the round's
                  uploads.
+  10. ops      -- the `kernels/ops.py` entry point: `lora_matmul` once per
+                 Yi-9B projection for an 8192-row prompt in bf16 (launches
+                 counted), each output against its plain version, plus f32
+                 at (4096, 4096) and a ragged (M, K, N, r) = (100, 300, 200,
+                 5); `flash_attention` (GQA: B 1, H 32, KV 4, hd 128) at
+                 S = T = 8192 and 1000, bf16 and f32, causal and not,
+                 against its plain version, at 8192 in bf16 also against
+                 `chunked_attention` (f32 probabilities), and the
+                 pre-broadcast `ops.flash_attention` bitwise equal to the
+                 GQA call; `ops.topk_mask` and `ops.histogram_threshold`
+                 bitwise against their plain loops at the Yi-9B LoRA
+                 length.  Tolerances: f32 attention 2e-6, f32 matmul 1e-5
+                 x sqrt(K / 512), bf16 5e-2 matmul and 2e-2 attention,
+                 elementwise and of each output row's largest value.  Then
+                 device times beside bounds, plain versions and library
+                 calls (cuBLAS; F.scaled_dot_product_attention).
+  11. long-prefill -- `ServingEngine` on Yi-9B at full width and depth in
+                 bf16: 4 tenants, rank-16 adapters, 2 pages, 2 lanes, 4
+                 requests with prompts of 8192 or 9216 tokens.  The flash
+                 kernel's launch count is zeroed just before and read just
+                 after: it must equal prefills x 48; the grouped kernel's
+                 must equal decode steps x 48 x 4.  Prefill ms per request,
+                 decode ms per step, tok/s and peak memory are printed.
 --profile adds torch.profiler windows over a few decode steps of phase
-3's engine and over one more round of phase 6, and writes their traces
-under chiprun_out/.
+3's engine, over one more round of phase 6 and over one 8192-token
+prefill of phase 11's engine, and writes their traces under chiprun_out/.
 
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.  With no CUDA device, or
@@ -465,6 +494,87 @@ def parity_phase(seed: int):
     print(f"[parity] {cfg2.name} 2L d{cfg2.d_model} f32: "
           f"{len(trace2) - near_ties}/{len(trace2)} completions identical to "
           f"the single-adapter reference, {near_ties} near-tie divergences")
+    long_prompt_parity(eng2, cfg2, lcfg, seed)
+
+
+def greedy(params, cfg, prompt, lora, scale, gen_len):
+    """Single-adapter prefill + greedy decode: (last-position logits of
+    every step, tokens, top-2 gaps)."""
+    import torch
+    from repro_torch.models import model as mdl
+    toks = torch.tensor([prompt], device="cuda")
+    logits, c = mdl.prefill(params, cfg, {"tokens": toks}, lora=lora,
+                            lora_scale=scale, max_len=len(prompt) + gen_len)
+    lg, pos = logits[0, -1], len(prompt)
+    steps, out, gaps = [], [], []
+    while True:
+        steps.append(lg.float())
+        top2 = torch.topk(lg.float(), 2).values
+        gaps.append((top2[0] - top2[1]).item())
+        out.append(int(torch.argmax(lg)))
+        if len(out) == gen_len:
+            return steps, out, gaps
+        o, c = mdl.decode_step(params, cfg, torch.tensor([out[-1]],
+                                                         device="cuda"),
+                               torch.tensor(pos, device="cuda"), c,
+                               lora=lora, lora_scale=scale)
+        lg, pos = o[0, 0], pos + 1
+
+
+def long_prompt_parity(eng2, cfg2, lcfg, seed: int, gen_len: int = 4):
+    """One 8192-token prompt on phase 4's 2-layer f32 engine weights: the
+    prefill logits and greedy completion through the flash kernel, and the
+    same with `chunked_attention` (plain torch, on the card) put in the
+    kernel's place on the attention module for this one comparison."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.io import tree_from_numpy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+
+    prompt = np.random.default_rng(seed + 11).integers(
+        0, cfg2.vocab_size, LONG_S).tolist()
+    lt = tree_from_numpy(eng2.cache.store.get(0), device="cuda")
+    with torch.no_grad():
+        fa.FLASH.launches = 0
+        k_logits, k_toks, _ = greedy(eng2.params, cfg2, prompt, lt,
+                                     lcfg.scale, gen_len)
+        k_launches = fa.FLASH.launches
+        kernel = A.flash_attention
+
+        def chunked(q, k, v, *, causal, scale):
+            return A.chunked_attention(q, k, v, scale, causal=causal,
+                                       cq=cfg2.attn_chunk_q,
+                                       ckv=cfg2.attn_chunk_kv)
+
+        A.flash_attention = chunked
+        try:
+            fa.FLASH.launches = 0
+            c_logits, c_toks, c_gaps = greedy(eng2.params, cfg2, prompt, lt,
+                                              lcfg.scale, gen_len)
+            c_launches = fa.FLASH.launches
+        finally:
+            A.flash_attention = kernel
+    diff = max((a - b).abs().max().item() for a, b in zip(k_logits, c_logits))
+    print(f"[parity] {LONG_S}-token prompt, f32, 2 layers: flash kernel "
+          f"({k_launches} launches) {k_toks} vs chunked_attention "
+          f"({c_launches} launches) {c_toks}; top-2 gaps "
+          f"{[round(g, 6) for g in c_gaps]}; largest logit difference "
+          f"{diff:.3e}")
+    check(k_launches == cfg2.num_layers and c_launches == 0,
+          f"the long prompt's prefill launched the flash kernel {k_launches} "
+          f"/ {c_launches} times, expected {cfg2.num_layers} / 0")
+    for t, (a, b) in enumerate(zip(k_toks, c_toks)):
+        if a != b:
+            check(c_gaps[t] < GAP_TOL,
+                  f"long prompt: kernel and chunked_attention disagree at "
+                  f"token {t} at a top-2 gap of {c_gaps[t]:.3e} >= {GAP_TOL}")
+            print(f"[parity] long prompt differs at token {t} (near tie, "
+                  f"gap {c_gaps[t]:.3e}); the rest is not compared")
+            break
+    check(all(bool(torch.isfinite(x).all()) for x in k_logits),
+          "long prompt: non-finite logits")
+    return diff
 
 
 # ---------------------------------------------------------------------------
@@ -1358,6 +1468,409 @@ def sparse_async_phase(seed: int, cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the ops entry point and its two CUDA kernels
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
+LONG_S = 8192                  # the rows of one long prompt
+LORA_RANK = 16                 # the serving adapter rank
+# Yi-9B's projections as (K, N): wq / wo, wk / wv, w1 / w3, w2
+YI_PROJ = {"wq": (4096, 4096), "wk": (4096, 512), "wv": (4096, 512),
+           "wo": (4096, 4096), "w1": (4096, 11008), "w3": (4096, 11008),
+           "w2": (11008, 4096)}
+# f32 tolerances: the reference's kernel tests (tests/test_kernels.py:45
+# and :62) at 2e-6 for attention; for the matmul 1e-5 at the tests' K of
+# 256 to 512, scaled by sqrt(K / 512) (8 times as long a K: f32 rounding of
+# a sum grows like the square root of its length).  bf16: 2e-2 attention,
+# 5e-2 matmul, as those tests.  Those tests draw S <= 256, where attention
+# outputs are about 0.1; over 8192 keys they are about 0.02, as small as the
+# tolerance.  So bf16 attention is also held row by row: each output row
+# (one query, one head) to ATTN_TOL of its own largest value, which a
+# dropped or misweighted KV tile exceeds many times over.
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
+
+
+def lora_tol(dtype: str, K: int) -> float:
+    return 5e-2 if dtype == "bfloat16" else 1e-5 * max(1.0, (K / 512) ** 0.5)
+
+
+def lora_inputs(gen, M, K, N, r, dtype):
+    """x, w, a, b ~ N(0, 0.1^2), as the reference's kernel test draws them."""
+    import torch
+    return tuple((0.1 * torch.randn(shape, generator=gen, device="cuda"))
+                 .to(getattr(torch, dtype))
+                 for shape in ((M, K), (K, N), (K, r), (r, N)))
+
+
+def lora_bound(M, K, N, r, dtype):
+    """(bound_ms, bound_by): x, w, xa, b read once and y written once over
+    the HBM rate, against 2 M N (K + r) multiply-adds over the dtype's
+    peak (bf16 tensor cores; f32 outside them)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * (M * K + K * N + M * r + r * N + M * N)
+    flops = 2 * M * N * (K + r)
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attn_inputs(gen, B, S, T, H, KV, hd, dtype):
+    import torch
+    return tuple(torch.randn(shape, generator=gen, device="cuda")
+                 .to(getattr(torch, dtype))
+                 for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+
+
+def attn_bound(B, S, T, H, KV, hd, dtype, causal):
+    """(bound_ms, bound_by): q, k, v read once and out written once, against
+    4 S T hd multiply-adds per head (both products), halved under the
+    causal mask."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * B * (2 * S * H * hd + 2 * T * KV * hd)
+    flops = 4 * B * H * S * T * hd / (2 if causal else 1)
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attn_row_err(got, want) -> float:
+    """The largest |got - want| of an output row (one query, one head) over
+    the largest |want| of that row, the worst row's."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return (d / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def ops_phase(seed: int):
+    """The `kernels/ops.py` entry point on the card: the fused LoRA matmul
+    at Yi-9B's projections for an 8192-token prompt (the path: one call per
+    projection, launches counted), flash attention at S = T = 8192 (GQA
+    and pre-broadcast), the Top-K wrappers bitwise at the Yi-9B LoRA
+    length; then device times beside bounds, plain versions and library
+    calls."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    from repro_torch.kernels import ops, ref
+
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    scale = 2.0                              # the serving adapters' alpha / r
+    lora_err, attn_err, attn_row = 0.0, 0.0, 0.0
+    yi = get_config("yi-9b")
+
+    def held(name, got, want, tol, what):
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        print(f"[ops] {name} {what}: max|err| {err:.3e} (tol {tol:g}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              f"{name} disagrees with its plain version at {what}")
+        return err
+
+    def attn_held(got, want, what):
+        """The bf16 cases are held elementwise and row by row (ATTN_TOL's
+        comment); the f32 ones elementwise (their row error is printed)."""
+        tol = ATTN_TOL[str(got.dtype).split(".")[-1]]
+        err = (got.float() - want.float()).abs().max().item()
+        row = attn_row_err(got, want)
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        if got.dtype == torch.bfloat16:
+            ok = ok and row <= tol
+        print(f"[ops] flash_attention {what}: max|err| {err:.3e}, row "
+              f"max|err| / max|want| {row:.3e} (tol {tol:g}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              f"flash_attention disagrees at {what}")
+        return err, row
+
+    # the path: ops.lora_matmul once per Yi-9B projection, bf16, 8192 rows
+    inputs = {p: lora_inputs(gen, LONG_S, K, N, LORA_RANK, "bfloat16")
+              for p, (K, N) in YI_PROJ.items()}
+    lm.LORA_MATMUL.launches = 0
+    outs = {p: ops.lora_matmul(*inputs[p], scale) for p in YI_PROJ}
+    torch.cuda.synchronize()
+    lora_launches = lm.LORA_MATMUL.launches
+    check(lora_launches == len(YI_PROJ),
+          f"lora_matmul launched {lora_launches} times for {len(YI_PROJ)} "
+          "ops calls")
+    for p, (K, N) in YI_PROJ.items():
+        want = lm.lora_matmul_plain(*inputs[p], scale)
+        lora_err = max(lora_err, held(
+            "lora_matmul", outs[p], want, lora_tol("bfloat16", K),
+            f"{p} (M, K, N, r) = ({LONG_S}, {K}, {N}, {LORA_RANK}) bf16"))
+    del outs, want
+    for M, K, N, r, dt in ((LONG_S, 4096, 4096, LORA_RANK, "float32"),
+                           (100, 300, 200, 5, "bfloat16"),
+                           (100, 300, 200, 5, "float32")):
+        x = lora_inputs(gen, M, K, N, r, dt)
+        lora_err = max(lora_err, held(
+            "lora_matmul", lm.lora_matmul(*x, scale),
+            lm.lora_matmul_plain(*x, scale), lora_tol(dt, K),
+            f"(M, K, N, r) = ({M}, {K}, {N}, {r}) {dt}"))
+
+    # flash attention, GQA, at the long prompt's shapes and a ragged one;
+    # at 8192 tokens in bf16 also against chunked_attention, which keeps the
+    # probabilities in f32 where the kernel rounds them to bf16
+    hd = 128
+    main_err, chunked = None, {}
+    for S, dt, causal in ((LONG_S, "bfloat16", True),
+                          (LONG_S, "bfloat16", False),
+                          (LONG_S, "float32", True),
+                          (LONG_S, "float32", False),
+                          (1000, "bfloat16", True), (1000, "float32", True),
+                          (1000, "bfloat16", False), (1000, "float32", False)):
+        q, k, v = attn_inputs(gen, 1, S, S, 32, 4, hd, dt)
+        got = fa.flash_attention(q, k, v, causal=causal, scale=hd ** -0.5)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        scale=hd ** -0.5)
+        what = (f"B 1, S = T = {S}, H 32, KV 4, hd {hd}, {dt}, "
+                f"{'causal' if causal else 'full'}")
+        err, row = attn_held(got, want, what)
+        attn_err = max(attn_err, err)
+        if dt == "bfloat16":
+            attn_row = max(attn_row, row)
+        if S == LONG_S and dt == "bfloat16":
+            if causal:
+                main_err = {"max_abs_err": err, "max_row_rel_err": row}
+            ch = A.chunked_attention(q, k, v, hd ** -0.5, causal=causal,
+                                     cq=yi.attn_chunk_q, ckv=yi.attn_chunk_kv)
+            err, row = attn_held(got, ch, what + " against chunked_attention")
+            chunked["causal" if causal else "full"] = {
+                "max_abs_err": err, "max_row_rel_err": row}
+            del ch
+        if S == LONG_S and dt == "bfloat16" and causal:
+            pre = ops.flash_attention(q, k.repeat_interleave(8, 2),
+                                      v.repeat_interleave(8, 2), causal=True)
+            same = torch.equal(pre, got)
+            print(f"[ops] ops.flash_attention on pre-broadcast K, V equals "
+                  f"the GQA call bit for bit: {same}")
+            check(same, "pre-broadcast flash_attention differs from GQA")
+            del pre
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # the Top-K wrappers at the Yi-9B LoRA length, bitwise
+    x = torch.randn(P_LEN, generator=gen, device="cuda")
+    t = ops.histogram_threshold(x, 0.25)
+    t_plain = ops.histogram_threshold_plain(x, 0.25)
+    masked, nnz = ops.topk_mask(x, t)
+    same = (torch.equal(t.view(torch.int32), t_plain.view(torch.int32))
+            and torch.equal(masked.view(torch.int32),
+                            ref.topk_mask_ref(x, t).view(torch.int32))
+            and int(nnz) == int(ref.threshold_count_ref(x, t)))
+    print(f"[ops] histogram_threshold + topk_mask at n = {P_LEN}: threshold "
+          f"{t.item():.9g}, nnz {int(nnz)} (k {round(0.25 * P_LEN)}); "
+          f"bitwise equal to their plain loops: {same}")
+    check(same, "ops Top-K wrappers differ from their plain loops")
+    del x, masked
+
+    # device times: the kernel alone (its C entry point on preallocated
+    # outputs, xa included in the inputs), the wrapper, the plain version
+    # and the library call computing the same function
+    rows = []
+    for p in ("wq", "wk", "w1", "w2"):
+        K, N = YI_PROJ[p]
+        x, w, a, b = inputs[p]
+        xa = lm.lora_xa(x, a)
+        y = torch.empty(LONG_S, N, dtype=x.dtype, device="cuda")
+
+        def kernel(i, x=x, w=w, xa=xa, b=b, y=y, K=K, N=N):
+            lm.LORA_MATMUL(x.device, x.data_ptr(), w.data_ptr(),
+                           xa.data_ptr(), b.data_ptr(), y.data_ptr(), LONG_S,
+                           K, N, LORA_RANK, 0, scale)
+
+        bound, by = lora_bound(LONG_S, K, N, LORA_RANK, "bfloat16")
+        row = {"proj": p, "M": LONG_S, "K": K, "N": N, "r": LORA_RANK,
+               "dtype": "bfloat16",
+               "ms": device_ms(kernel, 10),
+               "wrapper_ms": device_ms(
+                   lambda i: ops.lora_matmul(x, w, a, b, scale), 10),
+               "plain_ms": cuda_ms(
+                   lambda i: lm.lora_matmul_plain(x, w, a, b, scale), 5),
+               "library_ms": device_ms(
+                   lambda i: torch.matmul(x, w) + scale * torch.matmul(xa, b),
+                   10),
+               "bound_ms": bound, "bound_by": by}
+        print(f"[ops] timing {json.dumps(row)}")
+        rows.append(row)
+    del inputs
+    torch.cuda.empty_cache()
+
+    attn_rows = []
+    for dt, causal in (("bfloat16", True), ("bfloat16", False),
+                       ("float32", True)):
+        q, k, v = attn_inputs(gen, 1, LONG_S, LONG_S, 32, 4, hd, dt)
+        out = torch.empty_like(q)
+        qh, kh, vh = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+
+        def kernel(i, q=q, k=k, v=v, out=out, dt=dt, causal=causal):
+            fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), 1, LONG_S, LONG_S, 32, 4, hd,
+                     fa.DTYPES[q.dtype], int(causal), hd ** -0.5)
+
+        n = 10 if dt == "bfloat16" else 3
+        bound, by = attn_bound(1, LONG_S, LONG_S, 32, 4, hd, dt, causal)
+        row = {"B": 1, "S": LONG_S, "T": LONG_S, "H": 32, "KV": 4, "hd": hd,
+               "dtype": dt, "causal": causal,
+               "ms": device_ms(kernel, n),
+               "wrapper_ms": device_ms(lambda i: fa.flash_attention(
+                   q, k, v, causal=causal, scale=hd ** -0.5), n),
+               "plain_ms": cuda_ms(lambda i: fa.flash_attention_plain(
+                   q, k, v, causal=causal, scale=hd ** -0.5), 2, warmup=1),
+               "library_ms": device_ms(
+                   lambda i: F.scaled_dot_product_attention(
+                       qh, kh, vh, is_causal=causal, enable_gqa=True), n),
+               "bound_ms": bound, "bound_by": by}
+        print(f"[ops] timing {json.dumps(row)}")
+        attn_rows.append(row)
+        del q, k, v, out, qh, kh, vh
+        torch.cuda.empty_cache()
+    return {"lora_err": lora_err, "attn_err": attn_err, "attn_row": attn_row,
+            "attn_main": main_err, "attn_chunked": chunked,
+            "lora_launches": lora_launches, "lora_rows": rows,
+            "attn_rows": attn_rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: long-prompt prefill of Yi-9B through the flash kernel
+# ---------------------------------------------------------------------------
+
+LONG_ARGS = ["--arch", "yi-9b", "--clients", "4", "--pages", "2",
+             "--lanes", "2", "--requests", "4", "--rank", "16",
+             "--max-len", "9232"]
+LONG_BUCKETS = (8192, 9216)
+
+
+def prefill_bound(cfg, S: int, weight_bytes: int):
+    """(bound_ms, bound_by) of one causal prefill of S tokens: the GEMMs'
+    2 x weights x S multiply-adds (every layer's projections and the LM
+    head) plus causal attention's 2 S^2 hd H per layer over the bf16 rate,
+    against one read of the weights over the HBM rate."""
+    D, H, KV, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    weights = cfg.num_layers * (2 * D * H * hd + 2 * D * KV * hd + 3 * D * F) \
+        + D * cfg.vocab_size
+    flops = 2 * weights * S + cfg.num_layers * 2 * S * S * hd * H
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, weight_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def profile_prefill(eng, seed: int) -> None:
+    """torch.profiler over one 8192-token prefill of phase 11's engine
+    (page 0's adapter), after one unprofiled warm-up prefill."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ServingEngine
+
+    prompt = np.random.default_rng(seed + 12).integers(
+        0, eng.cfg.vocab_size, LONG_S).tolist()
+    with torch.no_grad():
+        ServingEngine._prefill(eng, 0, prompt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ServingEngine._prefill(eng, 0, prompt)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    summarize_trace(prof, "long_prefill_trace.json",
+                    f"1 prefill of {LONG_S} tokens", 1, wall_ms)
+
+
+def long_prefill_phase(seed: int, profile: bool = False):
+    """`ServingEngine` on full-width, full-depth Yi-9B in bf16 serving four
+    prompts of 8192 or 9216 tokens (4 to 8 generated each): every prefill
+    goes through the flash kernel, 48 launches a prefill, and every decode
+    step through the grouped kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serving import synth_trace
+
+    t0 = time.perf_counter()
+    eng, _, cfg, _ = serve.build(serve.parse_args(
+        LONG_ARGS + ["--seed", str(seed)]))
+    trace = synth_trace(4, 4, cfg.vocab_size, seed=seed,
+                        prompt_buckets=LONG_BUCKETS, gen_range=(4, 8))
+    torch.cuda.synchronize()
+    print(f"[long-prefill] {cfg.name}: {cfg.num_layers}L d{cfg.d_model} "
+          f"{cfg.param_dtype}, built in {time.perf_counter() - t0:.1f}s; "
+          f"prompts {[r.prompt_len for r in trace]} (chunks of "
+          f"{cfg.attn_chunk_q}: "
+          f"{sorted({r.prompt_len // cfg.attn_chunk_q for r in trace})} q "
+          f"chunks), generating {[r.gen_len for r in trace]}")
+    prefill_ms = []
+    prefill = eng._prefill
+
+    def timed_prefill(page, prompt):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = prefill(page, prompt)           # syncs: pulls the argmax
+        prefill_ms.append((len(prompt), 1e3 * (time.perf_counter() - t1)))
+        return out
+
+    eng._prefill = timed_prefill
+    grouped = resolve_grouped_kernel("grouped_pallas")
+    torch.cuda.reset_peak_memory_stats()
+    fa.FLASH.launches = 0
+    grouped.launches = 0
+    rep = eng.run(trace)
+    flash_launches, grouped_launches = fa.FLASH.launches, grouped.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(eng.params))
+    for n, ms in prefill_ms:
+        bound, by = prefill_bound(cfg, n, weight_bytes)
+        print(f"[long-prefill] prefill of {n} tokens: {ms:.3f} ms "
+              f"({n / ms * 1e3:.1f} prompt tok/s), bound {bound:.3f} ms "
+              f"({by})")
+    print(f"[long-prefill] {len(rep.completions)}/{rep.requests} requests "
+          f"served: {rep.generated_tokens} tokens in {rep.wall_s:.3f}s "
+          f"({rep.tokens_per_s:.3f} tok/s), {rep.prefills} prefills, "
+          f"{rep.steps} decode steps, "
+          f"{1e3 * rep.decode_s / max(rep.steps, 1):.3f} ms/decode step; "
+          f"cache {rep.cache['hits']} hits / {rep.cache['misses']} misses / "
+          f"{rep.cache['evictions']} evictions; peak device memory "
+          f"{peak:.2f} GiB")
+    print(f"[long-prefill] flash_attention launches {flash_launches} = "
+          f"{rep.prefills} prefills x {cfg.num_layers}; grouped_pallas "
+          f"launches {grouped_launches} = {rep.steps} steps x "
+          f"{cfg.num_layers} x 4")
+    check(len(rep.completions) == len(trace) == rep.requests,
+          "not every long-prompt request was served")
+    check({r.prompt_len for r in trace} == set(LONG_BUCKETS),
+          f"the trace does not hold both prompt lengths {LONG_BUCKETS}")
+    for req in trace:
+        toks = rep.completions[req.rid]
+        check(len(toks) == req.gen_len
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"request {req.rid}: bad completion {toks}")
+    check(flash_launches == rep.prefills * cfg.num_layers > 0,
+          f"flash_attention launched {flash_launches} times, expected "
+          f"{rep.prefills} x {cfg.num_layers}")
+    check(grouped_launches == rep.steps * cfg.num_layers * 4,
+          f"grouped_pallas launched {grouped_launches} times, expected "
+          f"{rep.steps} x {cfg.num_layers} x 4")
+    if profile:
+        profile_prefill(eng, seed)
+    return {"flash": flash_launches, "prefills": rep.prefills,
+            "prefill_ms": [ms for _, ms in prefill_ms],
+            "decode_ms": 1e3 * rep.decode_s / max(rep.steps, 1),
+            "tok_s": rep.tokens_per_s, "peak_gib": peak,
+            "mean_prompt": float(np.mean([r.prompt_len for r in trace]))}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1437,6 +1950,17 @@ def main() -> int:
     print(f"[sparse-async] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; done in "
           f"{time.perf_counter() - t0:.1f}s")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ops_res = ops_phase(args.seed)
+    print(f"[ops] done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    long_res = long_prefill_phase(args.seed, args.profile)
+    print(f"[long-prefill] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
 
     entries = [entry]
@@ -1476,6 +2000,34 @@ def main() -> int:
             "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
             "library": t4["library"], "shape": f"(4, {P_LEN}) f32",
             "B1": t1, "wrapper_ms": t4["wrapper_ms"]})
+    lmain, amain = ops_res["lora_rows"][0], ops_res["attn_rows"][0]
+    entries.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:58",
+        "launches": long_res["flash"],
+        "path": "long-prefill, 48 per prefill",
+        "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
+        "max_abs_err": ops_res["attn_err"],
+        "max_row_rel_err_bf16": ops_res["attn_row"],
+        "at_shape": ops_res["attn_main"],
+        "against_chunked_attention": ops_res["attn_chunked"],
+        "ms": amain["ms"],
+        "plain_ms": amain["plain_ms"], "bound_ms": amain["bound_ms"],
+        "bound_by": amain["bound_by"], "library_ms": amain["library_ms"],
+        "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+        "wrapper_ms": amain["wrapper_ms"], "timings": ops_res["attn_rows"]})
+    entries.append({
+        "name": "lora_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/lora_matmul.cu",
+        "replaces": "src/repro/kernels/lora_matmul.py:66",
+        "launches": ops_res["lora_launches"], "path": "ops phase",
+        "shape": "(M, K, N, r) = (8192, 4096, 4096, 16) bf16",
+        "max_abs_err": ops_res["lora_err"], "ms": lmain["ms"],
+        "plain_ms": lmain["plain_ms"], "bound_ms": lmain["bound_ms"],
+        "bound_by": lmain["bound_by"], "library_ms": lmain["library_ms"],
+        "library": "torch.matmul(x, w) + scale * torch.matmul(xa, b)",
+        "wrapper_ms": lmain["wrapper_ms"], "timings": ops_res["lora_rows"]})
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,544 @@
+// Flash attention forward (online softmax) for Hopper, sm_90a.
+//
+//   out[b, s, h, :] = sum_t softmax_t(scale * q[b, s, h, :] . k[b, t, kh, :])
+//                     * v[b, t, kh, :],     kh = h / (H / KV)
+//
+// q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), all contiguous,
+// one dtype: bf16 or f32.  hd in {32, 64, 128}.  Causal: key t > query s is
+// masked with -1e30 (the reference's value).
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention.py::
+// flash_attention_pallas (its `_kernel`): per (batch x head, tile of query
+// rows) the KV rows stream through fast memory while a running max m, sum l
+// and output acc are kept in f32; out = acc / max(l, 1e-30) in q's dtype.
+// Differences from the Pallas kernel; the first four change nothing of the
+// function, the last rounds it:
+//   - GQA is read in place: query head h reads KV head h / (H / KV), so the
+//     KV heads are never repeated H times in device memory.
+//   - Ragged S and T are masked inside the kernel (rows past S are not
+//     stored; keys past T weigh exactly 0), so there is no padding and no
+//     shape gate.
+//   - Under causal masking the KV tiles wholly above the diagonal are not
+//     visited.  That cannot change a bit: after a live tile, a fully masked
+//     one has m_new = m, so it multiplies acc and l by exp(0) = 1 and adds
+//     exp(-1e30 - m) = 0.
+//   - scale multiplies the f32 dot product (the Pallas kernel scales q
+//     first; the oracle divides the product by sqrt(hd)).
+//   - bf16 only: p is rounded to bf16 before acc += p v, as the oracle
+//     kernels/ref.py::flash_attention_ref casts p to v's dtype.  The Pallas
+//     kernel (and the model's chunked_attention) keep p in f32; rounding
+//     moves each weight by at most 2^-8 of itself.  chip_smoke.py holds the
+//     kernel to chunked_attention at S = T = 8192 in bf16.
+//
+// What bounds it on an H100: at the long-prompt shapes (S = T = 8192,
+// H = 32, hd = 128) a causal call does 4 S T hd H / 2 = 5.5e11 flop against
+// 0.27 GB of q, k, v and out: 0.56 ms of bf16 tensor-core work against
+// 0.08 ms of bytes.  It is bound by operations.
+//
+// Design (first version: right and simple; wgmma, TMA and warp
+// specialisation are later work):
+//   bf16: grid (B*H, ceil(S/64)), 4 warps; each warp owns 16 query rows.
+//     The q tile is staged through shared memory into mma.sync A fragments
+//     held in registers for the whole kernel.  64-key tiles of K and V rows
+//     stream into two shared-memory buffers by cp.async (zero-filled past
+//     T), the next tile's copy in flight while this one is used.  S = q k^T
+//     by mma.sync.m16n8k16 (bf16 in, f32 accumulate), its B fragments by
+//     ldmatrix; scale, mask, the online softmax on the accumulator fragments
+//     (row max and sum over the 4 lanes that share a row); p is rounded to
+//     bf16 and reused in registers as the A fragment of acc += p v (f32
+//     accumulate), whose B fragments come from the V rows by
+//     ldmatrix.trans.  Rows of smem are padded by 8 bf16 so each 8-row
+//     ldmatrix phase hits 32 distinct banks.
+//   f32: the same tiling with FMA instead of tensor cores (TF32 would move
+//     f32 results by 1e-3): 256 threads as 16 x 16, each thread owning
+//     4 query rows x 4 keys of a score tile and 4 rows x hd/16 columns of
+//     acc; p goes through shared memory between the two products.
+//   Query tiles are issued last-first so the causal tiles with the most
+//   keys start first.  expf, not __expf; no fast math.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;   // the reference's mask value
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;             // query rows per block (16 per warp)
+constexpr int kBKV = 64;            // keys per tile
+constexpr int kPad = 8;             // bf16 of padding per shared-memory row
+constexpr int kThreadsMma = 128;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte global -> shared copy that bypasses registers; zero-fills the 16
+// bytes when `valid` is false (then nothing is read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory, one register each; lane L
+// gives the row address of matrix L / 8, row L % 8.  `.trans` hands each
+// thread the transposed pairs (the B operand of a row-major tile).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+template <int HD>
+struct MmaSmem {
+  static constexpr int LD = HD + kPad;            // bf16 per smem row
+  static constexpr int kTile = kBKV * LD;         // one K or V tile
+  static constexpr int kBytes = 4 * kTile * 2;    // K and V, double-buffered
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ out, int S, int T, int H,
+                  int KV, float scale, int causal) {
+  using SM = MmaSmem<HD>;
+  constexpr int LD = SM::LD;
+  constexpr int NT = kBKV / 8;        // n-tiles of the score tile
+  constexpr int KD = HD / 16;         // k-steps over the head dim
+  constexpr int DT = HD / 8;          // n-tiles of the output
+  constexpr int CH = HD / 8;          // 16-byte chunks per row
+  static_assert(kBQ == kBKV, "the q tile is staged in a K buffer");
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  // buffers: K0, V0, K1, V1, each kBKV rows of LD
+  auto kbuf = [&](int i) { return smem_bf16 + (2 * i) * SM::kTile; };
+  auto vbuf = [&](int i) { return smem_bf16 + (2 * i + 1) * SM::kTile; };
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t q_stride = static_cast<size_t>(H) * HD;    // between tokens
+  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * S * q_stride +
+                            static_cast<size_t>(h) * HD;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * T * kv_stride +
+                            static_cast<size_t>(kh) * HD;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * T * kv_stride +
+                            static_cast<size_t>(kh) * HD;
+  __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * q_stride +
+                      static_cast<size_t>(h) * HD;
+
+  // one tile of K and V rows j0.. into buffer `buf` (zeros past T)
+  auto load_kv = [&](int j0, int buf) {
+    __nv_bfloat16* ks = kbuf(buf);
+    __nv_bfloat16* vs = vbuf(buf);
+    for (int i = tid; i < kBKV * CH; i += kThreadsMma) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = j0 + r < T;
+      const size_t off = in ? (j0 + r) * kv_stride + c : 0;
+      cp_async16(ks + r * LD + c, kb + off, in);
+      cp_async16(vs + r * LD + c, vb + off, in);
+    }
+    cp_async_commit();
+  };
+
+  int n_tiles = (T + kBKV - 1) / kBKV;
+  if (causal) {
+    const int last_q = min(q0 + kBQ, S) - 1;
+    n_tiles = min(n_tiles, last_q / kBKV + 1);
+  }
+
+  // q tile -> K buffer 1 (zeros past S), while tile 0 streams into buffer 0
+  {
+    __nv_bfloat16* qs = kbuf(1);
+    for (int i = tid; i < kBQ * CH; i += kThreadsMma) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = q0 + r < S;
+      cp_async16(qs + r * LD + c, qb + (in ? (q0 + r) * q_stride + c : 0), in);
+    }
+    cp_async_commit();
+  }
+  load_kv(0, 0);
+  cp_async_wait<1>();                 // the q tile has landed
+  __syncthreads();
+  uint32_t qf[KD][4];
+  {
+    // A fragments of rows warp*16 .. +15: matrix i of ldmatrix.x4 is rows
+    // (i & 1) * 8 .., columns (i >> 1) * 8 .. of each 16 x 16 block
+    const __nv_bfloat16* qs = kbuf(1);
+    const int row = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      ldsm_x4(qf[kk], qs + row * LD + kk * 16 + (lane >> 4) * 8);
+    }
+  }
+  __syncthreads();                    // buffer 1 is free for tile 1
+
+  // this thread's two query rows: row0 (c0, c1) and row0 + 8 (c2, c3)
+  const int qpos0 = q0 + warp * 16 + g, qpos1 = qpos0 + 8;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.0f;
+  }
+
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int j0 = jt * kBKV;
+    if (jt + 1 < n_tiles) {
+      load_kv(j0 + kBKV, (jt + 1) & 1);
+      cp_async_wait<1>();             // tile jt has landed, jt + 1 in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* ks = kbuf(jt & 1);
+    const __nv_bfloat16* vs = vbuf(jt & 1);
+
+    // scores for 16 rows x 64 keys: s[nt][0..1] row0, s[nt][2..3] row0 + 8.
+    // ldmatrix.x4 on K rows nt*8 .. +7 gives b0, b1 of two k-steps.
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KD; kk += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
+                        (lane >> 3) * 8);
+        mma_bf16(s[nt], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[nt], qf[kk + 1], kf[2], kf[3]);
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j0 + nt * 8 + 2 * t + (e & 1);
+        const int qpos = e < 2 ? qpos0 : qpos1;
+        float x = s[nt][e] * scale;
+        if (key >= T) {
+          x = -INFINITY;                  // absent: weighs exactly 0
+        } else if (causal && key > qpos) {
+          x = kNegInf;
+        }
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      corr[rr] = expf(m[rr] - mx[rr]);
+      m[rr] = mx[rr];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[nt][e] - m[e >> 1]);
+        s[nt][e] = p;
+        sum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
+      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
+      l[rr] = l[rr] * corr[rr] + sum[rr];
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      acc[d][0] *= corr[0];
+      acc[d][1] *= corr[0];
+      acc[d][2] *= corr[1];
+      acc[d][3] *= corr[1];
+    }
+    // acc += p v: two score n-tiles form one A fragment over 16 keys; the
+    // B fragments come from V rows (keys) by ldmatrix.trans, two dim tiles
+    // per x4
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                   LD + (d + (lane >> 4)) * 8);
+        mma_bf16(acc[d], pa, vf[0], vf[1]);
+        mma_bf16(acc[d + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                  // buffer jt & 1 is free for jt + 2
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qpos = rr ? qpos1 : qpos0;
+    if (qpos >= S) continue;
+    const float den = fmaxf(l[rr], 1e-30f);
+    __nv_bfloat16* orow = ob + qpos * q_stride;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[d][2 * rr] / den, acc[d][2 * rr + 1] / den);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsF32 = 256;    // 16 x 16
+
+template <int HD>
+struct F32Smem {
+  static constexpr int LDQ = kBQ + 1;     // q and k stored transposed
+  static constexpr int LDP = kBKV + 16;   // p rows: even/odd rows 16 banks apart
+  static constexpr int kFloats = HD * LDQ * 2 + kBKV * HD + kBQ * LDP;
+  static constexpr int kBytes = kFloats * 4;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int S,
+                 int T, int H, int KV, float scale, int causal) {
+  using SM = F32Smem<HD>;
+  constexpr int LDQ = SM::LDQ, LDP = SM::LDP;
+  constexpr int DC = HD / 16;             // output columns per thread
+  extern __shared__ float smem[];
+  float* qt = smem;                       // [HD][LDQ]: q tile transposed
+  float* kt = qt + HD * LDQ;              // [HD][LDQ]: k tile transposed
+  float* vs = kt + HD * LDQ;              // [kBKV][HD]
+  float* ps = vs + kBKV * HD;             // [kBQ][LDP]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const size_t q_stride = static_cast<size_t>(H) * HD;
+  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const float* qb = q + static_cast<size_t>(b) * S * q_stride +
+                    static_cast<size_t>(h) * HD;
+  const float* kb = k + static_cast<size_t>(b) * T * kv_stride +
+                    static_cast<size_t>(kh) * HD;
+  const float* vb = v + static_cast<size_t>(b) * T * kv_stride +
+                    static_cast<size_t>(kh) * HD;
+  float* ob = out + static_cast<size_t>(b) * S * q_stride +
+              static_cast<size_t>(h) * HD;
+
+  for (int i = tid; i < kBQ * HD; i += kThreadsF32) {
+    const int r = i / HD, c = i % HD;
+    qt[c * LDQ + r] = q0 + r < S ? qb[(q0 + r) * q_stride + c] : 0.0f;
+  }
+
+  // rows ty + 16 i (i < 4); score columns tx + 16 j (j < 4); output
+  // columns tx + 16 c (c < DC)
+  float m[4], l[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
+  }
+
+  int n_tiles = (T + kBKV - 1) / kBKV;
+  if (causal) {
+    const int last_q = min(q0 + kBQ, S) - 1;
+    n_tiles = min(n_tiles, last_q / kBKV + 1);
+  }
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int j0 = jt * kBKV;
+    for (int i = tid; i < kBKV * HD; i += kThreadsF32) {
+      const int r = i / HD, c = i % HD;
+      const bool in = j0 + r < T;
+      kt[c * LDQ + r] = in ? kb[(j0 + r) * kv_stride + c] : 0.0f;
+      vs[r * HD + c] = in ? vb[(j0 + r) * kv_stride + c] : 0.0f;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    }
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = qt[d * LDQ + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = kt[d * LDQ + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = j0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (key >= T) {
+          x = -INFINITY;
+        } else if (causal && key > qpos) {
+          x = kNegInf;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      const float corr = expf(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - mx);
+        ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kBKV; ++j) {
+      float pv[4], vv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * LDP + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = vs[j * HD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty + 16 * i;
+    if (qpos >= S) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      ob[qpos * q_stride + tx + 16 * c] = acc[i][c] / den;
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int T, int H, int KV, int dtype, int causal, float scale,
+           cudaStream_t stream) {
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  if (dtype == 0) {
+    constexpr int bytes = MmaSmem<HD>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bf16_kernel<HD><<<grid, kThreadsMma, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), S, T, H, KV, scale, causal);
+  } else {
+    constexpr int bytes = F32Smem<HD>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_f32_kernel<HD><<<grid, kThreadsF32, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), S, T, H, KV,
+        scale, causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).  The
+// caller checks devices, dtypes and contiguity, and that the pointers are
+// 16-byte aligned; B, S, T, H >= 1 and H % KV == 0.  dtype 0 = bf16, 1 = f32.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   void* out, int B, int S, int T, int H,
+                                   int KV, int hd, int dtype, int causal,
+                                   float scale, void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      (dtype != 0 && dtype != 1) || (S + kBQ - 1) / kBQ > 65535 ||
+      static_cast<long long>(B) * H > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, out, B, S, T, H, KV, dtype, causal, scale, s);
+    case 64:
+      return launch<64>(q, k, v, out, B, S, T, H, KV, dtype, causal, scale, s);
+    case 128:
+      return launch<128>(q, k, v, out, B, S, T, H, KV, dtype, causal, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,109 @@
+"""Flash attention (online-softmax tiling): wrapper, plain version.
+
+`flash_attention` replaces the TPU kernel
+`src/repro/kernels/flash_attention.py::flash_attention_pallas` with the
+hand-written CUDA kernel of `csrc/flash_attention.cu`: per (batch, query
+head) and tile of query rows, KV tiles stream through shared memory while
+a running max `m`, sum `l` and output `acc` are kept in f32; masked
+scores are -1e30 where key > query; the output is acc / max(l, 1e-30) in
+q.dtype.
+
+It takes GQA directly: q (B, S, H, hd), k and v (B, T, KV, hd) with query
+head h reading KV head h // (H // KV), so the KV heads are never repeated
+H times (KV == H is the reference's pre-broadcast call).  Any S and T:
+the kernel masks the ragged tiles.  hd in {32, 64, 128}, bf16 (tensor-core
+`mma.sync`, f32 accumulation) or f32 (FMA, never TF32).
+
+In bf16 the kernel rounds the probabilities to bf16 before the second
+product, as its plain version (`ref.flash_attention_ref`, which casts them
+to v.dtype) does; the Pallas kernel and `chunked_attention` keep them in
+f32.  That moves each weight by at most 2^-8 of itself; `chip_smoke.py`
+holds the kernel to `chunked_attention` at 8192 tokens in bf16.
+
+On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
+it runs `flash_attention_plain`.  Forward only, as the reference's kernel:
+a CUDA input that requires a gradient raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import CudaFunction
+from repro_torch.kernels.ref import flash_attention_ref
+
+HEAD_DIMS = (32, 64, 128)
+DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+FLASH = CudaFunction("flash_attention", "flash_attention_fwd",
+                     [_P, _P, _P, _P] + [_I] * 8 + [_F])
+
+
+# the kernel's plain version: the port's copy of the reference's oracle,
+# which takes the GQA layout and the kernel's `scale`
+flash_attention_plain = flash_attention_ref
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned start (the kernel loads 16 bytes
+    at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_shapes(q, k, v) -> None:
+    """Shapes the kernel takes (the plain version takes the same)."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"flash_attention takes q (B, S, H, hd) and k, v "
+                         f"(B, T, KV, hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must both be (B={B}, T, KV, "
+                         f"hd={hd})")
+    KV = k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: {H} query heads do not group "
+                         f"over {KV} kv heads")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale, causal) v per query head, GQA layout; returns
+    (B, S, H, hd) in q.dtype."""
+    _check_shapes(q, k, v)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel is forward-only, as the "
+            "reference's; training at chunked_attn_threshold tokens or more "
+            "on the card is ROADMAP queue 1, item 14")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q "
+                             f"on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention: the CUDA kernel takes bf16 or f32, "
+                        f"got {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head size "
+                         f"{HEAD_DIMS}, got {hd}")
+    if B * H > 2**31 - 1 or -(-S // 64) > 65535:
+        raise ValueError(f"flash_attention: B * H = {B * H} or S = {S} "
+                         "exceeds the kernel's grid")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    if out.numel() == 0 or T == 0:
+        return out.zero_() if T == 0 else out
+    FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          B, S, T, H, KV, hd, DTYPES[q.dtype], int(causal), float(scale))
+    return out

@@ -1,4 +1,18 @@
-"""The grouped multi-adapter LoRA delta: registry, plain versions, kernel.
+"""The fused LoRA matmul and the grouped multi-adapter LoRA delta.
+
+Two kernels, as in `src/repro/kernels/lora_matmul.py`:
+
+* `lora_matmul` -- single-adapter fused  y = x @ w + scale * (x @ a) @ b,
+  the hand-written CUDA kernel of `csrc/lora_matmul.cu` (replaces
+  `lora_matmul_pallas`).  xa = x @ a (M x r, tiny) is computed outside the
+  kernel with `torch.matmul`, in f32 and rounded to x.dtype, as the
+  reference does; the kernel accumulates x @ w over K in f32 and adds
+  scale * xa @ b in its epilogue.  Any M, N, K, r; bf16 or f32.  Its
+  caller is `kernels/ops.py::lora_matmul`: the model's `linear` rounds the
+  LoRA branch differently (in the adapter's dtype) and does not use it.
+  On CPU tensors it runs `lora_matmul_plain`.
+
+* the grouped registry below.
 
 The multi-tenant serving hot path (punica / S-LoRA-style BGMV): one batch
 whose rows belong to *different* clients' adapters.  A `GroupedLoraKernel`
@@ -27,6 +41,64 @@ from typing import ClassVar, Dict, Optional, Tuple, Type, Union
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import lora_matmul_ref
+
+# ---------------------------------------------------------------------------
+# single-adapter fused LoRA matmul
+# ---------------------------------------------------------------------------
+
+LORA_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+LORA_MATMUL = _build.CudaFunction(
+    "lora_matmul", "lora_matmul_fwd",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float])
+
+lora_matmul_plain = lora_matmul_ref
+
+
+def lora_xa(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """x @ a accumulated in f32, rounded to x.dtype (computed outside the
+    kernel, as the reference computes it outside its own)."""
+    return torch.matmul(x.float(), a.float()).to(x.dtype)
+
+
+def lora_matmul(x, w, a, b, scale: float) -> torch.Tensor:
+    """y = x @ w + scale * (x @ a) @ b for x (M, K), w (K, N), a (K, r),
+    b (r, N) of one dtype; y (M, N) in x.dtype."""
+    if x.ndim != 2 or w.ndim != 2 or a.ndim != 2 or b.ndim != 2:
+        raise ValueError("lora_matmul takes 2-D x, w, a, b")
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[1]
+    if w.shape[0] != K or a.shape[0] != K or tuple(b.shape) != (r, N):
+        raise ValueError(f"lora_matmul: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} do not chain")
+    if not x.is_cuda:
+        return lora_matmul_plain(x, w, a, b, scale)
+    for nm, t in (("w", w), ("a", a), ("b", b)):
+        if t.device != x.device:
+            raise ValueError(f"lora_matmul: {nm} is on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"lora_matmul: {nm} is {t.dtype}, x is {x.dtype}")
+    if x.dtype not in LORA_DTYPES:
+        raise TypeError(f"lora_matmul: the CUDA kernel takes bf16 or f32, "
+                        f"got {x.dtype}")
+    if max(M, N, K, r) > 2**31 - 1 or -(-M // 64) > 65535:
+        raise ValueError(f"lora_matmul: M={M}, N={N}, K={K} exceed the "
+                         "kernel's grid")
+    x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
+    xa = lora_xa(x, a).contiguous()
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M and N:
+        LORA_MATMUL(x.device, x.data_ptr(), w.data_ptr(), xa.data_ptr(),
+                    b.data_ptr(), y.data_ptr(), M, K, N, r,
+                    LORA_DTYPES[x.dtype], float(scale))
+    return y
+
+
+# ---------------------------------------------------------------------------
+# grouped multi-adapter delta
+# ---------------------------------------------------------------------------
 
 
 class GroupedLoraKernel:

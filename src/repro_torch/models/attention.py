@@ -1,13 +1,15 @@
-"""GQA attention: full-sequence and one-token decode paths.
+"""GQA attention: full-sequence, chunked long-prompt and one-token decode.
 
 Shapes as in `src/repro/models/attention.py`: x (B, S, D); q (B, S, H, hd);
 k/v (B, T, KV, hd).  GQA is computed with grouped einsums (no
 materialized KV repeat); scores and softmax are f32.
 
-Off this slice's path, and so not ported yet: `chunked_attention` (the
-reference takes it for prompts of `cfg.chunked_attn_threshold` tokens or
-more; here such a prompt raises), sliding windows, cross attention and
-MLA.
+A prompt of `cfg.chunked_attn_threshold` tokens or more takes the
+flash-style path, as in the reference: on CUDA tensors the hand-written
+flash kernel (`kernels/flash_attention.py`), on CPU tensors its plain
+version on the model's path, `chunked_attention`.
+
+Not ported yet: sliding windows, cross attention and MLA.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import P, apply_rope, linear, rms_norm
 
@@ -59,6 +62,73 @@ def full_attention(q, k, v, mask, scale):
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return _grouped_out(probs, v).reshape(B, S, H, hd)
+
+
+def _chunk_sizes(S: int, T: int, cq: int, ckv: int):
+    """The reference's chunk contract: chunks capped at the lengths, which
+    they must divide."""
+    cq, ckv = min(cq, S), min(ckv, T)
+    if S % cq or T % ckv:
+        raise ValueError(f"chunked attention needs S % cq == 0 and T % ckv "
+                         f"== 0, got S={S}, cq={cq}, T={T}, ckv={ckv}")
+    return cq, ckv
+
+
+def _grouped_out_f32(probs, v):
+    return torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+
+
+def chunked_attention(q, k, v, scale, *, causal: bool, window=None, cq: int,
+                      ckv: int, q_offset: int = 0):
+    """Flash-style online-softmax attention, chunked over both q and kv.
+
+    Memory is O(cq * ckv) per (head, chunk) instead of O(S * T).  The plain
+    version of the flash kernel on the model's path (what `gqa_forward`
+    runs on the CPU at long prompts), ported from the reference's function
+    of the same name.  q (B, S, H, hd); k, v (B, T, KV, hd); q tokens are at
+    positions q_offset + i.  Sliding windows raise.
+    """
+    if window is not None:
+        raise NotImplementedError("chunked_attention: sliding windows are not "
+                                  "ported (model.check_supported refuses them)")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    G = H // KV
+    cq, ckv = _chunk_sizes(S, T, cq, ckv)
+    nq, nkv = S // cq, T // ckv
+    qg = q.reshape(B, nq, cq, KV, G, hd)
+    kc = k.reshape(B, nkv, ckv, KV, hd)
+    vc = v.reshape(B, nkv, ckv, KV, hdv)
+    q_pos_all = q_offset + torch.arange(S, device=q.device).reshape(nq, cq)
+    k_pos_all = torch.arange(T, device=q.device).reshape(nkv, ckv)
+    # the reference skips kv chunks above the diagonal only for few q chunks
+    # (its fori_loop branch); otherwise it scans every kv chunk (lax.map of
+    # lax.scan).  Both branches are kept, so each has a CPU counterpart.
+    skip = causal and q_offset == 0 and S == T and nq <= 8
+    outs = []
+    for i in range(nq):
+        qi, q_pos = qg[:, i], q_pos_all[i]
+        m = torch.full((B, KV, G, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KV, G, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, cq, KV, G, hdv), dtype=torch.float32,
+                          device=q.device)
+        hi = min(((i + 1) * cq + ckv - 1) // ckv, nkv) if skip else nkv
+        for j in range(hi):
+            s = _grouped_scores(qi, kc[:, j], scale)          # (B,KV,G,cq,ckv)
+            if causal:
+                s = torch.where(causal_mask(q_pos, k_pos_all[j]), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] \
+                + _grouped_out_f32(p, vc[:, j])
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None])
+    out = torch.stack(outs, dim=1).reshape(B, S, H, hdv)
+    return out.to(q.dtype)
 
 
 def decode_attention(q1, k, v, scale, *, valid):
@@ -113,13 +183,13 @@ def _maybe_qk_norm(params, q, k, cfg):
 
 def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
                 return_kv=False):
-    """Causal self attention over a full sequence at positions 0..S-1."""
+    """Causal self attention over a full sequence at positions 0..S-1.
+    From `cfg.chunked_attn_threshold` tokens on, the flash-style path: the
+    CUDA flash kernel on CUDA tensors, `chunked_attention` on the CPU, both
+    held to the reference's chunk contract (`attn_chunk_q`/`_kv` must
+    divide S)."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    if S >= cfg.chunked_attn_threshold:
-        raise NotImplementedError(
-            f"prompt of {S} tokens needs chunked attention (threshold "
-            f"{cfg.chunked_attn_threshold}), which the port does not have yet")
     lget = (lora or {}).get
     q = linear(x, params["wq"], lget("wq"), lora_scale).reshape(B, S, H, hd)
     k = linear(x, params["wk"], lget("wk"), lora_scale).reshape(B, S, KV, hd)
@@ -128,8 +198,16 @@ def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
     positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = full_attention(q, k, v, causal_mask(positions, positions),
-                         1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd)
+    if S >= cfg.chunked_attn_threshold:
+        cq, ckv = _chunk_sizes(S, S, cfg.attn_chunk_q, cfg.attn_chunk_kv)
+        if q.is_cuda:
+            out = flash_attention(q, k, v, causal=True, scale=scale)
+        else:
+            out = chunked_attention(q, k, v, scale, causal=True, cq=cq,
+                                    ckv=ckv)
+    else:
+        out = full_attention(q, k, v, causal_mask(positions, positions), scale)
     y = linear(out.reshape(B, S, H * hd), params["wo"], lget("wo"), lora_scale)
     if return_kv:
         return y, (k, v)

@@ -8,6 +8,12 @@ the port's dependencies:
 The grouped LoRA delta holds to rtol 1e-4, atol 1e-5 in f32: the kernel
 sums in another order than the plain version (strided K partials, then a
 tree reduction), at K up to 4096.  The transport kernels hold bitwise.
+The flash kernel holds to 2e-6 in f32 and 2e-2 in bf16, the fused LoRA
+matmul to 1e-5 in f32 and 5e-2 in bf16: the tolerances of the reference's
+own kernel tests (tests/test_kernels.py).  Those tests draw short rows,
+whose outputs are about 0.1; over a thousand keys they are about 0.05, so
+bf16 attention is also held row by row: each output row (one query, one
+head) to 2e-2 of its own largest value.
 """
 import numpy as np
 import pytest
@@ -15,7 +21,11 @@ import torch
 
 from repro_torch.core import quantization as qz
 from repro_torch.core import selectors as sel
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_transport as ft
+from repro_torch.kernels import lora_matmul as lm
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import topk_mask as tm
 from repro_torch.kernels.lora_matmul import (grouped_lora_delta,
                                              resolve_grouped_kernel)
@@ -313,3 +323,174 @@ def test_packed_selector_and_accumulate_on_the_card():
             idx, val, 1_000_003, edges)), _bits(flat))
     assert torch.equal(_bits(flat.cpu()), _bits(ft.sparse_accumulate(
         idx.cpu(), val.cpu(), 1_000_003)))
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the fused LoRA matmul (csrc/flash_attention.cu,
+# csrc/lora_matmul.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+LORA_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _assert_attn_close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        d = (got.float() - want.float()).abs().amax(-1)
+        row = d / want.float().abs().amax(-1).clamp_min(1e-30)
+        assert row.max().item() <= tol
+
+
+def _attn(seed, B, S, T, H, KV, hd, dtype):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to("cuda", dtype) for shape in
+               ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,T,H,KV,hd", [
+    (1, 1, 1, 1, 1, 32), (2, 64, 64, 4, 2, 32), (1, 1000, 1000, 8, 2, 64),
+    (1, 100, 37, 4, 4, 128), (2, 37, 100, 6, 3, 128), (1, 257, 257, 32, 4, 128)])
+def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
+    _need_card()
+    q, k, v = _attn(S + T + hd, B, S, T, H, KV, hd, dtype)
+    scale = hd ** -0.5
+    before = fa.FLASH.launches
+    got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.FLASH.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_gqa_equals_prebroadcast_and_oracle(dtype):
+    # ops.flash_attention on K, V repeated per query head gives the GQA call
+    # bit for bit, and both hold to the reference's oracle
+    _need_card()
+    q, k, v = _attn(3, 2, 130, 130, 8, 2, 64, dtype)
+    gqa = fa.flash_attention(q, k, v, causal=True, scale=64 ** -0.5)
+    kb, vb = (t.repeat_interleave(4, dim=2) for t in (k, v))
+    pre = ops.flash_attention(q, kb, vb, causal=True)
+    assert torch.equal(gqa, pre)
+    want = ref.flash_attention_ref(q, kb, vb, causal=True)
+    _assert_attn_close(pre, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_bf16_matches_chunked_attention(causal):
+    # chunked_attention, the model's plain path, keeps the probabilities in
+    # f32 where the bf16 kernel rounds them to bf16
+    _need_card()
+    from repro_torch.models.attention import chunked_attention
+    q, k, v = _attn(5, 1, 1024, 1024, 8, 2, 128, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=causal, scale=128 ** -0.5)
+    want = chunked_attention(q, k, v, 128 ** -0.5, causal=causal, cq=256,
+                             ckv=256)
+    _assert_attn_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_run():
+    _need_card()
+    q, k, v = _attn(4, 1, 16, 16, 2, 1, 64, torch.float32)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        fa.flash_attention(q.requires_grad_(), k, v, scale=0.125)
+    q = q.detach()
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48], scale=0.125)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fa.flash_attention(q.half(), k.half(), v.half(), scale=0.125)
+    with pytest.raises(TypeError, match="k is"):
+        fa.flash_attention(q, k.bfloat16(), v, scale=0.125)
+
+
+def _lora(seed, M, K, N, r, dtype):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32) * np.float32(0.1))
+        .to("cuda", dtype) for shape in ((M, K), (K, N), (K, r), (r, N)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,r", [
+    (100, 300, 200, 5), (128, 256, 128, 8), (256, 512, 256, 64), (1, 1, 1, 1),
+    (65, 33, 70, 17), (3, 0, 5, 2), (7, 40, 9, 0), (512, 4096, 512, 16)])
+def test_lora_matmul_kernel_matches_plain(M, K, N, r, dtype):
+    _need_card()
+    x, w, a, b = _lora(M + K + N + r, M, K, N, r, dtype)
+    before = lm.LORA_MATMUL.launches
+    got = ops.lora_matmul(x, w, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert lm.LORA_MATMUL.launches == before + 1
+    want = lm.lora_matmul_plain(x, w, a, b, 2.0)
+    assert got.dtype == dtype and got.shape == (M, N)
+    tol = LORA_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_lora_matmul_kernel_validates_inputs():
+    _need_card()
+    x, w, a, b = _lora(1, 8, 16, 8, 2, torch.float32)
+    with pytest.raises(TypeError, match="w is"):
+        lm.lora_matmul(x, w.bfloat16(), a, b, 1.0)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        lm.lora_matmul(x.half(), w.half(), a.half(), b.half(), 1.0)
+    with pytest.raises(ValueError, match="chain"):
+        lm.lora_matmul(x, w, a, b.T, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 70001])
+def test_ops_transport_wrappers_equal_their_plain_loops(n):
+    _need_card()
+    x, _ = _rows(n, 1, n)
+    x = x[0]
+    before = tm.THRESHOLD_COUNT.launches
+    got = ops.histogram_threshold(x, 0.25, iters=20)
+    assert tm.THRESHOLD_COUNT.launches == before + 20
+    want = ops.histogram_threshold_plain(x, 0.25, iters=20)
+    assert torch.equal(_bits(got.reshape(1)), _bits(want.reshape(1)))
+    masked, nnz = ops.topk_mask(x, got)
+    assert torch.equal(_bits(masked), _bits(ref.topk_mask_ref(x, got)))
+    assert int(nnz) == int(ref.threshold_count_ref(x, got))
+
+
+@pytest.mark.cuda
+def test_long_prompt_gqa_forward_runs_the_flash_kernel():
+    # at a lowered threshold the model's attention takes the kernel on the
+    # card and chunked_attention on the CPU; both hold the chunk contract
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import init_params
+    _need_card()
+    cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
+                              chunked_attn_threshold=32, attn_chunk_q=16,
+                              attn_chunk_kv=16)
+    params = init_params(A.gqa_spec(cfg), 0, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 48, cfg.d_model), dtype=np.float32))
+    want = A.gqa_forward(params, x, cfg)
+    cuda_params = {k: v.cuda() for k, v in params.items()}
+    before = fa.FLASH.launches
+    with torch.no_grad():
+        got = A.gqa_forward(cuda_params, x.cuda(), cfg)
+    assert fa.FLASH.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="S % cq"):
+        A.gqa_forward(cuda_params, x[:, :40].cuda(), cfg)

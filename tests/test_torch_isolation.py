@@ -21,7 +21,10 @@ def test_import_leaves_jax_out():
             "repro_torch.core.transport, repro_torch.federated, "
             "repro_torch.optim, repro_torch.kernels.fused_transport, "
             "repro_torch.kernels.topk_mask, repro_torch.federated.engine, "
-            "repro_torch.federated.async_clock, repro_torch.core.strategies; "
+            "repro_torch.federated.async_clock, repro_torch.core.strategies, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.models.attention; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -49,6 +52,8 @@ def test_no_port_file_imports_jax_or_repro():
     assert len(files) > 10
     # the numpy-only modules the port copies from the reference too
     assert os.path.join(PORT, "federated", "async_clock.py") in files
+    assert os.path.join(PORT, "kernels", "ref.py") in files
+    assert os.path.join(PORT, "kernels", "ops.py") in files
     for path in files:
         bad = {m for m in _imported_roots(path)
                if m in ("jax", "jaxlib", "repro", "flax", "optax")}

@@ -187,11 +187,72 @@ def test_gqa_forward_and_decode(weights, qk_norm):
             _close(got, want)
 
 
-def test_chunked_attention_threshold_raises():
-    cfg = _tcfg(dataclasses.replace(CFG, chunked_attn_threshold=8))
-    params = TL.init_params(TA.gqa_spec(cfg), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="chunked attention"):
-        TA.gqa_forward(params, torch.zeros(1, 8, cfg.d_model), cfg)
+# chunked_attention's two branches: causal with S == T and at most 8 q
+# chunks skips kv chunks above the diagonal; otherwise every kv chunk is
+# scanned.  (S, T, cq, ckv, causal): skip with nq = 4 and 8; scan with
+# nq = 12, non-causal, and S != T.
+CHUNK_CASES = [(64, 64, 16, 16, True), (64, 64, 8, 16, True),
+               (48, 48, 4, 8, True), (64, 64, 16, 32, False),
+               (32, 64, 8, 16, True)]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,T,cq,ckv,causal", CHUNK_CASES)
+def test_chunked_attention_matches_reference(S, T, cq, ckv, causal, dt):
+    # f32 to atol 2e-5 (test_kernels.py's chunked-vs-oracle tolerance);
+    # bf16 inputs and output to 2e-2, the reference's bf16 attention bound
+    B, KV, G, hd = 2, 2, 2, 16
+    q = _rng_f32(20, B, S, KV * G, hd)
+    k, v = _rng_f32(21, B, T, KV, hd), _rng_f32(22, B, T, KV, hd)
+    jq, jk, jv = (jnp.asarray(a).astype(dt) for a in (q, k, v))
+    tq, tk, tv = (_t(a).to(getattr(torch, dt)) for a in (q, k, v))
+    want = JA.chunked_attention(jq, jk, jv, hd ** -0.5, causal=causal,
+                                window=None, cq=cq, ckv=ckv)
+    got = TA.chunked_attention(tq, tk, tv, hd ** -0.5, causal=causal, cq=cq,
+                               ckv=ckv)
+    assert got.dtype == tq.dtype and tuple(got.shape) == want.shape
+    tol = 2e-5 if dt == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_chunked_attention_keeps_the_chunk_contract():
+    q = _rng_f32(23, 1, 40, 4, 16)
+    kv = _rng_f32(24, 1, 40, 2, 16)
+    for cq, ckv in ((16, 8), (8, 16)):      # 40 % 16 != 0 on either side
+        with pytest.raises(AssertionError):
+            JA.chunked_attention(jnp.asarray(q), jnp.asarray(kv),
+                                 jnp.asarray(kv), 0.25, causal=True,
+                                 window=None, cq=cq, ckv=ckv)
+        with pytest.raises(ValueError, match="S % cq == 0 and T % ckv"):
+            TA.chunked_attention(_t(q), _t(kv), _t(kv), 0.25, causal=True,
+                                 cq=cq, ckv=ckv)
+    with pytest.raises(NotImplementedError, match="sliding windows"):
+        TA.chunked_attention(_t(q), _t(kv), _t(kv), 0.25, causal=True,
+                             window=8, cq=8, ckv=8)
+
+
+@pytest.mark.parametrize("S,chunk", [(32, 8), (48, 4)])
+def test_gqa_forward_long_prompt_matches_reference(weights, S, chunk):
+    # at a lowered threshold both packages take their chunked path: 4 q
+    # chunks (the skipping branch) and 12 (the scan); cache k/v included
+    cfg = dataclasses.replace(CFG, chunked_attn_threshold=32,
+                              attn_chunk_q=chunk, attn_chunk_kv=chunk)
+    params = _init(JA.gqa_spec(cfg), 25)
+    lora = _layer0(weights[2]["g0"]["attn"])
+    x = _rng_f32(26, 2, S, cfg.d_model)
+    y_j, (k_j, v_j) = jax.jit(lambda p, x, l: JA.gqa_forward(
+        p, x, cfg, lora=l, lora_scale=2.0, return_kv=True))(params, x, lora)
+    y_t, (k_t, v_t) = TA.gqa_forward(
+        tree_from_numpy(params, device="cpu"), _t(x), _tcfg(cfg),
+        lora=tree_from_numpy(lora, device="cpu"), lora_scale=2.0,
+        return_kv=True)
+    for got, want in ((y_t, y_j), (k_t, k_j), (v_t, v_j)):
+        _close(got, want)
+    with pytest.raises(ValueError, match="S % cq"):
+        TA.gqa_forward(tree_from_numpy(params, device="cpu"),
+                       _t(_rng_f32(27, 1, S + 2, cfg.d_model)), _tcfg(cfg))
 
 
 def test_forward_prefill_decode_match_reference(weights):

@@ -218,6 +218,44 @@ def test_engine_matches_single_adapter_reference(setup):
             assert rep.completions[req.rid] == want, req
 
 
+def test_long_prompts_match_reference_engine():
+    # the long-prompt slice end to end: the smoke config with its chunked
+    # path lowered to 32 tokens (chunks of 16) serves prompts of 32 and 48
+    # tokens; completions and cache counters equal the reference engine's
+    from repro.configs.registry import get_config as jax_config
+    from repro_torch.configs.registry import get_config as torch_config
+    over = dict(chunked_attn_threshold=32, attn_chunk_q=16, attn_chunk_kv=16)
+    cfg = dataclasses.replace(jax_config("yi-9b", smoke=True), **over)
+    tcfg = dataclasses.replace(torch_config("yi-9b", smoke=True), **over)
+    spec = JM.model_spec(cfg)
+    params = jax.tree.map(np.asarray, jax.jit(
+        lambda k: JL.init_params(spec, k))(jax.random.key(4)))
+    lcfg = JLoRAConfig(rank=4, alpha=8, dtype="float32")
+    make = jax.jit(lambda c: _nonzero_lora(cfg, lcfg, c))
+    adapters = {c: jax.tree.map(np.asarray, make(c)) for c in range(3)}
+    trace = JS.synth_trace(4, 3, cfg.vocab_size, seed=7,
+                           prompt_buckets=(32, 48), gen_range=(2, 4))
+    assert {r.prompt_len for r in trace} == {32, 48}
+    jstore, tstore = JS.HostAdapterStore(), TS.HostAdapterStore()
+    for c, lt in adapters.items():
+        jstore.put(c, lt)
+        tstore.put(c, lt)
+    want = JS.ServingEngine(
+        jax.tree.map(jnp.asarray, params), cfg,
+        JS.PagedAdapterCache(jstore, jstore.get(0), pages=2), n_lanes=2,
+        lora_scale=lcfg.scale, max_len=52).run(trace)
+    got = TS.ServingEngine(
+        tree_from_numpy(params, device="cpu"), tcfg,
+        TS.PagedAdapterCache(tstore, tstore.get(0), pages=2, device="cpu"),
+        n_lanes=2, lora_scale=lcfg.scale, max_len=52, device="cpu").run(trace)
+    assert len(got.completions) == len(trace) == 4
+    assert got.completions == want.completions
+    assert got.cache == want.cache
+    for f in ("steps", "prefills", "decode_tokens", "generated_tokens",
+              "mean_occupancy", "stalls"):
+        assert getattr(got, f) == getattr(want, f), f
+
+
 def test_cli_serves_every_request_on_cpu(capsys):
     rep = torch_serve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
                             "--requests", "6", "--clients", "3",
