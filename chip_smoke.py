@@ -5,7 +5,10 @@
 
 Phases, each fatal on failure:
   1. build    -- compile every CUDA source under src/repro_torch/csrc/ with
-                 nvcc (one process per source, all started together).
+                 nvcc (one process per source, all started together); print
+                 each kernel's registers, shared memory and spills, and fail
+                 if a kernel built on csrc/hopper.cuh spills or ptxas
+                 serialised its wgmma or ignored its setmaxnreg.
   2. kernels  -- each kernel against its plain PyTorch version on the card
                  at the serving decode shapes (f32, rtol 1e-4 / atol 1e-5:
                  the summation order differs); times the kernel, the plain
@@ -73,14 +76,18 @@ Phases, each fatal on failure:
                  uploads.
   10. ops      -- the `kernels/ops.py` entry point: `lora_matmul` once per
                  Yi-9B projection for an 8192-row prompt in bf16 (launches
-                 counted), each output against its plain version, plus f32
-                 at (4096, 4096) and a ragged (M, K, N, r) = (100, 300, 200,
-                 5); `flash_attention` (GQA: B 1, H 32, KV 4, hd 128) at
-                 S = T = 8192 and 1000, bf16 and f32, causal and not,
-                 against its plain version, at 8192 in bf16 also against
-                 `chunked_attention` (f32 probabilities), and the
-                 pre-broadcast `ops.flash_attention` bitwise equal to the
-                 GQA call; `ops.topk_mask` and `ops.histogram_threshold`
+                 counted, every one on the wgmma route), each output
+                 against its plain version, plus bf16 at M = 8191 (wgmma),
+                 f32 at (4096, 4096) (fma) and a ragged (M, K, N, r) = (100,
+                 300, 200, 5) in bf16 (mma_sync) and f32; `flash_attention`
+                 (GQA: B 1, H 32, KV 4, hd 128) at S = T = 8192 and 1000,
+                 bf16 (wgmma) and f32 (fma), causal and not, and at B 2,
+                 S 1000, T 1100 in bf16 with hd 128 (wgmma, H 32, KV 4) and
+                 hd 64 (mma_sync, H 8, KV 2), against its plain version, at
+                 8192 in bf16 also against `chunked_attention` (f32
+                 probabilities), and the pre-broadcast `ops.flash_attention`
+                 bitwise equal to the GQA call; each call's route is
+                 counted.  `ops.topk_mask` and `ops.histogram_threshold`
                  bitwise against their plain loops at the Yi-9B LoRA
                  length.  Tolerances: f32 attention 2e-6, f32 matmul 1e-5
                  x sqrt(K / 512), bf16 5e-2 matmul and 2e-2 attention,
@@ -90,10 +97,11 @@ Phases, each fatal on failure:
   11. long-prefill -- `ServingEngine` on Yi-9B at full width and depth in
                  bf16: 4 tenants, rank-16 adapters, 2 pages, 2 lanes, 4
                  requests with prompts of 8192 or 9216 tokens.  The flash
-                 kernel's launch count is zeroed just before and read just
-                 after: it must equal prefills x 48; the grouped kernel's
-                 must equal decode steps x 48 x 4.  Prefill ms per request,
-                 decode ms per step, tok/s and peak memory are printed.
+                 kernel's launch counts are zeroed just before and read just
+                 after: they must equal prefills x 48, every one on the
+                 wgmma route; the grouped kernel's must equal decode steps
+                 x 48 x 4.  Prefill ms per request, decode ms per step,
+                 tok/s and peak memory are printed.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6 and over one 8192-token
 prefill of phase 11's engine, and writes their traces under chiprun_out/.
@@ -111,6 +119,7 @@ import dataclasses
 import gzip
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -188,6 +197,89 @@ def device_ms(fn, n_iter: int) -> float:
             return start.elapsed_time(end) / n_iter
         cycles *= 4
     raise PhaseError("could not hold the stream while queueing the calls")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the build's report
+# ---------------------------------------------------------------------------
+
+# the kernels built on csrc/hopper.cuh (TMA, mbarriers, wgmma, setmaxnreg)
+HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel")
+
+
+def kernel_name(mangled: str) -> str:
+    """`flash_bf16_kernel<128>` from the mangled name of a kernel in an
+    anonymous namespace of csrc/<file>.cu (the mangled name where it does
+    not parse)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+    if not m or len(m.group(2)) < int(m.group(1)):
+        return mangled
+    name, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
+    arg = re.match(r"IL[ib](\d+)E", rest)
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
+def ptxas_kernels(log: str):
+    """[(kernel, report)] from one library's `nvcc -Xptxas -v` output: each
+    kernel's registers, shared memory, stack frame and spills, in the
+    compiler's words."""
+    out, name, report = [], None, []
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            if name:
+                out.append((name, "; ".join(report)))
+            name, report = kernel_name(line.split("'")[1]), []
+        elif name and ("spill" in line or "registers" in line):
+            report.append(line.replace("ptxas info    :", "").strip())
+    if name:
+        out.append((name, "; ".join(report)))
+    return out
+
+
+def build_report(libs) -> None:
+    """Print every kernel's registers, shared memory and spills, and every
+    compiler warning.  Fail if a library's compiler log is missing, if a
+    kernel built on hopper.cuh is not in its library's log with its stack
+    frame and spill counts, if it has any of them, or if ptxas serialised
+    its wgmma or ignored its setmaxnreg (each of which quietly costs most
+    of what the design buys)."""
+    checked = {}
+    for lib, path in sorted(libs.items()):
+        log_path = path.with_suffix(".so.log")
+        check(log_path.exists(), f"{lib}: no compiler log at {log_path}")
+        log = log_path.read_text()
+        for name, report in ptxas_kernels(log):
+            print(f"[build] {lib}: {name}: {report}")
+            if name in HOPPER_KERNELS:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", report)
+                check(m is not None,
+                      f"{name}: no stack frame and spill counts in {report!r}")
+                check(not any(int(c) for c in m.groups()),
+                      f"{name} has a stack frame or spills: {report}")
+                checked[name] = report
+        warnings = [ln.strip() for ln in log.splitlines()
+                    if "warning" in ln.lower() or "C7508" in ln]
+        for ln in warnings:
+            print(f"[build] {lib}: {ln}")
+        if lib in ("flash_attention", "lora_matmul"):
+            check(not any("wgmma" in ln or "setmaxnreg" in ln or "C75" in ln
+                          for ln in warnings),
+                  f"ptxas serialised the wgmma or ignored setmaxnreg in {lib}")
+    missing = [k for k in HOPPER_KERNELS if k not in checked]
+    check(not missing, f"the compiler logs report no {missing}")
+    import ctypes
+    from repro_torch.kernels import _build
+    for lib in ("flash_attention", "lora_matmul"):
+        vals = [ctypes.c_int() for _ in range(3)]
+        getattr(_build.load(lib), f"{lib}_wgmma_config")(
+            *(ctypes.byref(v) for v in vals))
+        print(f"[build] {lib}: {HOPPER_KERNELS[lib == 'lora_matmul']}: "
+              f"{vals[0].value} bytes dynamic shared memory, setmaxnreg "
+              f"{vals[1].value} registers (producer) / {vals[2].value} "
+              "(consumers)")
+    print(f"[build] {', '.join(HOPPER_KERNELS)}: no stack frame, no spills, "
+          "no wgmma serialisation, no ignored setmaxnreg")
 
 
 # ---------------------------------------------------------------------------
@@ -1588,48 +1680,75 @@ def ops_phase(seed: int):
               f"flash_attention disagrees at {what}")
         return err, row
 
-    # the path: ops.lora_matmul once per Yi-9B projection, bf16, 8192 rows
+    # the path: ops.lora_matmul once per Yi-9B projection, bf16, 8192 rows,
+    # every call on the wgmma route
     inputs = {p: lora_inputs(gen, LONG_S, K, N, LORA_RANK, "bfloat16")
               for p, (K, N) in YI_PROJ.items()}
-    lm.LORA_MATMUL.launches = 0
+    lm.LORA_MATMUL.reset()
     outs = {p: ops.lora_matmul(*inputs[p], scale) for p in YI_PROJ}
     torch.cuda.synchronize()
     lora_launches = lm.LORA_MATMUL.launches
-    check(lora_launches == len(YI_PROJ),
-          f"lora_matmul launched {lora_launches} times for {len(YI_PROJ)} "
-          "ops calls")
+    lora_routes = dict(lm.LORA_MATMUL.launches_by_route)
+    print(f"[ops] lora_matmul launches {lora_launches}, by route "
+          f"{json.dumps(lora_routes)}, for {len(YI_PROJ)} ops calls")
+    check(lora_launches == len(YI_PROJ) and
+          lora_routes == {"wgmma": len(YI_PROJ)},
+          f"lora_matmul launched {lora_routes} for {len(YI_PROJ)} ops calls, "
+          "expected all on the wgmma route")
     for p, (K, N) in YI_PROJ.items():
         want = lm.lora_matmul_plain(*inputs[p], scale)
         lora_err = max(lora_err, held(
             "lora_matmul", outs[p], want, lora_tol("bfloat16", K),
-            f"{p} (M, K, N, r) = ({LONG_S}, {K}, {N}, {LORA_RANK}) bf16"))
+            f"{p} (M, K, N, r) = ({LONG_S}, {K}, {N}, {LORA_RANK}) bf16, "
+            "route wgmma"))
     del outs, want
-    for M, K, N, r, dt in ((LONG_S, 4096, 4096, LORA_RANK, "float32"),
+    # a ragged M on the wgmma route; f32 (fma) and unaligned bf16
+    # (mma_sync), the shapes the first kernels still serve
+    for M, K, N, r, dt in ((LONG_S - 1, 4096, 4096, LORA_RANK, "bfloat16"),
+                           (LONG_S, 4096, 4096, LORA_RANK, "float32"),
                            (100, 300, 200, 5, "bfloat16"),
                            (100, 300, 200, 5, "float32")):
         x = lora_inputs(gen, M, K, N, r, dt)
+        route = lm.lora_route(getattr(torch, dt), K, N)
+        n_route = lm.LORA_MATMUL.launches_by_route.get(route, 0)
+        got = lm.lora_matmul(*x, scale)
+        check(lm.LORA_MATMUL.launches_by_route.get(route, 0) == n_route + 1,
+              f"lora_matmul at ({M}, {K}, {N}, {r}) {dt} missed route {route}")
         lora_err = max(lora_err, held(
-            "lora_matmul", lm.lora_matmul(*x, scale),
-            lm.lora_matmul_plain(*x, scale), lora_tol(dt, K),
-            f"(M, K, N, r) = ({M}, {K}, {N}, {r}) {dt}"))
+            "lora_matmul", got, lm.lora_matmul_plain(*x, scale),
+            lora_tol(dt, K),
+            f"(M, K, N, r) = ({M}, {K}, {N}, {r}) {dt}, route {route}"))
+        del x, got
 
-    # flash attention, GQA, at the long prompt's shapes and a ragged one;
-    # at 8192 tokens in bf16 also against chunked_attention, which keeps the
+    # flash attention, GQA, at the long prompt's shapes and ragged ones (B 2,
+    # T past S; hd 64 keeps the first, mma.sync kernel, f32 the FMA one); at
+    # 8192 tokens in bf16 also against chunked_attention, which keeps the
     # probabilities in f32 where the kernel rounds them to bf16
     hd = 128
     main_err, chunked = None, {}
-    for S, dt, causal in ((LONG_S, "bfloat16", True),
-                          (LONG_S, "bfloat16", False),
-                          (LONG_S, "float32", True),
-                          (LONG_S, "float32", False),
-                          (1000, "bfloat16", True), (1000, "float32", True),
-                          (1000, "bfloat16", False), (1000, "float32", False)):
-        q, k, v = attn_inputs(gen, 1, S, S, 32, 4, hd, dt)
-        got = fa.flash_attention(q, k, v, causal=causal, scale=hd ** -0.5)
+    for B, S, T, H, KV, hd_, dt, causal in (
+            (1, LONG_S, LONG_S, 32, 4, hd, "bfloat16", True),
+            (1, LONG_S, LONG_S, 32, 4, hd, "bfloat16", False),
+            (1, LONG_S, LONG_S, 32, 4, hd, "float32", True),
+            (1, LONG_S, LONG_S, 32, 4, hd, "float32", False),
+            (1, 1000, 1000, 32, 4, hd, "bfloat16", True),
+            (1, 1000, 1000, 32, 4, hd, "float32", True),
+            (1, 1000, 1000, 32, 4, hd, "bfloat16", False),
+            (1, 1000, 1000, 32, 4, hd, "float32", False),
+            (2, 1000, 1100, 32, 4, hd, "bfloat16", True),
+            (2, 1000, 1100, 32, 4, hd, "bfloat16", False),
+            (2, 1000, 1100, 8, 2, 64, "bfloat16", True),
+            (2, 1000, 1100, 8, 2, 64, "bfloat16", False)):
+        q, k, v = attn_inputs(gen, B, S, T, H, KV, hd_, dt)
+        route = fa.flash_route(getattr(torch, dt), hd_)
+        n_route = fa.FLASH.launches_by_route.get(route, 0)
+        got = fa.flash_attention(q, k, v, causal=causal, scale=hd_ ** -0.5)
+        check(fa.FLASH.launches_by_route.get(route, 0) == n_route + 1,
+              f"flash_attention at {tuple(q.shape)} {dt} missed route {route}")
         want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                        scale=hd ** -0.5)
-        what = (f"B 1, S = T = {S}, H 32, KV 4, hd {hd}, {dt}, "
-                f"{'causal' if causal else 'full'}")
+                                        scale=hd_ ** -0.5)
+        what = (f"B {B}, S {S}, T {T}, H {H}, KV {KV}, hd {hd_}, {dt}, "
+                f"{'causal' if causal else 'full'}, route {route}")
         err, row = attn_held(got, want, what)
         attn_err = max(attn_err, err)
         if dt == "bfloat16":
@@ -1678,15 +1797,17 @@ def ops_phase(seed: int):
         x, w, a, b = inputs[p]
         xa = lm.lora_xa(x, a)
         y = torch.empty(LONG_S, N, dtype=x.dtype, device="cuda")
+        route = lm.lora_route(x.dtype, K, N)
 
-        def kernel(i, x=x, w=w, xa=xa, b=b, y=y, K=K, N=N):
+        def kernel(i, x=x, w=w, xa=xa, b=b, y=y, K=K, N=N, route=route):
             lm.LORA_MATMUL(x.device, x.data_ptr(), w.data_ptr(),
                            xa.data_ptr(), b.data_ptr(), y.data_ptr(), LONG_S,
-                           K, N, LORA_RANK, 0, scale)
+                           K, N, LORA_RANK, 0, scale, lm.LORA_ROUTES[route])
 
+        check(route == "wgmma", f"lora_matmul {p} takes route {route}")
         bound, by = lora_bound(LONG_S, K, N, LORA_RANK, "bfloat16")
         row = {"proj": p, "M": LONG_S, "K": K, "N": N, "r": LORA_RANK,
-               "dtype": "bfloat16",
+               "dtype": "bfloat16", "route": route,
                "ms": device_ms(kernel, 10),
                "wrapper_ms": device_ms(
                    lambda i: ops.lora_matmul(x, w, a, b, scale), 10),
@@ -1707,16 +1828,18 @@ def ops_phase(seed: int):
         q, k, v = attn_inputs(gen, 1, LONG_S, LONG_S, 32, 4, hd, dt)
         out = torch.empty_like(q)
         qh, kh, vh = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+        route = fa.flash_route(q.dtype, hd)
 
-        def kernel(i, q=q, k=k, v=v, out=out, dt=dt, causal=causal):
+        def kernel(i, q=q, k=k, v=v, out=out, causal=causal, route=route):
             fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), 1, LONG_S, LONG_S, 32, 4, hd,
-                     fa.DTYPES[q.dtype], int(causal), hd ** -0.5)
+                     fa.DTYPES[q.dtype], int(causal), hd ** -0.5,
+                     fa.ROUTES[route])
 
         n = 10 if dt == "bfloat16" else 3
         bound, by = attn_bound(1, LONG_S, LONG_S, 32, 4, hd, dt, causal)
         row = {"B": 1, "S": LONG_S, "T": LONG_S, "H": 32, "KV": 4, "hd": hd,
-               "dtype": dt, "causal": causal,
+               "dtype": dt, "causal": causal, "route": route,
                "ms": device_ms(kernel, n),
                "wrapper_ms": device_ms(lambda i: fa.flash_attention(
                    q, k, v, causal=causal, scale=hd ** -0.5), n),
@@ -1732,8 +1855,8 @@ def ops_phase(seed: int):
         torch.cuda.empty_cache()
     return {"lora_err": lora_err, "attn_err": attn_err, "attn_row": attn_row,
             "attn_main": main_err, "attn_chunked": chunked,
-            "lora_launches": lora_launches, "lora_rows": rows,
-            "attn_rows": attn_rows}
+            "lora_launches": lora_launches, "lora_routes": lora_routes,
+            "lora_rows": rows, "attn_rows": attn_rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1822,10 +1945,11 @@ def long_prefill_phase(seed: int, profile: bool = False):
     eng._prefill = timed_prefill
     grouped = resolve_grouped_kernel("grouped_pallas")
     torch.cuda.reset_peak_memory_stats()
-    fa.FLASH.launches = 0
+    fa.FLASH.reset()
     grouped.launches = 0
     rep = eng.run(trace)
     flash_launches, grouped_launches = fa.FLASH.launches, grouped.launches
+    flash_routes = dict(fa.FLASH.launches_by_route)
     peak = torch.cuda.max_memory_allocated() / 2**30
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in tree_leaves(eng.params))
@@ -1843,7 +1967,8 @@ def long_prefill_phase(seed: int, profile: bool = False):
           f"{rep.cache['evictions']} evictions; peak device memory "
           f"{peak:.2f} GiB")
     print(f"[long-prefill] flash_attention launches {flash_launches} = "
-          f"{rep.prefills} prefills x {cfg.num_layers}; grouped_pallas "
+          f"{rep.prefills} prefills x {cfg.num_layers}, by route "
+          f"{json.dumps(flash_routes)}; grouped_pallas "
           f"launches {grouped_launches} = {rep.steps} steps x "
           f"{cfg.num_layers} x 4")
     check(len(rep.completions) == len(trace) == rep.requests,
@@ -1858,12 +1983,16 @@ def long_prefill_phase(seed: int, profile: bool = False):
     check(flash_launches == rep.prefills * cfg.num_layers > 0,
           f"flash_attention launched {flash_launches} times, expected "
           f"{rep.prefills} x {cfg.num_layers}")
+    check(flash_routes == {"wgmma": flash_launches},
+          f"flash_attention launches by route {flash_routes}: every prefill "
+          "launch must take the wgmma route")
     check(grouped_launches == rep.steps * cfg.num_layers * 4,
           f"grouped_pallas launched {grouped_launches} times, expected "
           f"{rep.steps} x {cfg.num_layers} x 4")
     if profile:
         profile_prefill(eng, seed)
-    return {"flash": flash_launches, "prefills": rep.prefills,
+    return {"flash": flash_launches, "flash_routes": flash_routes,
+            "prefills": rep.prefills,
             "prefill_ms": [ms for _, ms in prefill_ms],
             "decode_ms": 1e3 * rep.decode_s / max(rep.steps, 1),
             "tok_s": rep.tokens_per_s, "peak_gib": peak,
@@ -1895,11 +2024,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     print(f"[build] {', '.join(sorted(libs))} in {time.perf_counter() - t0:.1f}s")
-    for name, path in sorted(libs.items()):
-        log = path.with_suffix(".so.log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    build_report(libs)
 
     t0 = time.perf_counter()
     entry = kernel_phase(args.seed)
@@ -2006,6 +2131,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:58",
         "launches": long_res["flash"],
+        "launches_by_route": long_res["flash_routes"],
         "path": "long-prefill, 48 per prefill",
         "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
         "max_abs_err": ops_res["attn_err"],
@@ -2016,17 +2142,20 @@ def main() -> int:
         "plain_ms": amain["plain_ms"], "bound_ms": amain["bound_ms"],
         "bound_by": amain["bound_by"], "library_ms": amain["library_ms"],
         "library": "F.scaled_dot_product_attention(enable_gqa=True)",
+        "route_timed": amain["route"],
         "wrapper_ms": amain["wrapper_ms"], "timings": ops_res["attn_rows"]})
     entries.append({
         "name": "lora_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/lora_matmul.cu",
         "replaces": "src/repro/kernels/lora_matmul.py:66",
-        "launches": ops_res["lora_launches"], "path": "ops phase",
+        "launches": ops_res["lora_launches"],
+        "launches_by_route": ops_res["lora_routes"], "path": "ops phase",
         "shape": "(M, K, N, r) = (8192, 4096, 4096, 16) bf16",
         "max_abs_err": ops_res["lora_err"], "ms": lmain["ms"],
         "plain_ms": lmain["plain_ms"], "bound_ms": lmain["bound_ms"],
         "bound_by": lmain["bound_by"], "library_ms": lmain["library_ms"],
         "library": "torch.matmul(x, w) + scale * torch.matmul(xa, b)",
+        "route_timed": lmain["route"],
         "wrapper_ms": lmain["wrapper_ms"], "timings": ops_res["lora_rows"]})
     print(json.dumps({"kernels": entries}))
     print(card_line())

@@ -33,11 +33,35 @@
 // What bounds it on an H100: at the long-prompt shapes (S = T = 8192,
 // H = 32, hd = 128) a causal call does 4 S T hd H / 2 = 5.5e11 flop against
 // 0.27 GB of q, k, v and out: 0.56 ms of bf16 tensor-core work against
-// 0.08 ms of bytes.  It is bound by operations.
+// 0.08 ms of bytes.  It is bound by operations, so the design goal is to
+// keep the tensor cores fed.
 //
-// Design (first version: right and simple; wgmma, TMA and warp
-// specialisation are later work):
-//   bf16: grid (B*H, ceil(S/64)), 4 warps; each warp owns 16 query rows.
+// Three kernels; the caller (kernels/flash_attention.py::flash_route) picks
+// one from dtype and hd alone, before the launch, and passes it as `route`:
+//
+//   route 0, "wgmma" -- bf16, hd 128 (Yi-9B and every long prompt).  One
+//     block owns 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows each and one producer warpgroup, of which one
+//     thread issues TMA loads.  The tensor maps span the real 4-D layouts
+//     (hd, heads, seq, batch), boxes of (64, 1, 128, 1), so TMA zero-fills
+//     and clips at each sequence's end, never reading the next batch's
+//     rows.  Q (32 KB) is loaded once; 128-key K and V tiles (32 KB each)
+//     stream through a ring of two stages, each of K and V with a full and
+//     an empty mbarrier, so the next tile's loads run under this one's
+//     math.  S = Q K^T is wgmma m64n128k16 from shared memory (both
+//     K-major, 8 steps over hd); scale (folded with log2 e, so exp2f), the
+//     causal / ragged mask on the tiles that need it, and the online
+//     softmax run on the f32 accumulator (row max and sum over the 4 lanes
+//     that share a row); p is rounded to bf16 in registers and is the A
+//     operand of acc += P V, wgmma m64n128k16 with A from registers and V
+//     read MN-major through the transpose bit.  acc stays in registers.
+//     setmaxnreg gives the producer 24 registers and the consumers 240
+//     (at 232 the consumers spill).
+//     Shared memory 160 KB.  Not yet: overlap of one tile's softmax with
+//     the next tile's Q K^T inside a warpgroup, and a ping-pong schedule
+//     between the two consumer warpgroups.
+//   route 1, "mma_sync" -- the first version, for bf16 with hd 32
+//     and 64: grid (B*H, ceil(S/64)), 4 warps; each warp owns 16 query rows.
 //     The q tile is staged through shared memory into mma.sync A fragments
 //     held in registers for the whole kernel.  64-key tiles of K and V rows
 //     stream into two shared-memory buffers by cp.async (zero-filled past
@@ -49,22 +73,26 @@
 //     accumulate), whose B fragments come from the V rows by
 //     ldmatrix.trans.  Rows of smem are padded by 8 bf16 so each 8-row
 //     ldmatrix phase hits 32 distinct banks.
-//   f32: the same tiling with FMA instead of tensor cores (TF32 would move
-//     f32 results by 1e-3): 256 threads as 16 x 16, each thread owning
-//     4 query rows x 4 keys of a score tile and 4 rows x hd/16 columns of
-//     acc; p goes through shared memory between the two products.
+//   route 2, "fma" -- f32: the same tiling with FMA instead of tensor cores
+//     (TF32 would move f32 results by 1e-3): 256 threads as 16 x 16, each
+//     thread owning 4 query rows x 4 keys of a score tile and 4 rows x
+//     hd/16 columns of acc; p goes through shared memory between the two
+//     products.
 //   Query tiles are issued last-first so the causal tiles with the most
-//   keys start first.  expf, not __expf; no fast math.
+//   keys start first.  Routes 1 and 2 use expf, route 0 exp2f of the
+//   log2-scaled scores; no fast math.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;   // the reference's mask value
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// route 1, bf16: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;             // query rows per block (16 per warp)
@@ -72,10 +100,7 @@ constexpr int kBKV = 64;            // keys per tile
 constexpr int kPad = 8;             // bf16 of padding per shared-memory row
 constexpr int kThreadsMma = 128;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack_bf16;
 
 // d += a (16x16, row) * b (16x8, col); bf16 inputs, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
@@ -327,7 +352,232 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA
+// route 0, bf16, hd 128: TMA, an mbarrier ring, wgmma, a producer warpgroup
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 128;            // query rows per block, 64 a consumer
+constexpr int kWgKeys = 128;            // keys per K / V tile
+constexpr int kWgStages = 2;            // K / V ring
+constexpr int kWgThreads = 384;         // consumers: warpgroups 0, 1; producer: 2
+constexpr int kWgProducerRegs = 24;   // setmaxnreg, per thread
+constexpr int kWgConsumerRegs = 240;   // (24 + 2 x 240) x 128 = 168 x 384
+constexpr int kWgBox = 128 * 64 * 2;    // one TMA box: 128 rows x 64 bf16
+constexpr int kWgTile = 2 * kWgBox;     // a 128 x 128 bf16 tile (two boxes)
+constexpr int kWgBars = 1 + 4 * kWgStages;
+// Q, then per stage K and V; barriers after; 1 KB of slack to align the base
+constexpr int kWgSmem = 1024 + kWgTile * (1 + 2 * kWgStages) + 8 * kWgBars;
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   __nv_bfloat16* __restrict__ out, int S, int T, int H,
+                   int KV, float scale_log2, int causal) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = base;                                     // box c: hd 64c..
+  auto ks = [&](int s) { return base + kWgTile * (1 + 2 * s); };
+  auto vs = [&](int s) { return base + kWgTile * (2 + 2 * s); };
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      base + kWgTile * (1 + 2 * kWgStages));
+  uint64_t* k_full = q_full + 1;                          // [kWgStages] each
+  uint64_t* v_full = k_full + kWgStages;
+  uint64_t* k_empty = v_full + kWgStages;
+  uint64_t* v_empty = k_empty + kWgStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  int n_tiles = (T + kWgKeys - 1) / kWgKeys;
+  if (causal) {
+    n_tiles = min(n_tiles, (min(q0 + kWgRows, S) - 1) / kWgKeys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&k_full[s], 1);             // the producer's expect_tx
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);            // one arrival per consumer warp
+      mbar_init(&v_empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every load; the rest of the warpgroup
+    // only hands back its registers
+    setmaxnreg_dec<kWgProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, kWgTile);
+      tma_load_4d(qs, &tm_q, q_full, 0, h, q0, b);
+      tma_load_4d(qs + kWgBox, &tm_q, q_full, 64, h, q0, b);
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int s = jt % kWgStages;
+        const uint32_t ph = (jt / kWgStages) & 1;
+        const int j0 = jt * kWgKeys;
+        mbar_wait(&k_empty[s], ph ^ 1);
+        mbar_arrive_expect_tx(&k_full[s], kWgTile);
+        tma_load_4d(ks(s), &tm_k, &k_full[s], 0, kh, j0, b);
+        tma_load_4d(ks(s) + kWgBox, &tm_k, &k_full[s], 64, kh, j0, b);
+        mbar_wait(&v_empty[s], ph ^ 1);
+        mbar_arrive_expect_tx(&v_full[s], kWgTile);
+        tma_load_4d(vs(s), &tm_v, &v_full[s], 0, kh, j0, b);
+        tma_load_4d(vs(s) + kWgBox, &tm_v, &v_full[s], 64, kh, j0, b);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows row0 .. row0 + 63
+    setmaxnreg_inc<kWgConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + wg * 64;
+    const int r_lo = row0 + warp * 16 + g, r_hi = r_lo + 8;
+    const uint32_t q_addr = smem_addr(qs) + wg * 64 * 128;
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};            // this thread's part of each row sum
+
+    mbar_wait(q_full, 0);
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      const int s = jt % kWgStages;
+      const uint32_t ph = (jt / kWgStages) & 1;
+      const int j0 = jt * kWgKeys;
+
+      // scores: sc[4 j + e] is row r_lo (e < 2) or r_hi, key j0 + 8 j + 2 t
+      // + (e & 1)
+      float sc[64];
+      mbar_wait(&k_full[s], ph);
+      const uint32_t k_addr = smem_addr(ks(s));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off = (kk / 4) * kWgBox + (kk % 4) * 32;
+        wgmma_m64n128k16_ss(sc, desc_sw128(q_addr + off, 16, 1024),
+                               desc_sw128(k_addr + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&k_empty[s]);
+
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+      if (j0 + kWgKeys > T || (causal && j0 + kWgKeys - 1 > row0)) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int key = j0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int qpos = (i & 2) ? r_hi : r_lo;
+          if (key >= T) {
+            sc[i] = -INFINITY;            // absent: weighs exactly 0
+          } else if (causal && key > qpos) {
+            sc[i] = kNegInf;
+          }
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      float corr[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        corr[rr] = exp2f(m[rr] - mx[rr]);
+        m[rr] = mx[rr];
+        l[rr] *= corr[rr];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int rr = (i >> 1) & 1;
+        sc[i] = exp2f(sc[i] - m[rr]);
+        l[rr] += sc[i];
+        o[i] *= corr[rr];
+      }
+      // p in bf16 as the A operand: keys 16 kk .. 16 kk + 15 are the
+      // accumulator chunks 2 kk and 2 kk + 1
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+
+      mbar_wait(&v_full[s], ph);
+      const uint32_t v_addr = smem_addr(vs(s));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_m64n128k16_rs(o, pa[kk],
+                               desc_sw128(v_addr + kk * 2048, kWgBox, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&v_empty[s]);
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qpos = rr ? r_hi : r_lo;
+      if (qpos >= S) continue;
+      const float den = fmaxf(l[rr], 1e-30f);
+      __nv_bfloat16* orow = out + (static_cast<size_t>(b) * S + qpos) * H * 128 +
+                            static_cast<size_t>(h) * 128;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(o[4 * j + 2 * rr] / den,
+                                  o[4 * j + 2 * rr + 1] / den);
+      }
+    }
+  }
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
+                 int S, int T, int H, int KV, int causal, float scale,
+                 cudaStream_t stream) {
+  // 4-D maps over (hd, heads, seq, batch), 128 hd of 2 bytes
+  CUtensorMap tq, tk, tv;
+  const uint64_t qdim[4] = {128, static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t qstr[3] = {256, 256ull * H, 256ull * H * S};
+  const uint64_t kdim[4] = {128, static_cast<uint64_t>(KV),
+                            static_cast<uint64_t>(T), static_cast<uint64_t>(B)};
+  const uint64_t kstr[3] = {256, 256ull * KV, 256ull * KV * T};
+  const uint32_t box[4] = {64, 1, kWgRows, 1};
+  int err = hopper::make_tensor_map_bf16(&tq, q, 4, qdim, qstr, box);
+  if (err == 0) err = hopper::make_tensor_map_bf16(&tk, k, 4, kdim, kstr, box);
+  if (err == 0) err = hopper::make_tensor_map_bf16(&tv, v, 4, kdim, kstr, box);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * H, (S + kWgRows - 1) / kWgRows);
+  flash_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, T, H, KV,
+      scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// route 2, f32: FMA
 // ---------------------------------------------------------------------------
 
 constexpr int kThreadsF32 = 256;    // 16 x 16
@@ -486,33 +736,40 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// route 1: bf16, hd 32 or 64
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T, int H, int KV, int dtype, int causal, float scale,
-           cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
+               int S, int T, int H, int KV, int causal, float scale,
+               cudaStream_t stream) {
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  if (dtype == 0) {
-    constexpr int bytes = MmaSmem<HD>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bf16_kernel<HD><<<grid, kThreadsMma, bytes, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), S, T, H, KV, scale, causal);
-  } else {
-    constexpr int bytes = F32Smem<HD>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_f32_kernel<HD><<<grid, kThreadsF32, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), S, T, H, KV,
-        scale, causal);
-  }
+  constexpr int bytes = MmaSmem<HD>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bf16_kernel<HD><<<grid, kThreadsMma, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), S, T, H, KV, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// route 2: f32, hd 32, 64 or 128
+template <int HD>
+int launch_fma(const void* q, const void* k, const void* v, void* out, int B,
+               int S, int T, int H, int KV, int causal, float scale,
+               cudaStream_t stream) {
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  constexpr int bytes = F32Smem<HD>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_f32_kernel<HD><<<grid, kThreadsF32, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, T, H, KV,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,25 +777,47 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
 // caller checks devices, dtypes and contiguity, and that the pointers are
-// 16-byte aligned; B, S, T, H >= 1 and H % KV == 0.  dtype 0 = bf16, 1 = f32.
+// 16-byte aligned; B, S, T, H >= 1 and H % KV == 0.  dtype 0 = bf16, 1 =
+// f32.  route 0 = wgmma (bf16, hd 128), 1 = mma_sync (bf16, hd 32 or 64),
+// 2 = fma (f32, hd 32, 64 or 128); a route that the dtype and hd do not
+// select is refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int B, int S, int T, int H,
                                    int KV, int hd, int dtype, int causal,
-                                   float scale, void* stream) {
+                                   float scale, int route, void* stream) {
+  const bool fits =
+      (route == 0 && dtype == 0 && hd == 128) ||
+      (route == 1 && dtype == 0 && (hd == 32 || hd == 64)) ||
+      (route == 2 && dtype == 1 && (hd == 32 || hd == 64 || hd == 128));
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      (dtype != 0 && dtype != 1) || (S + kBQ - 1) / kBQ > 65535 ||
+      !fits || (S + kBQ - 1) / kBQ > 65535 ||
       static_cast<long long>(B) * H > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    return launch_wgmma(q, k, v, out, B, S, T, H, KV, causal, scale, s);
+  }
+  if (route == 1) {
+    return hd == 32
+        ? launch_mma<32>(q, k, v, out, B, S, T, H, KV, causal, scale, s)
+        : launch_mma<64>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
+  }
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, out, B, S, T, H, KV, dtype, causal, scale, s);
+      return launch_fma<32>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
     case 64:
-      return launch<64>(q, k, v, out, B, S, T, H, KV, dtype, causal, scale, s);
-    case 128:
-      return launch<128>(q, k, v, out, B, S, T, H, KV, dtype, causal, scale, s);
+      return launch_fma<64>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_fma<128>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
   }
+}
+
+// The wgmma kernel's dynamic shared memory and its setmaxnreg counts (the
+// build report prints them beside ptxas's).
+extern "C" void flash_attention_wgmma_config(int* smem_bytes, int* producer_regs,
+                                    int* consumer_regs) {
+  *smem_bytes = kWgSmem;
+  *producer_regs = kWgProducerRegs;
+  *consumer_regs = kWgConsumerRegs;
 }

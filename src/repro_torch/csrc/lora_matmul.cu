@@ -16,26 +16,49 @@
 // What bounds it on an H100: at the long-prompt shapes (M = 8192 rows,
 // K = 4096, N = 4096, r = 16) a bf16 call does 2 M N (K + r) = 2.76e11
 // flop against 0.16 GB of operands: 0.28 ms of tensor-core work against
-// 0.05 ms of bytes.  It is bound by operations.
+// 0.05 ms of bytes.  It is bound by operations, so the design goal is to
+// keep the tensor cores fed.
 //
-// Design (first version: right and simple; wgmma and TMA are later work):
-//   bf16: 128 x 128 output tiles, 8 warps as 2 x 4, each warp 64 x 32 as
-//     4 x 4 mma.sync.m16n8k16 tiles (bf16 in, f32 accumulate).  K advances
-//     32 at a time through two shared-memory stages: the next x and w tiles
-//     are copied by cp.async (16 bytes a thread, zero-filled past M, K or
-//     N) while this one is multiplied.  Fragments come by ldmatrix, the w
-//     tile's (row-major, k by n) by ldmatrix.trans; rows are padded by 8
-//     bf16 so each 8-row phase hits 32 distinct banks.  Where K or N is not
-//     a multiple of 8 (or x, w are not 16-byte aligned) the tiles are
-//     loaded element by element instead.
-//   f32: 64 x 64 output tiles, 256 threads as 16 x 16, each thread 4 x 4
-//     outputs by FMA (never TF32, which would move f32 results by 1e-3).
-//   Epilogue (both): xa and b in chunks of 16 ranks through shared memory as
-//     f32; each thread sums its outputs' low-rank products by FMA, then
-//     writes acc + scale * lora.
+// Three kernels; the caller (kernels/lora_matmul.py::lora_route) picks one
+// from dtype and shape alone, before the launch, and passes it as `route`:
+//
+//   route 0, "wgmma" -- bf16 with K % 8 == 0, K > 0 and N % 8 == 0 (TMA
+//     needs 16-byte row strides): every Yi-9B projection.  128 x 256
+//     output tiles; two consumer warpgroups of 64 rows and one producer
+//     warpgroup, of which one thread issues TMA loads of 64-deep slabs of
+//     x (K-major, one 128 x 64 box) and w (MN-major, four 64 x 64 boxes)
+//     into a ring of four 48 KB stages, each with a full and an empty
+//     mbarrier.  The math is wgmma m64n256k16 from shared memory, w read
+//     through the transpose bit; the next slab's products are issued
+//     before this slab's are waited for (wgmma.wait_group 1), and only
+//     then is the slab's stage released.  TMA zero-fills past M, K and N.
+//     Low-rank epilogue: per 8-column chunk of the accumulator, one
+//     mma.sync m16n8k16 per 16 ranks (xa and b read from global memory, f32
+//     accumulate) gives xa @ b for exactly the chunk's outputs; then y =
+//     acc + scale * lora, rounded once.  setmaxnreg gives the producer 40
+//     registers and the consumers 232.  Not yet: a persistent tile
+//     scheduler (one block's epilogue under the next one's loads) and
+//     clusters (one TMA load feeding two blocks).
+//   route 1, "mma_sync" -- the first version, for the bf16 shapes that
+//     route 0 does not take (K or N not a multiple of 8, or K = 0): 128 x
+//     128 output tiles, 8 warps as 2 x 4, each warp 64 x 32 as 4 x 4
+//     mma.sync.m16n8k16 tiles (bf16 in, f32 accumulate).  K advances 32 at
+//     a time through two shared-memory stages, the next x and w tiles
+//     loaded element by element (zero past M, K or N) before this one is
+//     multiplied.  Fragments come by ldmatrix, the w tile's (row-major, k
+//     by n) by ldmatrix.trans; rows are padded by 8 bf16 so each 8-row
+//     phase hits 32 distinct banks.
+//   route 2, "fma" -- f32: 64 x 64 output tiles, 256 threads as 16 x 16,
+//     each thread 4 x 4 outputs by FMA (never TF32, which would move f32
+//     results by 1e-3).
+//   Routes 1 and 2 share their epilogue: xa and b in chunks of 16 ranks
+//   through shared memory as f32; each thread sums its outputs' low-rank
+//   products by FMA, then writes acc + scale * lora.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,7 +113,7 @@ __device__ __forceinline__ void lora_epilogue(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// route 1, bf16: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 constexpr int kBM16 = 128, kBN16 = 128, kBK16 = 32;
@@ -105,22 +128,6 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte global -> shared copy that bypasses registers; zero-fills the 16
-// bytes when `valid` is false (then nothing is read).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 // Four 8x8 bf16 matrices from shared memory, one register each; lane L
@@ -143,10 +150,6 @@ struct Bf16Smem {                  // two stages of the x and w tiles
   __nv_bfloat16 ws[2][kBK16][kLDW];
 };
 
-// VEC: K % 8 == 0, N % 8 == 0 and 16-byte aligned x, w: every 8-element
-// chunk of a tile row is wholly inside or wholly outside the matrix and is
-// copied by cp.async.  Otherwise element by element.
-template <bool VEC>
 __global__ void __launch_bounds__(kThreadsMma)
 lora_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ w,
@@ -165,32 +168,16 @@ lora_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 
   auto load_tile = [&](int k0, int buf) {
-    if constexpr (VEC) {
-      for (int i = tid; i < kBM16 * kBK16 / 8; i += kThreadsMma) {
-        const int r = i / (kBK16 / 8), c = (i % (kBK16 / 8)) * 8;
-        const bool in = m0 + r < M && k0 + c < K;
-        cp_async16(&sm.xs[buf][r][c],
-                   x + (in ? static_cast<size_t>(m0 + r) * K + k0 + c : 0), in);
-      }
-      for (int i = tid; i < kBK16 * kBN16 / 8; i += kThreadsMma) {
-        const int r = i / (kBN16 / 8), c = (i % (kBN16 / 8)) * 8;
-        const bool in = k0 + r < K && n0 + c < N;
-        cp_async16(&sm.ws[buf][r][c],
-                   w + (in ? static_cast<size_t>(k0 + r) * N + n0 + c : 0), in);
-      }
-    } else {
-      for (int i = tid; i < kBM16 * kBK16; i += kThreadsMma) {
-        const int r = i / kBK16, c = i % kBK16;
-        sm.xs[buf][r][c] = (m0 + r < M && k0 + c < K)
-            ? x[static_cast<size_t>(m0 + r) * K + k0 + c] : zero;
-      }
-      for (int i = tid; i < kBK16 * kBN16; i += kThreadsMma) {
-        const int r = i / kBN16, c = i % kBN16;
-        sm.ws[buf][r][c] = (k0 + r < K && n0 + c < N)
-            ? w[static_cast<size_t>(k0 + r) * N + n0 + c] : zero;
-      }
+    for (int i = tid; i < kBM16 * kBK16; i += kThreadsMma) {
+      const int r = i / kBK16, c = i % kBK16;
+      sm.xs[buf][r][c] = (m0 + r < M && k0 + c < K)
+          ? x[static_cast<size_t>(m0 + r) * K + k0 + c] : zero;
     }
-    cp_async_commit();
+    for (int i = tid; i < kBK16 * kBN16; i += kThreadsMma) {
+      const int r = i / kBN16, c = i % kBN16;
+      sm.ws[buf][r][c] = (k0 + r < K && n0 + c < N)
+          ? w[static_cast<size_t>(k0 + r) * N + n0 + c] : zero;
+    }
   };
 
   float acc[4][4][4];
@@ -204,12 +191,7 @@ lora_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   const int n_k = (K + kBK16 - 1) / kBK16;
   if (n_k > 0) load_tile(0, 0);
   for (int kt = 0; kt < n_k; ++kt) {
-    if (kt + 1 < n_k) {
-      load_tile((kt + 1) * kBK16, (kt + 1) & 1);
-      cp_async_wait<1>();             // tile kt has landed, kt + 1 in flight
-    } else {
-      cp_async_wait<0>();
-    }
+    if (kt + 1 < n_k) load_tile((kt + 1) * kBK16, (kt + 1) & 1);
     __syncthreads();
     const int buf = kt & 1;
 #pragma unroll
@@ -280,7 +262,171 @@ lora_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA
+// route 0, bf16: TMA, an mbarrier ring, wgmma, a producer warpgroup
+// ---------------------------------------------------------------------------
+
+constexpr int kGBM = 128, kGBN = 256, kGBK = 64;
+constexpr int kGStages = 4;
+constexpr int kGThreads = 384;          // consumers: warpgroups 0, 1; producer: 2
+constexpr int kGProducerRegs = 40;   // setmaxnreg, per thread
+constexpr int kGConsumerRegs = 232;   // (40 + 2 x 232) x 128 = 168 x 384
+constexpr int kXBox = kGBM * kGBK * 2;  // the x slab: 128 rows x 64 k, 16 KB
+constexpr int kWBox = kGBK * 64 * 2;    // one 64-column box of the w slab, 8 KB
+constexpr int kGStage = kXBox + (kGBN / 64) * kWBox;   // 48 KB
+constexpr int kGSmem = 1024 + kGStages * kGStage + 16 * kGStages;
+
+__global__ void __launch_bounds__(kGThreads, 1)
+lora_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         const __nv_bfloat16* __restrict__ xa,
+                         const __nv_bfloat16* __restrict__ b,
+                         __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                         int R, float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kGStages * kGStage);
+  uint64_t* empty = full + kGStages;
+  const int m0 = blockIdx.y * kGBM, n0 = blockIdx.x * kGBN;
+  const int n_k = (K + kGBK - 1) / kGBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&full[s], 1);               // the producer's expect_tx
+      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<kGProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kGStages;
+        const uint32_t ph = (kt / kGStages) & 1;
+        uint8_t* st = base + s * kGStage;
+        mbar_wait(&empty[s], ph ^ 1);
+        mbar_arrive_expect_tx(&full[s], kGStage);
+        tma_load_2d(st, &tm_x, &full[s], kt * kGBK, m0);
+#pragma unroll
+        for (int i = 0; i < kGBN / 64; ++i) {
+          tma_load_2d(st + kXBox + i * kWBox, &tm_w, &full[s], n0 + 64 * i,
+                      kt * kGBK);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kGConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % kGStages;
+      const uint32_t ph = (kt / kGStages) & 1;
+      const uint32_t st = smem_addr(base + s * kGStage);
+      mbar_wait(&full[s], ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGBK / 16; ++kk) {
+        wgmma_m64n256k16_ss(
+            acc, desc_sw128(st + wg * 64 * 128 + kk * 32, 16, 1024),
+            desc_sw128(st + kXBox + kk * 2048, kWBox, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                  // slab kt - 1's products are done
+      if (kt > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(kt - 1) % kGStages]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // low-rank epilogue: rows r_lo, r_hi; acc[4 j + e] is column n0 + 8 j +
+    // 2 t + (e & 1).  mma.sync's A fragment is xa[rows, ranks 2t, 2t+1,
+    // 2t+8, 2t+9], its B fragment b[those ranks, column n0 + 8 j + g].
+    const int r_lo = m0 + wg * 64 + warp * 16 + g, r_hi = r_lo + 8;
+    const uint16_t* xa16 = reinterpret_cast<const uint16_t*>(xa);
+    const uint16_t* b16 = reinterpret_cast<const uint16_t*>(b);
+    auto xa_at = [&](int row, int r) -> uint32_t {
+      return (row < M && r < R) ? xa16[static_cast<size_t>(row) * R + r] : 0u;
+    };
+    auto b_at = [&](int r, int col) -> uint32_t {
+      return (r < R && col < N) ? b16[static_cast<size_t>(r) * N + col] : 0u;
+    };
+    auto xa_frag = [&](uint32_t (&af)[4], int r0) {
+      const int ra = r0 + 2 * t, rb = ra + 8;
+      af[0] = xa_at(r_lo, ra) | (xa_at(r_lo, ra + 1) << 16);
+      af[1] = xa_at(r_hi, ra) | (xa_at(r_hi, ra + 1) << 16);
+      af[2] = xa_at(r_lo, rb) | (xa_at(r_lo, rb + 1) << 16);
+      af[3] = xa_at(r_hi, rb) | (xa_at(r_hi, rb + 1) << 16);
+    };
+    uint32_t af0[4];
+    xa_frag(af0, 0);
+#pragma unroll
+    for (int j = 0; j < kGBN / 8; ++j) {
+      const int col = n0 + 8 * j + g;
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int r0 = 0; r0 < R; r0 += 16) {
+        uint32_t af[4] = {af0[0], af0[1], af0[2], af0[3]};
+        if (r0 > 0) xa_frag(af, r0);
+        const int ra = r0 + 2 * t, rb = ra + 8;
+        mma_bf16(d, af, b_at(ra, col) | (b_at(ra + 1, col) << 16),
+                 b_at(rb, col) | (b_at(rb + 1, col) << 16));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] += scale * d[e];
+    }
+#pragma unroll
+    for (int j = 0; j < kGBN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;   // N % 8 == 0: col + 1 < N too
+      if (col >= N) continue;
+      if (r_lo < M) {
+        *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(r_lo) * N +
+                                           col) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      }
+      if (r_hi < M) {
+        *reinterpret_cast<__nv_bfloat162*>(y + static_cast<size_t>(r_hi) * N +
+                                           col) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+int launch_wgmma(const void* x, const void* w, const void* xa, const void* b,
+                 void* y, int M, int K, int N, int R, float scale,
+                 cudaStream_t stream) {
+  CUtensorMap tx, tw;
+  const uint64_t xdim[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t xstr[1] = {2ull * K};
+  const uint32_t xbox[2] = {kGBK, kGBM};
+  const uint64_t wdim[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t wstr[1] = {2ull * N};
+  const uint32_t wbox[2] = {64, kGBK};
+  int err = hopper::make_tensor_map_bf16(&tx, x, 2, xdim, xstr, xbox);
+  if (err == 0) err = hopper::make_tensor_map_bf16(&tw, w, 2, wdim, wstr, wbox);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      lora_matmul_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + kGBN - 1) / kGBN, (M + kGBM - 1) / kGBM);
+  lora_matmul_wgmma_kernel<<<grid, kGThreads, kGSmem, stream>>>(
+      tx, tw, static_cast<const __nv_bfloat16*>(xa),
+      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y), M,
+      K, N, R, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// route 2, f32: FMA
 // ---------------------------------------------------------------------------
 
 constexpr int kBK32 = 16;
@@ -362,33 +508,33 @@ lora_matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
-// caller checks devices, dtypes, shapes and contiguity; M, N >= 1, K, R >= 0.
-// dtype 0 = bf16, 1 = f32.
+// caller checks devices, dtypes, shapes and contiguity, and that x and w
+// are 16-byte aligned; M, N >= 1, K, R >= 0.  dtype 0 = bf16, 1 = f32.
+// route 0 = wgmma (bf16, K % 8 == 0, K > 0, N % 8 == 0), 1 = mma_sync
+// (the other bf16 shapes), 2 = fma (f32); a route that the dtype and shape
+// do not select is refused.
 extern "C" int lora_matmul_fwd(const void* x, const void* w, const void* xa,
                                const void* b, void* y, int M, int K, int N,
-                               int R, int dtype, float scale, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || R < 0 || (dtype != 0 && dtype != 1) ||
+                               int R, int dtype, float scale, int route,
+                               void* stream) {
+  const bool tma = K > 0 && K % 8 == 0 && N % 8 == 0;
+  const bool fits = (route == 0 && dtype == 0 && tma) ||
+                    (route == 1 && dtype == 0 && !tma) ||
+                    (route == 2 && dtype == 1);
+  if (M <= 0 || N <= 0 || K < 0 || R < 0 || !fits ||
       (M + kBM - 1) / kBM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (route == 0) return launch_wgmma(x, w, xa, b, y, M, K, N, R, scale, s);
+  if (route == 1) {
     const dim3 grid((N + kBN16 - 1) / kBN16, (M + kBM16 - 1) / kBM16);
-    const bool vec = K % 8 == 0 && N % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    auto* xb = static_cast<const __nv_bfloat16*>(x);
-    auto* wb = static_cast<const __nv_bfloat16*>(w);
-    auto* xab = static_cast<const __nv_bfloat16*>(xa);
-    auto* bb = static_cast<const __nv_bfloat16*>(b);
-    auto* yb = static_cast<__nv_bfloat16*>(y);
-    if (vec) {
-      lora_matmul_bf16_kernel<true><<<grid, kThreadsMma, 0, s>>>(
-          xb, wb, xab, bb, yb, M, K, N, R, scale);
-    } else {
-      lora_matmul_bf16_kernel<false><<<grid, kThreadsMma, 0, s>>>(
-          xb, wb, xab, bb, yb, M, K, N, R, scale);
-    }
+    lora_matmul_bf16_kernel<<<grid, kThreadsMma, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(xa),
+        static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y),
+        M, K, N, R, scale);
   } else {
     const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
     lora_matmul_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
@@ -397,4 +543,13 @@ extern "C" int lora_matmul_fwd(const void* x, const void* w, const void* xa,
         static_cast<float*>(y), M, K, N, R, scale);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma kernel's dynamic shared memory and its setmaxnreg counts (the
+// build report prints them beside ptxas's).
+extern "C" void lora_matmul_wgmma_config(int* smem_bytes, int* producer_regs,
+                                    int* consumer_regs) {
+  *smem_bytes = kGSmem;
+  *producer_regs = kGProducerRegs;
+  *consumer_regs = kGConsumerRegs;
 }

@@ -2,13 +2,15 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into `build/repro_torch/lib<name>-<hash>.so` at the root of the
-checkout, at first use.  The hash covers the source and the flags, so an
-edited source rebuilds and a stale library is never loaded.  Libraries are
-loaded with `ctypes`; the wrappers in `kernels/*.py` declare every pointer
-and the stream as `c_void_p`.
+checkout, at first use.  The hash covers the source, every shared header
+`csrc/*.cuh` (which a source may `#include`) and the flags, so an edited
+source or header rebuilds and a stale library is never loaded.  Libraries
+are loaded with `ctypes`; the wrappers in `kernels/*.py` declare every
+pointer and the stream as `c_void_p`.
 
 `CudaFunction` binds one C entry point of a library and counts its
-launches; every kernel wrapper of the port holds one.
+launches, in all and by route where an entry point serves several
+kernels; every kernel wrapper of the port holds one.
 
 Nothing here runs on import: the CPU tests import every module, and a
 host without `nvcc` only fails when a kernel is actually asked for.
@@ -21,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -59,10 +61,14 @@ def nvcc() -> str:
                        "build the repro_torch CUDA kernels")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where csrc/<name>.cu's library goes: named by a hash of the source,
+    of every header under csrc/ (name and bytes) and of the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = ()) -> Dict[str, Path]:
@@ -105,6 +111,13 @@ def load(name: str) -> ctypes.CDLL:
     return _LOADED[name]
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, with a 16-byte aligned start: the kernels load 16
+    bytes at a time, and TMA reads nothing less aligned."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class CudaFunction:
     """One C entry point of `csrc/<source>.cu`: `int symbol(args..., void*
     stream)`, returning `cudaGetLastError()`.  Bound with ctypes at its
@@ -116,11 +129,19 @@ class CudaFunction:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
+        self.launches_by_route: Dict[str, int] = {}
         self._fn = None
 
-    def __call__(self, device: torch.device, *args) -> None:
+    def reset(self) -> None:
+        """Zero the counts, in all and by route."""
+        self.launches = 0
+        self.launches_by_route.clear()
+
+    def __call__(self, device: torch.device, *args,
+                 route: Optional[str] = None) -> None:
         """Launch on `device`'s current stream; raises if the launch is
-        refused.  Does not synchronise."""
+        refused.  Does not synchronise.  `route` names the kernel the
+        arguments select, for `launches_by_route`."""
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.argtypes = self.argtypes
@@ -132,3 +153,6 @@ class CudaFunction:
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {rc}")
         self.launches += 1
+        if route is not None:
+            self.launches_by_route[route] = \
+                self.launches_by_route.get(route, 0) + 1

@@ -11,8 +11,17 @@ q.dtype.
 It takes GQA directly: q (B, S, H, hd), k and v (B, T, KV, hd) with query
 head h reading KV head h // (H // KV), so the KV heads are never repeated
 H times (KV == H is the reference's pre-broadcast call).  Any S and T:
-the kernel masks the ragged tiles.  hd in {32, 64, 128}, bf16 (tensor-core
-`mma.sync`, f32 accumulation) or f32 (FMA, never TF32).
+the kernel masks the ragged tiles.  hd in {32, 64, 128}, bf16 or f32.
+
+Three kernels behind one C entry point; `flash_route` picks one from the
+dtype and hd alone, before the launch (never as a retry):
+  - "wgmma": bf16, hd 128 (Yi-9B, every long prompt) -- TMA loads into an
+    mbarrier ring fed by a producer warpgroup, wgmma for both products;
+  - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
+    kernel;
+  - "fma": f32 -- FMA, never TF32.
+`FLASH.launches` counts every launch and `FLASH.launches_by_route` each
+route's.
 
 In bf16 the kernel rounds the probabilities to bf16 before the second
 product, as its plain version (`ref.flash_attention_ref`, which casts them
@@ -30,27 +39,35 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaFunction
+from repro_torch.kernels._build import CudaFunction, aligned
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2}   # the C entry point's `route`
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FLASH = CudaFunction("flash_attention", "flash_attention_fwd",
-                     [_P, _P, _P, _P] + [_I] * 8 + [_F])
+                     [_P, _P, _P, _P] + [_I] * 8 + [_F, _I])
+
+
+def flash_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that serves (dtype, hd): "wgmma" for bf16 at hd 128,
+    "mma_sync" for bf16 at hd 32 or 64, "fma" for f32."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention: the CUDA kernel takes bf16 or f32, "
+                        f"got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the CUDA kernel takes head size "
+                         f"{HEAD_DIMS}, got {hd}")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if hd == 128 else "mma_sync"
 
 
 # the kernel's plain version: the port's copy of the reference's oracle,
 # which takes the GQA layout and the kernel's `scale`
 flash_attention_plain = flash_attention_ref
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernel loads 16 bytes
-    at a time)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_shapes(q, k, v) -> None:
@@ -91,19 +108,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
                             f"{q.dtype}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention: the CUDA kernel takes bf16 or f32, "
-                        f"got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the CUDA kernel takes head size "
-                         f"{HEAD_DIMS}, got {hd}")
+    route = flash_route(q.dtype, hd)
     if B * H > 2**31 - 1 or -(-S // 64) > 65535:
         raise ValueError(f"flash_attention: B * H = {B * H} or S = {S} "
                          "exceeds the kernel's grid")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = aligned(q), aligned(k), aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0 or T == 0:
         return out.zero_() if T == 0 else out
     FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          B, S, T, H, KV, hd, DTYPES[q.dtype], int(causal), float(scale))
+          B, S, T, H, KV, hd, DTYPES[q.dtype], int(causal), float(scale),
+          ROUTES[route], route=route)
     return out

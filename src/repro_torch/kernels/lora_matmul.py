@@ -3,14 +3,20 @@
 Two kernels, as in `src/repro/kernels/lora_matmul.py`:
 
 * `lora_matmul` -- single-adapter fused  y = x @ w + scale * (x @ a) @ b,
-  the hand-written CUDA kernel of `csrc/lora_matmul.cu` (replaces
+  the hand-written CUDA kernels of `csrc/lora_matmul.cu` (replacing
   `lora_matmul_pallas`).  xa = x @ a (M x r, tiny) is computed outside the
   kernel with `torch.matmul`, in f32 and rounded to x.dtype, as the
   reference does; the kernel accumulates x @ w over K in f32 and adds
-  scale * xa @ b in its epilogue.  Any M, N, K, r; bf16 or f32.  Its
-  caller is `kernels/ops.py::lora_matmul`: the model's `linear` rounds the
-  LoRA branch differently (in the adapter's dtype) and does not use it.
-  On CPU tensors it runs `lora_matmul_plain`.
+  scale * xa @ b in its epilogue.  Any M, N, K, r; bf16 or f32.
+  `lora_route` picks one of three kernels from the dtype and shape alone,
+  before the launch: "wgmma" for bf16 with K % 8 == 0, K > 0 and
+  N % 8 == 0 (TMA loads, an mbarrier ring fed by a producer warpgroup,
+  wgmma m64n256k16; every Yi-9B projection), "mma_sync" for the other
+  bf16 shapes (the first version's kernel), "fma" for f32.
+  `LORA_MATMUL.launches` counts every launch, `launches_by_route` each
+  route's.  Its caller is `kernels/ops.py::lora_matmul`: the model's
+  `linear` rounds the LoRA branch differently (in the adapter's dtype) and
+  does not use it.  On CPU tensors it runs `lora_matmul_plain`.
 
 * the grouped registry below.
 
@@ -48,11 +54,25 @@ from repro_torch.kernels.ref import lora_matmul_ref
 # ---------------------------------------------------------------------------
 
 LORA_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+LORA_ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2}   # the C `route`
 LORA_MATMUL = _build.CudaFunction(
     "lora_matmul", "lora_matmul_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                   ctypes.c_int])
 
 lora_matmul_plain = lora_matmul_ref
+
+
+def lora_route(dtype: torch.dtype, K: int, N: int) -> str:
+    """The kernel that serves x (M, K) @ w (K, N) in `dtype`: "wgmma" for
+    bf16 when TMA can read x and w (16-byte row strides: K % 8 == 0 and
+    N % 8 == 0, K > 0), "mma_sync" for other bf16 shapes, "fma" for f32."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if K > 0 and K % 8 == 0 and N % 8 == 0 else "mma_sync"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"lora_matmul: the CUDA kernel takes bf16 or f32, "
+                    f"got {dtype}")
 
 
 def lora_xa(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -80,20 +100,20 @@ def lora_matmul(x, w, a, b, scale: float) -> torch.Tensor:
                              f"{x.device}")
         if t.dtype != x.dtype:
             raise TypeError(f"lora_matmul: {nm} is {t.dtype}, x is {x.dtype}")
-    if x.dtype not in LORA_DTYPES:
-        raise TypeError(f"lora_matmul: the CUDA kernel takes bf16 or f32, "
-                        f"got {x.dtype}")
+    route = lora_route(x.dtype, K, N)
     if max(M, N, K, r) > 2**31 - 1 or -(-M // 64) > 65535:
         raise ValueError(f"lora_matmul: M={M}, N={N}, K={K} exceed the "
                          "kernel's grid")
-    x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
+    x, w, b = _build.aligned(x), _build.aligned(w), b.contiguous()
     xa = lora_xa(x, a).contiguous()
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
         LORA_MATMUL(x.device, x.data_ptr(), w.data_ptr(), xa.data_ptr(),
                     b.data_ptr(), y.data_ptr(), M, K, N, r,
-                    LORA_DTYPES[x.dtype], float(scale))
+                    LORA_DTYPES[x.dtype], float(scale), LORA_ROUTES[route],
+                    route=route)
     return y
+
 
 
 # ---------------------------------------------------------------------------

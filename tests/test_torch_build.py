@@ -1,0 +1,117 @@
+"""The port's kernel build and kernel choice, on the CPU: no nvcc, no card.
+
+A library is named by a hash of what it is compiled from, so an edited
+source, shared header or flag builds a new library instead of loading a
+stale one.  The flash-attention and LoRA-matmul wrappers pick their kernel
+(route) from the dtype and shape alone, before the launch, by a plain
+function that these tests hold to the routes the CUDA sources take.
+"""
+import shutil
+
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lora_matmul as lm
+
+
+@pytest.fixture
+def csrc(tmp_path):
+    """A copy of csrc/ to edit."""
+    dst = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, dst)
+    return dst
+
+
+def _names(csrc):
+    return {n: _build.library_path(n, csrc) for n in _build.sources()}
+
+
+def test_sources_are_the_cu_files_and_headers_are_shared():
+    assert _build.sources() == ["flash_attention", "grouped_lora",
+                                "lora_matmul", "transport"]
+    assert (_build.CSRC / "hopper.cuh").is_file()
+    for name in ("flash_attention", "lora_matmul"):
+        assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+
+
+def test_library_names_depend_on_bytes_not_on_the_directory(csrc):
+    assert _names(csrc) == _names(_build.CSRC)
+    for path in _names(csrc).values():
+        assert path.parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("header", ["hopper.cuh", "new_header.cuh"])
+def test_an_edited_or_added_header_renames_every_library(csrc, header):
+    before = _names(csrc)
+    path = csrc / header
+    path.write_bytes((path.read_bytes() if path.exists() else b"")
+                     + b"\n// one more line\n")
+    after = _names(csrc)
+    assert all(after[n] != before[n] for n in before)
+
+
+def test_an_edited_source_renames_only_its_library(csrc):
+    before = _names(csrc)
+    src = csrc / "lora_matmul.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    after = _names(csrc)
+    assert {n for n in before if after[n] != before[n]} == {"lora_matmul"}
+
+
+def test_the_flags_rename_every_library(csrc, monkeypatch):
+    before = _names(csrc)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lcuda",))
+    after = _names(csrc)
+    assert all(after[n] != before[n] for n in before)
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 32, "fma")])
+def test_flash_route(dtype, hd, route):
+    assert fa.flash_route(dtype, hd) == route
+    assert fa.ROUTES[route] in (0, 1, 2)
+
+
+def test_flash_route_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_route(torch.bfloat16, 48)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fa.flash_route(torch.float16, 128)
+
+
+@pytest.mark.parametrize("dtype,K,N,route", [
+    (torch.bfloat16, 4096, 4096, "wgmma"), (torch.bfloat16, 4096, 512, "wgmma"),
+    (torch.bfloat16, 11008, 4096, "wgmma"), (torch.bfloat16, 8, 8, "wgmma"),
+    (torch.bfloat16, 300, 200, "mma_sync"), (torch.bfloat16, 4096, 100, "mma_sync"),
+    (torch.bfloat16, 33, 70, "mma_sync"), (torch.bfloat16, 0, 8, "mma_sync"),
+    (torch.float32, 4096, 4096, "fma"), (torch.float32, 300, 200, "fma")])
+def test_lora_route(dtype, K, N, route):
+    assert lm.lora_route(dtype, K, N) == route
+
+
+def test_lora_route_refuses_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        lm.lora_route(torch.float16, 64, 64)
+
+
+def test_yi_9b_takes_the_wgmma_kernels():
+    # every projection of the long-prompt path and its attention
+    cfg = get_config("yi-9b")
+    D, H, KV, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    for K, N in ((D, H * hd), (D, KV * hd), (H * hd, D), (D, F), (F, D)):
+        assert lm.lora_route(torch.bfloat16, K, N) == "wgmma", (K, N)
+    assert fa.flash_route(torch.bfloat16, hd) == "wgmma"
+
+
+def test_route_counts_start_empty_and_reset():
+    f = _build.CudaFunction("lora_matmul", "lora_matmul_fwd", [])
+    assert f.launches == 0 and f.launches_by_route == {}
+    f.launches, f.launches_by_route["wgmma"] = 3, 3
+    f.reset()
+    assert f.launches == 0 and f.launches_by_route == {}

@@ -352,20 +352,31 @@ def _attn(seed, B, S, T, H, KV, hd, dtype):
     return q, k, v
 
 
+def _route_launches(fn, route):
+    return fn.launches, fn.launches_by_route.get(route, 0)
+
+
+# hd 128 in bf16 takes the wgmma kernel (ragged S and T, B = 2, H / KV in
+# {1, 2, 4, 8}, a last query tile of one row past a 128-row tile, keys one
+# past a 128-key tile); hd 32 and 64 in bf16 the mma.sync kernel; f32 the
+# FMA kernel
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,T,H,KV,hd", [
     (1, 1, 1, 1, 1, 32), (2, 64, 64, 4, 2, 32), (1, 1000, 1000, 8, 2, 64),
-    (1, 100, 37, 4, 4, 128), (2, 37, 100, 6, 3, 128), (1, 257, 257, 32, 4, 128)])
+    (1, 100, 37, 4, 4, 128), (2, 37, 100, 6, 3, 128), (1, 257, 257, 32, 4, 128),
+    (1, 1, 1, 1, 1, 128), (2, 1000, 1100, 32, 4, 128), (2, 129, 300, 8, 8, 128),
+    (1, 300, 129, 16, 4, 128), (2, 256, 256, 8, 1, 128)])
 def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     _need_card()
     q, k, v = _attn(S + T + hd, B, S, T, H, KV, hd, dtype)
     scale = hd ** -0.5
-    before = fa.FLASH.launches
+    route = fa.flash_route(dtype, hd)
+    n, nr = _route_launches(fa.FLASH, route)
     got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert fa.FLASH.launches == before + 1
+    assert _route_launches(fa.FLASH, route) == (n + 1, nr + 1)
     want = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
     assert got.dtype == dtype and got.shape == q.shape
     _assert_attn_close(got, want, dtype)
@@ -388,14 +399,19 @@ def test_flash_kernel_gqa_equals_prebroadcast_and_oracle(dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernel_bf16_matches_chunked_attention(causal):
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 1024, 8, 2, 128), (2, 768, 32, 4, 128), (2, 512, 8, 1, 64)])
+def test_flash_kernel_bf16_matches_chunked_attention(B, S, H, KV, hd, causal):
     # chunked_attention, the model's plain path, keeps the probabilities in
-    # f32 where the bf16 kernel rounds them to bf16
+    # f32 where the bf16 kernels round them to bf16
     _need_card()
     from repro_torch.models.attention import chunked_attention
-    q, k, v = _attn(5, 1, 1024, 1024, 8, 2, 128, torch.bfloat16)
-    got = fa.flash_attention(q, k, v, causal=causal, scale=128 ** -0.5)
-    want = chunked_attention(q, k, v, 128 ** -0.5, causal=causal, cq=256,
+    q, k, v = _attn(5, B, S, S, H, KV, hd, torch.bfloat16)
+    route = fa.flash_route(torch.bfloat16, hd)
+    nr = fa.FLASH.launches_by_route.get(route, 0)
+    got = fa.flash_attention(q, k, v, causal=causal, scale=hd ** -0.5)
+    assert fa.FLASH.launches_by_route[route] == nr + 1
+    want = chunked_attention(q, k, v, hd ** -0.5, causal=causal, cq=256,
                              ckv=256)
     _assert_attn_close(got, want, torch.bfloat16)
 
@@ -422,18 +438,25 @@ def _lora(seed, M, K, N, r, dtype):
         .to("cuda", dtype) for shape in ((M, K), (K, N), (K, r), (r, N)))
 
 
+# in bf16, K % 8 == 0 < K and N % 8 == 0 take the wgmma kernel (ragged M,
+# N not a multiple of the 256-column tile, K not of the 64-deep slab, r
+# over 16 ranks in several mma.sync steps), other shapes the mma.sync
+# kernel; f32 the FMA kernel
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N,r", [
     (100, 300, 200, 5), (128, 256, 128, 8), (256, 512, 256, 64), (1, 1, 1, 1),
-    (65, 33, 70, 17), (3, 0, 5, 2), (7, 40, 9, 0), (512, 4096, 512, 16)])
+    (65, 33, 70, 17), (3, 0, 5, 2), (7, 40, 9, 0), (512, 4096, 512, 16),
+    (8191, 4096, 512, 16), (300, 1000, 264, 16), (1, 8, 8, 1),
+    (129, 72, 520, 40), (200, 136, 4096, 0)])
 def test_lora_matmul_kernel_matches_plain(M, K, N, r, dtype):
     _need_card()
     x, w, a, b = _lora(M + K + N + r, M, K, N, r, dtype)
-    before = lm.LORA_MATMUL.launches
+    route = lm.lora_route(dtype, K, N)
+    n, nr = _route_launches(lm.LORA_MATMUL, route)
     got = ops.lora_matmul(x, w, a, b, 2.0)
     torch.cuda.synchronize()
-    assert lm.LORA_MATMUL.launches == before + 1
+    assert _route_launches(lm.LORA_MATMUL, route) == (n + 1, nr + 1)
     want = lm.lora_matmul_plain(x, w, a, b, 2.0)
     assert got.dtype == dtype and got.shape == (M, N)
     tol = LORA_TOL[dtype]
@@ -454,6 +477,46 @@ def test_lora_matmul_kernel_validates_inputs():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 128, "mma_sync"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "fma"), (torch.float32, 128, "wgmma"),
+    (torch.float32, 64, "mma_sync")])
+def test_flash_entry_point_refuses_a_route_the_shape_does_not_select(
+        dtype, hd, route):
+    # the route is a function of dtype and hd: the C entry point launches
+    # no other kernel, whatever its caller asks for
+    _need_card()
+    q, k, v = _attn(6, 1, 64, 64, 2, 1, hd, dtype)
+    out = torch.empty_like(q)
+    n = fa.FLASH.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), 1, 64, 64, 2, 1, hd, fa.DTYPES[dtype], 1,
+                 hd ** -0.5, fa.ROUTES[route], route=route)
+    assert fa.FLASH.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,K,N,route", [
+    (torch.bfloat16, 256, 256, "mma_sync"), (torch.bfloat16, 300, 256, "wgmma"),
+    (torch.bfloat16, 256, 256, "fma"), (torch.float32, 256, 256, "wgmma"),
+    (torch.float32, 300, 200, "mma_sync")])
+def test_lora_entry_point_refuses_a_route_the_shape_does_not_select(
+        dtype, K, N, route):
+    _need_card()
+    x, w, a, b = _lora(7, 64, K, N, 4, dtype)
+    xa = lm.lora_xa(x, a)
+    y = torch.empty(64, N, dtype=dtype, device="cuda")
+    n = lm.LORA_MATMUL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lm.LORA_MATMUL(x.device, x.data_ptr(), w.data_ptr(), xa.data_ptr(),
+                       b.data_ptr(), y.data_ptr(), 64, K, N, 4,
+                       lm.LORA_DTYPES[dtype], 1.0, lm.LORA_ROUTES[route],
+                       route=route)
+    assert lm.LORA_MATMUL.launches == n
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [4096, 70001])
 def test_ops_transport_wrappers_equal_their_plain_loops(n):
     _need_card()
@@ -469,8 +532,15 @@ def test_ops_transport_wrappers_equal_their_plain_loops(n):
     assert int(nnz) == int(ref.threshold_count_ref(x, got))
 
 
+# the smoke config in f32 (hd 32: the FMA kernel), and in bf16 at Yi-9B's
+# head size (hd 128, 32 / 4 heads: the wgmma kernel), where the card's and
+# the CPU's bf16 projections and the kernel's bf16 probabilities differ by
+# a few bf16 steps: held to the bf16 attention tolerance of each output
+# row's largest value
 @pytest.mark.cuda
-def test_long_prompt_gqa_forward_runs_the_flash_kernel():
+@pytest.mark.parametrize("dtype,hd,heads", [
+    (torch.float32, None, None), (torch.bfloat16, 128, (32, 4))])
+def test_long_prompt_gqa_forward_runs_the_flash_kernel(dtype, hd, heads):
     # at a lowered threshold the model's attention takes the kernel on the
     # card and chunked_attention on the CPU; both hold the chunk contract
     import dataclasses
@@ -481,16 +551,25 @@ def test_long_prompt_gqa_forward_runs_the_flash_kernel():
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
                               chunked_attn_threshold=32, attn_chunk_q=16,
                               attn_chunk_kv=16)
-    params = init_params(A.gqa_spec(cfg), 0, device="cpu")
+    if hd is not None:
+        cfg = dataclasses.replace(cfg, head_dim=hd, num_heads=heads[0],
+                                  num_kv_heads=heads[1])
+    params = {k: v.to(dtype) for k, v in
+              init_params(A.gqa_spec(cfg), 0, device="cpu").items()}
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (2, 48, cfg.d_model), dtype=np.float32))
+        (2, 48, cfg.d_model), dtype=np.float32)).to(dtype)
     want = A.gqa_forward(params, x, cfg)
     cuda_params = {k: v.cuda() for k, v in params.items()}
-    before = fa.FLASH.launches
+    route = fa.flash_route(dtype, cfg.hd)
+    n, nr = _route_launches(fa.FLASH, route)
     with torch.no_grad():
         got = A.gqa_forward(cuda_params, x.cuda(), cfg)
-    assert fa.FLASH.launches == before + 1
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
-                               atol=1e-5)
+    assert _route_launches(fa.FLASH, route) == (n + 1, nr + 1)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        d = (got.float().cpu() - want.float()).abs().amax(-1)
+        assert (d / want.float().abs().amax(-1)).max().item() <= 2e-2
     with pytest.raises(ValueError, match="S % cq"):
         A.gqa_forward(cuda_params, x[:, :40].cuda(), cfg)
