@@ -7,13 +7,17 @@ Phases, each fatal on failure:
   1. build    -- compile every CUDA source under src/repro_torch/csrc/ with
                  nvcc (one process per source, all started together); print
                  each kernel's registers, shared memory and spills, and fail
-                 if a kernel built on csrc/hopper.cuh spills or ptxas
-                 serialised its wgmma or ignored its setmaxnreg.
-  2. kernels  -- each kernel against its plain PyTorch version on the card
-                 at the serving decode shapes (f32, rtol 1e-4 / atol 1e-5:
-                 the summation order differs); times the kernel, the plain
-                 version and a PyTorch library call computing the same
-                 function.
+                 if a wgmma kernel or a rank bucket of the grouped kernel
+                 has a stack frame or spills, or ptxas serialised a wgmma or
+                 ignored a setmaxnreg.
+  2. kernels  -- the grouped LoRA kernel against its plain PyTorch version
+                 on the card at the serving decode shapes and ragged ones
+                 (M in {1, 8, 130}, N in {4096, 512, 50}, R in {1, 16, 64},
+                 K 4096 and 4097; f32, rtol 1e-4 / atol 1e-5: the
+                 summation order differs), two launches bitwise equal; times
+                 the kernel, an empty launch of the same grid and clusters
+                 (the latency floor), the plain version and a PyTorch
+                 library call computing the same function.
   3. serve    -- the port's serving CLI (`launch/serve.py`) at the full
                  width and depth of Yi-9B in bf16: 8 tenants, rank-16
                  adapters, 4 pages, 8 lanes, 16 requests.  The grouped
@@ -73,7 +77,11 @@ Phases, each fatal on failure:
                  pnnz / cap is printed with the branch it took.  The
                  selector's packed entry point (mask_quantize_pack) runs on
                  (a)'s round-0 client deltas and must reproduce the round's
-                 uploads.
+                 uploads.  (d) one sim round of kind "lora" with
+                 sparse_aggregate=True, whose dense uploads overflow the
+                 capacity on every row (the dense branch), against the
+                 same round with sparse_aggregate=False: equal losses and
+                 flatP bitwise equal.
   10. ops      -- the `kernels/ops.py` entry point: `lora_matmul` once per
                  Yi-9B projection for an 8192-row prompt in bf16 (launches
                  counted, every one on the wgmma route), each output
@@ -83,11 +91,14 @@ Phases, each fatal on failure:
                  (GQA: B 1, H 32, KV 4, hd 128) at S = T = 8192 and 1000,
                  bf16 (wgmma) and f32 (fma), causal and not, and at B 2,
                  S 1000, T 1100 in bf16 with hd 128 (wgmma, H 32, KV 4) and
-                 hd 64 (mma_sync, H 8, KV 2), against its plain version, at
-                 8192 in bf16 also against `chunked_attention` (f32
-                 probabilities), and the pre-broadcast `ops.flash_attention`
-                 bitwise equal to the GQA call; each call's route is
-                 counted.  `ops.topk_mask` and `ops.histogram_threshold`
+                 hd 64 (mma_sync, H 8, KV 2), against its plain version
+                 (p in f32, v promoted), every bf16 case against an f64
+                 attention of its inputs row by row (4e-3 of each row's
+                 largest value; at 8192 tokens on 256 sampled query rows of
+                 every head), at 8192 in bf16 also against
+                 `chunked_attention`, and the pre-broadcast
+                 `ops.flash_attention` bitwise equal to the GQA call; each
+                 call's route is counted.  `ops.topk_mask` and `ops.histogram_threshold`
                  bitwise against their plain loops at the Yi-9B LoRA
                  length.  Tolerances: f32 attention 2e-6, f32 matmul 1e-5
                  x sqrt(K / 512), bf16 5e-2 matmul and 2e-2 attention,
@@ -205,6 +216,12 @@ def device_ms(fn, n_iter: int) -> float:
 
 # the kernels built on csrc/hopper.cuh (TMA, mbarriers, wgmma, setmaxnreg)
 HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel")
+# the grouped LoRA kernel (thread-block clusters): one per rank bucket, with
+# 16-byte loads (1) or element loads (0)
+GROUPED_KERNELS = tuple(f"grouped_lora_cluster_kernel<{rp}, {vec}>"
+                        for rp in (4, 8, 16, 32, 64) for vec in (1, 0))
+# kernels that must build with no stack frame and no spills
+GATED_KERNELS = HOPPER_KERNELS + GROUPED_KERNELS
 
 
 def kernel_name(mangled: str) -> str:
@@ -215,8 +232,11 @@ def kernel_name(mangled: str) -> str:
     if not m or len(m.group(2)) < int(m.group(1)):
         return mangled
     name, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
-    arg = re.match(r"IL[ib](\d+)E", rest)
-    return f"{name}<{arg.group(1)}>" if arg else name
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if not args:
+        return name
+    return f"{name}<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+
 
 
 def ptxas_kernels(log: str):
@@ -239,10 +259,11 @@ def ptxas_kernels(log: str):
 def build_report(libs) -> None:
     """Print every kernel's registers, shared memory and spills, and every
     compiler warning.  Fail if a library's compiler log is missing, if a
-    kernel built on hopper.cuh is not in its library's log with its stack
-    frame and spill counts, if it has any of them, or if ptxas serialised
-    its wgmma or ignored its setmaxnreg (each of which quietly costs most
-    of what the design buys)."""
+    gated kernel (the two wgmma kernels, the grouped kernel's rank buckets)
+    is not in its library's log with its stack frame and spill counts, if
+    it has any of them, or if ptxas serialised a wgmma or ignored a
+    setmaxnreg (each of which quietly costs most of what the design
+    buys)."""
     checked = {}
     for lib, path in sorted(libs.items()):
         log_path = path.with_suffix(".so.log")
@@ -250,7 +271,7 @@ def build_report(libs) -> None:
         log = log_path.read_text()
         for name, report in ptxas_kernels(log):
             print(f"[build] {lib}: {name}: {report}")
-            if name in HOPPER_KERNELS:
+            if name in GATED_KERNELS:
                 m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores, (\d+) bytes spill loads", report)
                 check(m is not None,
@@ -266,7 +287,7 @@ def build_report(libs) -> None:
             check(not any("wgmma" in ln or "setmaxnreg" in ln or "C75" in ln
                           for ln in warnings),
                   f"ptxas serialised the wgmma or ignored setmaxnreg in {lib}")
-    missing = [k for k in HOPPER_KERNELS if k not in checked]
+    missing = [k for k in GATED_KERNELS if k not in checked]
     check(not missing, f"the compiler logs report no {missing}")
     import ctypes
     from repro_torch.kernels import _build
@@ -278,7 +299,7 @@ def build_report(libs) -> None:
               f"{vals[0].value} bytes dynamic shared memory, setmaxnreg "
               f"{vals[1].value} registers (producer) / {vals[2].value} "
               "(consumers)")
-    print(f"[build] {', '.join(HOPPER_KERNELS)}: no stack frame, no spills, "
+    print(f"[build] {', '.join(GATED_KERNELS)}: no stack frame, no spills; "
           "no wgmma serialisation, no ignored setmaxnreg")
 
 
@@ -320,35 +341,56 @@ def kernel_phase(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     K, R, G, scale = 4096, 16, 4, 2.0
     max_err = 0.0
-    for M in (1, 8, 130):
-        for N in (4096, 512, 50):
-            x, a, b, g = grouped_case(gen, M, K, R, N, G)
-            got = kern.delta(x, a, b, g, scale)
-            want = ref.delta(x, a, b, g, scale)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
-            print(f"[kernels] grouped_pallas M={M} K={K} R={R} N={N} G={G}: "
-                  f"max|err| {err:.3e} {'ok' if ok else 'MISMATCH'}")
-            check(ok and bool(torch.isfinite(got).all()),
-                  f"grouped_pallas disagrees with grouped_ref at M={M} N={N}")
-            max_err = max(max_err, err)
+    cases = [(M, K, R_, N) for R_ in (16, 1, 64) for M in (1, 8, 130)
+             for N in (4096, 512, 50)] + [(8, 4097, 16, 4096),
+                                          (130, 4097, 5, 257)]
+    for M, K_, R_, N in cases:
+        x, a, b, g = grouped_case(gen, M, K_, R_, N, G)
+        got = kern.delta(x, a, b, g, scale)
+        again = kern.delta(x, a, b, g, scale)
+        want = ref.delta(x, a, b, g, scale)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+        same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        print(f"[kernels] grouped_pallas M={M} K={K_} R={R_} N={N} G={G}: "
+              f"max|err| {err:.3e} {'ok' if ok else 'MISMATCH'}; a second "
+              f"launch bitwise equal: {same}")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"grouped_pallas disagrees with grouped_ref at M={M} K={K_} "
+              f"R={R_} N={N}")
+        check(same, f"grouped_pallas is not deterministic at M={M} K={K_} "
+              f"R={R_} N={N}")
+        max_err = max(max_err, err)
 
     # timings at the decode shapes of the serving phase (8 lanes; wq/wo give
     # N = 4096, wk/wv N = 512).  40 input sets (88 MB, more than the 50 MB
     # L2) are cycled so the pages come from HBM, as a decode step finds
-    # them.  `ms`, `gather_ms` and `library_ms` are device times
-    # (`device_ms`); `call_ms` / `library_call_ms` are back-to-back calls
-    # with the host's per-call overhead in them.  The plain version syncs
-    # with the host (it reads gidx), so it has only the latter.
+    # them.  `ms`, `floor_ms`, `gather_ms` and `library_ms` are device
+    # times (`device_ms`); `call_ms` / `library_call_ms` are back-to-back
+    # calls with the host's per-call overhead in them.  The plain version
+    # syncs with the host (it reads gidx), so it has only the latter.
+    # `floor_ms` is the same C entry point's launch of an empty kernel on
+    # the same grid and clusters: the latency no design of this launch goes
+    # below.
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import lora_matmul as lm
+    floor_fn = _build.CudaFunction("grouped_lora", "grouped_lora_floor_f32",
+                                   lm._ARGTYPES)
     shapes = []
     for N in (4096, 512):
         sets = [grouped_case(gen, 8, K, R, N, G) for _ in range(40)]
         gathered = [(x[:, None, :], a.index_select(0, g.long()),
                      b.index_select(0, g.long())) for x, a, b, g in sets]
+        out = torch.empty(8, N, device="cuda")
 
         def kernel(i):
             return kern.delta(*sets[i % len(sets)], scale)
+
+        def floor(i):
+            x, a, b, g = sets[i % len(sets)]
+            floor_fn(x.device, x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                     g.data_ptr(), out.data_ptr(), 8, K, R, N, G, scale)
 
         def library(i):
             x3, ag, bg = gathered[i % len(gathered)]
@@ -357,6 +399,7 @@ def kernel_phase(seed: int):
         bounds = [grouped_bound(*s) for s in sets]
         row = {"M": 8, "K": K, "R": R, "N": N, "G": G,
                "ms": device_ms(kernel, 2 * len(sets)),
+               "floor_ms": device_ms(floor, 2 * len(sets)),
                "call_ms": cuda_ms(kernel, 400),
                "plain_ms": cuda_ms(lambda i: ref.delta(*sets[i % 40], scale),
                                    40),
@@ -367,6 +410,12 @@ def kernel_phase(seed: int):
                "bound_ms": sum(bd for bd, _ in bounds) / len(bounds),
                "bound_by": bounds[0][1]}
         print(f"[kernels] timing {json.dumps(row)}")
+        print(f"[kernels] grouped_pallas M=8 K={K} R={R} N={N} G={G}: "
+              f"{1e3 * row['ms']:.3f} us a launch against a bound of "
+              f"{1e3 * row['bound_ms']:.3f} us ({row['bound_by']}) and a "
+              f"launch floor of {1e3 * row['floor_ms']:.3f} us (empty "
+              f"kernel, same grid); torch.bmm x2 pre-gathered "
+              f"{1e3 * row['library_ms']:.3f} us")
         shapes.append(row)
     main = shapes[0]
     return {"name": "grouped_lora_delta", "route": "cuda",
@@ -377,7 +426,7 @@ def kernel_phase(seed: int):
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "library": "torch.bmm x2 on pre-gathered pages",
-            "shapes": shapes}
+            "launch_floor_ms": main["floor_ms"], "shapes": shapes}
 
 
 # ---------------------------------------------------------------------------
@@ -1401,19 +1450,21 @@ class PackProbe:
 
 def run_sparse(cfg, params, data, seed: int, engine: str, rounds: int,
                capture: UploadCapture = None, edge_shards: int = 0,
-               **engine_kw):
+               strategy: dict = None, **engine_kw):
     """One sparse-aggregation `Experiment` of the port on the card (the
-    phase-6 setting plus sparse_aggregate=True); returns (result, probe,
-    pack probe, pack-kernel launches, final flatP)."""
+    phase-6 setting plus sparse_aggregate=True, or `strategy`'s kind and
+    options); returns (result, probe, pack probe, pack-kernel launches,
+    final flatP)."""
     import torch
     from repro_torch.federated import Experiment
     from repro_torch.models.config import FederatedConfig
     fns = pack_functions()
     probe, packs = RoundProbe(), PackProbe()
+    strategy = dict(strategy or dict(
+        kind="flasc", selector="fused", quant_bits_up=4, density_down=0.25,
+        density_up=0.25, sparse_aggregate=True, edge_shards=edge_shards))
     exp = (Experiment(None, federation=FederatedConfig(**FED))
-           .with_strategy("flasc", selector="fused", quant_bits_up=4,
-                          density_down=0.25, density_up=0.25,
-                          sparse_aggregate=True, edge_shards=edge_shards)
+           .with_strategy(strategy.pop("kind"), **strategy)
            .with_lora(rank=8)
            .with_training(rounds=rounds, seed=seed)
            .with_params(params, cfg)
@@ -1554,9 +1605,39 @@ def sparse_async_phase(seed: int, cfg, params):
     check(lc["pack_batch"] == packs_c.phase_calls > 0,
           f"(c) pack_batch launched {lc['pack_batch']} times for "
           f"{packs_c.phase_calls} client-phase launches")
+
+    # (d) the dense overflow branch: `lora` uploads every entry it changed,
+    # unquantized, far past the capacity (from density_up 0.25), so every
+    # packed message overflows and the round takes the dense rule on the
+    # device; it must be the dense round bit for bit
+    res_d, _, packs_d, ld, flat_d = run_sparse(
+        cfg, params, data, seed, "sim", 1,
+        strategy=dict(kind="lora", sparse_aggregate=True))
+    res_e, _, packs_e, _, flat_e = run_sparse(
+        cfg, params, data, seed, "sim", 1,
+        strategy=dict(kind="lora", sparse_aggregate=False))
+    over_d = packs_d.report("(d)")
+    rows_d = [(v, cap_) for pnnz, cap_ in packs_d.packs
+              for v in pnnz.cpu().tolist()]
+    every = bool(rows_d) and all(v > cap_ for v, cap_ in rows_d)
+    loss_d, loss_e = res_d.history[0]["loss"], res_e.history[0]["loss"]
+    same_d = torch.equal(flat_d.view(torch.int32), flat_e.view(torch.int32))
+    print(f"[sparse-async] overflow: lora, sparse_aggregate=True, 1 sim round"
+          f": pnnz {[v for v, _ in rows_d]} against cap "
+          f"{sorted({c for _, c in rows_d})}, every row past its capacity: "
+          f"{every}; pack_batch launches {ld['pack_batch']}; loss "
+          f"{loss_d!r} against the dense round's {loss_e!r}; flatP bitwise "
+          f"equal to the dense round's: {same_d}")
+    check(every and ld["pack_batch"] == 1,
+          "(d) not every packed lora upload overflowed its capacity")
+    check(not packs_e.packs, "(d) the dense lora round packed its uploads")
+    check(loss_d == loss_e, f"(d) loss {loss_d!r} != dense {loss_e!r}")
+    check(same_d, "(d) the overflowing sparse round's flatP differs from the "
+          "dense round's")
+    del flat_d, flat_e
     return {"pack_batch": la["pack_batch"], "pack_batch_b": lb["pack_batch"],
             "pack_batch_c": lc["pack_batch"], "mask_quantize_pack": l7,
-            "overflow_a": over_a, "overflow_c": over_c}
+            "overflow_a": over_a, "overflow_c": over_c, "overflow_d": over_d}
 
 
 # ---------------------------------------------------------------------------
@@ -1580,6 +1661,12 @@ YI_PROJ = {"wq": (4096, 4096), "wk": (4096, 512), "wv": (4096, 512),
 # (one query, one head) to ATTN_TOL of its own largest value, which a
 # dropped or misweighted KV tile exceeds many times over.
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
+# bf16 attention against an f64 attention of the same inputs, row by row:
+# the kernel keeps p to f32 precision, so only the output's rounding to
+# bf16 (up to 2^-8 = 3.9e-3 of a row's largest value) separates them; a p
+# rounded to bf16 before the second product gives 5e-3 to 6e-3
+F64_ROW_TOL = 4e-3
+F64_ROWS = 256                 # query rows sampled per head at 8192 tokens
 
 
 def lora_tol(dtype: str, K: int) -> float:
@@ -1630,8 +1717,30 @@ def attn_bound(B, S, T, H, KV, hd, dtype, causal):
 def attn_row_err(got, want) -> float:
     """The largest |got - want| of an output row (one query, one head) over
     the largest |want| of that row, the worst row's."""
-    d = (got.float() - want.float()).abs().amax(-1)
-    return (d / want.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+    d = (got.double() - want.double()).abs().amax(-1)
+    return (d / want.double().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def attn_f64(q, k, v, scale: float, causal: bool, rows=None):
+    """Attention of the same inputs in f64, not rounded, for the query rows
+    `rows` of every head (all rows when None): (B, len(rows), H, hd).  One
+    kv head's group of query heads at a time."""
+    import torch
+    S, H = q.shape[1], q.shape[2]
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    pos = torch.arange(S, device=q.device) if rows is None else rows
+    qd = q[:, pos].double()
+    outs = []
+    for h in range(KV):
+        sc = torch.einsum("bsgd,btd->bgst", qd[:, :, h * G:(h + 1) * G],
+                          k[:, :, h].double()) * scale
+        if causal:
+            keep = torch.arange(T, device=q.device)[None, :] <= pos[:, None]
+            sc = torch.where(keep, sc, -1e30)
+        outs.append(torch.einsum("bgst,btd->bsgd", torch.softmax(sc, -1),
+                                 v[:, :, h].double()))
+    return torch.cat(outs, dim=2)
 
 
 def ops_phase(seed: int):
@@ -1722,10 +1831,14 @@ def ops_phase(seed: int):
 
     # flash attention, GQA, at the long prompt's shapes and ragged ones (B 2,
     # T past S; hd 64 keeps the first, mma.sync kernel, f32 the FMA one); at
-    # 8192 tokens in bf16 also against chunked_attention, which keeps the
-    # probabilities in f32 where the kernel rounds them to bf16
+    # 8192 tokens in bf16 also against chunked_attention.  Every bf16 case
+    # is also held row by row to an f64 attention of its inputs (at 8192
+    # tokens on F64_ROWS sampled query rows of every head): p must keep
+    # f32 precision on both bf16 routes
     hd = 128
-    main_err, chunked = None, {}
+    main_err, chunked, f64_rows = None, {}, {}
+    sample = torch.randperm(LONG_S, generator=gen, device="cuda")[:F64_ROWS]
+    sample = sample.sort().values
     for B, S, T, H, KV, hd_, dt, causal in (
             (1, LONG_S, LONG_S, 32, 4, hd, "bfloat16", True),
             (1, LONG_S, LONG_S, 32, 4, hd, "bfloat16", False),
@@ -1753,6 +1866,18 @@ def ops_phase(seed: int):
         attn_err = max(attn_err, err)
         if dt == "bfloat16":
             attn_row = max(attn_row, row)
+            rows = sample if S == LONG_S else None
+            exact = attn_f64(q, k, v, hd_ ** -0.5, causal, rows)
+            row64 = attn_row_err(got if rows is None else got[:, rows], exact)
+            print(f"[ops] flash_attention {what} against f64 attention "
+                  f"({'all' if rows is None else len(rows)} query rows of "
+                  f"every head): row max|err| / max|want| {row64:.3e} (tol "
+                  f"{F64_ROW_TOL:g}) {'ok' if row64 <= F64_ROW_TOL else 'MISMATCH'}")
+            check(row64 <= F64_ROW_TOL,
+                  f"flash_attention at {what} is {row64:.3e} from f64 "
+                  f"attention, above {F64_ROW_TOL:g}")
+            f64_rows[what] = row64
+            del exact
         if S == LONG_S and dt == "bfloat16":
             if causal:
                 main_err = {"max_abs_err": err, "max_row_rel_err": row}
@@ -1855,6 +1980,7 @@ def ops_phase(seed: int):
         torch.cuda.empty_cache()
     return {"lora_err": lora_err, "attn_err": attn_err, "attn_row": attn_row,
             "attn_main": main_err, "attn_chunked": chunked,
+            "attn_f64": f64_rows,
             "lora_launches": lora_launches, "lora_routes": lora_routes,
             "lora_rows": rows, "attn_rows": attn_rows}
 
@@ -2136,6 +2262,8 @@ def main() -> int:
         "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
         "max_abs_err": ops_res["attn_err"],
         "max_row_rel_err_bf16": ops_res["attn_row"],
+        "max_row_err_vs_f64": max(ops_res["attn_f64"].values()),
+        "row_err_vs_f64": ops_res["attn_f64"],
         "at_shape": ops_res["attn_main"],
         "against_chunked_attention": ops_res["attn_chunked"],
         "ms": amain["ms"],

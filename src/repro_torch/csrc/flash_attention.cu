@@ -11,8 +11,8 @@
 // flash_attention_pallas (its `_kernel`): per (batch x head, tile of query
 // rows) the KV rows stream through fast memory while a running max m, sum l
 // and output acc are kept in f32; out = acc / max(l, 1e-30) in q's dtype.
-// Differences from the Pallas kernel; the first four change nothing of the
-// function, the last rounds it:
+// Differences from the Pallas kernel; none changes the function beyond f32
+// rounding:
 //   - GQA is read in place: query head h reads KV head h / (H / KV), so the
 //     KV heads are never repeated H times in device memory.
 //   - Ragged S and T are masked inside the kernel (rows past S are not
@@ -24,17 +24,25 @@
 //     exp(-1e30 - m) = 0.
 //   - scale multiplies the f32 dot product (the Pallas kernel scales q
 //     first; the oracle divides the product by sqrt(hd)).
-//   - bf16 only: p is rounded to bf16 before acc += p v, as the oracle
-//     kernels/ref.py::flash_attention_ref casts p to v's dtype.  The Pallas
-//     kernel (and the model's chunked_attention) keep p in f32; rounding
-//     moves each weight by at most 2^-8 of itself.  chip_smoke.py holds the
-//     kernel to chunked_attention at S = T = 8192 in bf16.
+//   - bf16: the tensor cores take bf16 operands, so p goes into acc += p v
+//     as a hi + lo pair of bf16 (hopper::split_bf16), two products on the
+//     same V tile.  That keeps p to about 2^-16 of itself, f32's precision
+//     for this sum, as the Pallas kernel (which promotes v to f32) and the
+//     model's chunked_attention keep it; V stays the bf16 tile it is in
+//     memory.  The contract: each output row within 4e-3 of its largest
+//     value of an f64 attention on the same bf16 inputs (rounding the output
+//     to bf16 alone moves it by up to 2^-8 = 3.9e-3); rounding p to bf16, as
+//     the oracle kernels/ref.py::flash_attention_ref does, gives 5e-3 to
+//     6e-3 there.  The plain version (kernels/flash_attention.py::
+//     flash_attention_plain) is this function.
 //
 // What bounds it on an H100: at the long-prompt shapes (S = T = 8192,
 // H = 32, hd = 128) a causal call does 4 S T hd H / 2 = 5.5e11 flop against
 // 0.27 GB of q, k, v and out: 0.56 ms of bf16 tensor-core work against
 // 0.08 ms of bytes.  It is bound by operations, so the design goal is to
-// keep the tensor cores fed.
+// keep the tensor cores fed.  The hi + lo split of p makes the bf16 routes
+// issue 1.5 times that tensor work (Q K^T once, P V twice); the bound
+// counts the function's operations, not the split's.
 //
 // Three kernels; the caller (kernels/flash_attention.py::flash_route) picks
 // one from dtype and hd alone, before the launch, and passes it as `route`:
@@ -52,11 +60,16 @@
 //     K-major, 8 steps over hd); scale (folded with log2 e, so exp2f), the
 //     causal / ragged mask on the tiles that need it, and the online
 //     softmax run on the f32 accumulator (row max and sum over the 4 lanes
-//     that share a row); p is rounded to bf16 in registers and is the A
-//     operand of acc += P V, wgmma m64n128k16 with A from registers and V
-//     read MN-major through the transpose bit.  acc stays in registers.
-//     setmaxnreg gives the producer 24 registers and the consumers 240
-//     (at 232 the consumers spill).
+//     that share a row); p is split into a hi + lo pair of bf16 in
+//     registers, and each half is the A operand of acc += P V, wgmma
+//     m64n128k16 with A from registers and V read MN-major through the
+//     transpose bit: two wgmma per 16 keys on one V descriptor, twice the
+//     P V tensor work of a bf16 p.  The pairs are built and consumed a
+//     quarter tile (32 keys) at a time, each quarter's wgmma waited for
+//     before the next is built: all 64 pair registers at once spilled.
+//     acc stays in registers.  setmaxnreg gives the producer 24 registers
+//     and the consumers 240, the most the producer's 24 leave (at 232 the
+//     consumers spilled even with a bf16 p).
 //     Shared memory 160 KB.  Not yet: overlap of one tile's softmax with
 //     the next tile's Q K^T inside a warpgroup, and a ping-pong schedule
 //     between the two consumer warpgroups.
@@ -68,11 +81,11 @@
 //     T), the next tile's copy in flight while this one is used.  S = q k^T
 //     by mma.sync.m16n8k16 (bf16 in, f32 accumulate), its B fragments by
 //     ldmatrix; scale, mask, the online softmax on the accumulator fragments
-//     (row max and sum over the 4 lanes that share a row); p is rounded to
-//     bf16 and reused in registers as the A fragment of acc += p v (f32
-//     accumulate), whose B fragments come from the V rows by
-//     ldmatrix.trans.  Rows of smem are padded by 8 bf16 so each 8-row
-//     ldmatrix phase hits 32 distinct banks.
+//     (row max and sum over the 4 lanes that share a row); p is split into
+//     a hi + lo pair of bf16 held in registers as two A fragments of acc +=
+//     p v (two mma.sync per fragment, f32 accumulate), whose B fragments
+//     come from the V rows by ldmatrix.trans.  Rows of smem are padded by 8
+//     bf16 so each 8-row ldmatrix phase hits 32 distinct banks.
 //   route 2, "fma" -- f32: the same tiling with FMA instead of tensor cores
 //     (TF32 would move f32 results by 1e-3): 256 threads as 16 x 16, each
 //     thread owning 4 query rows x 4 keys of a score tile and 4 rows x
@@ -100,7 +113,7 @@ constexpr int kBKV = 64;            // keys per tile
 constexpr int kPad = 8;             // bf16 of padding per shared-memory row
 constexpr int kThreadsMma = 128;
 
-using hopper::pack_bf16;
+using hopper::split_bf16;
 
 // d += a (16x16, row) * b (16x8, col); bf16 inputs, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
@@ -315,23 +328,25 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       acc[d][2] *= corr[1];
       acc[d][3] *= corr[1];
     }
-    // acc += p v: two score n-tiles form one A fragment over 16 keys; the
-    // B fragments come from V rows (keys) by ldmatrix.trans, two dim tiles
-    // per x4
+    // acc += p v: two score n-tiles form one A fragment over 16 keys, as a
+    // hi + lo pair of bf16 fragments; the B fragments come from V rows
+    // (keys) by ldmatrix.trans, two dim tiles per x4
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
       for (int d = 0; d < DT; d += 2) {
         uint32_t vf[4];
         ldsm_x4_trans(vf, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
                                    LD + (d + (lane >> 4)) * 8);
-        mma_bf16(acc[d], pa, vf[0], vf[1]);
-        mma_bf16(acc[d + 1], pa, vf[2], vf[3]);
+        mma_bf16(acc[d], ph, vf[0], vf[1]);
+        mma_bf16(acc[d], pl, vf[0], vf[1]);
+        mma_bf16(acc[d + 1], ph, vf[2], vf[3]);
+        mma_bf16(acc[d + 1], pl, vf[2], vf[3]);
       }
     }
     __syncthreads();                  // buffer jt & 1 is free for jt + 2
@@ -502,28 +517,36 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         l[rr] += sc[i];
         o[i] *= corr[rr];
       }
-      // p in bf16 as the A operand: keys 16 kk .. 16 kk + 15 are the
-      // accumulator chunks 2 kk and 2 kk + 1
-      uint32_t pa[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
-
-      mbar_wait(&v_full[s], ph);
+      // p as hi + lo pairs of bf16 A operands, a quarter tile (32 keys,
+      // accumulator chunks 8 q .. 8 q + 7) at a time: keys 16 kk .. 16 kk + 15
+      // are the chunks 2 kk and 2 kk + 1.  Each quarter's pairs are free
+      // again at its wait, so the consumers stay within their 240
+      // registers (all 64 pair registers at once spilled 84 bytes).
       const uint32_t v_addr = smem_addr(vs(s));
-      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_m64n128k16_rs(o, pa[kk],
-                               desc_sw128(v_addr + kk * 2048, kWgBox, 1024), 1);
+      for (int qt = 0; qt < 4; ++qt) {
+        uint32_t p_hi[2][4], p_lo[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 8 * (2 * qt + kk) + 2 * e;
+            split_bf16(sc[i], sc[i + 1], p_hi[kk][e], p_lo[kk][e]);
+          }
+        }
+        if (qt == 0) mbar_wait(&v_full[s], ph);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint64_t v_desc =
+              desc_sw128(v_addr + (2 * qt + kk) * 2048, kWgBox, 1024);
+          wgmma_m64n128k16_rs(o, p_hi[kk], v_desc, 1);
+          wgmma_m64n128k16_rs(o, p_lo[kk], v_desc, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
       __syncwarp();
       if (lane == 0) mbar_arrive(&v_empty[s]);
     }

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_attention.cu, lora_matmul.cu): thin inline-PTX wrappers for
-// mbarriers, TMA tensor loads, the wgmma shared-memory descriptor and the
-// wgmma instructions, and setmaxnreg, plus a host helper that encodes a
-// CUtensorMap.  Both kernels load every wgmma operand by TMA, so neither
-// needs fence.proxy.async (it orders plain shared-memory stores before
-// async-proxy reads).
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, lora_matmul.cu, grouped_lora.cu): thin inline-PTX
+// wrappers for mbarriers, TMA tensor loads, the wgmma shared-memory
+// descriptor and the wgmma instructions, the cluster barrier and
+// distributed shared memory, and setmaxnreg, plus a host helper that
+// encodes a CUtensorMap.  The two wgmma kernels load every wgmma operand
+// by TMA, so neither needs fence.proxy.async (it orders plain shared-memory
+// stores before async-proxy reads).
 //
 // Conventions the kernels rely on:
 //   - Tiles are loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B and a box
@@ -71,14 +72,25 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 
 // True once the phase of parity `parity` has completed.  A fresh barrier
 // is in phase 0: waiting on parity 1 passes at once, on parity 0 blocks
-// until the first phase completes.
+// until the first phase completes.  CLUSTER: the barrier is completed by
+// cluster peers (st_async_v4), so the wait acquires at cluster scope and
+// their writes are visible after it.
+template <bool CLUSTER = false>
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  if constexpr (CLUSTER) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
   return done != 0;
 }
 
@@ -86,10 +98,11 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
 // cycles (some ten seconds; no wait of a working pipeline lasts a
 // millisecond) is a fault in the pipeline: it traps, so the launch fails
 // with an error instead of holding the card forever.
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
+  if (mbar_try_wait<CLUSTER>(bar, parity)) return;
   const long long start = clock64();
-  while (!mbar_try_wait(bar, parity)) {
+  while (!mbar_try_wait<CLUSTER>(bar, parity)) {
     if (clock64() - start > (1ll << 34)) __trap();
   }
 }
@@ -254,6 +267,57 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
 }
 
 // ---------------------------------------------------------------------------
+// thread-block clusters: the cluster barrier and writes into a peer's
+// shared memory (grouped_lora.cu)
+// ---------------------------------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves, each executed by every thread of every
+// block of the cluster; work between the two overlaps the other blocks'
+// arrival.  The arrive is relaxed: it releases nothing of its own, and
+// after fence_barrier_init (which releases an mbarrier's initialisation
+// at cluster scope) it is what makes that initialisation visible to the
+// peers that wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// Returns once every thread of the cluster has arrived; acquires at cluster
+// scope (ptxas adds an L1 invalidation for it).
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared-memory address `saddr` (this block's layout) in the shared
+// memory of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t map_cluster(uint32_t saddr,
+                                                uint32_t rank) {
+  uint32_t remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+      : "=r"(remote) : "r"(saddr), "r"(rank));
+  return remote;
+}
+
+// Writes 16 bytes into a cluster peer's shared memory at `remote` (a
+// map_cluster address, 16-byte aligned) and, once they have landed,
+// completes 16 bytes of the transactions of the peer's mbarrier at
+// `remote_bar`.  Does not wait.
+__device__ __forceinline__ void st_async_v4(uint32_t remote, float4 v,
+                                            uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(remote), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // setmaxnreg: the producer warpgroup gives registers back, the consumer
 // warpgroups take them.  Each is executed by all four warps of a warpgroup,
 // as the first statement of a role's branch that never rejoins the other
@@ -273,6 +337,19 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two f32 values as a hi + lo pair of packed bf16: hi = bf16(v), lo =
+// bf16(v - hi).  v - hi is exact in f32, so hi + lo carries v to about
+// 2^-16 of itself, and a product of each half with a bf16 operand is
+// exact in an f32 accumulator: two bf16 products give an f32-precision
+// operand.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
 }
 
 // ---------------------------------------------------------------------------

@@ -23,11 +23,16 @@ dtype and hd alone, before the launch (never as a retry):
 `FLASH.launches` counts every launch and `FLASH.launches_by_route` each
 route's.
 
-In bf16 the kernel rounds the probabilities to bf16 before the second
-product, as its plain version (`ref.flash_attention_ref`, which casts them
-to v.dtype) does; the Pallas kernel and `chunked_attention` keep them in
-f32.  That moves each weight by at most 2^-8 of itself; `chip_smoke.py`
-holds the kernel to `chunked_attention` at 8192 tokens in bf16.
+The probabilities stay in f32 in both dtypes, as in the Pallas kernel
+(which promotes v to f32) and `chunked_attention`.  In bf16 the tensor
+cores take bf16 operands, so the kernel splits p into a hi + lo pair of
+bf16 and runs the second product on each half: p keeps about 16 bits, and
+v stays bf16.  The contract in bf16: each output row within 4e-3 of its
+largest value of an f64 attention on the same inputs (the output's own
+rounding to bf16 allows up to 2^-8 = 3.9e-3).  `flash_attention_plain` is
+this function in plain PyTorch; the reference's oracle
+(`ref.flash_attention_ref`), which casts p to v.dtype first, misses that
+bound (5e-3 to 6e-3 at 512 keys).
 
 On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
 it runs `flash_attention_plain`.  Forward only, as the reference's kernel:
@@ -40,7 +45,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import CudaFunction, aligned
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import NEG_INF
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -65,9 +70,30 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
     return "wgmma" if hd == 128 else "mma_sync"
 
 
-# the kernel's plain version: the port's copy of the reference's oracle,
-# which takes the GQA layout and the kernel's `scale`
-flash_attention_plain = flash_attention_ref
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: float) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, as the Pallas `_kernel`
+    computes it: f32 scores q k^T times `scale`, -1e30 above the diagonal,
+    f32 softmax, p @ v with v promoted to f32, the output cast once to
+    q.dtype.  GQA in place: query head h reads kv head h // (H // KV).  One
+    kv head's group of query heads at a time, so the (S, T) scores of only
+    H / KV heads are held at once."""
+    S, H = q.shape[1], q.shape[2]
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    keep = None
+    if causal:
+        keep = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None])
+    outs = []
+    for h in range(KV):
+        s = torch.einsum("bsgd,btd->bgst", q[:, :, h * G:(h + 1) * G].float(),
+                         k[:, :, h].float()) * scale
+        if keep is not None:
+            s = torch.where(keep, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bgst,btd->bsgd", p, v[:, :, h].float()))
+    return torch.cat(outs, dim=2).to(q.dtype)
 
 
 def _check_shapes(q, k, v) -> None:
@@ -98,7 +124,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise NotImplementedError(
             "flash_attention: the CUDA kernel is forward-only, as the "
             "reference's; training at chunked_attn_threshold tokens or more "
-            "on the card is ROADMAP queue 1, item 14")
+            "on the card is ROADMAP queue 1, item 5")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     for name, t in (("k", k), ("v", v)):

@@ -31,8 +31,10 @@ means the same function in both packages:
   - ``grouped_gather`` -- index-select + einsum: the CPU default.
   - ``grouped_pallas`` -- the hand-written CUDA kernel for sm_90a in
     `csrc/grouped_lora.cu` (the name is the reference's, whose TPU kernel
-    it replaces).  CUDA tensors only; it never falls back to a plain
-    version.
+    it replaces): one launch per call, one cluster of 8 blocks per page and
+    chunk of up to 64 of its rows, x @ a once per row, each used page read
+    once, deterministic.  CUDA tensors only; it never falls back to a
+    plain version.
 
 `resolve_grouped_kernel(None, device)` picks by the tensors' device: the
 CUDA kernel for CUDA tensors, ``grouped_gather`` on the CPU (the
@@ -239,9 +241,14 @@ MAX_RANK = 64
 class CudaGroupedKernel(GroupedLoraKernel):
     """The hand-written CUDA kernel (`csrc/grouped_lora.cu`), built by
     `nvcc` at first use.  f32 x / a / b, int32 gidx, every tensor
-    contiguous and on one CUDA device, pool rank <= 64.  Launches on the
-    current stream and does not synchronise.  `launches` counts the
-    launches this instance made; nothing else adds to it."""
+    contiguous and on one CUDA device, pool rank <= 64.  One launch per
+    call: a cluster of 8 blocks per (page, chunk of up to 64 of its rows)
+    shrinks x @ a over 8 K slices, writes each block's partial into every
+    block's shared memory (st.async), sums the 8 in a fixed order and
+    expands over 8 N slices, so two calls on the same inputs give the same
+    bits.  Launches on the current stream and does not synchronise.
+    `launches` counts the launches this instance made; nothing else adds
+    to it."""
 
     def __init__(self):
         self.fn = _build.CudaFunction("grouped_lora", "grouped_lora_delta_f32",

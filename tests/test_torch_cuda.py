@@ -6,14 +6,18 @@ the port's dependencies:
   PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 The grouped LoRA delta holds to rtol 1e-4, atol 1e-5 in f32: the kernel
-sums in another order than the plain version (strided K partials, then a
-tree reduction), at K up to 4096.  The transport kernels hold bitwise.
-The flash kernel holds to 2e-6 in f32 and 2e-2 in bf16, the fused LoRA
-matmul to 1e-5 in f32 and 5e-2 in bf16: the tolerances of the reference's
-own kernel tests (tests/test_kernels.py).  Those tests draw short rows,
-whose outputs are about 0.1; over a thousand keys they are about 0.05, so
-bf16 attention is also held row by row: each output row (one query, one
-head) to 2e-2 of its own largest value.
+sums in another order than the plain version (K slices over a cluster's
+blocks, strided partials, tree reductions), at K up to 4097; two launches
+on the same inputs are bitwise equal.  The transport kernels hold
+bitwise.  The flash kernel holds to 2e-6 in f32 and 2e-2 in bf16, the
+fused LoRA matmul to 1e-5 in f32 and 5e-2 in bf16: the tolerances of the
+reference's own kernel tests (tests/test_kernels.py).  Those tests draw
+short rows, whose outputs are about 0.1; over a thousand keys they are
+about 0.05, so bf16 attention is also held row by row: each output row
+(one query, one head) to 2e-2 of its own largest value, and to 4e-3 of it
+against an f64 attention on the same inputs (the bf16 output's own
+rounding allows 2^-8 = 3.9e-3; a p rounded to bf16 before the second
+product gives 5e-3 to 6e-3).
 """
 import numpy as np
 import pytest
@@ -65,6 +69,67 @@ def test_grouped_cuda_kernel_matches_plain(M, K, R, N, G):
     want = _port("grouped_ref", x, a, b, gidx, 1.7, device="cuda")
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+# the decode shapes and ragged ones, every rank bucket of the kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8, 16, 64])
+@pytest.mark.parametrize("N", [4096, 512, 50])
+@pytest.mark.parametrize("M", [1, 8, 130])
+def test_grouped_cluster_kernel_matches_ref(M, N, R):
+    _need_card()
+    x, a, b, gidx = _case(M * N + R, M, 4096, R, N, 4)
+    got = _port("grouped_pallas", x, a, b, gidx, 1.3, device="cuda")
+    want = _port("grouped_ref", x, a, b, gidx, 1.3, device="cuda")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+# K that is not a multiple of 4 or of the cluster's 8 slices (a slice is
+# rounded up to 4, so the last blocks get a short slice or none)
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 6, 30, 4094, 4097])
+@pytest.mark.parametrize("M,R,N", [(8, 16, 4096), (130, 5, 257)])
+def test_grouped_cluster_kernel_ragged_k(K, M, R, N):
+    _need_card()
+    x, a, b, gidx = _case(K + M, M, K, R, N, 3)
+    got = _port("grouped_pallas", x, a, b, gidx, 0.7, device="cuda")
+    want = _port("grouped_ref", x, a, b, gidx, 0.7, device="cuda")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+# all rows on one page (130 rows: three clusters of up to 64), pages that
+# no row uses, and indices outside [0, G), which the kernel clamps
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["one_page", "unused_pages", "clamped"])
+def test_grouped_cluster_kernel_page_layouts(layout):
+    _need_card()
+    M, G = 130, 5
+    x, a, b, _ = _case(11, M, 4096, 16, 512, G)
+    rng = np.random.default_rng(12)
+    gidx = {"one_page": np.full(M, 3),
+            "unused_pages": rng.choice([1, 4], M),
+            "clamped": rng.integers(-4, G + 4, M)}[layout].astype(np.int32)
+    got = _port("grouped_pallas", x, a, b, gidx, 1.0, device="cuda")
+    want = _port("grouped_ref", x, a, b, np.clip(gidx, 0, G - 1), 1.0,
+                 device="cuda")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,R,N", [(8, 4096, 16, 4096), (130, 4097, 33, 50)])
+def test_grouped_cluster_kernel_is_deterministic(M, K, R, N):
+    # every sum has a fixed order (no float atomics): two launches on the
+    # same inputs give the same bits
+    _need_card()
+    x, a, b, gidx = (torch.from_numpy(v).cuda()
+                     for v in _case(13, M, K, R, N, 4))
+    kern = resolve_grouped_kernel("grouped_pallas")
+    first = kern.delta(x, a, b, gidx, 1.5)
+    again = kern.delta(x, a, b, gidx, 1.5)
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -334,14 +399,35 @@ ATTN_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 LORA_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
 
+F64_ROW_TOL = 4e-3       # bf16 output rows against an f64 attention
+
+
+def _row_err(got, want):
+    """The worst output row's largest |got - want| over its largest |want|."""
+    d = (got.double() - want.double()).abs().amax(-1)
+    return (d / want.double().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _attn_f64(q, k, v, scale, causal):
+    """Attention of the same inputs in f64 (GQA: query head h reads kv head
+    h // (H // KV)), not rounded."""
+    S, H = q.shape[1], q.shape[2]
+    T, G = k.shape[1], H // k.shape[2]
+    kd, vd = (t.double().repeat_interleave(G, 2) for t in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", q.double(), kd) * scale
+    if causal:
+        keep = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None])
+        s = torch.where(keep, s, -1e30)
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(s, -1), vd)
+
+
 def _assert_attn_close(got, want, dtype):
     tol = ATTN_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
     if dtype == torch.bfloat16:
-        d = (got.float() - want.float()).abs().amax(-1)
-        row = d / want.float().abs().amax(-1).clamp_min(1e-30)
-        assert row.max().item() <= tol
+        assert _row_err(got, want) <= tol
 
 
 def _attn(seed, B, S, T, H, KV, hd, dtype):
@@ -380,6 +466,9 @@ def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     want = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
     assert got.dtype == dtype and got.shape == q.shape
     _assert_attn_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        # p kept to f32 precision (a hi + lo pair of bf16) on both bf16 routes
+        assert _row_err(got, _attn_f64(q, k, v, scale, causal)) <= F64_ROW_TOL
 
 
 @pytest.mark.cuda
@@ -403,7 +492,7 @@ def test_flash_kernel_gqa_equals_prebroadcast_and_oracle(dtype):
     (1, 1024, 8, 2, 128), (2, 768, 32, 4, 128), (2, 512, 8, 1, 64)])
 def test_flash_kernel_bf16_matches_chunked_attention(B, S, H, KV, hd, causal):
     # chunked_attention, the model's plain path, keeps the probabilities in
-    # f32 where the bf16 kernels round them to bf16
+    # f32, as the bf16 kernels do (a hi + lo pair of bf16)
     _need_card()
     from repro_torch.models.attention import chunked_attention
     q, k, v = _attn(5, B, S, S, H, KV, hd, torch.bfloat16)
@@ -414,6 +503,8 @@ def test_flash_kernel_bf16_matches_chunked_attention(B, S, H, KV, hd, causal):
     want = chunked_attention(q, k, v, hd ** -0.5, causal=causal, cq=256,
                              ckv=256)
     _assert_attn_close(got, want, torch.bfloat16)
+    exact = _attn_f64(q, k, v, hd ** -0.5, causal)
+    assert _row_err(got, exact) <= F64_ROW_TOL
 
 
 @pytest.mark.cuda

@@ -6,6 +6,12 @@ Tolerances are those of the reference's own kernel tests
 (tests/test_kernels.py): attention 2e-6 in f32 and 2e-2 in bf16, the
 LoRA matmul 1e-5 in f32 and 5e-2 in bf16; the two CPU backends sum in
 different orders.  Masks, counts and the bisection threshold are exact.
+The flash kernel's plain version keeps the probabilities in f32, as the
+Pallas kernel does: in bf16 each of its output rows holds to 4e-3 of the
+row's largest value against an f64 attention (the output's rounding to
+bf16 allows 2^-8 = 3.9e-3), which the reference's oracle, rounding p to
+bf16, misses; and it is within one bf16 ulp of the row's largest value
+(2^-7) of the reference's `chunked_attention`.
 
 The JAX side of `ops.lora_matmul` runs the Pallas kernel in interpret mode
 at shapes that tile (as tests/test_kernels.py does) and its oracle at
@@ -23,6 +29,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.topk_mask import BLOCK
+from repro.models import attention as JA
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -173,3 +181,63 @@ def test_flash_attention_gqa_equals_prebroadcast():
     pre = tops.flash_attention(q, k.repeat_interleave(3, 2),
                                v.repeat_interleave(3, 2))
     np.testing.assert_allclose(gqa.numpy(), pre.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the flash kernel's plain version keeps p in f32 (bf16, S = T = 512, hd 128)
+# ---------------------------------------------------------------------------
+
+F64_ROW_TOL = 4e-3
+
+
+def _row_err(got, want):
+    """The worst output row's largest |got - want| over its largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want).max(-1)
+    return float((d / np.maximum(np.abs(want).max(-1), 1e-30)).max())
+
+
+def _attn_f64(q, k, v, scale):
+    """Causal GQA attention of numpy inputs in f64."""
+    S, H = q.shape[1], q.shape[2]
+    G = H // k.shape[2]
+    kd, vd = (np.repeat(t.astype(np.float64), G, axis=2) for t in (k, v))
+    s = np.einsum("bshd,bthd->bhst", q.astype(np.float64), kd) * scale
+    s = np.where(np.tril(np.ones((S, S), bool)), s, -1e30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhst,bthd->bshd", p, vd)
+
+
+def _bf16_qkv(seed, KV):
+    """q (1, 512, 4, 128), k and v (1, 512, KV, 128), rounded to bf16: the
+    torch tensors and the same values as f32 numpy arrays."""
+    t = [torch.from_numpy(_normal(seed + i, 1, 512, h, 128)).bfloat16()
+         for i, h in enumerate((4, KV, KV))]
+    return t, [x.float().numpy() for x in t]
+
+
+@pytest.mark.parametrize("KV", [2, 4])
+def test_flash_plain_bf16_keeps_p_in_f32(KV):
+    (tq, tk, tv), (q, k, v) = _bf16_qkv(70 + KV, KV)
+    exact = _attn_f64(q, k, v, 128 ** -0.5)
+    got = tfa.flash_attention_plain(tq, tk, tv, causal=True,
+                                    scale=128 ** -0.5)
+    assert got.dtype == torch.bfloat16
+    assert _row_err(got.float().numpy(), exact) <= F64_ROW_TOL
+    # the oracle's formula, p rounded to bf16 before the second product,
+    # misses the bound: the check sees that rounding
+    old = tref.flash_attention_ref(tq, tk, tv, causal=True, scale=128 ** -0.5)
+    assert _row_err(old.float().numpy(), exact) > F64_ROW_TOL
+
+
+@pytest.mark.parametrize("KV", [2, 4])
+def test_flash_plain_bf16_matches_reference_chunked_attention(KV):
+    (tq, tk, tv), (q, k, v) = _bf16_qkv(80 + KV, KV)
+    got = tfa.flash_attention_plain(tq, tk, tv, causal=True,
+                                    scale=128 ** -0.5)
+    want = JA.chunked_attention(*(jnp.asarray(a).astype(jnp.bfloat16)
+                                  for a in (q, k, v)), 128 ** -0.5,
+                                causal=True, window=None, cq=128, ckv=128)
+    assert want.dtype == jnp.bfloat16
+    assert _row_err(got.float().numpy(), _np(want)) <= 2.0 ** -7
