@@ -7,9 +7,10 @@ Phases, each fatal on failure:
   1. build    -- compile every CUDA source under src/repro_torch/csrc/ with
                  nvcc (one process per source, all started together); print
                  each kernel's registers, shared memory and spills, and fail
-                 if a wgmma kernel or a rank bucket of the grouped kernel
-                 has a stack frame or spills, or ptxas serialised a wgmma or
-                 ignored a setmaxnreg.
+                 if a wgmma kernel, a rank bucket of the grouped kernel or
+                 one of the bin_counts / pack_batch kernels has a stack
+                 frame or spills, or ptxas serialised a wgmma or ignored a
+                 setmaxnreg.
   2. kernels  -- the grouped LoRA kernel against its plain PyTorch version
                  on the card at the serving decode shapes and ragged ones
                  (M in {1, 8, 130}, N in {4096, 512, 50}, R in {1, 16, 64},
@@ -38,9 +39,13 @@ Phases, each fatal on failure:
                  against their plain versions, BITWISE, at the Yi-9B LoRA
                  vector length (9,830,400), 1,000,003 and 50, one and four
                  rows, normal / tied / all-zero rows, bits 0 and 4, nearest
-                 and stochastic rounding; then each kernel's device time at
-                 the Yi-9B length beside its bound, its plain version and a
-                 library call.
+                 and stochastic rounding; bin_counts also at 1, 5 and 12
+                 levels on every row kind of tests/_bin_rows.py (denormal,
+                 overflowing, infinite, NaN and negative bounds, NaN
+                 elements, sixty decades, elements on the edges of its
+                 search table); then each kernel's device time at the Yi-9B
+                 length beside its bound, its plain version and a library
+                 call.
   6. train    -- the port's `Experiment` (sim engine) on Yi-9B at full
                  width and depth in bf16: flasc, selector "fused", 4-bit
                  uploads, rank 8, density 0.25 both ways, 4 clients x 4 x
@@ -60,7 +65,9 @@ Phases, each fatal on failure:
                  plain versions, BITWISE: pack_batch at n in {9,830,400,
                  1,000,003, 50}, B in {1, 4}, normal / -0.0-and-NaN /
                  tied / all-zero rows, the Yi-9B capacity and an
-                 overflowing one; mask_quantize_pack at bits 0 and 4,
+                 overflowing one, and (n in {9,830,400, 1,000,003}) a view
+                 one float into its storage, cap 0, and a second call that
+                 must give the same bits; mask_quantize_pack at bits 0 and 4,
                  nearest and stochastic, k in {0, 1, n/4, n}.  Flat ==
                  hierarchical accumulate (edges 1, 4, 7) bitwise, the
                  sparse mean against the dense one (atol 1e-6); then both
@@ -220,8 +227,13 @@ HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel")
 # 16-byte loads (1) or element loads (0)
 GROUPED_KERNELS = tuple(f"grouped_lora_cluster_kernel<{rp}, {vec}>"
                         for rp in (4, 8, 16, 32, 64) for vec in (1, 0))
+# the two transport entry points redesigned for Hopper (csrc/transport.cu):
+# the histogram search at its widest and its sum, the one-pass pack and its
+# fill
+TRANSPORT_KERNELS = ("bin_partial_kernel<12>", "bin_sum_kernel",
+                     "pack_scan_kernel", "pack_fill_kernel")
 # kernels that must build with no stack frame and no spills
-GATED_KERNELS = HOPPER_KERNELS + GROUPED_KERNELS
+GATED_KERNELS = HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
 
 
 def kernel_name(mangled: str) -> str:
@@ -259,8 +271,8 @@ def ptxas_kernels(log: str):
 def build_report(libs) -> None:
     """Print every kernel's registers, shared memory and spills, and every
     compiler warning.  Fail if a library's compiler log is missing, if a
-    gated kernel (the two wgmma kernels, the grouped kernel's rank buckets)
-    is not in its library's log with its stack frame and spill counts, if
+    gated kernel (the two wgmma kernels, the grouped kernel's rank buckets,
+    the bin_counts and pack_batch kernels) is not in its library's log with its stack frame and spill counts, if
     it has any of them, or if ptxas serialised a wgmma or ignored a
     setmaxnreg (each of which quietly costs most of what the design
     buys)."""
@@ -768,9 +780,9 @@ def transport_bound(name: str, B: int, n: int, kept: int, stochastic: bool):
         "absmax": (row + small, 2 * B * n),                 # abs, max
         "threshold_count": (row + small, 3 * B * n),        # abs, >=, add
         "topk_mask": (2 * row + small, 4 * B * n),          # + select
-        # abs, then 12 x (add, mul, >=, two selects, index shift-add)
-        "bin_counts": (row + small + 4 * B * (1 << LEVELS),
-                       B * n * (1 + 6 * LEVELS)),
+        # abs, multiply, floor, subtract, four compares, two clamps, the
+        # histogram add (the elements near an edge add a table search)
+        "bin_counts": (row + small + 4 * B * (1 << LEVELS), 11 * B * n),
         # abs, >=, select, add for every entry; divide, add, floor, two
         # clamps and a multiply for each survivor
         "mask_quantize": ((3 if stochastic else 2) * row + small,
@@ -849,9 +861,36 @@ def transport_phase(seed: int):
           f"{{1, 4}} x normal/ties/zeros, bits 0 and 4, nearest and "
           f"stochastic): every kernel bitwise equal to its plain version")
 
+    # bin_counts alone on the rows that reach every path of its search
+    # (tests/_bin_rows.py): denormal, overflowing, infinite, NaN and
+    # negative bounds, NaN elements, sixty decades, elements on the table's
+    # edges; and every kind above at 1, 5 and 12 levels
+    from _bin_rows import KINDS, bin_rows
+    cases = 0
+    for n in (P_LEN, 1_000_003, 50):
+        for B in (1, 4):
+            for kind in KINDS:
+                for levels in (1, 5, 12):   # only the edges kind's rows
+                    if levels == 1 or kind == "edges":   # depend on levels
+                        xs, hs = bin_rows(kind, B, n, levels, seed + n + B)
+                        x, hi0 = (torch.from_numpy(a).cuda()
+                                  for a in (xs, hs))
+                    what = f"n={n} B={B} {kind} levels={levels}"
+                    hist = ft.bin_counts(x, hi0, levels)
+                    same("bin_counts", hist,
+                         ft.bin_counts_plain(x, hi0, levels), what)
+                    check(bool((hist.sum(-1) == n).all()),
+                          f"bin_counts lost entries ({what})")
+                    cases += 1
+                del x, hi0
+    torch.cuda.synchronize()
+    print(f"[transport] bin_counts: {cases} more cases (n in {{{P_LEN}, "
+          f"1000003, 50}} x B in {{1, 4}} x {'/'.join(KINDS)} x levels in "
+          f"{{1, 5, 12}}): bitwise equal to its plain version")
+
     # device times at the Yi-9B vector: the kernel alone (its C entry point
-    # on preallocated outputs), the wrapper (which also zeroes its count /
-    # max / histogram output), the plain version and, where PyTorch has
+    # on preallocated outputs), the wrapper (which also allocates its
+    # outputs and zeroes a count or max), the plain version and, where PyTorch has
     # one, a library call computing the same function.  Calls alternate
     # between two input sets: one row (39.3 MB) fits the 50 MB L2, and the
     # round reads its rows from HBM.
@@ -873,6 +912,8 @@ def transport_phase(seed: int):
         out = torch.empty_like(sets[0].x)
         cnt = torch.zeros(B, dtype=torch.int32, device="cuda")
         hout = torch.zeros((B, 1 << LEVELS), dtype=torch.int32, device="cuda")
+        hpart = torch.empty(B * ft.BIN_PARTS << LEVELS, dtype=torch.int32,
+                            device="cuda")
         amax = torch.zeros(B, device="cuda")
         op, cp = out.data_ptr(), cnt.data_ptr()
         calls = {   # (kernel alone, wrapper, plain, library) on one set
@@ -896,7 +937,8 @@ def transport_phase(seed: int):
             "bin_counts": (
                 lambda s: fns["bin_counts"](dev, s.x.data_ptr(),
                                             s.hi0.data_ptr(), hout.data_ptr(),
-                                            P_LEN, B, LEVELS),
+                                            hpart.data_ptr(), P_LEN, B,
+                                            LEVELS),
                 lambda s: ft.bin_counts(s.x, s.hi0, LEVELS),
                 lambda s: ft.bin_counts_plain(s.x, s.hi0, LEVELS), None),
             "mask_quantize": (
@@ -1291,8 +1333,28 @@ def pack_phase(seed: int):
                                      x, thr, scale, uu, bits, cap, n), what)
                             cases += 1
             torch.cuda.synchronize()
+    # pack_batch on what else it must get right: a view one float into its
+    # storage (no 16-byte loads), cap 0, and two calls on the same rows,
+    # bitwise equal
+    for n in (P_LEN, 1_000_003):
+        for B in (1, 4):
+            cap = comm.pack_capacity(n, sp.density_count(n, 0.25))
+            flat = pack_rows(gen, 1, B * n + 1, "negzero")[0]
+            x = flat[1:].view(B, n)
+            check(x.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+            for c in (cap, 0):
+                what = f"n={n} B={B} unaligned cap={c}"
+                got = ft.pack_values_batch(x, c)
+                same("pack_batch", got, ft.pack_rows_plain(x, x != 0, c, n),
+                     what)
+                same("pack_batch", ft.pack_values_batch(x, c), got,
+                     what + " second call")
+                cases += 1
+            del flat, x
+    torch.cuda.synchronize()
     print(f"[pack] {cases} cases (n in {{{P_LEN}, 1000003, 50}} x B in "
-          f"{{1, 4}}; pack_batch on normal/-0.0+NaN/tied/zero rows, "
+          f"{{1, 4}}; pack_batch on normal/-0.0+NaN/tied/zero rows and "
+          f"unaligned views, cap 0 and twice over, "
           f"mask_quantize_pack on normal/tied/zero rows at bits 0 and 4, "
           f"nearest and stochastic, k in {{0, 1, n/4, n}}; the Yi-9B "
           f"capacity and an overflowing one): both kernels bitwise equal "
@@ -1343,12 +1405,15 @@ def pack_phase(seed: int):
         val = torch.empty((B, cap), device="cuda")
         cnt = torch.zeros(B, dtype=torch.int32, device="cuda")
         scratch = torch.empty((B, nt), dtype=torch.int32, device="cuda")
+        pscratch = torch.empty(ft.pack_batch_scratch_words(B, P_LEN),
+                               dtype=torch.int64, device="cuda")
         op, ip, vp, cp, sp_ = (out.data_ptr(), idx.data_ptr(), val.data_ptr(),
                                cnt.data_ptr(), scratch.data_ptr())
         calls = {   # (kernel alone, wrapper, plain, library) on one set
             "pack_batch": (
                 lambda s: fns["pack_batch"](dev, s.sparse.data_ptr(), ip, vp,
-                                            cp, sp_, P_LEN, B, cap, P_LEN),
+                                            cp, pscratch.data_ptr(), P_LEN, B,
+                                            cap, P_LEN),
                 lambda s: ft.pack_values_batch(s.sparse, cap),
                 lambda s: ft.pack_rows_plain(s.sparse, s.sparse != 0, cap,
                                              P_LEN),
@@ -2139,6 +2204,7 @@ def main() -> int:
               "card only", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))   # _bin_rows (numpy only)
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False

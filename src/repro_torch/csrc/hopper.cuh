@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
-// (flash_attention.cu, lora_matmul.cu, grouped_lora.cu): thin inline-PTX
-// wrappers for mbarriers, TMA tensor loads, the wgmma shared-memory
-// descriptor and the wgmma instructions, the cluster barrier and
-// distributed shared memory, and setmaxnreg, plus a host helper that
-// encodes a CUtensorMap.  The two wgmma kernels load every wgmma operand
+// (flash_attention.cu, lora_matmul.cu, grouped_lora.cu, transport.cu):
+// thin inline-PTX wrappers for mbarriers, TMA tensor loads, the wgmma
+// shared-memory descriptor and the wgmma instructions, the cluster barrier
+// and distributed shared memory, setmaxnreg and programmatic dependent
+// launch, plus host helpers that encode a CUtensorMap and launch a
+// dependent kernel.  The two wgmma kernels load every wgmma operand
 // by TMA, so neither needs fence.proxy.async (it orders plain shared-memory
 // stores before async-proxy reads).
 //
@@ -350,6 +351,40 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// ---------------------------------------------------------------------------
+// programmatic dependent launch: a kernel launched by launch_dependent()
+// may be scheduled while the kernel before it on the stream still runs
+// (once every block of that one has called pdl_launch_dependents() or
+// exited); it must call pdl_wait() before it reads what the earlier kernel
+// writes.  So its launch latency hides behind the earlier kernel's tail.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Waits until the kernels this one depends on have completed and their
+// writes are visible.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                                    dim3 block, cudaStream_t stream,
+                                    Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@
 //       (mask_count_kernel<true>: x * (|x| >= t) and the kept count)
 //   fused_transport.py::absmax_pallas         -> absmax_f32
 //   fused_transport.py::bin_counts_pallas     -> bin_counts_f32
+//       (bin_partial_kernel<L> and bin_sum_kernel: see "bin_counts" below)
 //   fused_transport.py::fused_mask_quantize_pallas -> mask_quantize_f32
 //   fused_transport.py::fused_mask_quantize_pack_pallas
 //                                             -> mask_quantize_pack_f32
@@ -17,27 +18,26 @@
 //       (the two pack kernels: see "pack" below)
 //
 // What bounds them on an H100: each is one streaming pass over the rows
-// with a handful of operations per element, far below the f32 rate, so all
-// five are bound by bytes at 3.35 TB/s.  At the Yi-9B LoRA vector
-// (n = 9,830,400 f32, 39.3 MB a row): absmax and threshold_count read a row
-// once (11.7 us); bin_counts reads it once and does ~60 f32 operations per
-// element (12 bisection steps), still bytes-bound (12 us); topk_mask reads
-// and writes a row (23.5 us); mask_quantize reads x and the uniform draw u
-// and writes the result (35 us a row, 141 us for 4 clients).
+// with a handful of operations per element, far below the f32 rate, so
+// they are bound by bytes at 3.35 TB/s.  At the Yi-9B LoRA vector
+// (n = 9,830,400 f32, 39.3 MB a row): absmax, threshold_count and
+// bin_counts read a row once (11.7 us); topk_mask reads and writes a row
+// (23.5 us); mask_quantize reads x and the uniform draw u and writes the
+// result (35 us a row, 141 us for 4 clients).  bin_counts is the exception
+// in how close it can come: replaying the 12-step bisection per element
+// costs about 73 instructions an element, 7.2e8 lane-instructions a row,
+// about 21 us of issue at one instruction per lane per clock: issue-bound,
+// not bytes-bound.  Its design below searches a table instead.
 //
-// Design (first version: right and simple):
+// Design of the streaming passes:
 //   - grid (blocks over the row, rows); each thread strides over its row,
 //     16-byte float4 loads and stores where the row is 16-byte aligned and
 //     n % 4 == 0, scalar loads otherwise (and for the ragged tail).  Enough
 //     blocks run to keep every SM streaming.
 //   - cross-block results combine with order-free atomics, so every result
-//     is exact and bitwise reproducible: integer adds for counts and bins,
-//     an unsigned max on the bits of |x| for absmax (non-negative floats
-//     order as their bit patterns).  The wrapper zeroes the outputs first.
-//   - bin_counts keeps a 2^L-bin int histogram (16 KiB at L = 12) in shared
-//     memory per block, counts into it with shared atomics, and flushes only
-//     the non-zero bins with global atomics.  Fewer, larger blocks keep the
-//     flush cheap.
+//     is exact and bitwise reproducible: integer adds for counts, an
+//     unsigned max on the bits of |x| for absmax (non-negative floats order
+//     as their bit patterns).  The wrapper zeroes the outputs first.
 //   - the ragged tail is masked, never padded: unlike the Pallas version no
 //     pad zeros land in bin 0.  No threshold ever reads bin 0.
 //   - arithmetic is op for op the reference's, with IEEE rounding spelled
@@ -47,15 +47,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLevels = 12;
-// blocks in flight over all rows: 16 per SM for the streaming passes,
-// 8 per SM for bin_counts (each flushes a histogram)
+// blocks in flight over all rows for the streaming passes: 16 per SM
 constexpr long long kStreamBlocks = 132 * 16;
-constexpr long long kBinBlocks = 132 * 8;
 
 __device__ __forceinline__ int block_sum(int v) {
   __shared__ int part[kWarps];
@@ -165,57 +165,179 @@ absmax_kernel(const float* __restrict__ x, unsigned* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// bin_counts<L>: histogram of the L-step bisection path of every |x|
+// bin_counts<L>: histogram of the L-step bisection leaf of every |x|
 // ---------------------------------------------------------------------------
+//
+// The leaf of a = |x| is where the replay of mid = rn(0.5 * rn(lo + hi)),
+// up = a >= mid, from (0, hi0[row]) ends after L steps.  Every node's mid
+// lies in [lo, hi] (an overflowing lo + hi gives +inf, and the order still
+// holds), so the 2^L - 1 midpoints of the tree read in order, edge[1 ..
+// 2^L - 1], are sorted, and the leaf is the number of edges <= a.  So:
+//   1. each block builds the edge table in shared memory: thread by thread,
+//      node j is the mid its own path from the root replays (the replay's
+//      ops and operands), one barrier for the whole table;
+//   2. each element guesses g = floor(a * (2^L / hi0)).  The edges lie
+//      within (L - 1) * 2^-24 * hi0 of the uniform grid j * hi0 / 2^L and
+//      the guess within 2 * 2^-24 * a of a * 2^L / hi0, so where hi0 is a
+//      normal number in [2^-100, 2^126] (no mid underflows or overflows)
+//      and the guess lies more than (L + 4) * 2^(L-24) of a bin from a grid
+//      line, g is the leaf: no table read (all but about 0.8% of normal
+//      draws at L = 12);
+//   3. otherwise the element checks edge[g] <= a < edge[g + 1] in the
+//      table, moves one bin toward the side that failed and checks again;
+//   4. where that fails too (hi0 denormal, near FLT_MAX, 0, inf, NaN or
+//      negative; a NaN element), it walks the tree over the table: L shared
+//      loads and compares that are the replay itself, mids read instead of
+//      recomputed.  So every path returns the replay's leaf bit for bit.
+// Each block counts into one 2^L-bin int histogram in shared memory (16
+// KiB at L = 12) and writes it whole to its slot of the scratch; a second
+// kernel, launched as a programmatic dependent so that its launch hides
+// behind the first one's tail, sums a row's partials per bin.  No global
+// atomics, no zeroed output, a fixed summation of ints: exact and
+// deterministic.  Each block streams its part of the row with 16-byte
+// loads, the first two issued before the table is built; two blocks fit
+// an SM (32 registers a thread), so at B = 4 one block's table and flush
+// overlap another's loads.
+// Bound: the row read once (11.7 us at the Yi-9B vector).  On an H100 the
+// read-once absmax kernel takes about 15.9 us of that row (chip_smoke.py
+// phase 5); the table, the flush and the sum kernel come on top.
 
+constexpr int kBinThreads = 1024;
+constexpr int kBinParts = 132;             // partial histograms a row: one per SM
+constexpr long long kBinMinBlock = 8192;   // elements a block at least
+constexpr int kSumWarps = 16;
+
+// the replay over the edge table: L loads and compares
 template <int L>
-__device__ __forceinline__ int bisection_bin(float v, float top) {
-  const float a = fabsf(v);
-  float lo = 0.0f, hi = top;
-  int idx = 0;
+__device__ __forceinline__ int tree_leaf(float a, const float* edge) {
+  int pos = 1 << (L - 1), leaf = 0;
 #pragma unroll
   for (int d = 0; d < L; ++d) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    const bool up = a >= mid;
-    idx = 2 * idx + static_cast<int>(up);
-    lo = up ? mid : lo;
-    hi = up ? hi : mid;
+    const bool up = a >= edge[pos];
+    leaf = 2 * leaf + static_cast<int>(up);
+    const int half = (1 << L) >> (d + 2);   // 0 after the last level
+    pos += up ? half : -half;
   }
-  return idx;
+  return leaf;
+}
+
+// steps 2-4 for one element; `guess_ok`: hi0 in [2^-100, 2^126], where
+// step 2 holds; `sorted`: hi0 is not negative, so the table is sorted
+template <int L>
+__device__ __forceinline__ int bin_leaf(float v, const float* edge,
+                                        float scale, bool guess_ok,
+                                        bool sorted) {
+  constexpr int kTop = (1 << L) - 1;
+  constexpr float kEps = (L + 4) * (1.0f / (1 << (24 - L)));
+  const float a = fabsf(v);
+  const float q = __fmul_rn(a, scale);
+  const float m = floorf(q);
+  const float f = __fsub_rn(q, m);         // NaN where q is NaN or inf
+  int g = static_cast<int>(fminf(fmaxf(m, 0.0f), static_cast<float>(kTop)));
+  if (guess_ok && (m == 0.0f || f >= kEps) &&
+      (m >= static_cast<float>(kTop) || f <= 1.0f - kEps)) {
+    return g;
+  }
+  if (sorted) {
+    bool lo_ok = g == 0 || edge[g] <= a;
+    bool hi_ok = g == kTop || a < edge[g + 1];
+    if (lo_ok != hi_ok) {                  // one bin toward the failed side
+      g += lo_ok ? 1 : -1;
+      lo_ok = g == 0 || edge[g] <= a;
+      hi_ok = g == kTop || a < edge[g + 1];
+    }
+    if (lo_ok && hi_ok) return g;
+  }
+  return tree_leaf<L>(a, edge);
 }
 
 template <int L>
-__global__ void __launch_bounds__(kThreads)
-bin_counts_kernel(const float* __restrict__ x, const float* __restrict__ hi0,
-                  int* __restrict__ hist, long long n, int vec) {
+__global__ void __launch_bounds__(kBinThreads, 2)
+bin_partial_kernel(const float* __restrict__ x, const float* __restrict__ hi0,
+                   int* __restrict__ part, long long n, int vec) {
+  __shared__ float edge[1 << L];           // edge[1 .. 2^L - 1]
   __shared__ int h[1 << L];
-  for (int i = threadIdx.x; i < (1 << L); i += kThreads) h[i] = 0;
-  __syncthreads();
+  hopper::pdl_launch_dependents();
   const int b = blockIdx.y;
-  const float* row = x + b * n;
   const float top = hi0[b];
-  const long long start = thread_start(), stride = thread_stride();
-  long long tail = 0;
-  if (vec) {
-    const long long n4 = n >> 2;
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    for (long long v = start; v < n4; v += stride) {
-      const float4 q = r4[v];
-      atomicAdd(&h[bisection_bin<L>(q.x, top)], 1);
-      atomicAdd(&h[bisection_bin<L>(q.y, top)], 1);
-      atomicAdd(&h[bisection_bin<L>(q.z, top)], 1);
-      atomicAdd(&h[bisection_bin<L>(q.w, top)], 1);
-    }
-    tail = n4 << 2;
+  const float* row = x + b * n;
+  const long long start = static_cast<long long>(blockIdx.x) * kBinThreads +
+                          threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kBinThreads;
+  const long long n4 = vec ? n >> 2 : 0;
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 next[2];                          // in flight while the table builds
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long i = start + u * stride;
+    next[u] = i < n4 ? r4[i] : zero;
   }
-  for (long long i = tail + start; i < n; i += stride) {
-    atomicAdd(&h[bisection_bin<L>(row[i], top)], 1);
+  for (int i = threadIdx.x; i < (1 << L); i += kBinThreads) h[i] = 0;
+  for (int j = threadIdx.x + 1; j < (1 << L); j += kBinThreads) {
+    const int depth = L - __ffs(j);        // node j = (2p + 1) << (L-1-depth)
+    float lo = 0.0f, hi = top;
+    for (int d = 0; d < depth; ++d) {      // the path: bits L-1, L-2, ... of j
+      const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+      const bool up = (j >> (L - 1 - d)) & 1;
+      lo = up ? mid : lo;
+      hi = up ? hi : mid;
+    }
+    edge[j] = __fmul_rn(0.5f, __fadd_rn(lo, hi));
   }
   __syncthreads();
-  int* out = hist + (static_cast<long long>(b) << L);
-  for (int i = threadIdx.x; i < (1 << L); i += kThreads) {
-    const int c = h[i];
-    if (c) atomicAdd(out + i, c);
+  const float scale = __fdiv_rn(static_cast<float>(1 << L), top);
+  const bool guess_ok = top >= 0x1p-100f && top <= 0x1p126f;
+  const bool sorted = !(top < 0.0f);
+  for (long long v = start; v < n4; v += 2 * stride) {
+    float4 cur[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      cur[u] = next[u];
+      const long long i = v + (2 + u) * stride;
+      next[u] = i < n4 ? r4[i] : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (v + u * stride < n4) {
+        const float e[4] = {cur[u].x, cur[u].y, cur[u].z, cur[u].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          atomicAdd(&h[bin_leaf<L>(e[k], edge, scale, guess_ok, sorted)], 1);
+        }
+      }
+    }
+  }
+  for (long long i = (n4 << 2) + start; i < n; i += stride) {
+    atomicAdd(&h[bin_leaf<L>(row[i], edge, scale, guess_ok, sorted)], 1);
+  }
+  __syncthreads();
+  int* out = part + ((static_cast<long long>(b) * gridDim.x + blockIdx.x) << L);
+  for (int i = threadIdx.x; i < (1 << L); i += kBinThreads) out[i] = h[i];
+}
+
+// hist[row][bin] = the sum of the row's `parts` partials at bin: 32 bins a
+// block, kSumWarps warps striding over the partials, then summed in order
+__global__ void __launch_bounds__(32 * kSumWarps)
+bin_sum_kernel(const int* __restrict__ part, int* __restrict__ hist,
+               int parts, int bins) {
+  __shared__ int acc[kSumWarps][32];
+  hopper::pdl_wait();
+  const int b = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int bin = blockIdx.x * 32 + lane;
+  int s = 0;
+  if (bin < bins) {
+    const int* p = part + static_cast<long long>(b) * parts * bins + bin;
+    for (int g = w; g < parts; g += kSumWarps) {
+      s += p[static_cast<long long>(g) * bins];
+    }
+  }
+  acc[w][lane] = s;
+  __syncthreads();
+  if (w == 0 && bin < bins) {
+#pragma unroll
+    for (int k = 1; k < kSumWarps; ++k) s += acc[k][lane];
+    hist[static_cast<long long>(b) * bins + bin] = s;
   }
 }
 
@@ -296,15 +418,15 @@ bool bad_shape(long long n, int rows) {
 
 template <int L>
 void launch_bins(dim3 grid, cudaStream_t s, const float* x, const float* hi0,
-                 int* hist, long long n, int vec) {
-  bin_counts_kernel<L><<<grid, kThreads, 0, s>>>(x, hi0, hist, n, vec);
+                 int* part, long long n, int vec) {
+  bin_partial_kernel<L><<<grid, kBinThreads, 0, s>>>(x, hi0, part, n, vec);
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError() (0 on
 // success).  The caller checks types, devices and contiguity, zeroes the
-// count / max / histogram outputs, and passes n >= 1, 1 <= rows <= 65535.
+// count / max outputs, and passes n >= 1, 1 <= rows <= 65535.
 
 extern "C" int threshold_count_f32(const void* x, const void* thr, void* cnt,
                                    long long n, int rows, void* stream) {
@@ -338,32 +460,41 @@ extern "C" int absmax_f32(const void* x, void* out, long long n, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// hist (rows, 2^levels) int32, fully written; scratch: rows * kBinParts *
+// 2^levels int32 (the partial histograms).  Two kernels on `stream`.
 extern "C" int bin_counts_f32(const void* x, const void* hi0, void* hist,
-                              long long n, int rows, int levels,
-                              void* stream) {
+                              void* scratch, long long n, int rows,
+                              int levels, void* stream) {
   if (bad_shape(n, rows) || levels < 1 || levels > kMaxLevels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int vec = (n % 4 == 0) && aligned16(x);
-  const dim3 grid = grid_for(n, rows, kThreads * 16, kBinBlocks);
+  long long parts = (n + kBinMinBlock - 1) / kBinMinBlock;
+  if (parts > kBinParts) parts = kBinParts;
+  const dim3 grid(static_cast<unsigned>(parts), static_cast<unsigned>(rows));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* hf = static_cast<const float*>(hi0);
-  int* hi = static_cast<int*>(hist);
+  int* pf = static_cast<int*>(scratch);
   switch (levels) {
-    case 1: launch_bins<1>(grid, s, xf, hf, hi, n, vec); break;
-    case 2: launch_bins<2>(grid, s, xf, hf, hi, n, vec); break;
-    case 3: launch_bins<3>(grid, s, xf, hf, hi, n, vec); break;
-    case 4: launch_bins<4>(grid, s, xf, hf, hi, n, vec); break;
-    case 5: launch_bins<5>(grid, s, xf, hf, hi, n, vec); break;
-    case 6: launch_bins<6>(grid, s, xf, hf, hi, n, vec); break;
-    case 7: launch_bins<7>(grid, s, xf, hf, hi, n, vec); break;
-    case 8: launch_bins<8>(grid, s, xf, hf, hi, n, vec); break;
-    case 9: launch_bins<9>(grid, s, xf, hf, hi, n, vec); break;
-    case 10: launch_bins<10>(grid, s, xf, hf, hi, n, vec); break;
-    case 11: launch_bins<11>(grid, s, xf, hf, hi, n, vec); break;
-    default: launch_bins<12>(grid, s, xf, hf, hi, n, vec); break;
+    case 1: launch_bins<1>(grid, s, xf, hf, pf, n, vec); break;
+    case 2: launch_bins<2>(grid, s, xf, hf, pf, n, vec); break;
+    case 3: launch_bins<3>(grid, s, xf, hf, pf, n, vec); break;
+    case 4: launch_bins<4>(grid, s, xf, hf, pf, n, vec); break;
+    case 5: launch_bins<5>(grid, s, xf, hf, pf, n, vec); break;
+    case 6: launch_bins<6>(grid, s, xf, hf, pf, n, vec); break;
+    case 7: launch_bins<7>(grid, s, xf, hf, pf, n, vec); break;
+    case 8: launch_bins<8>(grid, s, xf, hf, pf, n, vec); break;
+    case 9: launch_bins<9>(grid, s, xf, hf, pf, n, vec); break;
+    case 10: launch_bins<10>(grid, s, xf, hf, pf, n, vec); break;
+    case 11: launch_bins<11>(grid, s, xf, hf, pf, n, vec); break;
+    default: launch_bins<12>(grid, s, xf, hf, pf, n, vec); break;
   }
+  const int bins = 1 << levels;
+  const cudaError_t rc = hopper::launch_dependent(
+      bin_sum_kernel, dim3((bins + 31) / 32, rows), dim3(32 * kSumWarps), s,
+      pf, static_cast<int*>(hist), static_cast<int>(parts), bins);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -412,46 +543,56 @@ extern "C" int mask_quantize_f32(const void* x, const void* u, const void* thr,
 // takes a slot).  Survivor i of a row, counted in ascending index order,
 // goes to slot i when i < cap; slots [min(total, cap), cap) hold
 // (sentinel, 0.0f); the row's total is written even when it exceeds cap.
+// Both cut a row into tiles of kPackTile elements.  Counts, offsets and
+// indices are int32: n < 2^31.
 //
 // The Pallas kernels carry the running offset across a sequential grid.
-// CUDA blocks run in no order, so each entry point launches three kernels
-// on its stream, all over one fixed tiling (tile j of a row is elements
-// [j * kPackTile, (j + 1) * kPackTile), one block per tile):
-//   1. count: the keep count of every tile (mask_quantize_pack also writes
-//      the masked, quantized row here, with mask_quantize's device code);
-//   2. scan: one block per row turns the tile counts into exclusive
-//      offsets in place and writes the row total;
-//   3. scatter: each block recomputes its keep mask, ranks its survivors
-//      with a warp ballot / popc and a prefix over the block's warps, and
-//      writes (index, value) at row offset + rank when that is < cap; then
-//      the row's blocks fill the empty slots.
-// Bound by bytes on an H100: pack_batch reads x and writes 8 B per slot;
-// mask_quantize_pack reads x (and u) and writes the masked row and the
-// slots.  This design reads x twice (and the masked row once more), so
-// it needs about 1.5-2x the bytes of its bound.  Counts, offsets and
-// indices are int32: n < 2^31.
+// CUDA blocks run in no order.  Both are bound by bytes on an H100:
+// pack_batch must read x and write 8 B per slot (18.3 us at the Yi-9B
+// vector and capacity 2,764,800); mask_quantize_pack also reads u and
+// writes the masked row.
+//
+// pack_batch_f32: x read once, in one pass with a decoupled look-back, then
+// a fill (two kernels; the entry point zeroes the scratch on the stream):
+//   1. pack_scan_kernel: a block takes its tile by a per-row ticket, in
+//      launch order, so every tile before it has started; it loads the tile
+//      with 16-byte loads into registers (16 elements a thread), ranks the
+//      survivors with ballots and popc, stages them, in order, in shared
+//      memory, publishes the tile's count, then looks back over its
+//      predecessors' 64-bit status words (flag and value written together:
+//      aggregate, then inclusive prefix; one 128-byte line each, so the
+//      look-backs of neighbouring tiles do not queue on one line) a warp at
+//      a time, publishes its inclusive prefix and copies the staged run to
+//      its slots with coalesced stores, 16 bytes wide where the buffers
+//      allow.  A predecessor publishes its count before it looks back
+//      itself, so no tile waits on one that has not started.  The last tile
+//      writes the row's total.
+//   2. pack_fill_kernel, a programmatic dependent launch: the empty slots,
+//      16 bytes at a time where the buffers allow.
+// What holds it back on an H100 (about 2x its bytes bound at B = 1,
+// PERF.md): a tile's serial steps (ticket, load, look-back, copy-out) keep
+// it resident after its loads have landed, so an SM has fewer bytes in
+// flight than a plain streaming pass keeps, and the survivors' stores cost
+// more than their bytes.  Six blocks an SM (40 registers, 32 KiB of
+// staging each) is as many as fit.  Writing each tile's survivors to
+// scratch first and placing them in a second kernel, with no waiting
+// between blocks, is slower still: it writes every survivor twice.
+// mask_quantize_pack_f32 still runs three kernels over the same tiling:
+//   1. mask_quantize_tile_kernel: mask, quantize and write the row (with
+//      mask_quantize's device code) and the keep count of every tile;
+//   2. scan_tiles_kernel: one block per row turns the tile counts into
+//      exclusive offsets in place and writes the row total;
+//   3. pack_scatter_kernel: each block recomputes its keep mask, ranks its
+//      survivors with a warp ballot / popc and a prefix over the block's
+//      warps, and writes (index, value) at row offset + rank when that is
+//      < cap; then the row's blocks fill the empty slots.
+// That reads x twice and the masked row once more (about 1.5-2x its bound).
 
 constexpr int kPackItems = 16;                     // elements per thread
 constexpr int kPackTile = kThreads * kPackItems;   // 4096 elements per tile
 constexpr int kScanThreads = 1024;
 
 namespace {
-
-__global__ void __launch_bounds__(kThreads)
-pack_count_kernel(const float* __restrict__ x, int* __restrict__ counts,
-                  long long n, int ntiles) {
-  const int b = blockIdx.y, j = blockIdx.x;
-  const float* row = x + b * n;
-  const long long base = static_cast<long long>(j) * kPackTile;
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < kPackItems; ++r) {
-    const long long e = base + r * kThreads + threadIdx.x;
-    if (e < n) c += row[e] != 0.0f;
-  }
-  c = block_sum(c);
-  if (threadIdx.x == 0) counts[static_cast<long long>(b) * ntiles + j] = c;
-}
 
 template <bool QUANT, bool STOCHASTIC>
 __global__ void __launch_bounds__(kThreads)
@@ -519,9 +660,8 @@ scan_tiles_kernel(int* __restrict__ counts, int* __restrict__ tot,
   if (threadIdx.x == 0) tot[blockIdx.x] = carry;
 }
 
-// NONZERO: keep x != 0, pack x (pack_batch).  Else keep |x| >= thr[row],
-// pack vals (the masked row that mask_quantize_tile_kernel wrote).
-template <bool NONZERO>
+// keep |x| >= thr[row], pack vals (the masked row that
+// mask_quantize_tile_kernel wrote)
 __global__ void __launch_bounds__(kThreads)
 pack_scatter_kernel(const float* __restrict__ x,
                     const float* __restrict__ vals,
@@ -534,8 +674,8 @@ pack_scatter_kernel(const float* __restrict__ x,
   const int b = blockIdx.y, j = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* row = x + b * n;
-  const float* vrow = NONZERO ? row : vals + b * n;
-  const float t = NONZERO ? 0.0f : thr[b];
+  const float* vrow = vals + b * n;
+  const float t = thr[b];
   int* irow = idx + static_cast<long long>(b) * cap;
   float* orow = val + static_cast<long long>(b) * cap;
   // warp w ranks elements [sub, sub + 32 * kPackItems) of the tile, in
@@ -547,11 +687,7 @@ pack_scatter_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int r = 0; r < kPackItems; ++r) {
     const long long e = sub + 32 * r + lane;
-    bool keep = false;
-    if (e < n) {
-      const float v = row[e];
-      keep = NONZERO ? (v != 0.0f) : (fabsf(v) >= t);
-    }
+    const bool keep = e < n && fabsf(row[e]) >= t;
     masks[r] = __ballot_sync(0xffffffffu, keep);
     count += __popc(masks[r]);
   }
@@ -582,6 +718,206 @@ pack_scatter_kernel(const float* __restrict__ x,
   }
 }
 
+// a tile's status word: flag in the high 32 bits, count in the low 32; one
+// word to a 128-byte line
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
+constexpr int kStatusStride = 16;
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// the exclusive prefix of tile t > 0 of a row, by warp 0: lane l reads the
+// status of tile p - l, waiting until it is published; the window's counts
+// up to the nearest inclusive prefix are summed, else the window moves 32
+// tiles back.  Tiles before 0 count as an inclusive prefix of 0.
+__device__ __forceinline__ int look_back(const unsigned long long* status,
+                                         int t, int lane) {
+  int excl = 0;
+  for (int p = t - 1;; p -= 32) {
+    const int k = p - lane;
+    unsigned long long s = kInclusive;
+    if (k >= 0) {
+      do {
+        s = load_status(status + static_cast<long long>(k) * kStatusStride);
+      } while ((s >> 32) == 0);
+    }
+    const unsigned inc = __ballot_sync(0xffffffffu, (s >> 32) == 2);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    int v = lane <= stop ? static_cast<int>(static_cast<unsigned>(s)) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    excl += v;
+    if (inc) return excl;
+  }
+}
+
+// pass 1 of pack_batch.  scratch: rows ticket words, then rows x ntiles
+// status words kStatusStride apart, all zero at launch.  Warp w of a tile
+// holds elements [tile + 512 w, tile + 512 (w + 1)): chunk r of 128, lane
+// l's float4 at chunk + 4 l, so lane order is element order within a chunk.
+// `vec_out`: cap % 4 == 0 and idx, val 16-byte aligned.
+__global__ void __launch_bounds__(kThreads, 6)
+pack_scan_kernel(const float* __restrict__ x, int* __restrict__ idx,
+                 float* __restrict__ val, int* __restrict__ nnz,
+                 unsigned long long* __restrict__ scratch, long long n,
+                 int ntiles, int cap, int vec, int vec_out) {
+  constexpr int kChunks = kPackItems / 4;
+  __shared__ int s_tile, s_prefix, s_agg;
+  __shared__ int warp_tot[kWarps];
+  __shared__ int s_idx[kPackTile];
+  __shared__ float s_val[kPackTile];
+  hopper::pdl_launch_dependents();
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(scratch + b, 1ull));
+  __syncthreads();
+  const int t = s_tile;
+  unsigned long long* status =
+      scratch + gridDim.y + static_cast<long long>(b) * ntiles * kStatusStride;
+  const float* row = x + b * n;
+  const long long sub = static_cast<long long>(t) * kPackTile + warp * 512;
+  float v[kPackItems];
+#pragma unroll
+  for (int r = 0; r < kChunks; ++r) {
+    const long long e = sub + 128 * r + 4 * lane;
+    if (vec && e < n) {    // n % 4 == 0: the whole float4 is in the row
+      const float4 q = *reinterpret_cast<const float4*>(row + e);
+      v[4 * r] = q.x; v[4 * r + 1] = q.y; v[4 * r + 2] = q.z; v[4 * r + 3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * r + k] = e + k < n ? row[e + k] : 0.0f;
+    }
+  }
+  // rank within the warp: chunk r's lane-major order, survivors of lower
+  // lanes first, then this lane's own lower elements
+  const unsigned below = (1u << lane) - 1u;
+  int rank[kChunks];
+  int count = 0;
+#pragma unroll
+  for (int r = 0; r < kChunks; ++r) {
+    rank[r] = count;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned m = __ballot_sync(0xffffffffu, v[4 * r + k] != 0.0f);
+      rank[r] += __popc(m & below);
+      count += __popc(m);
+    }
+  }
+  if (lane == 0) warp_tot[warp] = count;
+  __syncthreads();
+  int pos = 0;                             // stage the survivors in order
+  for (int w = 0; w < warp; ++w) pos += warp_tot[w];
+#pragma unroll
+  for (int r = 0; r < kChunks; ++r) {
+    int p = pos + rank[r];
+    const long long e = sub + 128 * r + 4 * lane;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (v[4 * r + k] != 0.0f) {
+        s_idx[p] = static_cast<int>(e + k);
+        s_val[p] = v[4 * r + k];
+        ++p;
+      }
+    }
+  }
+  if (warp == 0) {
+    int agg = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) agg += warp_tot[w];
+    int excl = 0;
+    if (t == 0) {
+      if (lane == 0) store_status(status, kInclusive | static_cast<unsigned>(agg));
+    } else {
+      if (lane == 0) {
+        store_status(status + static_cast<long long>(t) * kStatusStride,
+                     kAggregate | static_cast<unsigned>(agg));
+      }
+      excl = look_back(status, t, lane);
+      if (lane == 0) {
+        store_status(status + static_cast<long long>(t) * kStatusStride,
+                     kInclusive | static_cast<unsigned>(excl + agg));
+      }
+    }
+    if (lane == 0) {
+      s_prefix = excl;
+      s_agg = agg;
+      if (t == ntiles - 1) nnz[b] = excl + agg;
+    }
+  }
+  __syncthreads();
+  // the staged run to slots [pre, pre + cnt): a scalar head and tail, the
+  // 4-aligned middle 16 bytes at a time
+  const int pre = s_prefix;
+  if (pre >= cap) return;
+  const int end = pre + min(s_agg, cap - pre);
+  int* irow = idx + static_cast<long long>(b) * cap;
+  float* orow = val + static_cast<long long>(b) * cap;
+  int q0 = pre, q1 = pre;
+  if (vec_out) {                           // cap % 4 == 0: no overflow here
+    q0 = min((pre + 3) & ~3, end);
+    q1 = max(end & ~3, q0);
+  }
+  for (int i = pre + threadIdx.x; i < q0; i += kThreads) {
+    irow[i] = s_idx[i - pre];
+    orow[i] = s_val[i - pre];
+  }
+  for (int i = q0 + 4 * threadIdx.x; i < q1; i += 4 * kThreads) {
+    const int k = i - pre;
+    *reinterpret_cast<int4*>(irow + i) =
+        make_int4(s_idx[k], s_idx[k + 1], s_idx[k + 2], s_idx[k + 3]);
+    *reinterpret_cast<float4*>(orow + i) =
+        make_float4(s_val[k], s_val[k + 1], s_val[k + 2], s_val[k + 3]);
+  }
+  for (int i = max(q1, q0) + threadIdx.x; i < end; i += kThreads) {
+    irow[i] = s_idx[i - pre];
+    orow[i] = s_val[i - pre];
+  }
+}
+
+// pass 2 of pack_batch: slots [min(nnz, cap), cap) of each row get
+// (sentinel, 0); 16-byte stores when `vec` (cap % 4 == 0, both buffers
+// 16-byte aligned)
+__global__ void __launch_bounds__(kThreads)
+pack_fill_kernel(const int* __restrict__ nnz, int* __restrict__ idx,
+                 float* __restrict__ val, int cap, int sentinel, int vec) {
+  hopper::pdl_wait();
+  const int b = blockIdx.y;
+  const int filled = min(nnz[b], cap);
+  int* irow = idx + static_cast<long long>(b) * cap;
+  float* orow = val + static_cast<long long>(b) * cap;
+  const long long start = thread_start(), stride = thread_stride();
+  if (vec) {
+    const long long q0 = (static_cast<long long>(filled) + 3) >> 2;
+    for (long long s = filled + start; s < 4 * q0 && s < cap; s += stride) {
+      irow[s] = sentinel;
+      orow[s] = 0.0f;
+    }
+    const int4 fill = make_int4(sentinel, sentinel, sentinel, sentinel);
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (long long q = q0 + start; q < cap / 4; q += stride) {
+      reinterpret_cast<int4*>(irow)[q] = fill;
+      reinterpret_cast<float4*>(orow)[q] = zero;
+    }
+    return;
+  }
+  for (long long s = filled + start; s < cap; s += stride) {
+    irow[s] = sentinel;
+    orow[s] = 0.0f;
+  }
+}
+
 bool bad_pack(long long n, int rows, int cap) {
   return bad_shape(n, rows) || n > 0x7fffffffLL || cap < 0;
 }
@@ -593,24 +929,36 @@ int tiles_of(long long n) {
 }  // namespace
 
 // Pack each row of x (rows, n) with keep rule x != 0.  idx, val: (rows, cap)
-// int32 / f32, fully written; nnz: (rows,) int32; scratch: (rows,
-// ceil(n / 4096)) int32.  One call = three kernels on `stream`.
+// int32 / f32, fully written; nnz: (rows,) int32, written; scratch: rows *
+// (16 * ceil(n / 4096) + 1) 64-bit words, zeroed here.  One call = a
+// memset and two kernels on `stream`.
 extern "C" int pack_batch_f32(const void* x, void* idx, void* val, void* nnz,
                               void* scratch, long long n, int rows, int cap,
                               int sentinel, void* stream) {
   if (bad_pack(n, rows, cap)) return static_cast<int>(cudaErrorInvalidValue);
   const int nt = tiles_of(n);
-  const dim3 grid(nt, rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* counts = static_cast<int*>(scratch);
-  pack_count_kernel<<<grid, kThreads, 0, s>>>(static_cast<const float*>(x),
-                                              counts, n, nt);
-  scan_tiles_kernel<<<rows, kScanThreads, 0, s>>>(counts,
-                                                  static_cast<int*>(nnz), nt);
-  pack_scatter_kernel<true><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), nullptr, nullptr, counts,
-      static_cast<const int*>(nnz), static_cast<int*>(idx),
-      static_cast<float*>(val), n, nt, cap, sentinel);
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  cudaError_t rc = cudaMemsetAsync(
+      words, 0,
+      sizeof(unsigned long long) * rows * (static_cast<long long>(nt) *
+                                           kStatusStride + 1),
+      s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int vec = (n % 4 == 0) && aligned16(x);
+  const int vec_out = (cap % 4 == 0) && aligned16(idx) && aligned16(val);
+  pack_scan_kernel<<<dim3(nt, rows), kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<int*>(idx),
+      static_cast<float*>(val), static_cast<int*>(nnz), words, n, nt, cap,
+      vec, vec_out);
+  if (cap > 0) {
+    rc = hopper::launch_dependent(
+        pack_fill_kernel, grid_for(cap, rows, kThreads * 16, kStreamBlocks),
+        dim3(kThreads), s, static_cast<const int*>(nnz),
+        static_cast<int*>(idx), static_cast<float*>(val), cap, sentinel,
+        vec_out);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -649,7 +997,7 @@ extern "C" int mask_quantize_pack_f32(const void* x, const void* u,
   }
   scan_tiles_kernel<<<rows, kScanThreads, 0, s>>>(counts,
                                                   static_cast<int*>(tot), nt);
-  pack_scatter_kernel<false><<<grid, kThreads, 0, s>>>(
+  pack_scatter_kernel<<<grid, kThreads, 0, s>>>(
       xf, of, tf, counts, static_cast<const int*>(tot),
       static_cast<int*>(idx), static_cast<float*>(val), n, nt, cap, sentinel);
   return static_cast<int>(cudaGetLastError());

@@ -6,10 +6,12 @@ The three streaming passes of the `fused` selector and the
   pass 1  `absmax`              max |x| per row: `hi0`, the bisection's
                                 upper bound and the quantizer's scale
                                 numerator.  Replaces `absmax_pallas`.
-  pass 2  `bin_counts`          every element replays the `levels`-step
-                                bisection path `mid = 0.5 * (lo + hi)` from
-                                (0, hi0) against its own |x| and is counted
-                                in the 2^levels-bin histogram of its leaf.
+  pass 2  `bin_counts`          the 2^levels-bin histogram of the leaf each
+                                |x| reaches on the `levels`-step bisection
+                                path `mid = 0.5 * (lo + hi)` from (0, hi0).
+                                The plain version replays the path; the
+                                kernel searches the sorted table of the
+                                tree's midpoints, to the same leaf.
                                 Replaces `bin_counts_pallas`.
           `threshold_from_bins` replays the canonical bisection over bin
                                 suffix sums: bit-identical to
@@ -57,7 +59,8 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 ABSMAX = CudaFunction("transport", "absmax_f32", [_P, _P, _LL, _I])
 BIN_COUNTS = CudaFunction("transport", "bin_counts_f32",
-                          [_P, _P, _P, _LL, _I, _I])
+                          [_P, _P, _P, _P, _LL, _I, _I])
+BIN_PARTS = 132      # partial histograms a row of bin_counts keeps (csrc)
 MASK_QUANTIZE = CudaFunction("transport", "mask_quantize_f32",
                              [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I])
 MASK_QUANTIZE_PACK = CudaFunction(
@@ -66,6 +69,13 @@ MASK_QUANTIZE_PACK = CudaFunction(
 PACK_BATCH = CudaFunction("transport", "pack_batch_f32",
                           [_P, _P, _P, _P, _P, _LL, _I, _I, _I])
 PACK_TILE = 4096     # elements per block of the pack kernels (csrc)
+
+
+def pack_batch_scratch_words(B: int, n: int) -> int:
+    """64-bit words of pack_batch's scratch: a ticket per row and a status
+    word per tile, one to a 128-byte line (csrc zeroes them on the
+    stream)."""
+    return B * (16 * -(-n // PACK_TILE) + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -181,10 +191,14 @@ def bin_counts(x: torch.Tensor, hi0, levels: int = LEVELS) -> torch.Tensor:
         return bin_counts_plain(x2, h, levels).reshape(lead + (1 << levels,))
     check_cuda("bin_counts", x=x2, hi0=h)
     B, n = x2.shape
-    hist = torch.zeros((B, 1 << levels), dtype=torch.int32, device=x2.device)
-    if n:
-        BIN_COUNTS(x2.device, x2.data_ptr(), h.data_ptr(), hist.data_ptr(), n,
-                   B, levels)
+    if not n:
+        return torch.zeros(lead + (1 << levels,), dtype=torch.int32,
+                           device=x2.device)
+    hist = torch.empty((B, 1 << levels), dtype=torch.int32, device=x2.device)
+    parts = torch.empty(B * BIN_PARTS << levels, dtype=torch.int32,
+                        device=x2.device)
+    BIN_COUNTS(x2.device, x2.data_ptr(), h.data_ptr(), hist.data_ptr(),
+               parts.data_ptr(), n, B, levels)
     return hist.reshape(lead + (1 << levels,))
 
 
@@ -339,17 +353,18 @@ def pack_values_batch(values: torch.Tensor, cap: int):
     else:
         check_cuda("pack_values_batch", values=x2)
         dev = x2.device
-        nnz = torch.zeros(B, dtype=torch.int32, device=dev)
-        if n:
+        if n:   # the kernels write every slot and the totals
             idx = torch.empty((B, cap), dtype=torch.int32, device=dev)
             val = torch.empty((B, cap), dtype=torch.float32, device=dev)
-            scratch = torch.empty((B, -(-n // PACK_TILE)), dtype=torch.int32,
-                                  device=dev)
+            nnz = torch.empty(B, dtype=torch.int32, device=dev)
+            scratch = torch.empty(pack_batch_scratch_words(B, n),
+                                  dtype=torch.int64, device=dev)
             PACK_BATCH(dev, x2.data_ptr(), idx.data_ptr(), val.data_ptr(),
                        nnz.data_ptr(), scratch.data_ptr(), n, B, cap, n)
         else:   # n == 0: every slot empty, sentinel n == 0
             idx = torch.zeros((B, cap), dtype=torch.int32, device=dev)
             val = torch.zeros((B, cap), dtype=torch.float32, device=dev)
+            nnz = torch.zeros(B, dtype=torch.int32, device=dev)
     return (idx.reshape(lead + (cap,)), val.reshape(lead + (cap,)),
             nnz.reshape(lead))
 

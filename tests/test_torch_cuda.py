@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _bin_rows import KINDS as BIN_KINDS, bin_rows
 from repro_torch.core import quantization as qz
 from repro_torch.core import selectors as sel
 from repro_torch.kernels import flash_attention as fa
@@ -196,12 +197,26 @@ def _rows(seed, B, n, kind="normal"):
     return torch.from_numpy(x).cuda(), torch.from_numpy(u).cuda()
 
 
+# the row kinds of the bisection-bin search (tests/_bin_rows.py) that the
+# other four kernels do not take: non-finite and denormal values, and a hi0
+# that is no absmax.  bin_counts alone runs on them, at their own hi0.
+BIN_ONLY = tuple(k for k in BIN_KINDS if k not in ("normal", "ties", "zeros"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 50, 4096, 70001, 1_000_003])
 @pytest.mark.parametrize("B", [1, 4])
-@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("kind", ("normal", "ties", "zeros") + BIN_ONLY)
 def test_transport_kernels_match_plain_bitwise(n, B, kind):
     _need_card()
+    if kind in BIN_ONLY:
+        for levels in (1, 5, 12):
+            x, h = (torch.from_numpy(v).cuda() for v in
+                    bin_rows(kind, B, n, levels, seed=n + B + levels))
+            got = ft.bin_counts(x, h, levels)
+            assert torch.equal(got, ft.bin_counts_plain(x, h, levels)), levels
+            assert bool((got.sum(-1) == n).all()), levels
+        return
     x, u = _rows(n + B, B, n, kind)
     hi0 = ft.absmax(x)
     assert torch.equal(_bits(hi0), _bits(ft.absmax_plain(x)))
@@ -211,8 +226,9 @@ def test_transport_kernels_match_plain_bitwise(n, B, kind):
     got, cnt = tm.topk_mask(x, t)
     want, wcnt = tm.topk_mask_plain(x, t)
     assert torch.equal(_bits(got), _bits(want)) and torch.equal(cnt, wcnt)
-    assert torch.equal(ft.bin_counts(x, hi0, 12),
-                       ft.bin_counts_plain(x, hi0, 12))
+    for levels in (1, 5, 12):
+        assert torch.equal(ft.bin_counts(x, hi0, levels),
+                           ft.bin_counts_plain(x, hi0, levels)), levels
     scale = torch.clamp_min(hi0 / 7.0, 1e-12)
     for bits in (0, 4, 8):
         for uu in (None, u):
@@ -347,6 +363,38 @@ def test_mask_quantize_pack_kernel_matches_plain_bitwise(n, B):
                     assert torch.equal(got[1], want[1]), what
                     assert torch.equal(_bits(got[2]), _bits(want[2])), what
                     assert torch.equal(got[3], want[3]), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["yi9b_b4", "unaligned", "ragged", "cap0",
+                                  "overflow"])
+def test_pack_batch_kernel_edge_cases_bitwise(case):
+    # yi9b_b4: four rows of the Yi-9B LoRA vector, 2,400 tiles a row, more
+    # than are resident at once, so tiles wait on their look-back; then a
+    # view one float in (no 16-byte loads), n % 4 != 0, cap 0, and a cap
+    # every row overflows.  Each call counts one launch; two calls agree.
+    _need_card()
+    n, B, cap = {"yi9b_b4": (9_830_400, 4, 2_764_800),
+                 "unaligned": (70_001, 2, 30_000),
+                 "ragged": (1_000_003, 3, 300_000),
+                 "cap0": (70_001, 2, 0),
+                 "overflow": (1_000_003, 2, 10_000)}[case]
+    if case == "unaligned":     # a contiguous view one float in
+        x = _sparse(n + B, 1, B * n + 1, "negzero")[0, 1:].view(B, n)
+        assert x.data_ptr() % 16
+    else:
+        x = _sparse(n + B + cap, B, n, "negzero")
+    want = ft.pack_rows_plain(x, x != 0, cap, n)
+    before = ft.PACK_BATCH.launches
+    got = ft.pack_values_batch(x, cap)
+    again = ft.pack_values_batch(x, cap)
+    torch.cuda.synchronize()
+    assert ft.PACK_BATCH.launches == before + 2
+    for g, a in ((got, want), (again, got)):
+        assert torch.equal(g[0], a[0]) and torch.equal(g[2], a[2])
+        assert torch.equal(_bits(g[1]), _bits(a[1]))
+    if case == "overflow":
+        assert bool((got[2] > cap).all())
 
 
 @pytest.mark.cuda
