@@ -38,8 +38,10 @@ Phases, each fatal on failure:
   5. transport -- the five Top-K transport kernels (csrc/transport.cu)
                  against their plain versions, BITWISE, at the Yi-9B LoRA
                  vector length (9,830,400), 1,000,003 and 50, one and four
-                 rows, normal / tied / all-zero rows, bits 0 and 4, nearest
-                 and stochastic rounding; bin_counts also at 1, 5 and 12
+                 rows, normal / tied / all-zero rows and rows holding
+                 +-inf (whose inf scale makes the quantized survivors NaN,
+                 compared as NaN), bits 0 and 4, nearest and stochastic
+                 rounding; bin_counts also at 1, 5 and 12
                  levels on every row kind of tests/_bin_rows.py (denormal,
                  overflowing, infinite, NaN and negative bounds, NaN
                  elements, sixty decades, elements on the edges of its
@@ -68,7 +70,8 @@ Phases, each fatal on failure:
                  overflowing one, and (n in {9,830,400, 1,000,003}) a view
                  one float into its storage, cap 0, and a second call that
                  must give the same bits; mask_quantize_pack at bits 0 and 4,
-                 nearest and stochastic, k in {0, 1, n/4, n}.  Flat ==
+                 nearest and stochastic, k in {0, 1, n/4, n}, also on rows
+                 holding +-inf (NaN compared as NaN).  Flat ==
                  hierarchical accumulate (edges 1, 4, 7) bitwise, the
                  sparse mean against the dense one (atol 1e-6); then both
                  kernels' device times at the Yi-9B length beside their
@@ -97,8 +100,10 @@ Phases, each fatal on failure:
                  300, 200, 5) in bf16 (mma_sync) and f32; `flash_attention`
                  (GQA: B 1, H 32, KV 4, hd 128) at S = T = 8192 and 1000,
                  bf16 (wgmma) and f32 (fma), causal and not, and at B 2,
-                 S 1000, T 1100 in bf16 with hd 128 (wgmma, H 32, KV 4) and
-                 hd 64 (mma_sync, H 8, KV 2), against its plain version
+                 S 1000 and 1025, T 1100 in bf16 with hd 128 (wgmma, H 32,
+                 KV 4; the last block's second consumer warpgroup holds 40
+                 rows or none) and S 1000 at hd 64 (mma_sync, H 8, KV 2),
+                 against its plain version
                  (p in f32, v promoted), every bf16 case against an f64
                  attention of its inputs row by row (4e-3 of each row's
                  largest value; at 8192 tokens on 256 sampled query rows of
@@ -292,7 +297,8 @@ def build_report(libs) -> None:
                       f"{name} has a stack frame or spills: {report}")
                 checked[name] = report
         warnings = [ln.strip() for ln in log.splitlines()
-                    if "warning" in ln.lower() or "C7508" in ln]
+                    if "warning" in ln.lower() or
+                    "Potential Performance Loss" in ln]
         for ln in warnings:
             print(f"[build] {lib}: {ln}")
         if lib in ("flash_attention", "lora_matmul"):
@@ -757,8 +763,11 @@ def transport_functions():
 
 
 def transport_rows(gen, B: int, n: int, kind: str):
-    """(B, n) f32 rows (normal draws, heavy ties, or all zeros) and a
-    (B, n) uniform draw for stochastic rounding, from one generator."""
+    """(B, n) f32 rows (normal draws, heavy ties, all zeros, or normal
+    draws with +-inf at every 97th place) and a (B, n) uniform draw for
+    stochastic rounding, from one generator.  A row that holds an inf has
+    an inf scale: a kept +-inf quantizes to inf / inf = NaN, a kept finite
+    x to 0 * inf = NaN."""
     import torch
     if kind == "zeros":
         x = torch.zeros(B, n, device="cuda")
@@ -767,7 +776,31 @@ def transport_rows(gen, B: int, n: int, kind: str):
                           ).float() * 0.5
     else:
         x = torch.randn(B, n, generator=gen, device="cuda")
+        if kind == "inf":
+            x[:, ::97] = torch.copysign(torch.tensor(float("inf"),
+                                                     device="cuda"),
+                                        x[:, ::97])
     return x, torch.rand(B, n, generator=gen, device="cuda")
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equal, NaN compared as NaN: the same places NaN, every other
+    element bit for bit (f32); equal (other dtypes)."""
+    import torch
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan) and
+            torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def finite_diff(a, b) -> float:
+    """The largest |a - b| where both are finite (0.0 for empty)."""
+    import torch
+    a, b = a.double(), b.double()
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return (torch.where(ok, a - b, 0.0).abs().max().item()
+            if a.numel() else 0.0)
 
 
 def transport_bound(name: str, B: int, n: int, kept: int, stochastic: bool):
@@ -810,14 +843,9 @@ def transport_phase(seed: int):
 
     def same(name, got, want, what):
         a, b = got.contiguous(), want.contiguous()
-        if a.dtype == torch.float32:
-            equal = torch.equal(a.view(torch.int32), b.view(torch.int32))
-        else:
-            equal = torch.equal(a, b)
-        if a.numel():
-            errs[name] = max(errs[name],
-                             (a.double() - b.double()).abs().max().item())
-        check(equal, f"{name} differs from its plain version ({what})")
+        errs[name] = max(errs[name], finite_diff(a, b))
+        check(same_bits(a, b),
+              f"{name} differs from its plain version ({what})")
 
     cases = 0
     for n in (P_LEN, 1_000_003, 50):
@@ -825,7 +853,7 @@ def transport_phase(seed: int):
         for B in (1, 4):
             ks = [kd] if B == 1 else [0, 1, kd, n]
             k = torch.tensor(ks, dtype=torch.int32, device="cuda")
-            for kind in ("normal", "ties", "zeros"):
+            for kind in ("normal", "ties", "zeros", "inf"):
                 what = f"n={n} B={B} {kind}"
                 x, u = transport_rows(gen, B, n, kind)
                 hi0 = ft.absmax(x)
@@ -858,8 +886,9 @@ def transport_phase(seed: int):
                 torch.cuda.synchronize()
                 cases += 1
     print(f"[transport] {cases} cases (n in {{{P_LEN}, 1000003, 50}} x B in "
-          f"{{1, 4}} x normal/ties/zeros, bits 0 and 4, nearest and "
-          f"stochastic): every kernel bitwise equal to its plain version")
+          f"{{1, 4}} x normal/ties/zeros/inf, bits 0 and 4, nearest and "
+          f"stochastic): every kernel bitwise equal to its plain version "
+          f"(NaN compared as NaN)")
 
     # bin_counts alone on the rows that reach every path of its search
     # (tests/_bin_rows.py): denormal, overflowing, infinite, NaN and
@@ -1282,15 +1311,9 @@ def pack_phase(seed: int):
     def same(name, got, want, what):
         for a, b in zip(got, want):
             a, b = a.contiguous(), b.contiguous()
-            if a.dtype == torch.float32:
-                equal = torch.equal(a.view(torch.int32), b.view(torch.int32))
-                diff = (a.double() - b.double()).abs().nan_to_num(0.0)
-            else:
-                equal = torch.equal(a, b)
-                diff = (a.double() - b.double()).abs()
-            if a.numel():
-                errs[name] = max(errs[name], diff.max().item())
-            check(equal, f"{name} differs from its plain version ({what})")
+            errs[name] = max(errs[name], finite_diff(a, b))
+            check(same_bits(a, b),
+                  f"{name} differs from its plain version ({what})")
 
     cases = 0
     for n in (P_LEN, 1_000_003, 50):
@@ -1311,7 +1334,7 @@ def pack_phase(seed: int):
             # kernel 7: per-row thresholds for k in {0, 1, n/4, n}
             ks = [kd] if B == 1 else [0, 1, kd, n]
             k = torch.tensor(ks, dtype=torch.int32, device="cuda")
-            for kind in ("normal", "ties", "zeros"):
+            for kind in ("normal", "ties", "zeros", "inf"):
                 x, u = transport_rows(gen, B, n, kind)
                 if kind == "normal":
                     x[0, n // 3] = 100.0        # survivors round to zero
@@ -1355,10 +1378,10 @@ def pack_phase(seed: int):
     print(f"[pack] {cases} cases (n in {{{P_LEN}, 1000003, 50}} x B in "
           f"{{1, 4}}; pack_batch on normal/-0.0+NaN/tied/zero rows and "
           f"unaligned views, cap 0 and twice over, "
-          f"mask_quantize_pack on normal/tied/zero rows at bits 0 and 4, "
-          f"nearest and stochastic, k in {{0, 1, n/4, n}}; the Yi-9B "
+          f"mask_quantize_pack on normal/tied/zero/inf rows at bits 0 and "
+          f"4, nearest and stochastic, k in {{0, 1, n/4, n}}; the Yi-9B "
           f"capacity and an overflowing one): both kernels bitwise equal "
-          f"to their plain versions")
+          f"to their plain versions (NaN compared as NaN)")
 
     # the server side on the card: flat == edge tree, bitwise, and the
     # sparse mean against the dense one
@@ -1915,6 +1938,8 @@ def ops_phase(seed: int):
             (1, 1000, 1000, 32, 4, hd, "float32", False),
             (2, 1000, 1100, 32, 4, hd, "bfloat16", True),
             (2, 1000, 1100, 32, 4, hd, "bfloat16", False),
+            (2, 1025, 1100, 32, 4, hd, "bfloat16", True),
+            (2, 1025, 1100, 32, 4, hd, "bfloat16", False),
             (2, 1000, 1100, 8, 2, 64, "bfloat16", True),
             (2, 1000, 1100, 8, 2, 64, "bfloat16", False)):
         q, k, v = attn_inputs(gen, B, S, T, H, KV, hd_, dt)

@@ -57,22 +57,38 @@
 //     stream through a ring of two stages, each of K and V with a full and
 //     an empty mbarrier, so the next tile's loads run under this one's
 //     math.  S = Q K^T is wgmma m64n128k16 from shared memory (both
-//     K-major, 8 steps over hd); scale (folded with log2 e, so exp2f), the
+//     K-major, 8 steps over hd); scale (folded with log2 e, so exp2), the
 //     causal / ragged mask on the tiles that need it, and the online
 //     softmax run on the f32 accumulator (row max and sum over the 4 lanes
 //     that share a row); p is split into a hi + lo pair of bf16 in
 //     registers, and each half is the A operand of acc += P V, wgmma
 //     m64n128k16 with A from registers and V read MN-major through the
 //     transpose bit: two wgmma per 16 keys on one V descriptor, twice the
-//     P V tensor work of a bf16 p.  The pairs are built and consumed a
-//     quarter tile (32 keys) at a time, each quarter's wgmma waited for
-//     before the next is built: all 64 pair registers at once spilled.
-//     acc stays in registers.  setmaxnreg gives the producer 24 registers
-//     and the consumers 240, the most the producer's 24 leave (at 232 the
-//     consumers spilled even with a bf16 p).
-//     Shared memory 160 KB.  Not yet: overlap of one tile's softmax with
-//     the next tile's Q K^T inside a warpgroup, and a ping-pong schedule
-//     between the two consumer warpgroups.
+//     P V tensor work of a bf16 p.  p and its pairs are made a quarter
+//     tile (32 keys) at a time, each quarter's exp2 and pairs while the
+//     previous quarter's P V runs, in two buffers of pairs, with one drain
+//     of the P V a tile (all 64 pair registers at once spilled).  acc stays
+//     in registers.  setmaxnreg gives the producer 24 registers and the
+//     consumers 240, the most the producer's 24 leave (at 232 the
+//     consumers spilled even with a bf16 p).  Shared memory 160 KB.
+//     The two consumer warpgroups run in step, and that is what an H100
+//     wants here: timed per phase (clock64 marks in an instrumented copy),
+//     Q K^T and P V run near the tensor-core peak with both warpgroups
+//     issuing, and the softmax is issue-bound (some nine instructions an
+//     element): done in one piece it would leave the tensor cores idle for
+//     over a third of a tile.  Schedules that would hide more of it lost
+//     on the card: a ping-pong of the two warpgroups over named
+//     barriers (one warpgroup alone leaves each wait's latency exposed, so
+//     its GEMM phases run at a fraction of the rate); Q K^T of the next
+//     tile issued before this tile's softmax or P V (two accumulators in
+//     flight, 192 registers of operands: ptxas spills and serialises the
+//     wgmma, C7512), or behind its last P V quarter (serialised, C7515);
+//     64-key tiles, whose operands fit (more instructions a key); Q K^T as
+//     two 64-key halves; three K / V stages.  Besides the quarters, fewer
+//     instructions paid: ex2.approx.ftz for p and the rescale (exp2f adds
+//     three instructions an element to produce results below 2^-126, which
+//     round away in every sum here), and a warp-uniform warpgroup index,
+//     so that the wgmma descriptors stay in uniform registers.
 //   route 1, "mma_sync" -- the first version, for bf16 with hd 32
 //     and 64: grid (B*H, ceil(S/64)), 4 warps; each warp owns 16 query rows.
 //     The q tile is staged through shared memory into mma.sync A fragments
@@ -92,8 +108,9 @@
 //     hd/16 columns of acc; p goes through shared memory between the two
 //     products.
 //   Query tiles are issued last-first so the causal tiles with the most
-//   keys start first.  Routes 1 and 2 use expf, route 0 exp2f of the
-//   log2-scaled scores; no fast math.
+//   keys start first.  Routes 1 and 2 use expf, route 0 ex2.approx.ftz of
+//   the log2-scaled scores (exp2f's own instruction, less its handling of
+//   results below 2^-126, which it flushes to 0); no fast math.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -382,6 +399,15 @@ constexpr int kWgBars = 1 + 4 * kWgStages;
 // Q, then per stage K and V; barriers after; 1 KB of slack to align the base
 constexpr int kWgSmem = 1024 + kWgTile * (1 + 2 * kWgStages) + 8 * kWgBars;
 
+// 2^x by the special-function unit, a result below 2^-126 flushed to 0:
+// the instruction exp2f issues, without the three that exp2f adds to
+// produce those results as subnormals
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -421,7 +447,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  // warp-uniform to the compiler (a broadcast from lane 0), so that the
+  // wgmma descriptors derived from it are computed in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 2) {
     // producer: one thread issues every load; the rest of the warpgroup
     // only hands back its registers
@@ -506,32 +534,36 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int rr = 0; rr < 2; ++rr) {
         mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
         mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-        corr[rr] = exp2f(m[rr] - mx[rr]);
+        corr[rr] = ex2_ftz(m[rr] - mx[rr]);
         m[rr] = mx[rr];
         l[rr] *= corr[rr];
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const int rr = (i >> 1) & 1;
-        sc[i] = exp2f(sc[i] - m[rr]);
-        l[rr] += sc[i];
-        o[i] *= corr[rr];
-      }
-      // p as hi + lo pairs of bf16 A operands, a quarter tile (32 keys,
-      // accumulator chunks 8 q .. 8 q + 7) at a time: keys 16 kk .. 16 kk + 15
-      // are the chunks 2 kk and 2 kk + 1.  Each quarter's pairs are free
-      // again at its wait, so the consumers stay within their 240
-      // registers (all 64 pair registers at once spilled 84 bytes).
+      for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+      // p = exp2(s - m) and its hi + lo pairs of bf16 A operands, a quarter
+      // tile (32 keys, accumulator chunks 8 q .. 8 q + 7) at a time: keys
+      // 16 kk .. 16 kk + 15 are the chunks 2 kk and 2 kk + 1.  Quarter qt's
+      // exp2 and pairs are computed while the P V of quarter qt - 1 runs;
+      // two buffers of pairs, each free again once the quarter two back
+      // has been waited for.  l sums p in the order of i, as before.
       const uint32_t v_addr = smem_addr(vs(s));
+      uint32_t p_hi[2][2][4], p_lo[2][2][4];
 #pragma unroll
       for (int qt = 0; qt < 4; ++qt) {
-        uint32_t p_hi[2][4], p_lo[2][4];
+#pragma unroll
+        for (int i = 16 * qt; i < 16 * qt + 16; ++i) {
+          const int rr = (i >> 1) & 1;
+          sc[i] = ex2_ftz(sc[i] - m[rr]);
+          l[rr] += sc[i];
+        }
+        if (qt >= 2) wgmma_wait<1>();     // quarter qt - 2 has read its pairs
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = 8 * (2 * qt + kk) + 2 * e;
-            split_bf16(sc[i], sc[i + 1], p_hi[kk][e], p_lo[kk][e]);
+            split_bf16(sc[i], sc[i + 1], p_hi[qt & 1][kk][e],
+                       p_lo[qt & 1][kk][e]);
           }
         }
         if (qt == 0) mbar_wait(&v_full[s], ph);
@@ -540,13 +572,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kk = 0; kk < 2; ++kk) {
           const uint64_t v_desc =
               desc_sw128(v_addr + (2 * qt + kk) * 2048, kWgBox, 1024);
-          wgmma_m64n128k16_rs(o, p_hi[kk], v_desc, 1);
-          wgmma_m64n128k16_rs(o, p_lo[kk], v_desc, 1);
+          wgmma_m64n128k16_rs(o, p_hi[qt & 1][kk], v_desc, 1);
+          wgmma_m64n128k16_rs(o, p_lo[qt & 1][kk], v_desc, 1);
         }
         wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(o);
+        // the next quarter's exp2 reads sc after this issue, not before it
+        fence_regs(sc);
       }
+      wgmma_wait<0>();
+      fence_regs(o);
       __syncwarp();
       if (lane == 0) mbar_arrive(&v_empty[s]);
     }

@@ -43,7 +43,8 @@
 //   - arithmetic is op for op the reference's, with IEEE rounding spelled
 //     out (__fadd_rn, __fmul_rn, __fdiv_rn) so that no contraction or fast
 //     path changes a bit: mid = 0.5f * (lo + hi); y = x / scale; floor(y + u)
-//     or rint(y) (half to even); clip to [-qmax - 1, qmax]; y * scale.
+//     or rint(y) (half to even); clip to [-qmax - 1, qmax], NaN kept;
+//     y * scale.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -353,7 +354,10 @@ __device__ __forceinline__ float masked_level(float v, float uu, float t,
   if (!QUANT) return v;
   float y = __fdiv_rn(v, scale);
   y = STOCHASTIC ? floorf(__fadd_rn(y, uu)) : rintf(y);
-  y = fminf(fmaxf(y, -qmax - 1.0f), qmax);
+  // clip; a NaN y stays NaN, as under torch.clamp and jnp.clip (fminf and
+  // fmaxf alone would return a bound).  A kept y is NaN where x is +-inf and
+  // the row's scale inf (a row holding an inf): inf / inf.
+  y = isnan(y) ? y : fminf(fmaxf(y, -qmax - 1.0f), qmax);
   return __fmul_rn(y, scale);
 }
 

@@ -19,6 +19,8 @@ against an f64 attention on the same inputs (the bf16 output's own
 rounding allows 2^-8 = 3.9e-3; a p rounded to bf16 before the second
 product gives 5e-3 to 6e-3).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -238,6 +240,49 @@ def test_transport_kernels_match_plain_bitwise(n, B, kind):
             torch.cuda.synchronize()
             assert torch.equal(_bits(got), _bits(want)), (bits, uu is None)
             assert torch.equal(cnt, wcnt)
+
+
+def _same_nan(got, want):
+    """NaN at the same places, every other element bit for bit."""
+    g, w = got.contiguous().cpu(), want.contiguous().cpu()
+    nan = torch.isnan(w)
+    return (torch.equal(torch.isnan(g), nan) and
+            torch.equal(g.view(torch.int32)[~nan], w.view(torch.int32)[~nan]))
+
+
+# rows that hold +-inf (their scale is inf: a kept +-inf quantizes to inf /
+# inf = NaN, which the clip must keep) or NaN elements (masked out), at the
+# rows' own scale and at a finite one (a kept +-inf clips to a bound)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [50, 70001, 1_000_003])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kind", ["inf_hi0", "nan"])
+def test_mask_quantize_kernels_keep_nan_bitwise(n, B, kind):
+    _need_card()
+    xs, hs = bin_rows(kind, B, n, 12, seed=n + B + 3)
+    x, h = (torch.from_numpy(a).cuda() for a in (xs, hs))
+    u = torch.from_numpy(np.random.default_rng(n + B).random(
+        (B, n), dtype=np.float32)).cuda()
+    finite = torch.where(torch.isfinite(x), x.abs(), 0.0).amax(-1)
+    t = finite * 0.3
+    for scale in (qz.scale_of(h, 4), qz.scale_of(finite, 4)):
+        for uu in (None, u):
+            what = (bool(torch.isinf(scale).any()), uu is None)
+            got, cnt = ft.fused_mask_quantize(x, t, scale, uu, 4)
+            want, wcnt = ft.fused_mask_quantize_plain(x, t, scale, uu, 4)
+            torch.cuda.synchronize()
+            assert _same_nan(got, want) and torch.equal(cnt, wcnt), what
+            cap = n // 3 + 1
+            got = ft.fused_mask_quantize_pack(x, t, scale, uu, 4, cap)
+            want = ft.fused_mask_quantize_pack_plain(x, t, scale, uu, 4, cap, n)
+            torch.cuda.synchronize()
+            assert _same_nan(got[0], want[0]), what
+            assert torch.equal(got[1], want[1]), what
+            assert _same_nan(got[2], want[2]), what
+            assert torch.equal(got[3], want[3]), what
+    if kind == "inf_hi0":       # the case the clip must keep: NaN out
+        got, _ = ft.fused_mask_quantize(x, t, qz.scale_of(h, 4), None, 4)
+        assert bool(torch.isnan(got[torch.isinf(x)]).all())
 
 
 @pytest.mark.cuda
@@ -492,15 +537,17 @@ def _route_launches(fn, route):
 
 # hd 128 in bf16 takes the wgmma kernel (ragged S and T, B = 2, H / KV in
 # {1, 2, 4, 8}, a last query tile of one row past a 128-row tile, keys one
-# past a 128-key tile); hd 32 and 64 in bf16 the mma.sync kernel; f32 the
-# FMA kernel
+# past a 128-key tile; at S 1000 the last block's second consumer
+# warpgroup holds 40 rows, at S 1025 none); hd 32 and 64 in bf16 the
+# mma.sync kernel; f32 the FMA kernel
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,T,H,KV,hd", [
     (1, 1, 1, 1, 1, 32), (2, 64, 64, 4, 2, 32), (1, 1000, 1000, 8, 2, 64),
     (1, 100, 37, 4, 4, 128), (2, 37, 100, 6, 3, 128), (1, 257, 257, 32, 4, 128),
-    (1, 1, 1, 1, 1, 128), (2, 1000, 1100, 32, 4, 128), (2, 129, 300, 8, 8, 128),
+    (1, 1, 1, 1, 1, 128), (2, 1000, 1100, 32, 4, 128),
+    (2, 1025, 1100, 32, 4, 128), (2, 129, 300, 8, 8, 128),
     (1, 300, 129, 16, 4, 128), (2, 256, 256, 8, 1, 128)])
 def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     _need_card()
@@ -519,18 +566,30 @@ def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
         assert _row_err(got, _attn_f64(q, k, v, scale, causal)) <= F64_ROW_TOL
 
 
+# at hd 128 in bf16 the wgmma kernel, whose two consumer warpgroups take
+# turns at the tensor cores: the last block's second warpgroup holds 40 rows
+# (S 1000) or none (S 1025) and still takes every turn
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_gqa_equals_prebroadcast_and_oracle(dtype):
-    # ops.flash_attention on K, V repeated per query head gives the GQA call
-    # bit for bit, and both hold to the reference's oracle
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,T,H,KV,hd", [
+    (2, 130, 130, 8, 2, 64), (2, 1000, 1100, 32, 4, 128),
+    (2, 1025, 1100, 32, 4, 128)])
+def test_flash_kernel_gqa_equals_prebroadcast_and_oracle(B, S, T, H, KV, hd,
+                                                         causal, dtype):
+    # two calls give the same bits; ops.flash_attention on K, V repeated per
+    # query head gives the GQA call bit for bit; both hold to the
+    # reference's oracle
     _need_card()
-    q, k, v = _attn(3, 2, 130, 130, 8, 2, 64, dtype)
-    gqa = fa.flash_attention(q, k, v, causal=True, scale=64 ** -0.5)
-    kb, vb = (t.repeat_interleave(4, dim=2) for t in (k, v))
-    pre = ops.flash_attention(q, kb, vb, causal=True)
+    q, k, v = _attn(3 + S, B, S, T, H, KV, hd, dtype)
+    gqa = fa.flash_attention(q, k, v, causal=causal, scale=1 / math.sqrt(hd))
+    again = fa.flash_attention(q, k, v, causal=causal,
+                               scale=1 / math.sqrt(hd))
+    assert torch.equal(gqa, again)
+    kb, vb = (t.repeat_interleave(H // KV, dim=2) for t in (k, v))
+    pre = ops.flash_attention(q, kb, vb, causal=causal)
     assert torch.equal(gqa, pre)
-    want = ref.flash_attention_ref(q, kb, vb, causal=True)
+    want = ref.flash_attention_ref(q, kb, vb, causal=causal)
     _assert_attn_close(pre, want, dtype)
 
 

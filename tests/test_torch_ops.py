@@ -26,11 +26,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import fused_transport as jft
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.topk_mask import BLOCK
 from repro.models import attention as JA
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import fused_transport as tft
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -184,7 +186,9 @@ def test_flash_attention_gqa_equals_prebroadcast():
 
 
 # ---------------------------------------------------------------------------
-# the flash kernel's plain version keeps p in f32 (bf16, S = T = 512, hd 128)
+# the flash kernel's plain version keeps p in f32 (bf16, hd 128; S = T = 512,
+# and 1025, one row past eight 128-row tiles: the wgmma kernel's last block
+# then holds a single query row)
 # ---------------------------------------------------------------------------
 
 F64_ROW_TOL = 4e-3
@@ -209,17 +213,18 @@ def _attn_f64(q, k, v, scale):
     return np.einsum("bhst,bthd->bshd", p, vd)
 
 
-def _bf16_qkv(seed, KV):
-    """q (1, 512, 4, 128), k and v (1, 512, KV, 128), rounded to bf16: the
+def _bf16_qkv(seed, KV, S=512):
+    """q (1, S, 4, 128), k and v (1, S, KV, 128), rounded to bf16: the
     torch tensors and the same values as f32 numpy arrays."""
-    t = [torch.from_numpy(_normal(seed + i, 1, 512, h, 128)).bfloat16()
+    t = [torch.from_numpy(_normal(seed + i, 1, S, h, 128)).bfloat16()
          for i, h in enumerate((4, KV, KV))]
     return t, [x.float().numpy() for x in t]
 
 
+@pytest.mark.parametrize("S", [512, 1025])
 @pytest.mark.parametrize("KV", [2, 4])
-def test_flash_plain_bf16_keeps_p_in_f32(KV):
-    (tq, tk, tv), (q, k, v) = _bf16_qkv(70 + KV, KV)
+def test_flash_plain_bf16_keeps_p_in_f32(KV, S):
+    (tq, tk, tv), (q, k, v) = _bf16_qkv(70 + KV, KV, S)
     exact = _attn_f64(q, k, v, 128 ** -0.5)
     got = tfa.flash_attention_plain(tq, tk, tv, causal=True,
                                     scale=128 ** -0.5)
@@ -231,13 +236,74 @@ def test_flash_plain_bf16_keeps_p_in_f32(KV):
     assert _row_err(old.float().numpy(), exact) > F64_ROW_TOL
 
 
+# chunks that divide S, as the reference asserts: 1025 = 5 x 205
+@pytest.mark.parametrize("S,chunk", [(512, 128), (1025, 205)])
 @pytest.mark.parametrize("KV", [2, 4])
-def test_flash_plain_bf16_matches_reference_chunked_attention(KV):
-    (tq, tk, tv), (q, k, v) = _bf16_qkv(80 + KV, KV)
+def test_flash_plain_bf16_matches_reference_chunked_attention(KV, S, chunk):
+    (tq, tk, tv), (q, k, v) = _bf16_qkv(80 + KV, KV, S)
     got = tfa.flash_attention_plain(tq, tk, tv, causal=True,
                                     scale=128 ** -0.5)
     want = JA.chunked_attention(*(jnp.asarray(a).astype(jnp.bfloat16)
                                   for a in (q, k, v)), 128 ** -0.5,
-                                causal=True, window=None, cq=128, ckv=128)
+                                causal=True, window=None, cq=chunk, ckv=chunk)
     assert want.dtype == jnp.bfloat16
     assert _row_err(got.float().numpy(), _np(want)) <= 2.0 ** -7
+
+
+# ---------------------------------------------------------------------------
+# the quantize kernels' plain versions keep NaN, as the reference's Pallas
+# kernels do (interpret mode), on rows that hold +inf, -inf and NaN
+# ---------------------------------------------------------------------------
+
+def _same_nan_and_bits(got, want):
+    """NaN at the same places, every other element bit for bit."""
+    g, w = (np.ascontiguousarray(a, np.float32) for a in (got, want))
+    nan = np.isnan(w)
+    np.testing.assert_array_equal(np.isnan(g), nan)
+    np.testing.assert_array_equal(g.view(np.int32)[~nan],
+                                  w.view(np.int32)[~nan])
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("scale_of", ["absmax", "finite"])
+def test_quantize_plain_keeps_nan_like_reference(scale_of, stochastic):
+    # "absmax": the scale of a row that holds an inf is inf, so a kept +-inf
+    # gives y = inf / inf = NaN and a kept finite x gives 0 * inf = NaN;
+    # "finite": a kept +-inf clips to a bound.  NaN elements fail |x| >= t.
+    n, block, cap, bits = 512, 128, 200, 4
+    rng = np.random.default_rng(7 + stochastic)
+    x = rng.standard_normal((1, n), dtype=np.float32)
+    x[0, ::97] = np.where(rng.random(x[0, ::97].shape) < 0.5, -np.inf, np.inf)
+    x[0, 5::89] = np.nan
+    u = rng.random((1, n), dtype=np.float32)
+    top = np.nanmax(np.abs(x)) if scale_of == "absmax" else \
+        np.abs(x[np.isfinite(x)]).max()
+    scale = np.float32(top) / np.float32(7.0)
+    t = np.float32(0.3) * np.abs(x[np.isfinite(x)]).max()
+    uu = u if stochastic else None
+    tx, tt, ts = (torch.from_numpy(np.array(a, np.float32).reshape(-1))
+                  for a in (x, t, scale))
+    tu = torch.from_numpy(u) if stochastic else None
+    got, cnt = tft.fused_mask_quantize_plain(tx.view(1, n), tt, ts, tu, bits)
+    want, wcnt = jft.fused_mask_quantize_pallas(
+        jnp.asarray(x[0]), jnp.float32(t), jnp.float32(scale),
+        None if uu is None else jnp.asarray(uu[0]), bits, block=block,
+        interpret=True)
+    _same_nan_and_bits(got[0].numpy(), want)
+    assert int(cnt[0]) == int(wcnt)
+    got_p = tft.fused_mask_quantize_pack_plain(tx.view(1, n), tt, ts, tu, bits,
+                                               cap, n)
+    want_p = jft.fused_mask_quantize_pack_pallas(
+        jnp.asarray(x[0]), jnp.float32(t), jnp.float32(scale),
+        None if uu is None else jnp.asarray(uu[0]), bits, cap, n,
+        block=block, interpret=True)
+    _same_nan_and_bits(got_p[0][0].numpy(), want_p[0])
+    np.testing.assert_array_equal(got_p[1][0].numpy(), np.asarray(want_p[1]))
+    _same_nan_and_bits(got_p[2][0].numpy(), want_p[2])
+    assert int(got_p[3][0]) == int(want_p[3]) == int(cnt[0])
+    # the rows reach the case: NaN out of a kept element only under an inf
+    # scale, and the inf elements themselves are kept
+    inf_at = np.isinf(x[0])
+    assert bool(np.isnan(np.asarray(want))[inf_at].all()) == \
+        (scale_of == "absmax")
+    assert not np.isnan(np.asarray(want))[np.isnan(x[0])].any()
