@@ -7,10 +7,12 @@ Phases, each fatal on failure:
   1. build    -- compile every CUDA source under src/repro_torch/csrc/ with
                  nvcc (one process per source, all started together); print
                  each kernel's registers, shared memory and spills, and fail
-                 if a wgmma kernel, a rank bucket of the grouped kernel or
-                 one of the bin_counts / pack_batch kernels has a stack
-                 frame or spills, or ptxas serialised a wgmma or ignored a
-                 setmaxnreg.
+                 if a wgmma kernel, a rank bucket of the grouped kernel, a
+                 bin_counts kernel or an instantiation of the packs' scan
+                 (pack_scan_kernel<Rows>: pack_batch's and
+                 mask_quantize_pack's at bits 0, nearest and stochastic)
+                 or their fill has a stack frame or spills, or ptxas
+                 serialised a wgmma or ignored a setmaxnreg.
   2. kernels  -- the grouped LoRA kernel against its plain PyTorch version
                  on the card at the serving decode shapes and ragged ones
                  (M in {1, 8, 130}, N in {4096, 512, 50}, R in {1, 16, 64},
@@ -71,7 +73,9 @@ Phases, each fatal on failure:
                  one float into its storage, cap 0, and a second call that
                  must give the same bits; mask_quantize_pack at bits 0 and 4,
                  nearest and stochastic, k in {0, 1, n/4, n}, also on rows
-                 holding +-inf (NaN compared as NaN).  Flat ==
+                 holding +-inf and NaN elements (NaN compared as NaN), and
+                 like pack_batch on views one float in (x and u), at cap 0
+                 and twice over.  Flat ==
                  hierarchical accumulate (edges 1, 4, 7) bitwise, the
                  sparse mean against the dense one (atol 1e-6); then both
                  kernels' device times at the Yi-9B length beside their
@@ -232,55 +236,65 @@ HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel")
 # 16-byte loads (1) or element loads (0)
 GROUPED_KERNELS = tuple(f"grouped_lora_cluster_kernel<{rp}, {vec}>"
                         for rp in (4, 8, 16, 32, 64) for vec in (1, 0))
-# the two transport entry points redesigned for Hopper (csrc/transport.cu):
-# the histogram search at its widest and its sum, the one-pass pack and its
-# fill
+# the transport entry points redesigned for Hopper (csrc/transport.cu): the
+# histogram search at its widest and its sum; the one-pass scan of both
+# packs, one instantiation a row source (pack_batch; mask_quantize_pack at
+# bits 0, nearest and stochastic), and their fill
+PACK_SCAN_KERNELS = tuple(
+    f"pack_scan_kernel<{rows}>" for rows in (
+        "NonzeroRows", "MaskQuantizeRows<0, 0>", "MaskQuantizeRows<1, 0>",
+        "MaskQuantizeRows<1, 1>"))
 TRANSPORT_KERNELS = ("bin_partial_kernel<12>", "bin_sum_kernel",
-                     "pack_scan_kernel", "pack_fill_kernel")
+                     *PACK_SCAN_KERNELS, "pack_fill_kernel")
 # kernels that must build with no stack frame and no spills
 GATED_KERNELS = HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
 
 
-def kernel_name(mangled: str) -> str:
-    """`flash_bf16_kernel<128>` from the mangled name of a kernel in an
-    anonymous namespace of csrc/<file>.cu (the mangled name where it does
-    not parse)."""
-    m = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
-    if not m or len(m.group(2)) < int(m.group(1)):
-        return mangled
-    name, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
-    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
-    if not args:
-        return name
-    return f"{name}<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+# what cu++filt prints beside a kernel's name and template arguments: the
+# anonymous namespace of csrc/<file>.cu, and the type of each literal
+DEMANGLED_NOISE = re.compile(r"<unnamed>::|\([\w ]+\)")
 
+
+def short_name(demangled: str) -> str:
+    """`pack_scan_kernel<MaskQuantizeRows<1, 0>>` from a kernel's name as
+    `cu++filt -p` prints it: without the anonymous namespace, the types of
+    the literal arguments and the return type."""
+    return DEMANGLED_NOISE.sub("", demangled).removeprefix("void ").strip()
 
 
 def ptxas_kernels(log: str):
     """[(kernel, report)] from one library's `nvcc -Xptxas -v` output: each
     kernel's registers, shared memory, stack frame and spills, in the
-    compiler's words."""
-    out, name, report = [], None, []
+    compiler's words, under its name as the CUDA toolkit's cu++filt
+    demangles it (short_name)."""
+    mangled, reports = [], []
     for line in log.splitlines():
         if "Compiling entry function '" in line:
-            if name:
-                out.append((name, "; ".join(report)))
-            name, report = kernel_name(line.split("'")[1]), []
-        elif name and ("spill" in line or "registers" in line):
-            report.append(line.replace("ptxas info    :", "").strip())
-    if name:
-        out.append((name, "; ".join(report)))
-    return out
+            mangled.append(line.split("'")[1])
+            reports.append([])
+        elif reports and ("spill" in line or "registers" in line):
+            reports[-1].append(line.replace("ptxas info    :", "").strip())
+    if not mangled:
+        return []
+    from repro_torch.kernels import _build
+    filt = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
+    names = subprocess.run([filt, "-p", *mangled], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    check(len(names) == len(mangled),
+          f"cu++filt gave {len(names)} names for {len(mangled)} kernels")
+    return [(short_name(name), "; ".join(report))
+            for name, report in zip(names, reports)]
 
 
 def build_report(libs) -> None:
     """Print every kernel's registers, shared memory and spills, and every
     compiler warning.  Fail if a library's compiler log is missing, if a
     gated kernel (the two wgmma kernels, the grouped kernel's rank buckets,
-    the bin_counts and pack_batch kernels) is not in its library's log with its stack frame and spill counts, if
-    it has any of them, or if ptxas serialised a wgmma or ignored a
-    setmaxnreg (each of which quietly costs most of what the design
-    buys)."""
+    the bin_counts kernels, every instantiation of the packs' scan and
+    their fill) is not in its library's log with its stack frame and spill
+    counts, if it has any of them, or if ptxas serialised a wgmma or
+    ignored a setmaxnreg (each of which quietly costs most of what the
+    design buys)."""
     checked = {}
     for lib, path in sorted(libs.items()):
         log_path = path.with_suffix(".so.log")
@@ -1292,30 +1306,23 @@ def pack_bound(name: str, B: int, n: int, cap: int, stochastic: bool):
                                        else "operations")
 
 
-def pack_phase(seed: int):
-    """Both pack kernels against their plain versions, bitwise, at the
-    Yi-9B vector length, an odd length and a tiny one, one and four rows,
-    normal / tied / all-zero / -0.0-bearing rows, the Yi-9B capacity and
-    an overflowing one, bits 0 and 4, nearest and stochastic rounding, k
-    in {0, 1, n/4, n}; flat == hierarchical accumulate on the card; then
-    each kernel's device time at the Yi-9B length (B = 1 and 4)."""
+def pack_cases(gen):
+    """Phase 8's bitwise cases, made one at a time on the card: yields
+    (kernel, what, args, checks), with args the positional arguments of the
+    kernel's wrapper (x, cap for pack_batch; x, thr, scale, u, bits, cap
+    for mask_quantize_pack) and checks naming what else must hold:
+    "overflow" (every row's total over cap), "twice" (a second call gives
+    the same bits).  The Yi-9B vector length, an odd length and a tiny one,
+    one and four rows; pack_batch on normal / -0.0-and-NaN / tied / zero
+    rows, mask_quantize_pack on normal / tied / zero / +-inf-and-NaN rows
+    at bits 0 and 4, nearest and stochastic, k in {0, 1, n/4, n}; the
+    Yi-9B capacity and an overflowing one; then both on views one float
+    into their storage (no 16-byte loads) at the Yi-9B capacity and 0."""
     import torch
     from repro_torch.core import comm
     from repro_torch.core import quantization as qz
     from repro_torch.core import sparsity as sp
     from repro_torch.kernels import fused_transport as ft
-
-    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
-    errs = {name: 0.0 for name, _ in PACK}
-
-    def same(name, got, want, what):
-        for a, b in zip(got, want):
-            a, b = a.contiguous(), b.contiguous()
-            errs[name] = max(errs[name], finite_diff(a, b))
-            check(same_bits(a, b),
-                  f"{name} differs from its plain version ({what})")
-
-    cases = 0
     for n in (P_LEN, 1_000_003, 50):
         kd = sp.density_count(n, 0.25)
         caps = (comm.pack_capacity(n, kd), n // 64 + 1)
@@ -1323,14 +1330,9 @@ def pack_phase(seed: int):
             for kind in ("normal", "negzero", "ties", "zeros"):
                 x = pack_rows(gen, B, n, kind)
                 for cap in caps:
-                    what = f"n={n} B={B} {kind} cap={cap}"
-                    got = ft.pack_values_batch(x, cap)
-                    same("pack_batch", got,
-                         ft.pack_rows_plain(x, x != 0, cap, n), what)
-                    if kind == "normal" and cap == caps[1]:
-                        check(bool((got[2] > cap).all()),
-                              f"pack_batch did not flag overflow ({what})")
-                    cases += 1
+                    yield ("pack_batch", f"n={n} B={B} {kind} cap={cap}",
+                           (x, cap), {"overflow"} if (
+                               kind == "normal" and cap == caps[1]) else ())
             # kernel 7: per-row thresholds for k in {0, 1, n/4, n}
             ks = [kd] if B == 1 else [0, 1, kd, n]
             k = torch.tensor(ks, dtype=torch.int32, device="cuda")
@@ -1341,46 +1343,82 @@ def pack_phase(seed: int):
                 hi0 = ft.absmax(x)
                 thr = torch.clamp_min(ft.threshold_from_bins(
                     ft.bin_counts(x, hi0, LEVELS), hi0, k, LEVELS), sp.TINY)
+                if kind == "inf":               # NaN elements are dropped
+                    x[:, 1::101] = float("nan")
                 for bits in (0, 4):
                     scale = qz.scale_of(hi0, bits) if bits else \
                         torch.ones_like(hi0)
                     for uu in ((None, u) if bits else (None,)):
+                        rnd = "nearest" if uu is None else "stochastic"
                         for cap in caps:
-                            what = (f"n={n} B={B} {kind} bits={bits} "
-                                    f"{'stochastic' if uu is not None else 'nearest'}"
-                                    f" cap={cap}")
-                            same("mask_quantize_pack",
-                                 ft.fused_mask_quantize_pack(
-                                     x, thr, scale, uu, bits, cap),
-                                 ft.fused_mask_quantize_pack_plain(
-                                     x, thr, scale, uu, bits, cap, n), what)
-                            cases += 1
-            torch.cuda.synchronize()
-    # pack_batch on what else it must get right: a view one float into its
-    # storage (no 16-byte loads), cap 0, and two calls on the same rows,
-    # bitwise equal
+                            yield ("mask_quantize_pack",
+                                   f"n={n} B={B} {kind} bits={bits} {rnd} "
+                                   f"cap={cap}",
+                                   (x, thr, scale, uu, bits, cap), ())
     for n in (P_LEN, 1_000_003):
         for B in (1, 4):
             cap = comm.pack_capacity(n, sp.density_count(n, 0.25))
-            flat = pack_rows(gen, 1, B * n + 1, "negzero")[0]
-            x = flat[1:].view(B, n)
+            x = pack_rows(gen, 1, B * n + 1, "negzero")[0][1:].view(B, n)
             check(x.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+            xq, uq = (t.reshape(-1)[1:].view(B, n) for t in
+                      transport_rows(gen, 1, B * n + 1, "normal"))
+            hi0 = ft.absmax(xq)
+            thr, scale = hi0 * 0.3, qz.scale_of(hi0, 4)
             for c in (cap, 0):
                 what = f"n={n} B={B} unaligned cap={c}"
-                got = ft.pack_values_batch(x, c)
-                same("pack_batch", got, ft.pack_rows_plain(x, x != 0, c, n),
-                     what)
-                same("pack_batch", ft.pack_values_batch(x, c), got,
-                     what + " second call")
-                cases += 1
-            del flat, x
+                yield "pack_batch", what, (x, c), {"twice"}
+                yield ("mask_quantize_pack", what,
+                       (xq, thr, scale, uq, 4, c), {"twice"})
+
+
+def pack_plain(name: str, args):
+    """The plain version of a pack kernel on one case's arguments."""
+    from repro_torch.kernels import fused_transport as ft
+    x, n = args[0], args[0].shape[1]
+    if name == "pack_batch":
+        return ft.pack_rows_plain(x, x != 0, args[1], n)
+    return ft.fused_mask_quantize_pack_plain(*args, n)
+
+
+def pack_phase(seed: int):
+    """Both pack kernels against their plain versions, bitwise, on
+    pack_cases; flat == hierarchical accumulate on the card; then each
+    kernel's device time at the Yi-9B length (B = 1 and 4)."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core import quantization as qz
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import fused_transport as ft
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    errs = {name: 0.0 for name, _ in PACK}
+    wrappers = {"pack_batch": ft.pack_values_batch,
+                "mask_quantize_pack": ft.fused_mask_quantize_pack}
+
+    def same(name, got, want, what):
+        for a, b in zip(got, want):
+            a, b = a.contiguous(), b.contiguous()
+            errs[name] = max(errs[name], finite_diff(a, b))
+            check(same_bits(a, b),
+                  f"{name} differs from its plain version ({what})")
+
+    cases = 0
+    for name, what, args, checks in pack_cases(gen):
+        got = wrappers[name](*args)
+        same(name, got, pack_plain(name, args), what)
+        if "overflow" in checks:
+            check(bool((got[-1] > args[-1]).all()),
+                  f"{name} did not flag overflow ({what})")
+        if "twice" in checks:
+            same(name, wrappers[name](*args), got, what + " second call")
+        cases += 1
     torch.cuda.synchronize()
     print(f"[pack] {cases} cases (n in {{{P_LEN}, 1000003, 50}} x B in "
-          f"{{1, 4}}; pack_batch on normal/-0.0+NaN/tied/zero rows and "
-          f"unaligned views, cap 0 and twice over, "
-          f"mask_quantize_pack on normal/tied/zero/inf rows at bits 0 and "
-          f"4, nearest and stochastic, k in {{0, 1, n/4, n}}; the Yi-9B "
-          f"capacity and an overflowing one): both kernels bitwise equal "
+          f"{{1, 4}}; pack_batch on normal/-0.0+NaN/tied/zero rows, "
+          f"mask_quantize_pack on normal/tied/zero/inf+NaN rows at bits 0 "
+          f"and 4, nearest and stochastic, k in {{0, 1, n/4, n}}; the Yi-9B "
+          f"capacity and an overflowing one; both on unaligned views, cap 0 "
+          f"and twice over): both kernels bitwise equal "
           f"to their plain versions (NaN compared as NaN)")
 
     # the server side on the card: flat == edge tree, bitwise, and the
@@ -1408,7 +1446,6 @@ def pack_phase(seed: int):
     # call to call, host round trip included)
     fns = pack_functions()
     dev = torch.device("cuda")
-    nt = -(-P_LEN // ft.PACK_TILE)
     kd = sp.density_count(P_LEN, 0.25)
     timings = {name: {} for name, _ in PACK}
     for B in (1, 4):
@@ -1427,16 +1464,14 @@ def pack_phase(seed: int):
         idx = torch.empty((B, cap), dtype=torch.int32, device="cuda")
         val = torch.empty((B, cap), device="cuda")
         cnt = torch.zeros(B, dtype=torch.int32, device="cuda")
-        scratch = torch.empty((B, nt), dtype=torch.int32, device="cuda")
-        pscratch = torch.empty(ft.pack_batch_scratch_words(B, P_LEN),
-                               dtype=torch.int64, device="cuda")
+        scratch = torch.empty(ft.pack_batch_scratch_words(B, P_LEN),
+                              dtype=torch.int64, device="cuda")
         op, ip, vp, cp, sp_ = (out.data_ptr(), idx.data_ptr(), val.data_ptr(),
                                cnt.data_ptr(), scratch.data_ptr())
         calls = {   # (kernel alone, wrapper, plain, library) on one set
             "pack_batch": (
                 lambda s: fns["pack_batch"](dev, s.sparse.data_ptr(), ip, vp,
-                                            cp, pscratch.data_ptr(), P_LEN, B,
-                                            cap, P_LEN),
+                                            cp, sp_, P_LEN, B, cap, P_LEN),
                 lambda s: ft.pack_values_batch(s.sparse, cap),
                 lambda s: ft.pack_rows_plain(s.sparse, s.sparse != 0, cap,
                                              P_LEN),

@@ -9,9 +9,10 @@ time them in turns in one process.
 CSRC is a directory holding flash_attention.cu and the headers it includes,
 such as a checkout's src/repro_torch/csrc (an older commit unpacked with
 `git archive` into a directory that .gitignore lists).  Each is compiled
-with the port's nvcc flags into build/flash_ab/, all at once; the ptxas
-report of its flash_wgmma_kernel (registers, stack frame, spills) is
-printed, with any compiler warning or note that a wgmma was serialised.
+with the port's nvcc flags into build/flash_attention_ab/, all at once
+(scripts/ab_trees.py); the ptxas report of its flash_wgmma_kernel
+(registers, stack frame, spills) is printed, with any compiler warning or
+note that a wgmma was serialised.
 
 Cases: phase 10 of chip_smoke.py on the wgmma route (bf16, hd 128, H 32,
 KV 4): B 1, S = T = 8192 and 1000; B 2, S 1000 and 1025, T 1100; causal and
@@ -28,62 +29,17 @@ card's name and power limit first.
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
-import hashlib
 import json
-import os
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+import ab_trees
+from ab_trees import cs
 
-import chip_smoke as cs                                    # noqa: E402
-
-OUT_DIR = ROOT / "build" / "flash_ab"
 CASES = [(1, 8192, 8192), (1, 1000, 1000), (2, 1000, 1100), (2, 1025, 1100)]
 H, KV, HD = 32, 4, 128
 ITERS = 10                     # launches a timed turn
-
-
-def build(srcs: dict) -> dict:
-    """{label: csrc dir} -> {label: loaded library}; one nvcc a source, all
-    started together, with the port's flags."""
-    from repro_torch.kernels import _build
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for label, csrc in srcs.items():
-        h = hashlib.sha256((csrc / "flash_attention.cu").read_bytes())
-        for header in sorted(csrc.glob("*.cuh")):
-            h.update(header.name.encode() + b"\0" + header.read_bytes())
-        lib = OUT_DIR / f"lib{label}-{h.hexdigest()[:16]}.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-               str(csrc / "flash_attention.cu")]
-        procs[label] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for label, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            print(json.dumps({"label": label, "nvcc_failed": log[-4000:]}))
-            continue
-        for name, report in cs.ptxas_kernels(log):
-            if name == "flash_wgmma_kernel":
-                print(json.dumps({"label": label, "kernel": name,
-                                  "ptxas": report}))
-        warn = [ln.strip() for ln in log.splitlines()
-                if "warning" in ln.lower() or
-                "Potential Performance Loss" in ln]
-        if warn:
-            print(json.dumps({"label": label, "warnings": warn}))
-        fn = ctypes.CDLL(str(lib)).flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        libs[label] = fn
-    return libs
+SEED = 18
 
 
 def launch(fn, q, k, v, out, causal: bool) -> None:
@@ -97,30 +53,26 @@ def launch(fn, q, k, v, out, causal: bool) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="+", metavar="LABEL=CSRC")
-    args = ap.parse_args()
+    srcs = ab_trees.trees(__doc__, "flash_attention.cu")
+    if srcs is None:
+        return 1
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    srcs = {}
-    for tree in args.trees:
-        label, _, path = tree.partition("=")
-        cs.check(bool(label) and os.path.isfile(
-            os.path.join(path, "flash_attention.cu")),
-            f"{tree!r}: want LABEL=DIR with DIR/flash_attention.cu")
-        srcs[label] = Path(path).resolve()
-    print(json.dumps({"card": cs.card_line(),
-                      "device": torch.cuda.get_device_name(0)}))
-    libs = build(srcs)
+    libs = {}
+    for label, so in ab_trees.build(
+            srcs, "flash_attention.cu",
+            lambda name: name == "flash_wgmma_kernel").items():
+        fn = so.flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[label] = fn
     labels = list(libs)
     ok = labels == list(srcs)
     if not labels:
         return 1
-    gen = torch.Generator(device="cuda").manual_seed(18)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     for B, S, T in CASES:
         for causal in (True, False):
             q, k, v = cs.attn_inputs(gen, B, S, T, H, KV, HD, "bfloat16")
@@ -151,11 +103,8 @@ def main() -> int:
         q, k, v = cs.attn_inputs(gen, 1, 8192, 8192, H, KV, HD, "bfloat16")
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         out = torch.empty_like(q)
-        ms = {label: [] for label in labels}
-        for label in labels + labels[::-1]:
-            ms[label].append(cs.device_ms(
-                lambda i, fn=libs[label]: launch(fn, q, k, v, out, causal),
-                ITERS))
+        ms = ab_trees.abba(labels, lambda label, i: launch(
+            libs[label], q, k, v, out, causal), ITERS, 1)
         sdpa = cs.device_ms(lambda i: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=causal, enable_gqa=True), ITERS)
         bound, by = cs.attn_bound(1, 8192, 8192, H, KV, HD, "bfloat16",

@@ -542,185 +542,181 @@ extern "C" int mask_quantize_f32(const void* x, const void* u, const void* thr,
 // ---------------------------------------------------------------------------
 //
 // pack_batch_f32 (keep rule x != 0.0f as a float compare: -0.0 is dropped,
-// NaN kept) and mask_quantize_pack_f32 (keep rule |x| >= t; the packed value
-// is the masked, quantized one, so a survivor that quantized to zero still
-// takes a slot).  Survivor i of a row, counted in ascending index order,
-// goes to slot i when i < cap; slots [min(total, cap), cap) hold
-// (sentinel, 0.0f); the row's total is written even when it exceeds cap.
-// Both cut a row into tiles of kPackTile elements.  Counts, offsets and
-// indices are int32: n < 2^31.
+// NaN kept; the packed value is x) and mask_quantize_pack_f32 (keep rule
+// |x| >= t: NaN dropped, +-inf kept; the packed value is the masked,
+// quantized one, so a survivor that quantized to zero still takes a slot;
+// it also writes the masked row, as mask_quantize_f32 does).  Survivor i
+// of a row, counted in ascending index order, goes to slot i when i < cap;
+// slots [min(total, cap), cap) hold (sentinel, 0.0f); the row's total is
+// written even when it exceeds cap.  Counts, offsets and indices are
+// int32: n < 2^31.
 //
 // The Pallas kernels carry the running offset across a sequential grid.
 // CUDA blocks run in no order.  Both are bound by bytes on an H100:
 // pack_batch must read x and write 8 B per slot (18.3 us at the Yi-9B
 // vector and capacity 2,764,800); mask_quantize_pack also reads u and
-// writes the masked row.
+// writes the masked row (41.8 us, 4-bit stochastic).
 //
-// pack_batch_f32: x read once, in one pass with a decoupled look-back, then
-// a fill (two kernels; the entry point zeroes the scratch on the stream):
-//   1. pack_scan_kernel: a block takes its tile by a per-row ticket, in
-//      launch order, so every tile before it has started; it loads the tile
-//      with 16-byte loads into registers (16 elements a thread), ranks the
-//      survivors with ballots and popc, stages them, in order, in shared
-//      memory, publishes the tile's count, then looks back over its
-//      predecessors' 64-bit status words (flag and value written together:
-//      aggregate, then inclusive prefix; one 128-byte line each, so the
-//      look-backs of neighbouring tiles do not queue on one line) a warp at
-//      a time, publishes its inclusive prefix and copies the staged run to
-//      its slots with coalesced stores, 16 bytes wide where the buffers
-//      allow.  A predecessor publishes its count before it looks back
-//      itself, so no tile waits on one that has not started.  The last tile
-//      writes the row's total.
+// One design serves both, each element read once: a scan kernel templated
+// over its row source, then a fill (two kernels; the entry point zeroes the
+// scratch on the stream):
+//   1. pack_scan_kernel<Rows>: a block takes its tile of kPackTile elements
+//      by a per-row ticket, in launch order, so every tile before it has
+//      started.  Each warp walks its 512 elements a float4 chunk at a time
+//      (16 elements a thread), the row source keeping kAhead chunks of loads
+//      in flight: the source turns a chunk into the values to pack and their
+//      keep bits and writes what else it writes at once (mask_quantize_pack:
+//      the masked row, 16 bytes at a time, in flight while the tile waits
+//      below); the warp ranks the chunk's survivors with ballots on the keep
+//      bits and popc and stages (index, value), in order, in its own 512
+//      slots of shared memory.  So no value outlives its chunk in
+//      registers.  The block then publishes the tile's count, looks back
+//      over its predecessors' 64-bit status words (flag and value written
+//      together: aggregate, then inclusive prefix; one 128-byte line each,
+//      so the look-backs of neighbouring tiles do not queue on one line) a
+//      warp at a time, and publishes its inclusive prefix; each warp copies
+//      its staged run to its slots with coalesced stores, 16 bytes wide
+//      where the buffers allow.  A predecessor publishes its count before
+//      it looks back itself, so no tile waits on one that has not started,
+//      however many tiles a row has and however few are resident.  The last
+//      tile writes the row's total.
 //   2. pack_fill_kernel, a programmatic dependent launch: the empty slots,
 //      16 bytes at a time where the buffers allow.
-// What holds it back on an H100 (about 2x its bytes bound at B = 1,
-// PERF.md): a tile's serial steps (ticket, load, look-back, copy-out) keep
-// it resident after its loads have landed, so an SM has fewer bytes in
-// flight than a plain streaming pass keeps, and the survivors' stores cost
-// more than their bytes.  Six blocks an SM (40 registers, 32 KiB of
-// staging each) is as many as fit.  Writing each tile's survivors to
-// scratch first and placing them in a second kernel, with no waiting
-// between blocks, is slower still: it writes every survivor twice.
-// mask_quantize_pack_f32 still runs three kernels over the same tiling:
-//   1. mask_quantize_tile_kernel: mask, quantize and write the row (with
-//      mask_quantize's device code) and the keep count of every tile;
-//   2. scan_tiles_kernel: one block per row turns the tile counts into
-//      exclusive offsets in place and writes the row total;
-//   3. pack_scatter_kernel: each block recomputes its keep mask, ranks its
-//      survivors with a warp ballot / popc and a prefix over the block's
-//      warps, and writes (index, value) at row offset + rank when that is
-//      < cap; then the row's blocks fill the empty slots.
-// That reads x twice and the masked row once more (about 1.5-2x its bound).
+// Six blocks an SM (40 registers, 32 KiB of staging each) is as many as
+// fit, and every instantiation keeps them with no spills.  The quantize
+// arithmetic (an IEEE division an element) leaves little room: holding a
+// tile's 16 levels in registers across a barrier spills, and so do two
+// chunks of x and u in flight, so mask_quantize_pack stages chunk by chunk
+// and, when stochastic, loads one chunk ahead.
+// What holds it back on an H100 (PERF.md, PR 19): a tile's serial steps
+// (ticket, load, look-back, copy-out) keep it resident after its loads
+// have landed, so an SM has fewer bytes in flight than a plain streaming
+// pass keeps; a tile waits some 3-4 us on its look-back.  Writing each
+// tile's survivors to scratch first and placing them in a second kernel,
+// with no waiting between blocks, is slower: it writes every survivor
+// twice.
 
 constexpr int kPackItems = 16;                     // elements per thread
 constexpr int kPackTile = kThreads * kPackItems;   // 4096 elements per tile
-constexpr int kScanThreads = 1024;
 
 namespace {
 
+// The row sources of pack_scan_kernel.  row(b) points the source at row b.
+// load(e) issues the loads of elements [e, e + 4) of the row (e % 4 == 0;
+// those past n are not kept) as one Chunk; the kernel keeps kAhead chunks
+// in flight.  values(c, e, v) puts the values to pack in v[0 .. 3], writes
+// what else the source writes for them, and returns their keep bits (bit
+// k: element e + k).  kept(v, keep, k) is element k's keep rule, from its
+// value or its bit.  `vec`: n % 4 == 0 and every row buffer the source
+// reads or writes 16-byte aligned.
+
+// pack_batch: keep x != 0, pack x.  The keep rule reads the value, so no
+// bits are carried; a tile's four chunks are loaded at once.
+struct NonzeroRows {
+  static constexpr int kAhead = 4;
+  using Chunk = float4;
+  const float* x;
+  long long n;
+  int vec;
+
+  __device__ __forceinline__ void row(int b) { x += b * n; }
+
+  __device__ __forceinline__ Chunk load(long long e) const {
+    if (vec && e < n) {    // n % 4 == 0: the whole float4 is in the row
+      return __ldg(reinterpret_cast<const float4*>(x + e));
+    }
+    return make_float4(e < n ? __ldg(x + e) : 0.0f,
+                       e + 1 < n ? __ldg(x + e + 1) : 0.0f,
+                       e + 2 < n ? __ldg(x + e + 2) : 0.0f,
+                       e + 3 < n ? __ldg(x + e + 3) : 0.0f);
+  }
+
+  __device__ __forceinline__ unsigned values(const Chunk& c, long long,
+                                             float* v) const {
+    v[0] = c.x; v[1] = c.y; v[2] = c.z; v[3] = c.w;
+    return 0u;
+  }
+
+  static __device__ __forceinline__ bool kept(float v, unsigned, int) {
+    return v != 0.0f;
+  }
+};
+
+// mask_quantize_pack: keep |x| >= t, pack the masked level (the device code
+// of mask_quantize_kernel), write it to the masked row.  u is read only
+// when STOCHASTIC, scale only when QUANT.  Within 40 registers two chunks
+// fit in flight without u, one with it (two spill: PERF.md, PR 19).
 template <bool QUANT, bool STOCHASTIC>
-__global__ void __launch_bounds__(kThreads)
-mask_quantize_tile_kernel(const float* __restrict__ x,
-                          const float* __restrict__ u,
-                          const float* __restrict__ thr,
-                          const float* __restrict__ scale,
-                          float* __restrict__ out, int* __restrict__ counts,
-                          long long n, int ntiles, float qmax) {
-  const int b = blockIdx.y, j = blockIdx.x;
-  const float* row = x + b * n;
-  const float* urow = STOCHASTIC ? u + b * n : nullptr;
-  float* orow = out + b * n;
-  const float t = thr[b];
-  const float s = QUANT ? scale[b] : 1.0f;
-  const long long base = static_cast<long long>(j) * kPackTile;
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < kPackItems; ++r) {
-    const long long e = base + r * kThreads + threadIdx.x;
-    if (e < n) {
-      const float v = row[e];
-      c += fabsf(v) >= t;
-      orow[e] = masked_level<QUANT, STOCHASTIC>(
-          v, STOCHASTIC ? urow[e] : 0.0f, t, s, qmax);
-    }
-  }
-  c = block_sum(c);
-  if (threadIdx.x == 0) counts[static_cast<long long>(b) * ntiles + j] = c;
-}
+struct MaskQuantizeRows {
+  static constexpr int kAhead = STOCHASTIC ? 1 : 2;
+  struct Chunk {
+    float x[4], u[4];
+  };
+  const float* x;
+  const float* u;
+  float* out;
+  const float* thr;
+  const float* scale;
+  long long n;
+  float qmax;
+  int vec;
+  float t = 0.0f, s = 1.0f;     // row(b): the row's threshold and scale
 
-// exclusive scan of one row's tile counts, in place; total -> tot[row]
-__global__ void __launch_bounds__(kScanThreads)
-scan_tiles_kernel(int* __restrict__ counts, int* __restrict__ tot,
-                  int ntiles) {
-  __shared__ int warp_sums[kScanThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int* row = counts + static_cast<long long>(blockIdx.x) * ntiles;
-  int carry = 0;
-  for (int base = 0; base < ntiles; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int v = i < ntiles ? row[i] : 0;
-    int s = v;                                   // inclusive, in the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane == 31) warp_sums[warp] = s;
-    __syncthreads();
-    if (warp == 0) {                             // inclusive over the warps
-      int w = warp_sums[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
+  __device__ __forceinline__ void row(int b) {
+    x += b * n;
+    if (STOCHASTIC) u += b * n;
+    out += b * n;
+    t = thr[b];
+    s = QUANT ? scale[b] : 1.0f;
+  }
+
+  __device__ __forceinline__ Chunk load(long long e) const {
+    Chunk c = {};
+    if (vec && e < n) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(x + e));
+      c.x[0] = q.x; c.x[1] = q.y; c.x[2] = q.z; c.x[3] = q.w;
+      if (STOCHASTIC) {
+        const float4 r = __ldg(reinterpret_cast<const float4*>(u + e));
+        c.u[0] = r.x; c.u[1] = r.y; c.u[2] = r.z; c.u[3] = r.w;
       }
-      warp_sums[lane] = w;
+      return c;
     }
-    __syncthreads();
-    if (i < ntiles) row[i] = carry + (warp ? warp_sums[warp - 1] : 0) + s - v;
-    carry += warp_sums[kScanThreads / 32 - 1];
-    __syncthreads();                             // warp_sums is reused
-  }
-  if (threadIdx.x == 0) tot[blockIdx.x] = carry;
-}
-
-// keep |x| >= thr[row], pack vals (the masked row that
-// mask_quantize_tile_kernel wrote)
-__global__ void __launch_bounds__(kThreads)
-pack_scatter_kernel(const float* __restrict__ x,
-                    const float* __restrict__ vals,
-                    const float* __restrict__ thr,
-                    const int* __restrict__ offsets,
-                    const int* __restrict__ tot, int* __restrict__ idx,
-                    float* __restrict__ val, long long n, int ntiles, int cap,
-                    int sentinel) {
-  __shared__ int warp_tot[kWarps];
-  const int b = blockIdx.y, j = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* row = x + b * n;
-  const float* vrow = vals + b * n;
-  const float t = thr[b];
-  int* irow = idx + static_cast<long long>(b) * cap;
-  float* orow = val + static_cast<long long>(b) * cap;
-  // warp w ranks elements [sub, sub + 32 * kPackItems) of the tile, in
-  // ascending order: element sub + 32 * r + lane is its (r, lane)-th
-  const long long sub = static_cast<long long>(j) * kPackTile +
-                        warp * (32 * kPackItems);
-  unsigned masks[kPackItems];
-  int count = 0;
 #pragma unroll
-  for (int r = 0; r < kPackItems; ++r) {
-    const long long e = sub + 32 * r + lane;
-    const bool keep = e < n && fabsf(row[e]) >= t;
-    masks[r] = __ballot_sync(0xffffffffu, keep);
-    count += __popc(masks[r]);
-  }
-  if (lane == 0) warp_tot[warp] = count;
-  __syncthreads();
-  int rank = offsets[static_cast<long long>(b) * ntiles + j];
-  for (int w = 0; w < warp; ++w) rank += warp_tot[w];
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int r = 0; r < kPackItems; ++r) {
-    const unsigned m = masks[r];
-    if ((m >> lane) & 1u) {
-      const int pos = rank + __popc(m & below);
-      if (pos < cap) {
-        const long long e = sub + 32 * r + lane;
-        irow[pos] = static_cast<int>(e);
-        orow[pos] = vrow[e];
+    for (int k = 0; k < 4; ++k) {
+      if (e + k < n) {
+        c.x[k] = __ldg(x + e + k);
+        if (STOCHASTIC) c.u[k] = __ldg(u + e + k);
       }
     }
-    rank += __popc(m);
+    return c;
   }
-  const int filled = min(tot[b], cap);
-  for (long long s = filled + static_cast<long long>(j) * kThreads +
-                     threadIdx.x;
-       s < cap; s += static_cast<long long>(gridDim.x) * kThreads) {
-    irow[s] = sentinel;
-    orow[s] = 0.0f;
+
+  __device__ __forceinline__ unsigned values(const Chunk& c, long long e,
+                                             float* v) const {
+    const bool full = vec && e < n;
+    unsigned keep = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool in = full || e + k < n;
+      keep |= static_cast<unsigned>(in && fabsf(c.x[k]) >= t) << k;
+      v[k] = in ? masked_level<QUANT, STOCHASTIC>(c.x[k], c.u[k], t, s, qmax)
+                : 0.0f;
+    }
+    if (full) {
+      *reinterpret_cast<float4*>(out + e) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (e + k < n) out[e + k] = v[k];
+      }
+    }
+    return keep;
   }
-}
+
+  static __device__ __forceinline__ bool kept(float, unsigned keep, int k) {
+    return (keep >> k) & 1u;
+  }
+};
 
 // a tile's status word: flag in the high 32 bits, count in the low 32; one
 // word to a 128-byte line
@@ -767,18 +763,20 @@ __device__ __forceinline__ int look_back(const unsigned long long* status,
   }
 }
 
-// pass 1 of pack_batch.  scratch: rows ticket words, then rows x ntiles
+// pass 1 of both packs.  scratch: rows ticket words, then rows x ntiles
 // status words kStatusStride apart, all zero at launch.  Warp w of a tile
 // holds elements [tile + 512 w, tile + 512 (w + 1)): chunk r of 128, lane
 // l's float4 at chunk + 4 l, so lane order is element order within a chunk.
-// `vec_out`: cap % 4 == 0 and idx, val 16-byte aligned.
+// Warp w stages its survivors in slots [512 w, 512 (w + 1)) of s_idx and
+// s_val.  `vec_out`: cap % 4 == 0 and idx, val 16-byte aligned.
+template <class Rows>
 __global__ void __launch_bounds__(kThreads, 6)
-pack_scan_kernel(const float* __restrict__ x, int* __restrict__ idx,
-                 float* __restrict__ val, int* __restrict__ nnz,
-                 unsigned long long* __restrict__ scratch, long long n,
-                 int ntiles, int cap, int vec, int vec_out) {
-  constexpr int kChunks = kPackItems / 4;
-  __shared__ int s_tile, s_prefix, s_agg;
+pack_scan_kernel(Rows rows, int* __restrict__ idx, float* __restrict__ val,
+                 int* __restrict__ nnz,
+                 unsigned long long* __restrict__ scratch, int ntiles,
+                 int cap, int vec_out) {
+  constexpr int kWarpItems = 32 * kPackItems;
+  __shared__ int s_tile, s_prefix;
   __shared__ int warp_tot[kWarps];
   __shared__ int s_idx[kPackTile];
   __shared__ float s_val[kPackTile];
@@ -786,60 +784,56 @@ pack_scan_kernel(const float* __restrict__ x, int* __restrict__ idx,
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(scratch + b, 1ull));
+  rows.row(b);
   __syncthreads();
   const int t = s_tile;
-  unsigned long long* status =
-      scratch + gridDim.y + static_cast<long long>(b) * ntiles * kStatusStride;
-  const float* row = x + b * n;
-  const long long sub = static_cast<long long>(t) * kPackTile + warp * 512;
-  float v[kPackItems];
-#pragma unroll
-  for (int r = 0; r < kChunks; ++r) {
-    const long long e = sub + 128 * r + 4 * lane;
-    if (vec && e < n) {    // n % 4 == 0: the whole float4 is in the row
-      const float4 q = *reinterpret_cast<const float4*>(row + e);
-      v[4 * r] = q.x; v[4 * r + 1] = q.y; v[4 * r + 2] = q.z; v[4 * r + 3] = q.w;
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) v[4 * r + k] = e + k < n ? row[e + k] : 0.0f;
-    }
-  }
-  // rank within the warp: chunk r's lane-major order, survivors of lower
-  // lanes first, then this lane's own lower elements
+  const long long sub = static_cast<long long>(t) * kPackTile +
+                        warp * kWarpItems;
+  int* widx = s_idx + warp * kWarpItems;
+  float* wval = s_val + warp * kWarpItems;
+  // rank in chunk r's lane-major order: the warp's survivors of earlier
+  // chunks, then those of lower lanes, then this lane's own lower elements
   const unsigned below = (1u << lane) - 1u;
-  int rank[kChunks];
+  constexpr int kChunks = kPackItems / 4;
+  typename Rows::Chunk ahead[Rows::kAhead];
+#pragma unroll
+  for (int r = 0; r < Rows::kAhead; ++r) {
+    ahead[r] = rows.load(sub + 128 * r + 4 * lane);
+  }
   int count = 0;
 #pragma unroll
   for (int r = 0; r < kChunks; ++r) {
-    rank[r] = count;
+    const long long e = sub + 128 * r + 4 * lane;
+    float v[4];
+    const unsigned keep = rows.values(ahead[r % Rows::kAhead], e, v);
+    int p = count;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const unsigned m = __ballot_sync(0xffffffffu, v[4 * r + k] != 0.0f);
-      rank[r] += __popc(m & below);
+      const unsigned m = __ballot_sync(0xffffffffu, Rows::kept(v[k], keep, k));
+      p += __popc(m & below);
       count += __popc(m);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (Rows::kept(v[k], keep, k)) {
+        widx[p] = static_cast<int>(e + k);
+        wval[p] = v[k];
+        ++p;
+      }
+    }
+    if (r + Rows::kAhead < kChunks) {      // the slot is free again
+      ahead[r % Rows::kAhead] = rows.load(e + 128 * Rows::kAhead);
     }
   }
   if (lane == 0) warp_tot[warp] = count;
   __syncthreads();
-  int pos = 0;                             // stage the survivors in order
-  for (int w = 0; w < warp; ++w) pos += warp_tot[w];
-#pragma unroll
-  for (int r = 0; r < kChunks; ++r) {
-    int p = pos + rank[r];
-    const long long e = sub + 128 * r + 4 * lane;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (v[4 * r + k] != 0.0f) {
-        s_idx[p] = static_cast<int>(e + k);
-        s_val[p] = v[4 * r + k];
-        ++p;
-      }
-    }
-  }
   if (warp == 0) {
     int agg = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) agg += warp_tot[w];
+    unsigned long long* status = scratch + gridDim.y +
+                                 static_cast<long long>(b) * ntiles *
+                                     kStatusStride;
     int excl = 0;
     if (t == 0) {
       if (lane == 0) store_status(status, kInclusive | static_cast<unsigned>(agg));
@@ -856,41 +850,41 @@ pack_scan_kernel(const float* __restrict__ x, int* __restrict__ idx,
     }
     if (lane == 0) {
       s_prefix = excl;
-      s_agg = agg;
       if (t == ntiles - 1) nnz[b] = excl + agg;
     }
   }
   __syncthreads();
-  // the staged run to slots [pre, pre + cnt): a scalar head and tail, the
-  // 4-aligned middle 16 bytes at a time
-  const int pre = s_prefix;
-  if (pre >= cap) return;
-  const int end = pre + min(s_agg, cap - pre);
+  // warp w's run to slots [start, start + count): a scalar head and tail,
+  // the 4-aligned middle 16 bytes at a time
+  int start = s_prefix;
+  for (int w = 0; w < warp; ++w) start += warp_tot[w];
+  if (start >= cap) return;
+  const int end = start + min(count, cap - start);
   int* irow = idx + static_cast<long long>(b) * cap;
   float* orow = val + static_cast<long long>(b) * cap;
-  int q0 = pre, q1 = pre;
+  int q0 = start, q1 = start;
   if (vec_out) {                           // cap % 4 == 0: no overflow here
-    q0 = min((pre + 3) & ~3, end);
+    q0 = min((start + 3) & ~3, end);
     q1 = max(end & ~3, q0);
   }
-  for (int i = pre + threadIdx.x; i < q0; i += kThreads) {
-    irow[i] = s_idx[i - pre];
-    orow[i] = s_val[i - pre];
+  for (int i = start + lane; i < q0; i += 32) {
+    irow[i] = widx[i - start];
+    orow[i] = wval[i - start];
   }
-  for (int i = q0 + 4 * threadIdx.x; i < q1; i += 4 * kThreads) {
-    const int k = i - pre;
+  for (int i = q0 + 4 * lane; i < q1; i += 128) {
+    const int k = i - start;
     *reinterpret_cast<int4*>(irow + i) =
-        make_int4(s_idx[k], s_idx[k + 1], s_idx[k + 2], s_idx[k + 3]);
+        make_int4(widx[k], widx[k + 1], widx[k + 2], widx[k + 3]);
     *reinterpret_cast<float4*>(orow + i) =
-        make_float4(s_val[k], s_val[k + 1], s_val[k + 2], s_val[k + 3]);
+        make_float4(wval[k], wval[k + 1], wval[k + 2], wval[k + 3]);
   }
-  for (int i = max(q1, q0) + threadIdx.x; i < end; i += kThreads) {
-    irow[i] = s_idx[i - pre];
-    orow[i] = s_val[i - pre];
+  for (int i = max(q1, q0) + lane; i < end; i += 32) {
+    irow[i] = widx[i - start];
+    orow[i] = wval[i - start];
   }
 }
 
-// pass 2 of pack_batch: slots [min(nnz, cap), cap) of each row get
+// pass 2 of both packs: slots [min(nnz, cap), cap) of each row get
 // (sentinel, 0); 16-byte stores when `vec` (cap % 4 == 0, both buffers
 // 16-byte aligned)
 __global__ void __launch_bounds__(kThreads)
@@ -930,18 +924,13 @@ int tiles_of(long long n) {
   return static_cast<int>((n + kPackTile - 1) / kPackTile);
 }
 
-}  // namespace
-
-// Pack each row of x (rows, n) with keep rule x != 0.  idx, val: (rows, cap)
-// int32 / f32, fully written; nnz: (rows,) int32, written; scratch: rows *
-// (16 * ceil(n / 4096) + 1) 64-bit words, zeroed here.  One call = a
-// memset and two kernels on `stream`.
-extern "C" int pack_batch_f32(const void* x, void* idx, void* val, void* nnz,
-                              void* scratch, long long n, int rows, int cap,
-                              int sentinel, void* stream) {
-  if (bad_pack(n, rows, cap)) return static_cast<int>(cudaErrorInvalidValue);
+// the two passes over `rows` (its source's rows of n elements) on `s`:
+// zero the scratch, scan, fill
+template <class Rows>
+int launch_pack(const Rows& src, void* idx, void* val, void* nnz,
+                void* scratch, long long n, int rows, int cap, int sentinel,
+                cudaStream_t s) {
   const int nt = tiles_of(n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned long long* words = static_cast<unsigned long long*>(scratch);
   cudaError_t rc = cudaMemsetAsync(
       words, 0,
@@ -949,12 +938,10 @@ extern "C" int pack_batch_f32(const void* x, void* idx, void* val, void* nnz,
                                            kStatusStride + 1),
       s);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int vec = (n % 4 == 0) && aligned16(x);
   const int vec_out = (cap % 4 == 0) && aligned16(idx) && aligned16(val);
-  pack_scan_kernel<<<dim3(nt, rows), kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<int*>(idx),
-      static_cast<float*>(val), static_cast<int*>(nnz), words, n, nt, cap,
-      vec, vec_out);
+  pack_scan_kernel<Rows><<<dim3(nt, rows), kThreads, 0, s>>>(
+      src, static_cast<int*>(idx), static_cast<float*>(val),
+      static_cast<int*>(nnz), words, nt, cap, vec_out);
   if (cap > 0) {
     rc = hopper::launch_dependent(
         pack_fill_kernel, grid_for(cap, rows, kThreads * 16, kStreamBlocks),
@@ -966,9 +953,26 @@ extern "C" int pack_batch_f32(const void* x, void* idx, void* val, void* nnz,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Both packs: idx, val (rows, cap) int32 / f32, fully written; nnz / tot
+// (rows,) int32, written; scratch: rows * (16 * ceil(n / 4096) + 1) 64-bit
+// words, zeroed here.  One call = a memset and two kernels on `stream`.
+
+// Pack each row of x (rows, n) with keep rule x != 0.
+extern "C" int pack_batch_f32(const void* x, void* idx, void* val, void* nnz,
+                              void* scratch, long long n, int rows, int cap,
+                              int sentinel, void* stream) {
+  if (bad_pack(n, rows, cap)) return static_cast<int>(cudaErrorInvalidValue);
+  const NonzeroRows src{static_cast<const float*>(x), n,
+                        (n % 4 == 0) && aligned16(x)};
+  return launch_pack(src, idx, val, nnz, scratch, n, rows, cap, sentinel,
+                     static_cast<cudaStream_t>(stream));
+}
+
 // mask_quantize_f32 (same arguments and device code) that also packs the
-// survivors: out (rows, n) masked row; idx, val (rows, cap) fully written;
-// tot (rows,) int32 kept count; scratch (rows, ceil(n / 4096)) int32.
+// survivors, keep rule |x| >= thr[row]: out (rows, n) the masked row; tot
+// the kept count.
 extern "C" int mask_quantize_pack_f32(const void* x, const void* u,
                                       const void* thr, const void* scale,
                                       void* out, void* idx, void* val,
@@ -979,8 +983,6 @@ extern "C" int mask_quantize_pack_f32(const void* x, const void* u,
       (stochastic && (bits == 0 || u == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nt = tiles_of(n);
-  const dim3 grid(nt, rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float qmax = bits ? static_cast<float>((1 << (bits - 1)) - 1) : 0.0f;
   const float* xf = static_cast<const float*>(x);
@@ -988,21 +990,18 @@ extern "C" int mask_quantize_pack_f32(const void* x, const void* u,
   const float* tf = static_cast<const float*>(thr);
   const float* sf = static_cast<const float*>(scale);
   float* of = static_cast<float*>(out);
-  int* counts = static_cast<int*>(scratch);
+  const int vec = (n % 4 == 0) && aligned16(x) && aligned16(out) &&
+                  (!stochastic || aligned16(u));
   if (bits == 0) {
-    mask_quantize_tile_kernel<false, false><<<grid, kThreads, 0, s>>>(
-        xf, nullptr, tf, sf, of, counts, n, nt, qmax);
-  } else if (stochastic) {
-    mask_quantize_tile_kernel<true, true><<<grid, kThreads, 0, s>>>(
-        xf, uf, tf, sf, of, counts, n, nt, qmax);
-  } else {
-    mask_quantize_tile_kernel<true, false><<<grid, kThreads, 0, s>>>(
-        xf, nullptr, tf, sf, of, counts, n, nt, qmax);
+    const MaskQuantizeRows<false, false> src{xf, nullptr, of, tf, sf, n, qmax,
+                                             vec};
+    return launch_pack(src, idx, val, tot, scratch, n, rows, cap, sentinel, s);
   }
-  scan_tiles_kernel<<<rows, kScanThreads, 0, s>>>(counts,
-                                                  static_cast<int*>(tot), nt);
-  pack_scatter_kernel<<<grid, kThreads, 0, s>>>(
-      xf, of, tf, counts, static_cast<const int*>(tot),
-      static_cast<int*>(idx), static_cast<float*>(val), n, nt, cap, sentinel);
-  return static_cast<int>(cudaGetLastError());
+  if (stochastic) {
+    const MaskQuantizeRows<true, true> src{xf, uf, of, tf, sf, n, qmax, vec};
+    return launch_pack(src, idx, val, tot, scratch, n, rows, cap, sentinel, s);
+  }
+  const MaskQuantizeRows<true, false> src{xf, nullptr, of, tf, sf, n, qmax,
+                                          vec};
+  return launch_pack(src, idx, val, tot, scratch, n, rows, cap, sentinel, s);
 }

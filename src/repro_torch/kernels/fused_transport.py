@@ -68,13 +68,13 @@ MASK_QUANTIZE_PACK = CudaFunction(
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I])
 PACK_BATCH = CudaFunction("transport", "pack_batch_f32",
                           [_P, _P, _P, _P, _P, _LL, _I, _I, _I])
-PACK_TILE = 4096     # elements per block of the pack kernels (csrc)
+PACK_TILE = 4096     # elements per tile of the pack kernels (csrc)
 
 
 def pack_batch_scratch_words(B: int, n: int) -> int:
-    """64-bit words of pack_batch's scratch: a ticket per row and a status
-    word per tile, one to a 128-byte line (csrc zeroes them on the
-    stream)."""
+    """64-bit words of the scratch of both pack kernels (`pack_batch_f32`,
+    `mask_quantize_pack_f32`): a ticket per row and a status word per tile,
+    one to a 128-byte line (csrc zeroes them on the stream)."""
     return B * (16 * -(-n // PACK_TILE) + 1)
 
 
@@ -303,12 +303,12 @@ def fused_mask_quantize_pack(x: torch.Tensor, threshold, scale,
     else:
         dev = x2.device
         out = torch.empty_like(x2)
-        tot = torch.zeros(B, dtype=torch.int32, device=dev)
-        if n:   # the kernel writes every slot
+        if n:   # the kernels write every slot and the totals
             idx = torch.empty((B, cap), dtype=torch.int32, device=dev)
             val = torch.empty((B, cap), dtype=torch.float32, device=dev)
-            scratch = torch.empty((B, -(-n // PACK_TILE)), dtype=torch.int32,
-                                  device=dev)
+            tot = torch.empty(B, dtype=torch.int32, device=dev)
+            scratch = torch.empty(pack_batch_scratch_words(B, n),
+                                  dtype=torch.int64, device=dev)
             MASK_QUANTIZE_PACK(
                 dev, x2.data_ptr(), None if u2 is None else u2.data_ptr(),
                 t.data_ptr(), s.data_ptr(), out.data_ptr(), idx.data_ptr(),
@@ -318,6 +318,7 @@ def fused_mask_quantize_pack(x: torch.Tensor, threshold, scale,
             idx = torch.full((B, cap), sentinel, dtype=torch.int32,
                              device=dev)
             val = torch.zeros((B, cap), dtype=torch.float32, device=dev)
+            tot = torch.zeros(B, dtype=torch.int32, device=dev)
     return (out.reshape(x.shape), idx.reshape(lead + (cap,)),
             val.reshape(lead + (cap,)), tot.reshape(lead))
 

@@ -6,7 +6,9 @@ stale one.  The flash-attention and LoRA-matmul wrappers pick their kernel
 (route) from the dtype and shape alone, before the launch, by a plain
 function that these tests hold to the routes the CUDA sources take.
 """
+import os
 import shutil
+import sys
 
 import pytest
 import torch
@@ -115,3 +117,27 @@ def test_route_counts_start_empty_and_reset():
     f.launches, f.launches_by_route["wgmma"] = 3, 3
     f.reset()
     assert f.launches == 0 and f.launches_by_route == {}
+
+
+# chip_smoke.py's build report names each kernel as the CUDA toolkit's
+# `cu++filt -p` demangles it (these are its outputs for nvcc's manglings of
+# csrc/transport.cu and csrc/grouped_lora.cu kernels)
+@pytest.mark.parametrize("demangled,name", [
+    ("<unnamed>::pack_fill_kernel", "pack_fill_kernel"),
+    ("void <unnamed>::bin_partial_kernel<(int)12>", "bin_partial_kernel<12>"),
+    ("void <unnamed>::grouped_lora_cluster_kernel<(int)4, (bool)1>",
+     "grouped_lora_cluster_kernel<4, 1>"),
+    ("void <unnamed>::pack_scan_kernel<<unnamed>::NonzeroRows>",
+     "pack_scan_kernel<NonzeroRows>"),
+    ("void <unnamed>::pack_scan_kernel<<unnamed>::MaskQuantizeRows<(bool)1, "
+     "(bool)0>>", "pack_scan_kernel<MaskQuantizeRows<1, 0>>"),
+])
+def test_build_report_names_kernels_with_their_template_arguments(demangled,
+                                                                  name):
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    assert chip_smoke.short_name(demangled) == name
+    assert name in chip_smoke.GATED_KERNELS

@@ -443,6 +443,57 @@ def test_pack_batch_kernel_edge_cases_bitwise(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits,stochastic", [(0, False), (4, False),
+                                             (4, True)])
+@pytest.mark.parametrize("case", ["yi9b_b4", "unaligned", "ragged", "cap0",
+                                  "overflow", "nonfinite"])
+def test_mask_quantize_pack_kernel_edge_cases_bitwise(case, bits, stochastic):
+    # the one-pass scan on what test_pack_batch_kernel_edge_cases_bitwise
+    # holds pack_batch to: four Yi-9B rows (tiles wait on their look-back),
+    # x and u one float in (no 16-byte loads), n % 4 != 0, cap 0, a cap
+    # every row overflows; and rows holding +-inf and NaN (NaN dropped,
+    # +-inf kept; the first row at the inf scale such a row gets, its
+    # survivors NaN).  Each call counts one launch; two calls agree.
+    _need_card()
+    n, B, cap = {"yi9b_b4": (9_830_400, 4, 2_764_800),
+                 "unaligned": (70_001, 2, 30_000),
+                 "ragged": (1_000_003, 3, 300_000),
+                 "cap0": (70_001, 2, 0),
+                 "overflow": (1_000_003, 2, 10_000),
+                 "nonfinite": (70_001, 3, 30_000)}[case]
+    if case == "unaligned":     # contiguous views one float in
+        x, u = (t[0, 1:].view(B, n) for t in _rows(n + B, 1, B * n + 1))
+        assert x.data_ptr() % 16 and u.data_ptr() % 16
+    else:
+        x, u = _rows(n + B + cap, B, n)
+    hi0 = ft.absmax(x)
+    t = hi0 * 0.3
+    scale = qz.scale_of(hi0, bits) if bits else torch.ones_like(hi0)
+    if case == "nonfinite":
+        x[:, 3::1001] = float("inf")
+        x[:, 5::1003] = float("-inf")
+        x[:, 7::997] = float("nan")
+        scale[0] = float("inf")
+    uu = u if stochastic else None
+    want = ft.fused_mask_quantize_pack_plain(x, t, scale, uu, bits, cap, n)
+    before = ft.MASK_QUANTIZE_PACK.launches
+    got = ft.fused_mask_quantize_pack(x, t, scale, uu, bits, cap)
+    again = ft.fused_mask_quantize_pack(x, t, scale, uu, bits, cap)
+    torch.cuda.synchronize()
+    assert ft.MASK_QUANTIZE_PACK.launches == before + 2
+    for g, a in ((got, want), (again, got)):
+        assert _same_nan(g[0], a[0])
+        assert torch.equal(g[1], a[1]) and torch.equal(g[3], a[3])
+        assert _same_nan(g[2], a[2])
+    if case == "overflow":
+        assert bool((got[3] > cap).all())
+    if case == "nonfinite":
+        kept = got[1][0] < n
+        assert bits == 0 or bool(torch.isnan(got[2][0][kept]).all())
+        assert not bool(torch.isnan(got[0][1:]).any())
+
+
+@pytest.mark.cuda
 def test_pack_kernels_count_launches_and_validate():
     _need_card()
     x = _sparse(5, 2, 10_000, "normal")

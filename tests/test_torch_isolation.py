@@ -46,7 +46,10 @@ def _imported_roots(path):
 
 
 def test_no_port_file_imports_jax_or_repro():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "ab_trees.py"),
+             os.path.join(ROOT, "scripts", "flash_ab.py"),
+             os.path.join(ROOT, "scripts", "pack_ab.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

@@ -187,11 +187,29 @@ def test_sparsify_quantized_packed_matches_reference(bits, stochastic):
         assert zero_survivors > 0      # the outlier row exercised the trap
 
 
-@pytest.mark.parametrize("bits,stochastic", [(0, False), (4, True)])
-def test_mask_quantize_pack_plain_matches_pallas_kernel(bits, stochastic):
+def _same_words(got, want):
+    """Bitwise equal f32 arrays, NaN compared as NaN (a NaN's sign and
+    payload are the platform's)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(_words(got[~nan]), _words(want[~nan]))
+
+
+@pytest.mark.parametrize("bits,stochastic,rows", [
+    (0, False, "normal"), (4, True, "normal"), (4, True, "overflow"),
+    (8, False, "normal"), (4, True, "nonfinite"), (4, False, "nonfinite"),
+], ids=["0-False", "4-True", "4-True-overflow", "8-False",
+        "4-True-nonfinite", "4-False-nonfinite"])
+def test_mask_quantize_pack_plain_matches_pallas_kernel(bits, stochastic,
+                                                        rows):
     """The plain version against the Pallas kernel itself (interpret mode,
     the row zero-padded to the block), on (B, n) rows with per-row
-    thresholds and scales, sentinel n."""
+    thresholds and scales, sentinel n: the cases the CUDA kernel is held
+    to.  "overflow": every row overflows its capacity; "nonfinite": rows
+    holding +-inf and NaN elements (NaN is dropped, +-inf kept), one of
+    them at the inf scale a row holding an inf gets (its survivors
+    quantize to NaN)."""
     n, block, B = 2500, 1024, 3
     rng = np.random.default_rng(bits)
     x = rng.standard_normal((B, n), dtype=np.float32)
@@ -201,7 +219,13 @@ def test_mask_quantize_pack_plain_matches_pallas_kernel(bits, stochastic):
     hi0 = np.abs(x).max(-1)
     thr = (hi0 * np.float32(0.3)).astype(np.float32)
     qscale = np.maximum(hi0 * np.float32(1.0 / 7.0), 1e-12).astype(np.float32)
-    cap = 300
+    cap = 40 if rows == "overflow" else 300
+    if rows == "overflow":
+        thr = (hi0 * np.float32(0.05)).astype(np.float32)
+    if rows == "nonfinite":
+        x[0, [3, 400, 2499]] = [np.inf, -np.inf, np.nan]
+        x[1, [0, 1025, 2048]] = [-np.inf, np.nan, np.inf]
+        qscale[1] = np.float32(np.inf)
     got = tft.fused_mask_quantize_pack(
         _t(x), _t(thr), _t(qscale), _t(u) if stochastic else None, bits, cap)
     for b in range(B):
@@ -209,8 +233,14 @@ def test_mask_quantize_pack_plain_matches_pallas_kernel(bits, stochastic):
             jnp.pad(v, (0, pad)), thr[b], qscale[b],
             jnp.pad(uu, (0, pad)) if stochastic else None, bits, cap, n,
             block=block, interpret=True))(x[b], u[b])
-        np.testing.assert_array_equal(_words(got[0][b]), _words(want[0][:n]))
+        _same_words(got[0][b], want[0][:n])
         np.testing.assert_array_equal(got[1][b].numpy(), np.asarray(want[1]))
-        np.testing.assert_array_equal(_words(got[2][b]), _words(want[2]))
+        _same_words(got[2][b], want[2])
         assert int(got[3][b]) == int(want[3])
-    assert (got[3] > cap).any() and (got[3] <= cap).any()
+    if rows == "overflow":
+        assert (got[3] > cap).all()
+    else:
+        assert (got[3] > cap).any() and (got[3] <= cap).any()
+    if rows == "nonfinite":
+        assert not bool(torch.isnan(got[0][0]).any())
+        assert bool(torch.isnan(got[2][1][got[1][1] < n]).all())
