@@ -39,7 +39,8 @@ Phases, each fatal on failure:
                  difference is printed.
   5. transport -- the five Top-K transport kernels (csrc/transport.cu)
                  against their plain versions, BITWISE, at the Yi-9B LoRA
-                 vector length (9,830,400), 1,000,003 and 50, one and four
+                 vector length (9,830,400), phase 12's ViT-B/16 vector
+                 (1,188,096), 1,000,003 and 50, one and four
                  rows, normal / tied / all-zero rows and rows holding
                  +-inf (whose inf scale makes the quantized survivors NaN,
                  compared as NaN), bits 0 and 4, nearest and stochastic
@@ -129,6 +130,27 @@ Phases, each fatal on failure:
                  wgmma route; the grouped kernel's must equal decode steps
                  x 48 x 4.  Prefill ms per request, decode ms per step,
                  tok/s and peak memory are printed.
+  12. task     -- the paper's path through `Experiment(task)` at full
+                 width and depth, random weights from --seed: (a) ViT-B/16
+                 (bf16) on make_synth_image with 196 patches of 768 (1024
+                 examples, 32 clients, 256 eval), pretrained 20 steps at
+                 batch 64, then 8 clients x 2 local steps x 8 examples,
+                 rank-16 LoRA on wq/wk/wv/wo plus the trained head (p_len
+                 1,188,096): flasc (fused selector, 4-bit uploads, density
+                 0.25 both ways) for 4 rounds with eval every 2, and dense
+                 lora for 4; (b) GPT-2 Small (vocab 50,257, tied, learned
+                 positions) on make_synth_reddit, pretrained 10 steps,
+                 then flasc for 2 rounds with eval at the end.  The
+                 transport launch counts are zeroed just before each run
+                 and read just after: phase 6's per-round counts x rounds
+                 for flasc, none for lora.  Losses finite, accuracies in
+                 [0, 1], FLASC's coded upload bytes below dense LoRA's, the
+                 batches, backbone and flat vector on the card, and the
+                 transport kernels bitwise equal to their plain versions on
+                 the ViT run's round-0 uploads (8 x 1,188,096).  Prints
+                 pretrain ms a step, round ms, eval ms, accuracy, loss,
+                 ledger bytes and peak memory beside the card's name and
+                 power limit.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6 and over one 8192-token
 prefill of phase 11's engine, and writes their traces under chiprun_out/.
@@ -143,6 +165,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import gzip
 import json
 import os
@@ -843,7 +866,8 @@ def transport_bound(name: str, B: int, n: int, kept: int, stochastic: bool):
 
 def transport_phase(seed: int):
     """Every transport kernel against its plain version, bitwise, at the
-    Yi-9B vector length, an odd length and a tiny one, one and four rows,
+    Yi-9B vector length, the ViT-B/16 task vector's (phase 12), an odd
+    length and a tiny one, one and four rows,
     normal / tied / all-zero rows and per-row counts k in {0, 1, n/4, n};
     then each kernel's device time at the Yi-9B length (B = 1 and 4)."""
     import torch
@@ -862,7 +886,7 @@ def transport_phase(seed: int):
               f"{name} differs from its plain version ({what})")
 
     cases = 0
-    for n in (P_LEN, 1_000_003, 50):
+    for n in (P_LEN, VIT_P_LEN, 1_000_003, 50):
         kd = sp.density_count(n, 0.25)
         for B in (1, 4):
             ks = [kd] if B == 1 else [0, 1, kd, n]
@@ -899,7 +923,8 @@ def transport_phase(seed: int):
                         same("mask_quantize", gcnt, wcnt, tag + " count")
                 torch.cuda.synchronize()
                 cases += 1
-    print(f"[transport] {cases} cases (n in {{{P_LEN}, 1000003, 50}} x B in "
+    print(f"[transport] {cases} cases (n in {{{P_LEN}, {VIT_P_LEN}, 1000003, "
+          f"50}} x B in "
           f"{{1, 4}} x normal/ties/zeros/inf, bits 0 and 4, nearest and "
           f"stochastic): every kernel bitwise equal to its plain version "
           f"(NaN compared as NaN)")
@@ -2252,6 +2277,276 @@ def long_prefill_phase(seed: int, profile: bool = False):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: the paper's task path, ViT-B/16 and GPT-2 Small
+# ---------------------------------------------------------------------------
+
+TASK_FED = dict(n_clients=8, local_steps=2, local_batch=8, client_lr=5e-3,
+                server_lr=5e-3)
+TASK_RANK = 16
+VIT_ROUNDS, GPT_ROUNDS = 4, 2
+VIT_PRETRAIN, GPT_PRETRAIN = 20, 10
+# rank-16 LoRA on wq/wk/wv/wo of 12 x 768 layers, plus the trained head
+# (cls_head 768 x 10 and final_norm 768)
+VIT_P_LEN = 12 * 4 * 2 * 768 * TASK_RANK + 7_680 + 768
+GPT_P_LEN = 12 * 4 * 2 * 768 * TASK_RANK
+
+
+class TaskProbe:
+    """Callback: host time at the end of every round (after the metrics
+    pull and, on eval rounds, the evaluation), and that the flat vector
+    and the backbone lie on the card."""
+
+    def __init__(self):
+        self.t = []
+        self.state = None
+
+    def on_round_end(self, ev):
+        from repro_torch.models.layers import tree_leaves
+        self.t.append(time.perf_counter())
+        check(ev.state.flatP.is_cuda, "the flat vector left the card")
+        check(all(p.is_cuda for p in tree_leaves(ev.state.plan.params)),
+              "a backbone leaf is not on the card")
+        self.state = ev.state
+
+    def on_eval(self, ev):
+        pass
+
+
+def run_task(task, params, cfg, strategy: dict, rounds: int, eval_every: int,
+             seed: int, capture: UploadCapture = None):
+    """One `Experiment(task)` on the card from a given backbone; returns
+    (result, probe, {kernel: launches in this run}, wall ms per round, the
+    experiment)."""
+    import torch
+    from repro_torch.federated import Experiment
+    from repro_torch.models.config import FederatedConfig
+    fns = transport_functions()
+    probe = TaskProbe()
+    exp = (Experiment(task, federation=FederatedConfig(**TASK_FED))
+           .with_strategy(**strategy)
+           .with_lora(rank=TASK_RANK)
+           .with_training(rounds=rounds, eval_every=eval_every, seed=seed)
+           .with_params(params, cfg)
+           .with_callbacks(probe))
+    torch.cuda.synchronize()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    with (capture.around() if capture else contextlib.nullcontext()):
+        res = exp.run()
+    launches = {name: f.launches for name, f in fns.items()}
+    ts = [t0] + probe.t
+    round_ms = [1e3 * (b - a) for a, b in zip(ts, ts[1:])]
+    return res, probe, launches, round_ms, exp
+
+
+def timed_pretrain(params, cfg, task, steps: int, seed: int):
+    """`pretrain` on the card; returns (params, loss, ms a step, with the
+    one upload of the pooled data included).  One untimed step first (its
+    result dropped) loads the step's kernels."""
+    import torch
+    from repro_torch.federated import pretrain
+    pretrain(params, cfg, task, 1, seed=seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, loss = pretrain(params, cfg, task, steps, seed=seed)
+    torch.cuda.synchronize()
+    return params, loss, 1e3 * (time.perf_counter() - t0) / steps
+
+
+def timed_eval(exp, params, cfg, state, task):
+    """One more `evaluate` of the run's final flat vector, timed; and, apart,
+    the host-to-device upload of its eval batches (which `evaluate` does
+    batch by batch)."""
+    import torch
+    from repro_torch.data import eval_batches
+    from repro_torch.federated import evaluate, runtime
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = evaluate(params, cfg, None, state.plan.meta, task, exp.lora.scale,
+                   state.flatP)
+    t1 = time.perf_counter()
+    for batch in eval_batches(task):
+        runtime._to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    return acc, 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)
+
+
+def check_task_run(tag, res, launches, rounds, expect_launches):
+    import numpy as np
+    check(len(res.history) == rounds, f"{tag}: the run stopped early")
+    check(all(np.isfinite(h["loss"]) for h in res.history),
+          f"{tag}: a round's loss is not finite")
+    accs = [h["acc"] for h in res.history if "acc" in h]
+    check(accs and all(0.0 <= a <= 1.0 for a in accs),
+          f"{tag}: accuracies {accs} not in [0, 1]")
+    check(res.final_acc == accs[-1], f"{tag}: final_acc is not the last eval")
+    for name, per_round in FUSED_PER_ROUND.items():
+        want = per_round * rounds if expect_launches else 0
+        check(launches[name] == want,
+              f"{tag}: {name} launched {launches[name]} times, expected "
+              f"{want}")
+
+
+def task_line(tag, cfg, res, round_ms, launches, card):
+    led = res.ledger
+    rounds = [f"{r}: loss {h['loss']:.6f}, {round_ms[r]:.3f} ms"
+              + (f", acc {h['acc']:.6f} (eval round)" if "acc" in h else "")
+              for r, h in enumerate(res.history)]
+    print(f"[task] {tag} on {cfg.name}: " + "; ".join(rounds))
+    print(f"[task] {tag} on {cfg.name}: p_len {led.total_params}; ledger "
+          f"{led.total_bytes} B value-only, {led.total_coded_bytes} B coded "
+          f"(down {led.down_coded_bytes} / up {led.up_coded_bytes}); "
+          f"launches {json.dumps(launches)}; {card}")
+
+
+def task_transport_parity(deltas, seed: int):
+    """The transport kernels at the task path's shapes: the ViT run's round-0
+    uploads (8 rows of 1,188,096) and its first row as a download, against
+    the plain versions, bitwise."""
+    import torch
+    from repro_torch.core import quantization as qz
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import fused_transport as ft
+    from repro_torch.kernels import topk_mask as tm
+    check(deltas is not None and tuple(deltas.shape) ==
+          (TASK_FED["n_clients"], VIT_P_LEN),
+          f"round 0 handed no ({TASK_FED['n_clients']}, {VIT_P_LEN}) upload "
+          f"input to its pipeline")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    for x in (deltas, deltas[:1].contiguous()):
+        B, n = x.shape
+        what = f"task uploads B={B} n={n}"
+        hi0 = ft.absmax(x)
+        check(same_bits(hi0, ft.absmax_plain(x)), f"absmax differs ({what})")
+        hist = ft.bin_counts(x, hi0, LEVELS)
+        check(same_bits(hist, ft.bin_counts_plain(x, hi0, LEVELS)),
+              f"bin_counts differs ({what})")
+        k = torch.full((B,), sp.density_count(n, 0.25), dtype=torch.int32,
+                       device="cuda")
+        thr = torch.clamp_min(ft.threshold_from_bins(hist, hi0, k, LEVELS),
+                              sp.TINY)
+        for got, want in zip(tm.topk_mask(x, thr), tm.topk_mask_plain(x, thr)):
+            check(same_bits(got, want), f"topk_mask differs ({what})")
+        u = torch.rand(x.shape, generator=gen, device="cuda")
+        scale = qz.scale_of(hi0, 4)
+        for got, want in zip(ft.fused_mask_quantize(x, thr, scale, u, 4),
+                             ft.fused_mask_quantize_plain(x, thr, scale, u, 4)):
+            check(same_bits(got, want), f"mask_quantize differs ({what})")
+    torch.cuda.synchronize()
+    print(f"[task] transport kernels bitwise equal to their plain versions on "
+          f"the ViT run's round-0 uploads ({TASK_FED['n_clients']} x "
+          f"{VIT_P_LEN}) and on one row (4-bit stochastic)")
+
+
+def task_phase(seed: int):
+    """The paper's path through `Experiment(task)` on ViT-B/16 and GPT-2
+    Small at full width and depth, random weights from `seed`, pretrained
+    on the task: FLASC (fused selector, 4-bit uploads) against dense LoRA
+    on the image task, FLASC on the Reddit-style LM task."""
+    import torch
+    from repro_torch.configs.paper_models import GPT2_SMALL, VIT_B16
+    from repro_torch.data import make_synth_image, make_synth_reddit
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import init_params, tree_leaves
+
+    card = card_line()
+    out = {}
+    print(f"[task] device memory in use at the start: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    flasc = dict(strategy="flasc", selector="fused", quant_bits_up=4,
+                 density_down=0.25, density_up=0.25)
+
+    # (a) ViT-B/16 on 196 patches of 768 (a 224-px image at patch 16)
+    t0 = time.perf_counter()
+    task = make_synth_image(n_examples=1024, n_clients=32, n_patches=196,
+                            dim=768, n_eval=256, seed=seed)
+    gen_s = time.perf_counter() - t0
+    gb = sum(v.nbytes for d in (task.data, task.eval_data)
+             for v in d.values()) / 1e9
+    print(f"[task] synth_image: 1024 + 256 examples x 196 x 768 f32 "
+          f"({gb:.3f} GB) generated on the host in {gen_s:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = VIT_B16
+    params = init_params(mdl.model_spec(cfg), seed, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == mdl.count_params(cfg), "ViT-B/16 parameter count")
+    params, loss, pre_ms = timed_pretrain(params, cfg, task, VIT_PRETRAIN, seed)
+    check(bool(torch.isfinite(torch.tensor(loss))), "ViT pretrain loss")
+    print(f"[task] {cfg.name} ({n_params} params, {cfg.param_dtype}): "
+          f"pretrain {VIT_PRETRAIN} steps at batch 64, {pre_ms:.3f} ms a step "
+          f"(the pooled data's one upload included), final loss {loss:.6f}; "
+          f"{card}")
+    capture = UploadCapture()
+    res_f, probe, lf, ms_f, exp = run_task(task, params, cfg, flasc,
+                                           VIT_ROUNDS, 2, seed, capture)
+    check(res_f.ledger.total_params == VIT_P_LEN,
+          f"ViT flat vector has {res_f.ledger.total_params} entries, not "
+          f"{VIT_P_LEN}")
+    check_task_run("vit flasc", res_f, lf, VIT_ROUNDS, True)
+    batch = exp._default_data()(0)
+    check(all(v.is_cuda for v in batch.values()), "a task batch is not on "
+          "the card")
+    acc, eval_ms, upload_ms = timed_eval(exp, params, cfg, probe.state, task)
+    check(acc == res_f.final_acc, f"re-evaluation gave {acc}, the run "
+          f"{res_f.final_acc}")
+    task_line("flasc (fused, 4-bit up, density 0.25/0.25)", cfg, res_f, ms_f,
+              lf, card)
+    print(f"[task] {cfg.name}: eval of 256 examples (2 batches) "
+          f"{eval_ms:.3f} ms (their upload alone {upload_ms:.3f} ms), "
+          f"accuracy {acc:.6f}; {card}")
+    task_transport_parity(capture.deltas, seed)
+    del capture
+    res_d, _, ld, ms_d, _ = run_task(task, params, cfg, dict(strategy="lora"),
+                                     VIT_ROUNDS, 2, seed)
+    check_task_run("vit lora", res_d, ld, VIT_ROUNDS, False)
+    task_line("dense lora", cfg, res_d, ms_d, ld, card)
+    up_f, up_d = res_f.ledger.up_coded_bytes, res_d.ledger.up_coded_bytes
+    check(up_f < up_d, f"FLASC coded upload {up_f} B is not below dense "
+          f"LoRA's {up_d} B")
+    peak_vit = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[task] {cfg.name}: FLASC up_coded_bytes {up_f} against dense "
+          f"LoRA's {up_d} ({up_d / up_f:.2f}x); best acc {res_f.best_acc():.6f}"
+          f" against {res_d.best_acc():.6f}; peak device memory "
+          f"{peak_vit:.3f} GiB; {card}")
+    out["vit"] = dict(flasc=lf, pretrain_ms=pre_ms, round_ms=ms_f,
+                      eval_ms=eval_ms, acc=acc, peak_gib=peak_vit)
+    del params, task, exp, probe, batch
+    torch.cuda.empty_cache()
+
+    # (b) GPT-2 Small on the Reddit-style next-token task (256 of its ids)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPT2_SMALL
+    task = make_synth_reddit(seed=seed)
+    params = init_params(mdl.model_spec(cfg), seed, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == mdl.count_params(cfg), "GPT-2 parameter count")
+    params, loss, pre_ms = timed_pretrain(params, cfg, task, GPT_PRETRAIN, seed)
+    check(bool(torch.isfinite(torch.tensor(loss))), "GPT-2 pretrain loss")
+    print(f"[task] {cfg.name} ({n_params} params, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}): pretrain {GPT_PRETRAIN} steps at batch 64, "
+          f"{pre_ms:.3f} ms a step, final loss {loss:.6f}; {card}")
+    res_g, probe, lg, ms_g, exp = run_task(task, params, cfg, flasc,
+                                           GPT_ROUNDS, 0, seed)
+    check(res_g.ledger.total_params == GPT_P_LEN,
+          f"GPT-2 flat vector has {res_g.ledger.total_params} entries, not "
+          f"{GPT_P_LEN}")
+    check_task_run("gpt2 flasc", res_g, lg, GPT_ROUNDS, True)
+    acc, eval_ms, upload_ms = timed_eval(exp, params, cfg, probe.state, task)
+    check(acc == res_g.final_acc, "GPT-2 re-evaluation differs")
+    task_line("flasc (fused, 4-bit up, density 0.25/0.25)", cfg, res_g, ms_g,
+              lg, card)
+    peak_gpt = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[task] {cfg.name}: eval of 512 sequences (4 batches) "
+          f"{eval_ms:.3f} ms (their upload alone {upload_ms:.3f} ms), "
+          f"next-token accuracy {acc:.6f}; peak device memory "
+          f"{peak_gpt:.3f} GiB; {card}")
+    out["gpt"] = dict(flasc=lg, pretrain_ms=pre_ms, round_ms=ms_g,
+                      eval_ms=eval_ms, acc=acc, peak_gib=peak_gpt)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2338,6 +2633,12 @@ def main() -> int:
     t0 = time.perf_counter()
     long_res = long_prefill_phase(args.seed, args.profile)
     print(f"[long-prefill] done in {time.perf_counter() - t0:.1f}s")
+    gc.collect()       # the earlier phases' engines sit in reference cycles
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    task_res = task_phase(args.seed)
+    print(f"[task] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
 
     entries = [entry]
@@ -2350,7 +2651,10 @@ def main() -> int:
             "replaces": replaces,
             "launches": plaunch[name] if on_pallas else launches[name],
             "path": ("train, selector=pallas, 1 round" if on_pallas else
-                     f"train, selector=fused, {TRAIN_ROUNDS} rounds"),
+                     f"train, selector=fused, {TRAIN_ROUNDS} rounds; task: "
+                     f"vit-b16 flasc {task_res['vit']['flasc'][name]} in "
+                     f"{VIT_ROUNDS} rounds, gpt2-small flasc "
+                     f"{task_res['gpt']['flasc'][name]} in {GPT_ROUNDS}"),
             "max_abs_err": errs[name], "ms": t4["ms"],
             "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
             "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],

@@ -234,7 +234,7 @@ def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
             tp.lowrank_stage(s, "up") is not None:
         raise NotImplementedError(
             "low-rank message compression is not ported yet (ROADMAP queue "
-            "1, item 6)")
+            "1, item 2)")
     C = len(plans)
     m_down_cs, ax_down = _share_or_stack([p.m_down for p in plans])
     trains = [p.m_train for p in plans]
@@ -326,7 +326,7 @@ def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
     if fed.dp_clip > 0.0:
         raise NotImplementedError(
             "DP clipping (core/dp.py) is not ported yet (ROADMAP queue 1, "
-            "item 6)")
+            "item 2)")
     s = strat.spec
     round_idx = server_state["round"]
     n_clients = next(iter(client_batches.values())).shape[0]

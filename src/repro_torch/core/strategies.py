@@ -16,7 +16,7 @@ the same thing in both packages.
 
 Ported kinds: ``lora`` (dense LoRA) and ``flasc``.  The other kinds of
 `KINDS` construct a spec but raise `NotImplementedError` on `resolve`
-(ROADMAP queue 1, item 6).
+(ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from repro_torch.core import sparsity as sp
 
 KINDS = ("lora", "flasc", "flasc_ef", "sparse_adapter", "fedselect",
          "adapter_lth", "ffa", "hetlora")
-# registered by the reference but not ported yet (ROADMAP queue 1, item 6)
+# registered by the reference but not ported yet (ROADMAP queue 1, item 2)
 UNPORTED_KINDS = ("flasc_ef", "sparse_adapter", "fedselect", "adapter_lth",
                   "ffa", "hetlora", "flocora", "two_stage_ortho")
 
@@ -286,7 +286,7 @@ def resolve(obj: StrategyLike) -> Strategy:
         if obj.kind not in _REGISTRY and obj.kind in UNPORTED_KINDS:
             raise NotImplementedError(
                 f"strategy kind {obj.kind!r} is not ported yet; the port has "
-                f"{registered_kinds()} (ROADMAP queue 1, item 6)")
+                f"{registered_kinds()} (ROADMAP queue 1, item 2)")
         try:
             cls = _REGISTRY[obj.kind]
         except KeyError:

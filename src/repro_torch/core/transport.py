@@ -18,7 +18,7 @@ generator, or one generator per row), where the reference takes a key.
 Stages are registered like the reference's (`register_stage`,
 `registered_stages()`).  ``lowrank`` is registered, and its wire format
 is computed, but applying it raises: FLoCoRA-style message compression is
-not ported yet (ROADMAP queue 1, item 6).
+not ported yet (ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -206,7 +206,7 @@ class LowRankCompress(Stage):
     """FLoCoRA-style low-rank compression of the message (the reference's
     `transport.LowRankCompress`).  Its wire format is ported, so ledgers
     bill it; applying it raises until it is ported (ROADMAP queue 1,
-    item 6)."""
+    item 2)."""
     rank: int
     mode: str = "random"
     seed: int = 0
@@ -221,7 +221,7 @@ class LowRankCompress(Stage):
     def __call__(self, msg: Message, *, rng: qz.Rng = None) -> Message:
         raise NotImplementedError(
             "the lowrank transport stage is not ported yet (ROADMAP queue 1, "
-            "item 6)")
+            "item 2)")
 
     def wire(self, n, value_bits, dense):
         if not self.active(n):

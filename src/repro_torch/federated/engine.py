@@ -9,8 +9,9 @@ callback-instrumented loop:
     run_rounds(state, data, callbacks) -> state'
 
 The loop body is a `Callback` pipeline (`on_round_end` / `on_eval`);
-`LedgerCallback` does the communication accounting and `LoggingCallback`
-prints progress.  A callback may raise `StopRun`.
+`LedgerCallback` does the communication accounting, `EvalCallback`
+evaluates the flat vector on its cadence and `LoggingCallback` prints
+progress.  A callback may raise `StopRun`.
 
 After each round the engine pulls the round's metrics to the host once:
 the only host sync of a round.  Recorded losses and ledger entries are
@@ -22,8 +23,8 @@ order.
 (`federated/async_clock.py`); at its defaults it reproduces `SimEngine`
 bit for bit.
 
-Not ported yet: the sharded engine, population runs, evaluation and
-checkpoint callbacks (ROADMAP queue 1).
+Not ported yet: the sharded engine (ROADMAP queue 1, item 8), population
+runs (item 4) and the checkpoint callback (item 3).
 """
 from __future__ import annotations
 
@@ -158,8 +159,29 @@ class LedgerCallback(Callback):
             up_coded_bytes=led.up_coded_bytes)
 
 
+class EvalCallback(Callback):
+    """Runs `eval_fn(flatP) -> acc` every `every` rounds and on the final
+    round; records the result in the round's history record."""
+
+    def __init__(self, eval_fn: Callable[[Any], float], every: int = 10):
+        self.eval_fn = eval_fn
+        self.every = every
+        self.acc = 0.0
+
+    def _due(self, round_idx: int, rounds: int) -> bool:
+        at_cadence = self.every > 0 and (round_idx + 1) % self.every == 0
+        return at_cadence or round_idx == rounds - 1
+
+    def on_round_end(self, ev: RoundEvent) -> None:
+        if self._due(ev.round, ev.state.rounds):
+            self.acc = self.eval_fn(ev.state.flatP)
+            ev.record["acc"] = self.acc
+            ev.evaluated = True
+
+
 class LoggingCallback(Callback):
-    """Prints the one-line progress record every `every` rounds."""
+    """Prints the one-line progress record on eval rounds, and (for runs
+    without an `EvalCallback`) every `every` rounds."""
 
     def __init__(self, verbose: bool = True, every: int = 0):
         self.verbose = verbose
@@ -297,7 +319,7 @@ def resolve_engine(obj: EngineLike, **kwargs) -> Engine:
         if obj in UNPORTED_ENGINES:
             raise NotImplementedError(
                 f"the {obj!r} engine is not ported yet (ROADMAP queue 1, "
-                f"item 12); the port has {registered_engines()}")
+                f"item 8); the port has {registered_engines()}")
         try:
             cls = _ENGINES[obj]
         except KeyError:
@@ -359,7 +381,7 @@ class AsyncEngine(Engine):
     bit for bit.
 
     Refused: DP aggregation (`fed.dp_clip > 0`).  Not ported yet
-    (`NotImplementedError`, ROADMAP queue 1, item 8): `sampler=` and the
+    (`NotImplementedError`, ROADMAP queue 1, item 4): `sampler=` and the
     slot-specialised server phase a non-uniform `Strategy.aggregate` needs
     under partial buffers.
     """
@@ -373,7 +395,7 @@ class AsyncEngine(Engine):
         if sampler is not None:
             raise NotImplementedError(
                 "AsyncEngine(sampler=...) needs federated/population.py, "
-                "which is not ported yet (ROADMAP queue 1, item 8)")
+                "which is not ported yet (ROADMAP queue 1, item 4)")
         if isinstance(profile, dict):   # config() round trip
             profile = ac.ClientSystemProfile(
                 **{k: tuple(v) if isinstance(v, list) else v
@@ -418,7 +440,7 @@ class AsyncEngine(Engine):
                 "AsyncEngine: DP aggregation (dp_clip > 0) under buffered/"
                 "partial aggregation: the noise scale assumes one uniform "
                 "synchronous cohort (and core/dp.py is not ported yet, "
-                "ROADMAP queue 1, item 6)")
+                "ROADMAP queue 1, item 2)")
         n = fed.n_clients
         concurrency = (n if self.concurrency is None
                        else min(self.concurrency, n))
@@ -445,7 +467,7 @@ class AsyncEngine(Engine):
                 "AsyncEngine: a non-uniform Strategy.aggregate under a "
                 "partial or stale buffer needs the slot-specialised server "
                 "phase (cohort_slots), not ported yet (ROADMAP queue 1, "
-                "item 8)")
+                "item 4)")
 
         clock = (ac.VirtualClock.from_arrays(state.aux, n, meta.p_len)
                  if state.aux is not None

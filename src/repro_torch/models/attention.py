@@ -55,11 +55,13 @@ def _grouped_out(probs, v):
 
 
 def full_attention(q, k, v, mask, scale):
-    """q (B,S,H,hd) grouped against k/v (B,T,KV,hd); mask (S,T) bool."""
+    """q (B,S,H,hd) grouped against k/v (B,T,KV,hd); mask (S,T) bool, or
+    None for full (bidirectional) attention."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     scores = _grouped_scores(q.reshape(B, S, KV, H // KV, hd), k, scale)
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return _grouped_out(probs, v).reshape(B, S, H, hd)
 
@@ -182,11 +184,13 @@ def _maybe_qk_norm(params, q, k, cfg):
 
 
 def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
-                return_kv=False):
-    """Causal self attention over a full sequence at positions 0..S-1.
-    From `cfg.chunked_attn_threshold` tokens on, the flash-style path: the
-    CUDA flash kernel on CUDA tensors, `chunked_attention` on the CPU, both
-    held to the reference's chunk contract (`attn_chunk_q`/`_kv` must
+                causal=True, return_kv=False):
+    """Self attention over a full sequence at positions 0..S-1, causal or
+    (`causal=False`, the classifiers' encoder) full with no mask; RoPE is
+    applied either way, as in the reference.  A causal prompt of
+    `cfg.chunked_attn_threshold` tokens or more takes the flash-style path:
+    the CUDA flash kernel on CUDA tensors, `chunked_attention` on the CPU,
+    both held to the reference's chunk contract (`attn_chunk_q`/`_kv` must
     divide S)."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -199,7 +203,7 @@ def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(hd)
-    if S >= cfg.chunked_attn_threshold:
+    if causal and S >= cfg.chunked_attn_threshold:
         cq, ckv = _chunk_sizes(S, S, cfg.attn_chunk_q, cfg.attn_chunk_kv)
         if q.is_cuda:
             out = flash_attention(q, k, v, causal=True, scale=scale)
@@ -207,7 +211,8 @@ def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
             out = chunked_attention(q, k, v, scale, causal=True, cq=cq,
                                     ckv=ckv)
     else:
-        out = full_attention(q, k, v, causal_mask(positions, positions), scale)
+        mask = causal_mask(positions, positions) if causal else None
+        out = full_attention(q, k, v, mask, scale)
     y = linear(out.reshape(B, S, H * hd), params["wo"], lget("wo"), lora_scale)
     if return_kv:
         return y, (k, v)

@@ -72,7 +72,7 @@ class ServingEngine:
         if n_lanes < 1 or max_len < 2:
             raise ValueError(f"need n_lanes >= 1 and max_len >= 2, got "
                              f"{n_lanes}, {max_len}")
-        mdl.check_supported(cfg)
+        mdl.check_servable(cfg)
         for what, dev in (("params", next(tree_leaves(params)).device),
                           ("adapter pool", cache.device)):
             if dev.type != self.device.type:

@@ -407,7 +407,7 @@ def test_async_engine_config_and_refusals(model):
     assert isinstance(teng.resolve_engine("async", **cfg), teng.AsyncEngine)
     exp = Experiment(None, device="cpu").with_engine("async", concurrency=2)
     assert exp.engine.concurrency == 2
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         teng.AsyncEngine(sampler="fraction")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(None, device="cpu").with_engine("sharded")

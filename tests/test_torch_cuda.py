@@ -822,3 +822,85 @@ def test_long_prompt_gqa_forward_runs_the_flash_kernel(dtype, hd, heads):
         assert (d / want.float().abs().amax(-1)).max().item() <= 2e-2
     with pytest.raises(ValueError, match="S % cq"):
         A.gqa_forward(cuda_params, x[:, :40].cuda(), cfg)
+
+
+def _task_run(task, device, strategy, rounds, **spec):
+    from repro_torch.federated import Experiment
+    from repro_torch.models.config import FederatedConfig
+    return (Experiment(task, federation=FederatedConfig(
+                n_clients=4, local_steps=2, local_batch=4, client_lr=5e-3,
+                server_lr=5e-3), device=device)
+            .with_strategy(strategy, **spec)
+            .with_model(d_model=32, num_layers=2, num_heads=4, d_ff=64)
+            .with_lora(rank=4)
+            .with_training(rounds=rounds, eval_every=1, pretrain_steps=3)
+            .run())
+
+
+@pytest.mark.cuda
+def test_task_experiment_runs_the_transport_kernels_on_the_card():
+    """`Experiment(task)` defaults to the card: pretraining, FLASC rounds and
+    evaluation run there, each round launches the fused transport kernels
+    (download mask 1, absmax 2, bin_counts 2, mask_quantize 1) and dense
+    LoRA none.  (The CPU comparison is `test_pretrain_and_evaluate_stay_on_
+    the_card`: weights drawn on the card differ from the CPU's.)"""
+    _need_card()
+    from repro_torch.data import make_synth_image
+    task = make_synth_image(n_examples=128, n_clients=8, n_patches=6, dim=32,
+                            n_eval=128, seed=1)
+    fns = {"topk_mask": tm.TOPK_MASK, "absmax": ft.ABSMAX,
+           "bin_counts": ft.BIN_COUNTS, "mask_quantize": ft.MASK_QUANTIZE,
+           "threshold_count": tm.THRESHOLD_COUNT}
+    per_round = {"topk_mask": 1, "absmax": 2, "bin_counts": 2,
+                 "mask_quantize": 1, "threshold_count": 0}
+    spec = dict(selector="fused", quant_bits_up=4)
+    for f in fns.values():
+        f.launches = 0
+    res = _task_run(task, None, "flasc", 3, **spec)
+    assert {k: f.launches for k, f in fns.items()} == \
+        {k: 3 * v for k, v in per_round.items()}
+    assert all(np.isfinite(h["loss"]) and 0.0 <= h["acc"] <= 1.0
+               for h in res.history)
+    for f in fns.values():
+        f.launches = 0
+    dense = _task_run(task, None, "lora", 2)
+    assert all(f.launches == 0 for f in fns.values())
+    assert res.ledger.up_coded_bytes < dense.ledger.up_coded_bytes
+
+
+@pytest.mark.cuda
+def test_pretrain_and_evaluate_stay_on_the_card():
+    """`pretrain` and `evaluate` run on the params' device and agree with
+    the CPU: the loss after 3 steps to rtol 1e-4, the accuracy up to
+    near ties (at most 2 of 128 predictions)."""
+    _need_card()
+    from repro_torch.core import fedround as tfr
+    from repro_torch.data import make_synth_text
+    from repro_torch.federated import evaluate, model_for_task, pretrain
+    from repro_torch.models import lora as tlora
+    from repro_torch.models import model as TM
+    from repro_torch.models.config import LoRAConfig
+    from repro_torch.models.layers import init_params, tree_leaves
+    task = make_synth_text(n_examples=64, n_clients=4, vocab=64, length=10,
+                           n_eval=128, seed=2)
+    cfg = model_for_task(task, d_model=32, num_layers=2, num_heads=4, d_ff=64)
+    out = {}
+    base = init_params(TM.model_spec(cfg), 0, device="cpu")
+    lcfg = LoRAConfig(rank=4)
+    lora0 = tlora.init_lora(cfg, lcfg, 1, device="cpu")
+    for dev in ("cpu", "cuda"):
+        params, loss = pretrain(_to(base, dev), cfg, task, 3, batch_size=8)
+        assert all(p.device.type == dev for p in tree_leaves(params))
+        tree = {"lora": _to(lora0, dev)}
+        meta = tfr.FlatMeta.of(tree)
+        acc = evaluate(params, cfg, tree, meta, task, lcfg.scale,
+                       meta.flatten(tree))
+        out[dev] = (loss, acc)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    assert abs(out["cuda"][1] - out["cpu"][1]) * 128 <= 2
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -24,7 +24,10 @@ def test_import_leaves_jax_out():
             "repro_torch.federated.async_clock, repro_torch.core.strategies, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.models.attention; "
+            "repro_torch.models.attention, repro_torch.data, "
+            "repro_torch.data.datasets, repro_torch.data.partition, "
+            "repro_torch.data.pipeline, repro_torch.federated.runtime, "
+            "repro_torch.configs.paper_models; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -49,7 +52,8 @@ def test_no_port_file_imports_jax_or_repro():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "ab_trees.py"),
              os.path.join(ROOT, "scripts", "flash_ab.py"),
-             os.path.join(ROOT, "scripts", "pack_ab.py")]
+             os.path.join(ROOT, "scripts", "pack_ab.py"),
+             os.path.join(ROOT, "examples", "quickstart_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -57,6 +61,8 @@ def test_no_port_file_imports_jax_or_repro():
     assert os.path.join(PORT, "federated", "async_clock.py") in files
     assert os.path.join(PORT, "kernels", "ref.py") in files
     assert os.path.join(PORT, "kernels", "ops.py") in files
+    for name in ("datasets.py", "partition.py", "pipeline.py"):
+        assert os.path.join(PORT, "data", name) in files
     for path in files:
         bad = {m for m in _imported_roots(path)
                if m in ("jax", "jaxlib", "repro", "flax", "optax")}
@@ -90,6 +96,17 @@ def test_entry_points_default_to_the_card():
         ServingEngine(params, cfg, cache)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "yi-9b", "--smoke"])
+    from repro_torch.data import make_synth_image
     from repro_torch.federated import Experiment
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Experiment(None)
+    task = make_synth_image(n_examples=32, n_clients=4, n_patches=2, dim=8,
+                            n_eval=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment(task)
+    env = dict(os.environ, QUICK="1", PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", "quickstart_torch.py")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr, \
+        proc.stdout + proc.stderr
