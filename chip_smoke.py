@@ -151,6 +151,28 @@ Phases, each fatal on failure:
                  pretrain ms a step, round ms, eval ms, accuracy, loss,
                  ledger bytes and peak memory beside the card's name and
                  power limit.
+  13. baselines -- the paper's baselines through `Experiment(task)` on
+                 phase 12's pretrained ViT-B/16 and task (8 clients x 2 x 8,
+                 rank 16 plus the head, eval at the end): flasc_ef,
+                 fedselect, sparse_adapter (fused selector; flasc_ef with
+                 4-bit uploads) 2 rounds, adapter_lth 3 (two prunes), ffa,
+                 hetlora plain and weighted (ranks 2, 2, 4, 4, 8, 8, 12,
+                 12), adapter_lth through the pallas selector, flocora in random and in learned mode (rank 8 of a
+                 1090 x 1090 embedding), two_stage_ortho (fused, 4-bit up),
+                 FLASC with DP (clip 1, noise 1) and full finetuning
+                 (p_len 85,112,832), 2 rounds each.  The transport and pack
+                 launch counts are zeroed before each run and must equal
+                 the kind's prediction (BASELINES); losses finite; flat
+                 vector and backbone on the card; ffa's A entries and
+                 hetlora's uncovered ranks bitwise unchanged and every B
+                 entry of its lowest ranks moved; the lottery ticket's
+                 pruned entries 0, its density the schedule's and its kept
+                 count k to k + 0.1%;
+                 two_stage_ortho's A orthonormal (1e-4) after its fold and
+                 its products kept by the fold (1e-4); flocora's coded
+                 bytes the factors' f32 entries; DP with hetlora_weighted
+                 refused.  Prints each round's loss and ms, ledger bytes
+                 against dense LoRA's (phase 12), accuracy and peak memory.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6 and over one 8192-token
 prefill of phase 11's engine, and writes their traces under chiprun_out/.
@@ -2218,12 +2240,19 @@ def long_prefill_phase(seed: int, profile: bool = False):
         prefill_ms.append((len(prompt), 1e3 * (time.perf_counter() - t1)))
         return out
 
+    # the timing wrapper is stored on the engine only while the trace runs:
+    # a closure over a bound method kept in the engine's own __dict__ is a
+    # reference cycle that would hold the weights until gc runs
     eng._prefill = timed_prefill
     grouped = resolve_grouped_kernel("grouped_pallas")
     torch.cuda.reset_peak_memory_stats()
     fa.FLASH.reset()
     grouped.launches = 0
-    rep = eng.run(trace)
+    try:
+        rep = eng.run(trace)
+    finally:
+        del eng._prefill
+    del prefill, timed_prefill
     flash_launches, grouped_launches = fa.FLASH.launches, grouped.launches
     flash_routes = dict(fa.FLASH.launches_by_route)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2314,21 +2343,25 @@ class TaskProbe:
 
 
 def run_task(task, params, cfg, strategy: dict, rounds: int, eval_every: int,
-             seed: int, capture: UploadCapture = None):
-    """One `Experiment(task)` on the card from a given backbone; returns
+             seed: int, capture: UploadCapture = None, fed=None, train=None,
+             callbacks=()):
+    """One `Experiment(task)` on the card from a given backbone (`fed` and
+    `train` override `TASK_FED` and the training options); returns
     (result, probe, {kernel: launches in this run}, wall ms per round, the
-    experiment)."""
+    experiment).  The launches cover the transport and the pack kernels."""
     import torch
     from repro_torch.federated import Experiment
     from repro_torch.models.config import FederatedConfig
-    fns = transport_functions()
+    fns = {**transport_functions(), **pack_functions()}
     probe = TaskProbe()
-    exp = (Experiment(task, federation=FederatedConfig(**TASK_FED))
+    exp = (Experiment(task, federation=FederatedConfig(**{**TASK_FED,
+                                                          **(fed or {})}))
            .with_strategy(**strategy)
            .with_lora(rank=TASK_RANK)
-           .with_training(rounds=rounds, eval_every=eval_every, seed=seed)
+           .with_training(rounds=rounds, eval_every=eval_every, seed=seed,
+                          **(train or {}))
            .with_params(params, cfg)
-           .with_callbacks(probe))
+           .with_callbacks(probe, *callbacks))
     torch.cuda.synchronize()
     for f in fns.values():
         f.launches = 0
@@ -2512,6 +2545,9 @@ def task_phase(seed: int):
           f"{peak_vit:.3f} GiB; {card}")
     out["vit"] = dict(flasc=lf, pretrain_ms=pre_ms, round_ms=ms_f,
                       eval_ms=eval_ms, acc=acc, peak_gib=peak_vit)
+    # phase 13 runs the baselines on this pretrained backbone and task
+    out["vit_setup"] = dict(params=params, cfg=cfg, task=task,
+                            lora_ledger=res_d.ledger)
     del params, task, exp, probe, batch
     torch.cuda.empty_cache()
 
@@ -2544,6 +2580,261 @@ def task_phase(seed: int):
           f"{peak_gpt:.3f} GiB; {card}")
     out["gpt"] = dict(flasc=lg, pretrain_ms=pre_ms, round_ms=ms_g,
                       eval_ms=eval_ms, acc=acc, peak_gib=peak_gpt)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the paper's baselines, DP, FLoCoRA and full finetuning on ViT-B/16
+# ---------------------------------------------------------------------------
+
+HET_RANKS = (2, 2, 4, 4, 8, 8, 12, 12)
+VIT_FULL_P_LEN = 85_112_832           # every ViT-B/16 parameter
+LR_RANK = 8                           # flocora's default factor rank
+LTH_ROUNDS = 3                        # adapter_lth prunes after rounds 1, 2
+
+
+def _per_run(topk=0, absmax=0, bins=0, mq=0, count=0):
+    return {"threshold_count": count, "topk_mask": topk, "absmax": absmax,
+            "bin_counts": bins, "mask_quantize": mq,
+            "mask_quantize_pack": 0, "pack_batch": 0}
+
+
+# (tag, strategy, rounds, federation overrides, training overrides,
+#  transport launches over the run).  Fused Top-K of one vector: topk_mask,
+# absmax and bin_counts once each; a fused 4-bit upload of the 8 stacked
+# deltas: absmax, bin_counts and mask_quantize once each; a `pallas` Top-K:
+# 24 threshold_count passes and one topk_mask.  adapter_lth prunes through
+# `pallas`: its 2-4% prune sits below the fused selector's resolution here
+# (12 levels over [0, max |x|], and max |x| is the head's norm scale, 1.0,
+# so one bin of 2.4e-4 holds more than the entries to prune, and the fused
+# prune keeps them all).
+BASELINES = (
+    ("flasc_ef", dict(strategy="flasc_ef", selector="fused",
+                      quant_bits_up=4), 2, {}, {}, _per_run(2, 4, 4, 2)),
+    ("fedselect", dict(strategy="fedselect", selector="fused"), 2, {}, {},
+     _per_run(2, 2, 2)),
+    ("sparse_adapter", dict(strategy="sparse_adapter", selector="fused"), 2,
+     {}, {}, _per_run(1, 1, 1)),
+    ("adapter_lth", dict(strategy="adapter_lth", selector="pallas"),
+     LTH_ROUNDS, {}, {}, _per_run(2, count=48)),
+    ("ffa", dict(strategy="ffa"), 2, {}, {}, _per_run()),
+    ("hetlora", dict(strategy="hetlora", hetlora_ranks=HET_RANKS), 2, {}, {},
+     _per_run()),
+    ("hetlora_weighted", dict(strategy="hetlora", hetlora_ranks=HET_RANKS,
+                              hetlora_weighted=True), 2, {}, {}, _per_run()),
+    ("flocora random", dict(strategy="flocora"), 2, {}, {}, _per_run()),
+    ("flocora learned", dict(strategy="flocora", lowrank_mode="learned"), 2,
+     {}, {}, _per_run()),
+    ("two_stage_ortho", dict(strategy="two_stage_ortho", selector="fused",
+                             quant_bits_up=4), 2, {}, {}, _per_run(0, 2, 2, 2)),
+    ("dp flasc", dict(strategy="flasc", selector="fused", quant_bits_up=4), 2,
+     dict(dp_clip=1.0, dp_noise=1.0), {}, _per_run(2, 4, 4, 2)),
+    ("full finetune", dict(strategy="lora"), 2, {},
+     dict(full_finetune=True), _per_run()),
+)
+
+
+class FlatAt:
+    """Callback: a copy of the flat vector at the end of round `r`."""
+
+    def __init__(self, r: int):
+        self.r, self.flat = r, None
+
+    def on_round_end(self, ev):
+        if ev.round == self.r:
+            self.flat = ev.state.flatP.clone()
+
+    def on_eval(self, ev):
+        pass
+
+
+def _lora_pairs(tree):
+    """[(path, a, b)] of every LoRA pair of an unflattened vector."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict) and {"a", "b"} <= set(node) \
+                and not isinstance(node["a"], dict):
+            out.append(("/".join(path), node["a"], node["b"]))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+    walk(tree, ())
+    return out
+
+
+def _lora_entries(meta):
+    """(p_len,) bool on the card: the entries of the `lora` subtree."""
+    import numpy as np
+    import torch
+    keep = np.concatenate([np.full(int(np.prod(shape)), path[0] == "lora")
+                           for path, (shape, _) in zip(meta.paths,
+                                                       meta.shapes)])
+    return torch.from_numpy(keep).cuda()
+
+
+def baseline_checks(tag, state, flat0, extra):
+    """The kind-specific invariants on the card, from the final run state,
+    the initial flat vector (ffa, hetlora) and `extra` (the ledger for
+    flocora, the round-0 `FlatAt` for two_stage_ortho); returns a note to
+    print."""
+    import torch
+    from repro_torch.core import strategies as st
+    from repro_torch.core import transport as tp
+    meta, flat, spec = state.plan.meta, state.flatP, state.plan.strategy.spec
+    if tag == "ffa":
+        is_a = torch.from_numpy(meta.is_b == 0).cuda()
+        check(torch.equal(flat[is_a], flat0[is_a]),
+              "ffa: an A entry moved")
+        return f"{int(is_a.sum())} A entries bitwise unchanged"
+    if tag.startswith("hetlora"):
+        rank = torch.from_numpy(meta.rank_idx).cuda()
+        is_b = torch.from_numpy(meta.is_b == 1).cuda()
+        lora = _lora_entries(meta)
+        free, low = lora & (rank >= max(HET_RANKS)), lora & (rank < min(
+            HET_RANKS))
+        check(torch.equal(flat[free], flat0[free]),
+              f"{tag}: an entry no client covers moved")
+        # every B entry starts at 0, so any local step moves it; an A entry
+        # (|a| ~ 0.036) can take local steps below half its f32 ulp
+        moved = {name: float((flat[m] != flat0[m]).float().mean())
+                 for name, m in (("B", low & is_b), ("A", low & ~is_b))}
+        check(moved["B"] >= 0.999 and moved["A"] > 0.0, f"{tag}: moved "
+              f"{moved} of the rank < {min(HET_RANKS)} entries")
+        return (f"{int(free.sum())} entries of rank >= {max(HET_RANKS)} "
+                f"bitwise unchanged; of rank < {min(HET_RANKS)}, "
+                f"{moved['B']:.6f} of B and {moved['A']:.6f} of A moved")
+    if tag == "adapter_lth":
+        mask, dens = state.sstate["mask"], state.sstate["density"]
+        n = meta.p_len
+        k = int(torch.clamp(torch.round(n * dens).to(torch.int32), 1, n - 1))
+        kept = int(mask.sum())
+        want = torch.tensor(1.0) * spec.lth_keep * spec.lth_keep
+        check(float(dens) == float(want), f"adapter_lth: density "
+              f"{float(dens)} after two prunes, expected {float(want)}")
+        check(bool((flat[~mask] == 0).all()), "adapter_lth: a pruned entry "
+              "is not zero")
+        # the bisection keeps every |x| at or above its threshold: k, or
+        # more by the entries of the threshold's last bin (2^-24 max |x|)
+        check(k <= kept <= k + n // 1000, f"adapter_lth: kept {kept} for k "
+              f"{k}")
+        return (f"density {float(dens):.6f}, kept {kept} for k {k}, pruned "
+                "entries all 0")
+    if tag == "two_stage_ortho":
+        worst = 0.0
+        for path, a, _ in _lora_pairs(meta.unflatten(extra.flat)["lora"]):
+            a = a.float()
+            eye = torch.eye(a.shape[-1], device=a.device)
+            worst = max(worst, float((a.transpose(-1, -2) @ a - eye)
+                                     .abs().max()))
+        check(worst <= 1e-4, f"two_stage_ortho: max |QᵀQ - I| {worst} after "
+              "round 0")
+        tree = meta.unflatten(flat)["lora"]
+        folded = st._ortho_lora_pairs(tree)
+        rel = 0.0
+        for (_, a, b), (_, q, rb) in zip(_lora_pairs(tree),
+                                        _lora_pairs(folded)):
+            want = a.double() @ b.double()
+            got = q.double() @ rb.double()
+            rel = max(rel, float((got - want).abs().max()
+                                 / want.abs().max()))
+        check(rel <= 1e-4, f"two_stage_ortho: the fold moved a product "
+              f"A·B by {rel} relative")
+        return (f"max |QᵀQ - I| {worst:.3e} after round 0; folding the "
+                f"final vector keeps every A·B within {rel:.3e}")
+    if tag.startswith("flocora"):
+        led = extra
+        rows, cols = tp._factor_dims(meta.p_len)
+        per = LR_RANK * (rows if spec.lowrank_mode == "random"
+                         else rows + cols)
+        want = 2 * TASK_FED["n_clients"] * per * 4
+        check(led.up_dense and led.down_dense, f"{tag}: not dense-coded")
+        check(led.up_coded_bytes == want == led.down_coded_bytes,
+              f"{tag}: coded bytes up {led.up_coded_bytes} down "
+              f"{led.down_coded_bytes}, expected {want} each")
+        return (f"{rows} x {cols} embedding, {per} f32 entries a message: "
+                f"up = down = {want} B coded")
+    if tag == "full finetune":
+        check(meta.p_len == VIT_FULL_P_LEN, f"full finetune p_len "
+              f"{meta.p_len}, expected {VIT_FULL_P_LEN}")
+        return f"p_len {meta.p_len}"
+    return ""
+
+
+def baseline_phase(seed: int, vit: dict):
+    """The paper's baselines through `Experiment(task)` on phase 12's
+    pretrained ViT-B/16 and task (8 clients x 2 x 8, rank 16 plus the
+    head): every strategy kind besides flasc and lora, DP-FLASC and full
+    finetuning, with their transport launches and invariants checked."""
+    import numpy as np
+    import torch
+    from repro_torch.federated import Experiment
+    from repro_torch.models.config import FederatedConfig
+
+    card = card_line()
+    params, cfg, task = vit["params"], vit["cfg"], vit["task"]
+    lora_led = vit["lora_ledger"]
+    lora_down = lora_led.down_coded_bytes / lora_led.rounds
+    lora_up = lora_led.up_coded_bytes / lora_led.rounds
+    out = {}
+    for tag, strategy, rounds, fed, train, expect in BASELINES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        extra = FlatAt(0) if tag == "two_stage_ortho" else None
+        res, probe, launches, round_ms, exp = run_task(
+            task, params, cfg, strategy, rounds, 0, seed, fed=fed,
+            train=train, callbacks=(extra,) if extra else ())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        state, led = probe.state, res.ledger
+        check(len(res.history) == rounds, f"{tag}: the run stopped early")
+        check(all(np.isfinite(h["loss"]) for h in res.history),
+              f"{tag}: a round's loss is not finite")
+        check(0.0 <= res.final_acc <= 1.0 and "acc" in res.history[-1],
+              f"{tag}: final accuracy {res.final_acc}")
+        check(launches == expect, f"{tag}: launches {launches}, expected "
+              f"{expect}")
+        flat0 = None
+        if tag == "ffa" or tag.startswith("hetlora"):
+            # the run's initial vector: the LoRA init is seeded
+            trainable, meta, _ = exp._build_trainable(params, cfg)
+            flat0 = meta.flatten(trainable)
+        note = baseline_checks(tag, state, flat0,
+                               led if tag.startswith("flocora") else extra)
+        del flat0
+        rows = "; ".join(f"{r}: loss {h['loss']:.6f}, {round_ms[r]:.3f} ms"
+                         for r, h in enumerate(res.history))
+        print(f"[baselines] {tag} ({json.dumps(strategy)}"
+              + (f", {json.dumps(fed)}" if fed else "")
+              + (f", {json.dumps(train)}" if train else "") + f"): {rows}")
+        print(f"[baselines] {tag}: p_len {led.total_params}; ledger coded "
+              f"down {led.down_coded_bytes} / up {led.up_coded_bytes} B; "
+              f"final acc {res.final_acc:.6f}; peak device memory "
+              f"{peak:.3f} GiB; launches {json.dumps(launches)}; {note}; "
+              f"{card}")
+        down_r, up_r = (led.down_coded_bytes / rounds,
+                        led.up_coded_bytes / rounds)
+        print(f"[baselines] {tag}: coded bytes a round down {down_r:.0f} / "
+              f"up {up_r:.0f} against dense LoRA's {lora_down:.0f} / "
+              f"{lora_up:.0f} (phase 12): {lora_up / up_r:.3f}x less up, "
+              f"{lora_down / down_r:.3f}x less down")
+        out[tag] = dict(launches=launches, round_ms=round_ms, peak_gib=peak,
+                        acc=res.final_acc, down=led.down_coded_bytes,
+                        up=led.up_coded_bytes)
+        del res, probe, exp, state
+        torch.cuda.empty_cache()
+    # DP noise is calibrated for a uniform mean: a weighted rule is refused
+    exp = (Experiment(task, federation=FederatedConfig(
+               **{**TASK_FED, "dp_clip": 1.0, "dp_noise": 1.0}))
+           .with_strategy("hetlora", hetlora_ranks=HET_RANKS,
+                          hetlora_weighted=True)
+           .with_lora(rank=TASK_RANK).with_training(rounds=1, seed=seed)
+           .with_params(params, cfg))
+    try:
+        exp.run()
+    except NotImplementedError as e:
+        print(f"[baselines] dp + hetlora_weighted refused: {e}")
+    else:
+        check(False, "DP with hetlora_weighted ran")
     return out
 
 
@@ -2633,12 +2924,22 @@ def main() -> int:
     t0 = time.perf_counter()
     long_res = long_prefill_phase(args.seed, args.profile)
     print(f"[long-prefill] done in {time.perf_counter() - t0:.1f}s")
-    gc.collect()       # the earlier phases' engines sit in reference cycles
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.collect()       # kept as a guard; phase 11 leaves no cycle behind
     torch.cuda.empty_cache()
+    print(f"[long-prefill] device memory in use after the phase "
+          f"{held / 2**30:.3f} GiB, after gc.collect() "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
     t0 = time.perf_counter()
     task_res = task_phase(args.seed)
     print(f"[task] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    base_res = baseline_phase(args.seed, task_res.pop("vit_setup"))
+    torch.cuda.empty_cache()
+    print(f"[baselines] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
 
     entries = [entry]
@@ -2654,7 +2955,10 @@ def main() -> int:
                      f"train, selector=fused, {TRAIN_ROUNDS} rounds; task: "
                      f"vit-b16 flasc {task_res['vit']['flasc'][name]} in "
                      f"{VIT_ROUNDS} rounds, gpt2-small flasc "
-                     f"{task_res['gpt']['flasc'][name]} in {GPT_ROUNDS}"),
+                     f"{task_res['gpt']['flasc'][name]} in {GPT_ROUNDS}")
+            + "; baselines (vit-b16): " + ", ".join(
+                f"{tag} {r['launches'][name]}"
+                for tag, r in base_res.items()),
             "max_abs_err": errs[name], "ms": t4["ms"],
             "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
             "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
@@ -2669,6 +2973,9 @@ def main() -> int:
                                "sparse-async: FusedSelector."
                                "sparsify_quantized_packed on round 0's "
                                f"{FED['n_clients']} client uploads")}
+    for name, (n, path) in paths.items():
+        paths[name] = (n, path + "; baselines (vit-b16): " + ", ".join(
+            f"{tag} {r['launches'][name]}" for tag, r in base_res.items()))
     for name, replaces in PACK:
         t1, t4 = ptimings[name][1], ptimings[name][4]
         launches_, path = paths[name]

@@ -17,6 +17,9 @@ How the reference's JAX structure maps here:
     and the frozen backbone (no `requires_grad`) gets no gradient.
   - nothing on the round path syncs with the host: counts, thresholds and
     the step count stay on the device until the engine pulls the metrics.
+  - the round index is a host int (`server_state["round"]`), so the
+    strategies' schedule branches (`jax.lax.cond` in the reference) are
+    Python branches that launch only what the taken branch needs.
 
 The rng schedule.  The reference derives the round key as
 `fold_in(key(seed + 2), r)` and splits it into n_clients + 1 quantization
@@ -25,9 +28,19 @@ port keeps that shape with integer seeds: the engine passes
 `round_seed = fold_in(seed + 2, r)`, and the client c upload generator is
 seeded with `fold_in(round_seed, c)`, the download's with
 `fold_in(round_seed, n_clients)` (`fold_in` is a SplitMix64 hash on the
-host; generators live on the vector's device).  Torch and JAX draw
-different numbers, so runs that quantize stochastically compare across
-packages only in distribution.
+host; generators live on the vector's device), and DP noise from
+`fold_in(round_seed, n_clients + 1)`: every round draws new noise, also
+when the caller passes no seed (then the round seed is `fold_in(0, r)`,
+as the reference folds the round into `key(0)`).  Torch and JAX draw
+different numbers, so runs that quantize stochastically or add DP noise
+compare across packages only in distribution.
+
+With `fed.dp_clip > 0` the uploads go through `dp.dp_aggregate` (clip,
+sum, normalize, noise) as dense rows, never the packed path; a strategy
+whose `aggregate` is not a uniform mean (`hetlora_weighted`) is refused
+before any client trains.  Low-rank message compression
+(`StrategySpec.lowrank_down` / `lowrank_up`) adds the `lowrank` stage to
+the pipelines, its random projection seeded with the round.
 
 With `StrategySpec(sparse_aggregate=True)` the uploads are packed into
 (index, value) rows (`fused_transport.pack_values_batch`, one kernel
@@ -44,8 +57,8 @@ the same version (rep > 0); the download's with
 `fold_in(version_seed, n_clients)`.  With every slot and no repeats the
 client phase computes exactly one round's client block.
 
-Not ported yet: DP clipping (`core/dp.py`, `dp_clip > 0` raises) and the
-population / momentum-carrying round (ROADMAP queue 1).
+Not ported yet: the population / momentum-carrying round (ROADMAP queue
+1, item 4).
 """
 from __future__ import annotations
 
@@ -57,9 +70,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import dp as dp_mod
 from repro_torch.core import sparsity as sp
 from repro_torch.core import strategies as st
 from repro_torch.core import transport as tp
+from repro_torch.core.quantization import fold_in, generator
 from repro_torch.kernels import fused_transport as ft
 from repro_torch.models.config import FederatedConfig
 from repro_torch.optim import adam_init, adam_update
@@ -67,22 +82,6 @@ from repro_torch.optim import adam_init, adam_update
 LossFn = Callable[..., torch.Tensor]
 # loss_of(trainable_tree, microbatch) -> scalar, or, with the backbone
 # passed explicitly (`RoundTask.params`), loss_of(params, tree, microbatch)
-
-_MASK64 = (1 << 64) - 1
-
-
-def fold_in(seed: int, data: int) -> int:
-    """Deterministic 63-bit seed for (seed, data): SplitMix64 finalizer of
-    the pair, computed on the host (no device work, no sync)."""
-    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
-
-
-def generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
-
 
 @dataclasses.dataclass
 class FlatMeta:
@@ -185,8 +184,8 @@ class PhaseTimes:
 
 
 def init_server(flatP: torch.Tensor):
-    return {"opt": adam_init(flatP),
-            "round": torch.zeros((), dtype=torch.int32, device=flatP.device)}
+    """FedAdam state on the vector's device; the round on the host."""
+    return {"opt": adam_init(flatP), "round": 0}
 
 
 def _client_update(flat0, cbatch, m_train, *, loss_of, meta: FlatMeta,
@@ -222,19 +221,15 @@ def _share_or_stack(items):
 
 def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
                  loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
-                 phases: PhaseTimes, kdown=None, upgens=None):
+                 phases: PhaseTimes, round_idx: int, kdown=None,
+                 upgens=None):
     """Send the download, run every client's local update, and pass the
     stacked deltas through the upload pipeline once.  `phases` gets one
-    mark per phase.
+    mark per phase; `round_idx` seeds the random low-rank projections.
 
     Returns ((upload values (C, p_len), up_nnz (C,), losses (C,),
     down_nnz (C,)), (m_down, axis)) like the reference's `_run_clients`.
     """
-    if tp.lowrank_stage(s, "down") is not None or \
-            tp.lowrank_stage(s, "up") is not None:
-        raise NotImplementedError(
-            "low-rank message compression is not ported yet (ROADMAP queue "
-            "1, item 2)")
     C = len(plans)
     m_down_cs, ax_down = _share_or_stack([p.m_down for p in plans])
     trains = [p.m_train for p in plans]
@@ -259,9 +254,15 @@ def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
                 [sp.density_count(meta.p_len, d) for d in densities],
                 dtype=torch.int32, device=P_base.device)
 
+    # the round folds into random-mode projections, so the compressed
+    # subspace rotates across rounds
+    lr_down = tp.lowrank_stage(s, "down", fold=round_idx)
+    lr_up = tp.lowrank_stage(s, "up", fold=round_idx)
+
     # --- download: one message when the mask is shared ---------------------
     base = P_base if ax_down is None else P_base.expand(C, -1)
-    down = tp.download_pipeline(m_down_cs, s.quant_bits_down)(base, rng=kdown)
+    down = tp.download_pipeline(m_down_cs, s.quant_bits_down,
+                                lowrank=lr_down)(base, rng=kdown)
     down_nnz = down.nnz.expand(C) if ax_down is None else down.nnz
     phases.mark("download")
 
@@ -282,10 +283,12 @@ def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
     # --- upload: each transport pass once over the stacked deltas ----------
     if up_mode == "fixed":
         pipe = tp.upload_pipeline(st.UploadRule.fixed(up_mask),
-                                  s.quant_bits_up, selector=s.selector)
+                                  s.quant_bits_up, selector=s.selector,
+                                  lowrank=lr_up)
     else:
         pipe = tp.upload_pipeline(plans[0].upload, s.quant_bits_up,
-                                  selector=s.selector, count=up_counts)
+                                  selector=s.selector, count=up_counts,
+                                  lowrank=lr_up)
     up = pipe(deltas, rng=upgens)
     phases.mark("upload")
     return (up.values, up.nnz, torch.stack(losses), down_nnz), \
@@ -314,8 +317,8 @@ def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
                     strategy: st.StrategyLike, params=None):
     """One round.  client_batches: dict of tensors shaped (n_clients,
     local_steps, local_bs, ...).  `rng_seed` (int, or None for no
-    stochastic rounding) seeds the round's quantization generators (see the
-    module doc).  `params`, when given, is the frozen backbone, passed to
+    stochastic rounding) seeds the round's quantization generators and its
+    DP noise (see the module doc).  `params`, when given, is the frozen backbone, passed to
     `loss_of(params, tree, mb)`.  Returns (flatP', server_state', sstate',
     metrics), every metric a tensor on the device except `phase_ms`, the
     round's `PhaseTimes` (download mask, download, local updates, upload,
@@ -323,12 +326,14 @@ def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
     strat = st.resolve(strategy)
     if params is not None:
         loss_of = functools.partial(loss_of, params)
-    if fed.dp_clip > 0.0:
+    if fed.dp_clip > 0.0 and not strat.uniform_aggregation:
+        # DP noise calibration assumes uniform averaging: refuse a weighted
+        # rule rather than drop it silently
         raise NotImplementedError(
-            "DP clipping (core/dp.py) is not ported yet (ROADMAP queue 1, "
-            "item 2)")
+            f"{strat.kind}: non-uniform Strategy.aggregate is unsupported "
+            "with DP clipping (dp_clip > 0)")
     s = strat.spec
-    round_idx = server_state["round"]
+    round_idx = int(server_state["round"])
     n_clients = next(iter(client_batches.values())).shape[0]
     phases = PhaseTimes(flatP.device)
 
@@ -350,15 +355,26 @@ def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
 
     (deltas, nnzs, losses, down_nnzs), (m_down_cs, ax_down) = _run_clients(
         P_base, plans, client_batches, s, loss_of=loss_of, meta=meta, fed=fed,
-        phases=phases, kdown=kdown, upgens=upgens)
+        phases=phases, round_idx=round_idx, kdown=kdown, upgens=upgens)
 
-    if ax_down is None:     # shared mask: bill the global mask support
+    lr_down = tp.lowrank_stage(s, "down")
+    if lr_down is not None and lr_down.active(meta.p_len):
+        # every low-rank message is its factors: bill what was sent
+        down_nnz = down_nnzs.mean()
+    elif ax_down is None:   # shared mask: bill the global mask support
         down_nnz = m_down_cs.sum(dtype=torch.float32)
     else:                   # per-client masks: average per-client size
         down_nnz = down_nnzs.mean()
 
     # --- aggregate + server update ----------------------------------------
-    pseudo_grad = _aggregate_uploads(strat, deltas, ctx)
+    if fed.dp_clip > 0.0:
+        # dense rows, never the packed path; new noise every round
+        seed = rng_seed if rng_seed is not None else fold_in(0, round_idx)
+        pseudo_grad, _ = dp_mod.dp_aggregate(
+            deltas, fed.dp_clip, fed.dp_noise,
+            generator(fold_in(seed, n_clients + 1), flatP.device))
+    else:
+        pseudo_grad = _aggregate_uploads(strat, deltas, ctx)
     if fed.server_opt == "adam":
         flatP, opt = adam_update(flatP, pseudo_grad, server_state["opt"],
                                  fed.server_lr, fed.adam_b1, fed.adam_b2,
@@ -425,6 +441,8 @@ def make_client_phase_fn(loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
         fn(flatP, sstate, round_idx, client_batches, rng_seed, phases=None)
             -> (deltas, up_nnzs, losses, down_nnzs)
 
+    `round_idx` is the snapshot's version, a host int.
+
     with the frozen backbone first when `with_params=True`, and three more
     outputs (idx, val, pnnz) with `pack_cap` set: each upload row packed
     to `pack_cap` (index, value) slots by `fused_transport.
@@ -444,6 +462,7 @@ def make_client_phase_fn(loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
         loss = loss_of if params is None else functools.partial(loss_of,
                                                                 params)
         phases = PhaseTimes(flatP.device) if phases is None else phases
+        round_idx = int(round_idx)
         m_down_global = strat.download_mask(flatP, sstate, round_idx)
         P_base = strat.download_base(flatP, sstate)
         ctx = meta.plan_context(fed.n_clients, round_idx=round_idx)
@@ -460,7 +479,8 @@ def make_client_phase_fn(loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
 
         (deltas, nnzs, losses, down_nnzs), _ = _run_clients(
             P_base, plans, client_batches, s, loss_of=loss, meta=meta,
-            fed=fed, phases=phases, kdown=kdown, upgens=upgens)
+            fed=fed, phases=phases, round_idx=round_idx, kdown=kdown,
+            upgens=upgens)
         if pack_cap:
             idx, val, pnnz = ft.pack_values_batch(deltas, pack_cap)
             phases.mark("pack")
@@ -498,7 +518,7 @@ def make_server_phase_fn(meta: FlatMeta, fed: FederatedConfig,
         raise ValueError(f"{strat} does not aggregate packed uploads")
 
     def fn(flatP, server_state, sstate, *rest):
-        round_idx = server_state["round"]
+        round_idx = int(server_state["round"])
         m_down = strat.download_mask(flatP, sstate, round_idx)
         P_base = strat.download_base(flatP, sstate)
         ctx = meta.plan_context(fed.n_clients, round_idx=round_idx,

@@ -16,6 +16,10 @@ from `rng`, which is one of:
   - a sequence of generators, one per row (per-client upload keys).
 Torch and JAX draw different numbers from the same seed: only injected
 `u` compares across packages.
+
+Seeds are host integers: `fold_in(seed, data)` derives a new one (the
+analogue of `jax.random.fold_in`), `generator(seed, device)` makes the
+`torch.Generator` that draws from it on the vector's device.
 """
 from __future__ import annotations
 
@@ -25,6 +29,21 @@ import numpy as np
 import torch
 
 Rng = Union[None, torch.Tensor, torch.Generator, Sequence[torch.Generator]]
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """Deterministic 63-bit seed for (seed, data): SplitMix64 finalizer of
+    the pair, computed on the host (no device work, no sync)."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def uniform_like(values: torch.Tensor, rng: Rng) -> Optional[torch.Tensor]:

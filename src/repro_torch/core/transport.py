@@ -16,9 +16,7 @@ over all of them).  Stages take `rng`, the stochastic-rounding source of
 generator, or one generator per row), where the reference takes a key.
 
 Stages are registered like the reference's (`register_stage`,
-`registered_stages()`).  ``lowrank`` is registered, and its wire format
-is computed, but applying it raises: FLoCoRA-style message compression is
-not ported yet (ROADMAP queue 1, item 2).
+`registered_stages()`).
 """
 from __future__ import annotations
 
@@ -203,25 +201,105 @@ def _factor_dims(n: int, rows: int = 0) -> Tuple[int, int]:
 @register_stage("lowrank")
 @dataclasses.dataclass
 class LowRankCompress(Stage):
-    """FLoCoRA-style low-rank compression of the message (the reference's
-    `transport.LowRankCompress`).  Its wire format is ported, so ledgers
-    bill it; applying it raises until it is ported (ROADMAP queue 1,
-    item 2)."""
+    """FLoCoRA-style low-rank compression of the message itself (the
+    reference's `transport.LowRankCompress`, Grativol et al.,
+    arXiv:2406.14082): each message row is embedded in a near-square
+    matrix M (`_factor_dims`, zero-padded) and replaced by a rank-`rank`
+    factorization; the receiver reconstructs the product.
+
+    mode "random":  M -> (M Q) Qᵀ for a seeded orthonormalized Gaussian Q
+                    (cols × rank), the same Q for every row.  Both ends
+                    regenerate Q from the seed, so only M Q crosses the
+                    wire: `rows * rank` entries.  `fold` (a host int, the
+                    round the round loop passes) is folded into the seed so
+                    the dropped subspace rotates across rounds; `fold=None`
+                    keeps one projection.
+    mode "learned": truncated SVD M ≈ (U_r Σ_r) V_rᵀ (`torch.linalg.svd`
+                    over the batch of rows); both factors cross the wire:
+                    `rank * (rows + cols)` entries.
+
+    `bits` quantizes the transmitted factors of each row (one scale per
+    factor, stochastic rounding under `rng`) before reconstruction.  Its
+    uniform draw covers one row's transmitted entries in wire order (the
+    left or only factor, then the right): an injected tensor `u` has that
+    last axis.  Torch draws Q from Philox where the reference draws from
+    threefry, so random-mode messages compare across packages only with an
+    injected Q (a test monkeypatches `_projection`).  Factor messages are
+    billed dense: nnz * value_bytes, no index coding.
+
+    `rank <= 0` and `rank >= min(rows, cols)` are no-ops that degrade to a
+    plain `Quantize(bits)`.
+    """
     rank: int
-    mode: str = "random"
+    mode: str = "random"                # "random" | "learned"
     seed: int = 0
-    bits: int = 0
-    rows: int = 0
-    fold: Any = None
+    bits: int = 0                       # factor quantization (0 = f32)
+    rows: int = 0                       # matrix embedding rows (0 = auto)
+    fold: Optional[int] = None          # the round (see above)
+
+    def __post_init__(self):
+        if self.mode not in ("random", "learned"):
+            raise ValueError(f"unknown lowrank mode {self.mode!r}")
 
     def active(self, n: int) -> bool:
         rows, cols = _factor_dims(n, self.rows)
         return 0 < self.rank < min(rows, cols)
 
+    def sent(self, n: int) -> int:
+        """Transmitted entries of one active n-entry message."""
+        rows, cols = _factor_dims(n, self.rows)
+        if self.mode == "random":
+            return rows * self.rank
+        return self.rank * (rows + cols)
+
+    def _projection(self, cols: int, device) -> torch.Tensor:
+        seed = self.seed if self.fold is None else qz.fold_in(self.seed,
+                                                              int(self.fold))
+        g = torch.randn((cols, self.rank), generator=qz.generator(seed, device),
+                        dtype=torch.float32, device=device)
+        return torch.linalg.qr(g).Q         # orthonormal columns
+
+    def _quant(self, factor: torch.Tensor, u: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+        """b-bit round trip of each row's factor (..., a, b): one scale per
+        row, `u` (..., a * b) its uniforms or None (nearest)."""
+        if not self.bits:
+            return factor
+        flat = factor.reshape(*factor.shape[:-2], -1)
+        return qz.quantize_roundtrip(flat, self.bits, u).reshape(factor.shape)
+
     def __call__(self, msg: Message, *, rng: qz.Rng = None) -> Message:
-        raise NotImplementedError(
-            "the lowrank transport stage is not ported yet (ROADMAP queue 1, "
-            "item 2)")
+        n = msg.values.shape[-1]
+        if not self.active(n):
+            if not self.bits:
+                return msg
+            return Quantize(self.bits)(msg, rng=rng)
+        rows, cols = _factor_dims(n, self.rows)
+        lead = msg.values.shape[:-1]
+        x = msg.values.float()
+        if rows * cols != n:
+            x = torch.nn.functional.pad(x, (0, rows * cols - n))
+        m = x.reshape(*lead, rows, cols)
+        sent = self.sent(n)
+        u = None
+        if self.bits:
+            u = qz.uniform_like(x.new_empty(*lead, sent), rng)
+        if self.mode == "random":
+            q = self._projection(cols, x.device)
+            rec = self._quant(m @ q, u) @ q.T
+        else:
+            uu, s, vt = torch.linalg.svd(m, full_matrices=False)
+            left = uu[..., :, :self.rank] * s[..., None, :self.rank]
+            right = vt[..., :self.rank, :]
+            ul = ur = None
+            if u is not None:
+                ul, ur = u[..., :rows * self.rank], u[..., rows * self.rank:]
+            rec = self._quant(left, ul) @ self._quant(right, ur)
+        values = rec.reshape(*lead, rows * cols)[..., :n].to(msg.values.dtype)
+        return dataclasses.replace(
+            msg, values=values,
+            nnz=torch.full(lead, sent, dtype=torch.float32, device=x.device),
+            value_bits=float(self.bits) if self.bits else 32.0)
 
     def wire(self, n, value_bits, dense):
         if not self.active(n):
@@ -262,9 +340,12 @@ class Pipeline:
 
 
 def lowrank_stage(spec: StrategySpec, direction: str, *,
-                  fold=None) -> Optional[LowRankCompress]:
+                  fold: Optional[int] = None) -> Optional[LowRankCompress]:
     """The spec-configured `LowRankCompress` stage for one direction
-    ("down" | "up"), or None when the spec does not opt in."""
+    ("down" | "up"), or None when the spec does not opt in.  The stage
+    owns the direction's quantization bits, the two directions derive
+    distinct projection seeds from `lowrank_seed`, and the round loop
+    passes the round as `fold`."""
     if direction not in ("down", "up"):
         raise ValueError(f"direction must be 'down' or 'up', got {direction!r}")
     down = direction == "down"

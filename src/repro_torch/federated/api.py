@@ -23,9 +23,15 @@ entry point of the port it runs on the card unless `device` says
 otherwise; a backbone or batches handed in must already lie on that
 device.
 
-Not ported yet, and raising `NotImplementedError`: full finetuning (ROADMAP
-queue 1, item 1), checkpoint/resume (item 3), client populations (item 4)
-and a device mesh (item 8).
+`TrainOptions(full_finetune=True)` trains every backbone leaf instead of
+LoRA: the flat vector is the whole backbone (`{"lora": {}, "head": {},
+"backbone": params}`, LoRA scale 1.0), under any strategy, and evaluation
+runs the trained backbone (the reference evaluates the pretrained one,
+ROADMAP queue 3 item 5(d)).
+
+Not ported yet, and raising `NotImplementedError`: checkpoint/resume
+(ROADMAP queue 1, item 3), client populations (item 4) and a device mesh
+(item 8).
 """
 from __future__ import annotations
 
@@ -212,13 +218,18 @@ class Experiment:
         return params, cfg
 
     def _build_trainable(self, params, cfg):
-        """The flat vector's tree: LoRA (seed + 1), plus the `head` subtree
-        (classifier head and final norm) when `train_head` and the model
-        classifies."""
+        """(tree, FlatMeta, LoRA scale) of the flat vector: LoRA (seed + 1),
+        plus the `head` subtree (classifier head and final norm) when
+        `train_head` and the model classifies; under `full_finetune` the
+        whole backbone, at scale 1.0."""
         t = self.train
+        if t.full_finetune:
+            trainable: Dict[str, Any] = {"lora": {}, "head": {},
+                                         "backbone": params}
+            return trainable, fedround.FlatMeta.of(trainable), 1.0
         lora0 = lora_mod.init_lora(cfg, self.lora, seed=t.seed + 1,
                                    device=self.device)
-        trainable: Dict[str, Any] = {"lora": lora0}
+        trainable = {"lora": lora0}
         if t.train_head and cfg.num_classes > 0:
             trainable["head"] = {"cls_head": params["cls_head"],
                                  "final_norm": params["final_norm"]}
@@ -252,12 +263,12 @@ class Experiment:
                              or self._params_and_cfg is None):
             raise ValueError("task-less experiments need with_data(...) and "
                              "with_params(...)")
-        if t.full_finetune:
-            raise _not_ported("full finetuning", "item 1")
         params, cfg = self.build_backbone()
         trainable, meta, scale = self._build_trainable(params, cfg)
 
         def loss_of(bb, tree, mb):
+            if t.full_finetune:
+                return rt.task_loss(tree["backbone"], cfg, mb)
             p = dict(bb)
             if "head" in tree:
                 p.update(tree["head"])

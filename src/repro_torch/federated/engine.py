@@ -106,7 +106,8 @@ class RunState:
     @classmethod
     def fresh(cls, plan: RoundTask, flatP, *, rounds: int) -> "RunState":
         return cls(plan, flatP, fedround.init_server(flatP),
-                   plan.strategy.init_state(plan.meta.p_len),
+                   plan.strategy.init_state(plan.meta.p_len,
+                                            device=flatP.device),
                    round=0, rounds=rounds)
 
 
@@ -438,9 +439,8 @@ class AsyncEngine(Engine):
         if fed.dp_clip > 0.0:
             raise NotImplementedError(
                 "AsyncEngine: DP aggregation (dp_clip > 0) under buffered/"
-                "partial aggregation: the noise scale assumes one uniform "
-                "synchronous cohort (and core/dp.py is not ported yet, "
-                "ROADMAP queue 1, item 2)")
+                "partial aggregation is unsupported: the noise scale "
+                "assumes one uniform synchronous cohort")
         n = fed.n_clients
         concurrency = (n if self.concurrency is None
                        else min(self.concurrency, n))
@@ -502,9 +502,7 @@ class AsyncEngine(Engine):
                 plan.loss_of, meta, fed, plan.strategy, slots, repeats,
                 pack_cap=pack_cap or None, with_params=plan.params is not None)
             phases = fedround.PhaseTimes(device)
-            out = phase(*pargs, state.flatP, state.sstate,
-                        torch.tensor(version, dtype=torch.int32,
-                                     device=device),
+            out = phase(*pargs, state.flatP, state.sstate, version,
                         batch, fedround.fold_in(plan.seed + 2, version),
                         phases=phases)
             deltas, up_nnzs, losses, down_nnzs = out[:4]

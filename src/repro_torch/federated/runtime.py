@@ -131,10 +131,11 @@ def eval_logits(params, cfg: ModelConfig, meta: fedround.FlatMeta,
                 lora_scale: float, flatP, batch) -> torch.Tensor:
     """The eval forward's logits for one batch (tensors on the params'
     device): the backbone with the head of `flatP` taken in, and its LoRA
-    tree applied."""
+    tree applied; under full finetuning the backbone of `flatP` itself
+    (the reference evaluates `params` there, the pretrained backbone)."""
     tree = meta.unflatten(flatP)
     lora_tree = tree.get("lora", tree)
-    p = dict(params)
+    p = dict(tree["backbone"] if "backbone" in tree else params)
     if "head" in tree:
         p.update(tree["head"])
     return mdl.forward(p, cfg, batch, lora=lora_tree,

@@ -904,3 +904,107 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_dropped_serving_engine_frees_its_weights():
+    """With the cycle collector off, dropping a `ServingEngine` after a
+    short trace frees its weights: `memory_allocated` falls back to where
+    it was before the engine was built (a warm-up engine first, so lazy
+    library workspaces are not counted)."""
+    _need_card()
+    import gc
+    import weakref
+    from repro_torch.launch import serve
+    args = serve.parse_args(["--arch", "yi-9b", "--smoke", "--requests", "4"])
+
+    def serve_once():
+        eng, trace, _, _ = serve.build(args)
+        rep = eng.run(trace)
+        assert len(rep.completions) == rep.requests == len(trace)
+        return weakref.ref(eng)
+
+    serve_once()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        ref_ = serve_once()
+        torch.cuda.synchronize()
+        assert ref_() is None, "the engine is held by a reference cycle"
+        assert torch.cuda.memory_allocated() == before
+    finally:
+        gc.enable()
+
+
+def _align_signs(q_ref, q):
+    """Per-column signs that turn `q` into `q_ref` (QR is unique up to
+    them)."""
+    return torch.sign((q_ref * q).sum(-2, keepdim=True))
+
+
+@pytest.mark.cuda
+def test_two_stage_ortho_fold_on_the_card_matches_the_cpu():
+    """`_ortho_lora_pairs` (cuSOLVER QR on the card, LAPACK on the CPU) on
+    a stacked LoRA tree: Q orthonormal on the card, Q and R·B equal to the
+    CPU's up to each column's sign, and every product A·B kept, to 1e-4."""
+    _need_card()
+    from repro_torch.core import strategies as st
+    g = torch.Generator().manual_seed(3)
+    tree = {"g0": {"attn": {k: {"a": torch.randn(12, 768, 16, generator=g),
+                                "b": torch.randn(12, 16, 768, generator=g)
+                                * 0.01} for k in ("wq", "wv")}}}
+    cpu = st._ortho_lora_pairs(tree)
+    gpu = st._ortho_lora_pairs(_to(tree, "cuda"))
+    for k in ("wq", "wv"):
+        (qc, rbc), (qg, rbg) = ((t["g0"]["attn"][k]["a"],
+                                 t["g0"]["attn"][k]["b"]) for t in (cpu, gpu))
+        qg, rbg = qg.cpu(), rbg.cpu()
+        eye = torch.eye(16).expand(12, 16, 16)
+        assert (qg.transpose(-1, -2) @ qg - eye).abs().max().item() < 1e-4
+        s = _align_signs(qc, qg)
+        assert (qg * s - qc).abs().max().item() < 1e-4
+        assert (rbg * s.transpose(-1, -2) - rbc).abs().max().item() < 1e-4
+        want = tree["g0"]["attn"][k]["a"] @ tree["g0"]["attn"][k]["b"]
+        rel = (qg @ rbg - want).abs().max() / want.abs().max()
+        assert rel.item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["random", "learned"])
+def test_lowrank_stage_on_the_card_matches_the_cpu(mode, monkeypatch):
+    """The `lowrank` stage on 8 rows of 30,000 (a 174 x 173 embedding),
+    rank 8: the reconstruction on the card equals the CPU's to 1e-4
+    relative per row (random mode with one Q injected on both devices:
+    the devices' generators draw different numbers).  Each row is a rank-8
+    matrix plus 1% noise, so the truncation has a spectral gap at the
+    rank: on Gaussian rows sigma_8 and sigma_9 lie about 1% apart, and
+    cuSOLVER's and LAPACK's f32 rank-8 subspaces differed there by 3.2e-4
+    of the reconstruction.  The card's own projection is orthonormal, the
+    same for the same seed and fold, and another for another fold."""
+    _need_card()
+    from repro_torch.core import transport as tp
+    rows, cols = tp._factor_dims(30_000)
+    g = torch.Generator().manual_seed(4)
+    m = (torch.randn(8, rows, 8, generator=g)
+         @ torch.randn(8, 8, cols, generator=g)
+         + 0.01 * torch.randn(8, rows, cols, generator=g))
+    x = m.reshape(8, -1)[:, :30_000].contiguous()
+    stage = tp.LowRankCompress(rank=8, mode=mode, seed=2, fold=5)
+    if mode == "random":
+        q_card = stage._projection(cols, "cuda")
+        eye = torch.eye(8, device="cuda")
+        assert (q_card.T @ q_card - eye).abs().max().item() < 1e-5
+        assert torch.equal(q_card, stage._projection(cols, "cuda"))
+        other = tp.LowRankCompress(rank=8, seed=2, fold=6)
+        assert not torch.allclose(q_card, other._projection(cols, "cuda"))
+        q = q_card.cpu()
+        monkeypatch.setattr(tp.LowRankCompress, "_projection",
+                            lambda self, c, device: q.to(device))
+    cpu = stage(tp.Message.dense(x))
+    gpu = stage(tp.Message.dense(x.cuda()))
+    assert gpu.values.is_cuda and torch.equal(gpu.nnz.cpu(), cpu.nnz)
+    rel = ((gpu.values.cpu() - cpu.values).norm(dim=-1)
+           / cpu.values.norm(dim=-1))
+    assert rel.max().item() < 1e-4

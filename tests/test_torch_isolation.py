@@ -27,7 +27,7 @@ def test_import_leaves_jax_out():
             "repro_torch.models.attention, repro_torch.data, "
             "repro_torch.data.datasets, repro_torch.data.partition, "
             "repro_torch.data.pipeline, repro_torch.federated.runtime, "
-            "repro_torch.configs.paper_models; "
+            "repro_torch.configs.paper_models, repro_torch.core.dp; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -61,6 +61,7 @@ def test_no_port_file_imports_jax_or_repro():
     assert os.path.join(PORT, "federated", "async_clock.py") in files
     assert os.path.join(PORT, "kernels", "ref.py") in files
     assert os.path.join(PORT, "kernels", "ops.py") in files
+    assert os.path.join(PORT, "core", "dp.py") in files
     for name in ("datasets.py", "partition.py", "pipeline.py"):
         assert os.path.join(PORT, "data", name) in files
     for path in files:

@@ -238,9 +238,15 @@ def test_pipelines_and_wire_format_match_reference():
     assert [type(s).__name__ for s in pipe.stages] == ["FusedTopKQuantize"]
     pipe = ttp.upload_pipeline(rule, 4, selector="histogram")
     assert [s.stage_name for s in pipe.stages] == ["topk", "quantize"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttp.lowrank_stage(tst.StrategySpec(lowrank_up=4), "up")(
-            ttp.Message.dense(torch.zeros(100)))
+    # the lowrank stage on a batch of rows: the reference's shape and bill
+    x = np.random.default_rng(2).standard_normal((3, 100), dtype=np.float32)
+    stage = ttp.lowrank_stage(tst.StrategySpec(lowrank_up=4), "up")
+    jstage = jtp.lowrank_stage(jst.StrategySpec(lowrank_up=4), "up")
+    msg = stage(ttp.Message.dense(_t(x)))
+    jmsg = jstage(jtp.Message.dense(jnp.asarray(x[0])))
+    assert msg.values.shape == (3, 100) and msg.nnz.tolist() == [40.0] * 3
+    assert float(jmsg.nnz) == 40.0 and msg.value_bits == jmsg.value_bits
+    assert stage.wire(100, 32.0, False) == jstage.wire(100, 32.0, False)
 
 
 def test_comm_ledger_bytes_match_reference():
@@ -267,8 +273,9 @@ def test_spec_migration_and_unported_kinds():
     assert spec.selector == "histogram" and spec.exact_topk is None
     with pytest.raises(ValueError, match="unknown selector"):
         tst.StrategySpec(selector="sorted")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tst.resolve(tst.StrategySpec(kind="hetlora"))
+    assert tst.resolve(tst.StrategySpec(kind="hetlora")).kind == "hetlora"
+    with pytest.raises(ValueError, match="unknown strategy kind"):
+        tst.resolve(tst.StrategySpec(kind="hetlora_v2"))
     assert tst.resolve("lora").kind == "lora"
     assert tst.sparse_aggregate_capacity(
         tst.resolve(tst.StrategySpec(sparse_aggregate=True)), 9_830_400) == \
