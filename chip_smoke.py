@@ -173,6 +173,22 @@ Phases, each fatal on failure:
                  bytes the factors' f32 entries; DP with hetlora_weighted
                  refused.  Prints each round's loss and ms, ledger bytes
                  against dense LoRA's (phase 12), accuracy and peak memory.
+  14. fig2     -- Figure 2 at ViT-B/16 through the ported harness
+                 (benchmarks_torch): the paper-size image task and
+                 backbone from common.get_task / common.pretrained_backbone
+                 at common.PAPER_PRETRAIN (the pretrained accuracy must be
+                 at least 0.3), then four of the figure's METHODS through
+                 common.run, 10 rounds with eval every 5: lora, flasc_d1/4
+                 as written (the exact selector) and flasc_d1/4 and
+                 flasc_d1/4_q8 with selector "fused".  Prints the harness's
+                 rows for each run (best_acc, final_acc, total_MB,
+                 coded_MB, comm_vs_dense, coded_vs_dense) and the best-
+                 accuracy gap between the exact and the fused FLASC d1/4.
+                 Losses finite; every FLASC run's coded bytes below dense
+                 LoRA's; the launches zeroed before each run and read after
+                 must be fig2_launches' (none for exact and lora); the fused
+                 d1/4 run's round-0 uploads through the transport kernels
+                 bitwise equal to their plain versions.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6 and over one 8192-token
 prefill of phase 11's engine, and writes their traces under chiprun_out/.
@@ -2434,7 +2450,7 @@ def task_line(tag, cfg, res, round_ms, launches, card):
           f"launches {json.dumps(launches)}; {card}")
 
 
-def task_transport_parity(deltas, seed: int):
+def task_transport_parity(deltas, seed: int, label: str = "task"):
     """The transport kernels at the task path's shapes: the ViT run's round-0
     uploads (8 rows of 1,188,096) and its first row as a download, against
     the plain versions, bitwise."""
@@ -2468,7 +2484,7 @@ def task_transport_parity(deltas, seed: int):
                              ft.fused_mask_quantize_plain(x, thr, scale, u, 4)):
             check(same_bits(got, want), f"mask_quantize differs ({what})")
     torch.cuda.synchronize()
-    print(f"[task] transport kernels bitwise equal to their plain versions on "
+    print(f"[{label}] transport kernels bitwise equal to their plain versions on "
           f"the ViT run's round-0 uploads ({TASK_FED['n_clients']} x "
           f"{VIT_P_LEN}) and on one row (4-bit stochastic)")
 
@@ -2838,6 +2854,111 @@ def baseline_phase(seed: int, vit: dict):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: Figure 2 at ViT-B/16 through the ported harness
+# ---------------------------------------------------------------------------
+
+FIG2_ROUNDS = 10
+MIN_PRETRAINED_ACC = 0.3              # 3x chance on 10 classes
+# (tag, Figure 2's METHODS key, selector put in its spec or None): the
+# figure's entries as written run the `exact` selector (plain torch)
+FIG2_RUNS = (("lora", "lora", None),
+             ("flasc_d1/4", "flasc_d1/4", None),
+             ("flasc_d1/4 fused", "flasc_d1/4", "fused"),
+             ("flasc_d1/4_q8 fused", "flasc_d1/4_q8", "fused"))
+
+
+def fig2_launches(selector, rounds: int) -> dict:
+    """The transport and pack launches of a FLASC run, derived from the
+    port's code: under `fused`, a round's download mask is
+    `FusedSelector.mask` (absmax, bin_counts, topk_mask) and its upload one
+    `FusedTopKQuantize` over the 8 stacked deltas (absmax, bin_counts,
+    mask_quantize, also at bits 0); the download's 8-bit quantization is
+    plain torch.  `exact` and dense LoRA launch none."""
+    if selector != "fused":
+        return _per_run()
+    return _per_run(topk=rounds, absmax=2 * rounds, bins=2 * rounds,
+                    mq=rounds)
+
+
+def fig2_phase(seed: int):
+    """Figure 2 at ViT-B/16 size through `benchmarks_torch`: the paper-size
+    backbone from `common.pretrained_backbone` at `common.PAPER_PRETRAIN`,
+    then dense LoRA, FLASC d1/4 as written (exact) and FLASC d1/4 and
+    d1/4_q8 with the fused selector, `FIG2_ROUNDS` rounds each, the
+    harness's rows printed and the fused runs' launches asserted."""
+    import numpy as np
+    import torch
+    from benchmarks_torch import common
+    from benchmarks_torch.fig2_comm_efficiency import METHODS, result_rows
+
+    card = card_line()
+    t0 = time.perf_counter()
+    task = common.get_task("synth_image", seed=seed, model="paper")
+    gen_s = time.perf_counter() - t0
+    pre = common.PAPER_PRETRAIN
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, cfg = common.pretrained_backbone(task, common.PAPER_KW,
+                                             pre["steps"], seed, "cuda")
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    acc0 = common.backbone_acc(params, cfg, task)
+    print(f"[fig2] {cfg.name} ({cfg.param_dtype}) on synth_image (196 x 768, "
+          f"generated in {gen_s:.3f} s): pretrained {pre['steps']} steps at lr "
+          f"{pre['lr']}, batch {pre['batch_size']} in {pre_s:.3f} s; "
+          f"pretrained accuracy {acc0:.6f}; {card}")
+    check(acc0 >= MIN_PRETRAINED_ACC, f"the pretrained ViT-B/16 reads "
+          f"{acc0}, below {MIN_PRETRAINED_ACC}")
+    fns = {**transport_functions(), **pack_functions()}
+    out = {}
+    for tag, key, selector in FIG2_RUNS:
+        spec = METHODS[key] if selector is None else \
+            dataclasses.replace(METHODS[key], selector=selector)
+        capture = UploadCapture() if tag == "flasc_d1/4 fused" else None
+        torch.cuda.synchronize()
+        for f in fns.values():
+            f.launches = 0
+        with (capture.around() if capture else contextlib.nullcontext()):
+            res = common.run(task, spec, rounds=FIG2_ROUNDS, seed=seed,
+                             model_kw=common.PAPER_KW, device="cuda")
+        launches = {name: f.launches for name, f in fns.items()}
+        expect = fig2_launches(spec.selector if spec.kind == "flasc"
+                               else None, FIG2_ROUNDS)
+        check(len(res.history) == FIG2_ROUNDS, f"fig2 {tag}: stopped early")
+        check(all(np.isfinite(h["loss"]) for h in res.history),
+              f"fig2 {tag}: a round's loss is not finite")
+        check(launches == expect, f"fig2 {tag}: launches {launches}, "
+              f"expected {expect}")
+        accs = [h["acc"] for h in res.history if "acc" in h]
+        print(f"[fig2] {tag} ({spec.selector}): losses "
+              + ", ".join(f"{h['loss']:.6f}" for h in res.history)
+              + f"; evals {accs}; {res.elapsed:.3f} s; coded down "
+              f"{res.ledger.down_coded_bytes} / up {res.ledger.up_coded_bytes}"
+              f" B; launches {json.dumps(launches)}")
+        for r in result_rows(f"synth_image/{tag}", res):
+            print(f"[fig2] row {r['figure']},{r['setting']},{r['metric']},"
+                  f"{r['value']}")
+        out[tag] = dict(launches=launches, best=res.best_acc(),
+                        coded=res.ledger.total_coded_bytes)
+        if capture is not None:
+            task_transport_parity(capture.deltas, seed, label="fig2")
+    for tag in out:
+        if tag != "lora":
+            check(out[tag]["coded"] < out["lora"]["coded"], f"fig2 {tag}: "
+                  f"coded {out[tag]['coded']} B not below dense LoRA's "
+                  f"{out['lora']['coded']} B")
+    gap = out["flasc_d1/4"]["best"] - out["flasc_d1/4 fused"]["best"]
+    print(f"[fig2] best accuracy, exact minus fused FLASC d1/4: {gap:+.6f}; "
+          f"dense LoRA's best {out['lora']['best']:.6f} against the "
+          f"pretrained {acc0:.6f}; coded bytes of dense LoRA over FLASC d1/4: "
+          f"{out['lora']['coded'] / out['flasc_d1/4']['coded']:.3f}x; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2940,6 +3061,11 @@ def main() -> int:
     base_res = baseline_phase(args.seed, task_res.pop("vit_setup"))
     torch.cuda.empty_cache()
     print(f"[baselines] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    fig2_res = fig2_phase(args.seed)
+    torch.cuda.empty_cache()
+    print(f"[fig2] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
 
     entries = [entry]
@@ -2958,7 +3084,10 @@ def main() -> int:
                      f"{task_res['gpt']['flasc'][name]} in {GPT_ROUNDS}")
             + "; baselines (vit-b16): " + ", ".join(
                 f"{tag} {r['launches'][name]}"
-                for tag, r in base_res.items()),
+                for tag, r in base_res.items())
+            + f"; fig2 (vit-b16, {FIG2_ROUNDS} rounds): " + ", ".join(
+                f"{tag} {r['launches'][name]}"
+                for tag, r in fig2_res.items()),
             "max_abs_err": errs[name], "ms": t4["ms"],
             "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
             "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
@@ -2975,7 +3104,10 @@ def main() -> int:
                                f"{FED['n_clients']} client uploads")}
     for name, (n, path) in paths.items():
         paths[name] = (n, path + "; baselines (vit-b16): " + ", ".join(
-            f"{tag} {r['launches'][name]}" for tag, r in base_res.items()))
+            f"{tag} {r['launches'][name]}" for tag, r in base_res.items())
+            + "; fig2 (vit-b16): " + ", ".join(
+                f"{tag} {r['launches'][name]}"
+                for tag, r in fig2_res.items()))
     for name, replaces in PACK:
         t1, t4 = ptimings[name][1], ptimings[name][4]
         launches_, path = paths[name]

@@ -11,6 +11,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
+HARNESS = os.path.join(ROOT, "benchmarks_torch")
 
 
 def test_import_leaves_jax_out():
@@ -27,11 +28,20 @@ def test_import_leaves_jax_out():
             "repro_torch.models.attention, repro_torch.data, "
             "repro_torch.data.datasets, repro_torch.data.partition, "
             "repro_torch.data.pipeline, repro_torch.federated.runtime, "
-            "repro_torch.configs.paper_models, repro_torch.core.dp; "
+            "repro_torch.configs.paper_models, repro_torch.core.dp, "
+            "benchmarks_torch.run, benchmarks_torch.fig2_comm_efficiency, "
+            "benchmarks_torch.fig3_async_bandwidth, "
+            "benchmarks_torch.fig4_freezing, "
+            "benchmarks_torch.fig5_heterogeneity, "
+            "benchmarks_torch.fig6_system_het, benchmarks_torch.fig7_privacy, "
+            "benchmarks_torch.table1_partitions, "
+            "benchmarks_torch.pretrain_sweep; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
+            "or m.startswith(('jax.', 'repro.', 'benchmarks.')) "
+            "or m in ('repro', 'benchmarks')); "
             "print(bad); sys.exit(1 if bad else 0)")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -56,6 +66,13 @@ def test_no_port_file_imports_jax_or_repro():
              os.path.join(ROOT, "examples", "quickstart_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    # the port's figure harnesses: neither the reference package nor the
+    # reference's harnesses (`benchmarks/`)
+    harness = [os.path.join(HARNESS, n) for n in sorted(os.listdir(HARNESS))
+               if n.endswith(".py")]
+    assert {"common.py", "fig2_comm_efficiency.py", "fig7_privacy.py",
+            "run.py"} <= {os.path.basename(p) for p in harness}
+    files += harness
     assert len(files) > 10
     # the numpy-only modules the port copies from the reference too
     assert os.path.join(PORT, "federated", "async_clock.py") in files
@@ -66,7 +83,8 @@ def test_no_port_file_imports_jax_or_repro():
         assert os.path.join(PORT, "data", name) in files
     for path in files:
         bad = {m for m in _imported_roots(path)
-               if m in ("jax", "jaxlib", "repro", "flax", "optax")}
+               if m in ("jax", "jaxlib", "repro", "flax", "optax",
+                        "benchmarks")}
         assert not bad, (os.path.relpath(path, ROOT), bad)
 
 
