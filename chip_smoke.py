@@ -189,6 +189,36 @@ Phases, each fatal on failure:
                  must be fig2_launches' (none for exact and lora); the fused
                  d1/4 run's round-0 uploads through the transport kernels
                  bitwise equal to their plain versions.
+  15. resume   -- checkpoint / resume on phase 12's pretrained ViT-B/16 and
+                 task (8 clients x 2 x 8, rank 16 plus the head), FLASC
+                 (fused, 4-bit up), 4 rounds: (a) sim, (b) async with
+                 sparse_aggregate, concurrency 4, buffer 2, tiered(8, 2),
+                 the snapshot taken with jobs in flight, (c) a population
+                 of 10,000 behind an availability trace (period 8, duty
+                 0.5, chunk 4).  Each runs straight twice (which must agree
+                 bitwise: the card's own determinism), then with
+                 with_checkpoint(every=2) stopped after its first snapshot
+                 and Experiment.resume(dir, device="cuda") for rounds 2-3:
+                 history (wall-clock phases left out), ledger, accuracy,
+                 flat vector, server and strategy state bitwise equal to
+                 the straight run, (a)'s resumed launches its per-round
+                 counts x 2, (c)'s store the touched chunks x 4 x
+                 4,752,384 B with equal rows.  (d) AsyncEngine(sampler=
+                 fraction 0.5) under hetlora_weighted (phase 13's ranks)
+                 at buffer 2, the slot-specialised server phase: finite
+                 losses, every event a buffer of 2, the uncovered ranks
+                 bitwise unchanged.  Prints each snapshot's files and
+                 bytes, save and load seconds and peak memory.
+  16. population -- phase 6's full-width Yi-9B FLASC (fused, 4-bit up, rank
+                 8, 4 clients x 4 x 32 tokens) behind with_population(10^6,
+                 sampler="uniform", chunk=1), 4 rounds with prefetch on and
+                 4 off: histories and final flat vectors bitwise equal,
+                 one H2D copy a round, the store the touched clients x
+                 39,321,600 B, the transport launches phase 6's a round x
+                 4; prints take() wait ms and round ms a round.
+  17. train-cli -- `python -m repro_torch.launch.train --arch yi-9b
+                 --rounds 2` in this process at full width and depth: its
+                 ledger lines positive, its losses finite.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6 and over one 8192-token
 prefill of phase 11's engine, and writes their traces under chiprun_out/.
@@ -2959,6 +2989,465 @@ def fig2_phase(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: checkpoint / resume on phase 12's ViT-B/16
+# ---------------------------------------------------------------------------
+
+RESUME_ROUNDS = 4                     # rounds (events) of every run
+RESUME_EVERY = 2                      # the snapshot after round (event) 1
+VIT_ROW_BYTES = 4 * VIT_P_LEN         # 4,752,384: one ViT momentum row
+YI_ROW_BYTES = 4 * P_LEN              # 39,321,600: one Yi-9B momentum row
+RESUME_FLASC = dict(strategy="flasc", selector="fused", quant_bits_up=4,
+                    density_down=0.25, density_up=0.25)
+RESUME_POPULATION = dict(population=10_000, sampler="availability",
+                         period=8, duty=0.5, chunk=4)
+ASYNC_SAMPLER = {"kind": "fraction", "participation": 0.5, "seed": 0}
+
+
+def kernel_functions():
+    """Every kernel of the kernels JSON line -> its counting wrapper."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lm
+    return {**transport_functions(), **pack_functions(),
+            "grouped_lora_delta": lm.resolve_grouped_kernel("grouped_pallas"),
+            "flash_attention": fa.FLASH, "lora_matmul": lm.LORA_MATMUL}
+
+
+@contextlib.contextmanager
+def counted(out: dict):
+    """Zero every kernel's launch count, run the body, and put the counts
+    of the body's launches in `out`."""
+    import torch
+    fns = kernel_functions()
+    torch.cuda.synchronize()
+    for f in fns.values():
+        f.launches = 0
+    yield out
+    out.update({name: f.launches for name, f in fns.items()})
+
+
+def same_tree(a, b) -> bool:
+    """Trees of tensors or numpy arrays (dtype, shape and bits), host
+    scalars and containers: equal."""
+    import numpy as np
+    import torch
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(
+                    a.reshape(-1).contiguous().view(torch.uint8),
+                    b.reshape(-1).contiguous().view(torch.uint8)))
+    return type(a) is type(b) and a == b
+
+
+def strip_wall(history):
+    """History records without the wall-clock `phase_ms`."""
+    return [{k: v for k, v in h.items() if k != "phase_ms"} for h in history]
+
+
+class RunEnd:
+    """Callback: the last round's state, and the host seconds of each
+    snapshot save (from the round end that marked it due to the end of
+    `on_checkpoint`); with `stop` the run ends after its first save."""
+
+    def __init__(self, stop: bool = False):
+        self.stop, self.state, self.save_s = stop, None, []
+        self._t0 = None
+
+    def wants_state(self, round_idx, rounds):
+        return False
+
+    def on_round_end(self, ev):
+        self.state = ev.state
+        self._t0 = time.perf_counter() if ev.checkpoint_due else None
+
+    def on_eval(self, ev):
+        pass
+
+    def on_checkpoint(self, ev):
+        from repro_torch.federated.engine import StopRun
+        self.save_s.append(time.perf_counter() - self._t0)
+        if self.stop:
+            raise StopRun
+
+
+def dir_bytes(d: str) -> dict:
+    return {n: os.path.getsize(os.path.join(d, n)) for n in sorted(
+        os.listdir(d))}
+
+
+def resume_run(vit, seed, strategy, engine=None, population=None,
+               ckpt=None, callbacks=()):
+    """One `Experiment(task)` on phase 12's ViT-B/16 (`RESUME_ROUNDS`
+    rounds, eval every 2), optionally checkpointed into `ckpt` and stopped
+    after the first save; returns (result, RunEnd, launches, experiment)."""
+    from repro_torch.federated import Experiment
+    from repro_torch.models.config import FederatedConfig
+    end = RunEnd(stop=ckpt is not None)
+    exp = (Experiment(vit["task"], federation=FederatedConfig(**TASK_FED))
+           .with_strategy(**strategy)
+           .with_lora(rank=TASK_RANK)
+           .with_training(rounds=RESUME_ROUNDS, eval_every=2, seed=seed)
+           .with_params(vit["params"], vit["cfg"])
+           .with_callbacks(end, *callbacks))
+    if engine is not None:
+        exp.with_engine(engine())
+    if population is not None:
+        exp.with_population(**population)
+    if ckpt is not None:
+        # ViT-B/16 is not the task model of `ModelOptions`: the snapshot
+        # carries its config (a port-only sidecar key)
+        exp.with_checkpoint(ckpt, every=RESUME_EVERY, save_model_config=True)
+    launches = {}
+    with counted(launches):
+        res = exp.run()
+    return res, end, launches, exp
+
+
+def check_same_run(tag, got, got_end, want, want_end):
+    """Bitwise: history (wall-clock phases left out), ledger, accuracy,
+    flat vector, server state, strategy state and the engine's final state
+    (the async clock, the population store)."""
+    import dataclasses as dc
+    check(strip_wall(got.history) == strip_wall(want.history),
+          f"{tag}: histories differ: {strip_wall(got.history)} against "
+          f"{strip_wall(want.history)}")
+    check(dc.asdict(got.ledger) == dc.asdict(want.ledger),
+          f"{tag}: ledgers differ")
+    check(got.final_acc == want.final_acc, f"{tag}: accuracies differ")
+    g, w = got_end.state, want_end.state
+    check(same_tree(g.flatP, w.flatP), f"{tag}: flat vectors differ")
+    check(same_tree(g.server, w.server), f"{tag}: server states differ")
+    check(same_tree(g.sstate, w.sstate), f"{tag}: strategy states differ")
+    check(same_tree(g.aux, w.aux), f"{tag}: the engines' final states "
+          "(clock or store) differ")
+
+
+def resume_case(tag, vit, seed, root, **kw):
+    """The straight run twice (the card's own determinism first), then a
+    run stopped after its round-1 snapshot and `Experiment.resume` on the
+    card for the rest: everything bitwise equal to the straight run.
+    Prints the snapshot's size, save and load seconds and peak memory."""
+    import torch
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.federated import Experiment
+    from repro_torch.models.layers import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    a, a_end, la, a_exp = resume_run(vit, seed, **kw)
+    b, b_end, _, _ = resume_run(vit, seed, **kw)
+    check_same_run(f"resume {tag}: two straight runs", b, b_end, a, a_end)
+    d = os.path.join(root, tag)
+    part, part_end, _, _ = resume_run(vit, seed, ckpt=d, **kw)
+    check(len(part.history) == RESUME_EVERY, f"resume {tag}: the run did "
+          f"not stop at its snapshot ({len(part.history)} rounds)")
+    sizes = dir_bytes(d)
+    check(sorted(sizes) == ["frozen.npz", "meta.json",
+                            f"state-r{RESUME_EVERY}.npz"],
+          f"resume {tag}: snapshot files {sorted(sizes)}")
+    state_arrays = ckpt_io.load_pytree(
+        os.path.join(d, f"state-r{RESUME_EVERY}.npz"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = Experiment.resume(d, device="cuda")
+    load_s = time.perf_counter() - t0
+    r_end = RunEnd()
+    exp.with_callbacks(r_end)
+    launches = {}
+    with counted(launches):
+        res = exp.run()
+    check_same_run(f"resume {tag}", res, r_end, a, a_end)
+    check(r_end.state.flatP.is_cuda and all(
+        p.is_cuda for p in tree_leaves(r_end.state.plan.params)),
+        f"resume {tag}: the resumed run left the card")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[resume] {tag}: straight run twice bitwise equal; stopped after "
+          f"round {RESUME_EVERY - 1}'s snapshot and resumed: history, ledger,"
+          f" accuracy, flat vector ({r_end.state.flatP.numel()}), server and "
+          f"strategy state bitwise equal to the straight run; losses "
+          + ", ".join(f"{h['loss']:.6f}" for h in res.history)
+          + f"; snapshot on disk {json.dumps(sizes)} ({sum(sizes.values())} "
+          f"B), save {', '.join(f'{s:.3f}' for s in part_end.save_s)} s, "
+          f"load (Experiment.resume) {load_s:.3f} s; peak device memory "
+          f"{peak:.3f} GiB; launches straight {json.dumps(la)}, resumed "
+          f"{json.dumps(launches)}; {card_line()}")
+    return dict(straight=a, launches=la, resumed_launches=launches,
+                exp=a_exp, resumed=exp, state=state_arrays, sizes=sizes,
+                load_s=load_s, save_s=part_end.save_s, peak_gib=peak)
+
+
+def resume_phase(seed: int, vit: dict):
+    """Checkpoint / resume on phase 12's pretrained ViT-B/16 and task (8
+    clients x 2 x 8, rank 16 plus the head), FLASC (fused, 4-bit up):
+    (a) sim, (b) async with packed uploads and jobs in flight at the
+    snapshot, (c) a 10,000-client population; then (d) the async engine
+    with a participation sampler under hetlora_weighted."""
+    import tempfile
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.federated import AsyncEngine
+    from repro_torch.federated.async_clock import ClientSystemProfile
+
+    root = tempfile.mkdtemp(prefix="resume-")
+    out = {}
+    try:
+        # (a) sim
+        r = resume_case("sim", vit, seed, root, strategy=RESUME_FLASC)
+        per_round = {k: v // RESUME_ROUNDS for k, v in r["launches"].items()}
+        check(r["launches"] == fig2_launches("fused", RESUME_ROUNDS)
+              | {k: 0 for k in ("grouped_lora_delta", "flash_attention",
+                                "lora_matmul")},
+              f"resume sim: straight launches {r['launches']}")
+        want = {k: v * (RESUME_ROUNDS - RESUME_EVERY)
+                for k, v in per_round.items()}
+        check(r["resumed_launches"] == want, f"resume sim: resumed launches "
+              f"{r['resumed_launches']}, expected {want}")
+        out["sim"] = r
+
+        # (b) async, packed uploads, a tiered profile: jobs in flight
+        def engine():
+            return AsyncEngine(concurrency=4, buffer_size=2,
+                               profile=ClientSystemProfile.tiered(
+                                   TASK_FED["n_clients"], 2))
+        r = resume_case("async", vit, seed, root,
+                        strategy=dict(RESUME_FLASC, sparse_aggregate=True),
+                        engine=engine)
+        inflight = r["state"]["aux"]["inflight"]["slot"].size
+        check(inflight > 0, "resume async: no job in flight at the snapshot")
+        hist = r["straight"].history
+        check(any(h["staleness"] > 0 for h in hist),
+              "resume async: no stale update")
+        check(r["launches"]["pack_batch"] > 0 and
+              r["resumed_launches"]["pack_batch"] > 0,
+              "resume async: the packed path did not run")
+        print(f"[resume] async: {inflight} jobs in flight at the snapshot; "
+              f"sim_time " + ", ".join(f"{h['sim_time']:.6f}" for h in hist)
+              + "; staleness " + ", ".join(f"{h['staleness']}" for h in hist))
+        out["async"] = r
+
+        # (c) a population of 10,000 behind an availability trace
+        r = resume_case("population", vit, seed, root,
+                        strategy=RESUME_FLASC, population=RESUME_POPULATION)
+        ids = np.unique([c for h in r["straight"].history
+                         for c in h["cohort"]])
+        chunks = np.unique(ids // RESUME_POPULATION["chunk"]).size
+        want_bytes = chunks * RESUME_POPULATION["chunk"] * VIT_ROW_BYTES
+        for which in ("exp", "resumed"):
+            store = r[which]._population_bundle.store
+            check(store.nbytes == want_bytes, f"resume population: "
+                  f"{which} store holds {store.nbytes} B, expected "
+                  f"{chunks} chunks x {RESUME_POPULATION['chunk']} x "
+                  f"{VIT_ROW_BYTES}")
+        rows = [r[w]._population_bundle.store.gather(ids)
+                for w in ("exp", "resumed")]
+        check(np.array_equal(rows[0].view(np.int32), rows[1].view(np.int32)),
+              "resume population: the stores' rows differ")
+        print(f"[resume] population: cohorts "
+              f"{[h['cohort'] for h in r['straight'].history]}; "
+              f"{ids.size} clients in {chunks} chunks touched, store "
+              f"{want_bytes} B in both runs, rows bitwise equal")
+        out["population"] = r
+
+        # (d) async with a participation sampler, hetlora_weighted, buffer
+        # 2: every event aggregates through the slot-specialised phase
+        torch.cuda.reset_peak_memory_stats()
+        het = dict(strategy="hetlora", hetlora_ranks=HET_RANKS,
+                   hetlora_weighted=True)
+        res, end, launches, exp = resume_run(
+            vit, seed, het, engine=lambda: AsyncEngine(
+                buffer_size=2, sampler=ASYNC_SAMPLER))
+        check(exp.engine.config()["sampler"] == ASYNC_SAMPLER,
+              "resume sampler: config")
+        check(len(res.history) == RESUME_ROUNDS and
+              all(np.isfinite(h["loss"]) for h in res.history),
+              f"resume sampler: losses {[h['loss'] for h in res.history]}")
+        check(all(h["applied"] == 2 for h in res.history),
+              "resume sampler: an event was not a partial buffer of 2")
+        trainable, meta, _ = exp._build_trainable(vit["params"], vit["cfg"])
+        note = baseline_checks("hetlora_weighted", end.state,
+                               meta.flatten(trainable), None)
+        print(f"[resume] async sampler {json.dumps(ASYNC_SAMPLER)}, "
+              f"hetlora_weighted {HET_RANKS}, buffer 2: losses "
+              + ", ".join(f"{h['loss']:.6f}" for h in res.history)
+              + "; sim_time " + ", ".join(f"{h['sim_time']:.6f}"
+                                          for h in res.history)
+              + f"; {note}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {json.dumps(launches)}")
+        out["sampler"] = dict(launches=launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in ("sim", "async", "population"):
+        for k in ("exp", "resumed", "straight", "state"):
+            out[r].pop(k)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: a population of 10^6 clients on full-width Yi-9B
+# ---------------------------------------------------------------------------
+
+POP_ROUNDS = 4
+YI_POPULATION = 1_000_000
+
+
+class WaitProbe:
+    """Callback: host time at every round end, the prefetcher's take()
+    seconds of every round, and the last state."""
+
+    def __init__(self):
+        self.t = [time.perf_counter()]
+        self.wait = [0.0]
+        self.state = None
+
+    def on_round_end(self, ev):
+        self.t.append(time.perf_counter())
+        self.wait.append(ev.state.plan.population.last_prefetcher.take_wait_s)
+        self.state = ev.state
+
+    def on_eval(self, ev):
+        pass
+
+
+def population_phase(seed: int):
+    """Phase 6's full-width Yi-9B FLASC (fused, 4-bit up, rank 8, 4
+    clients x 4 x 32 tokens) behind `with_population(10^6,
+    sampler="uniform", chunk=1)`, prefetch on and off: bitwise equal, one
+    H2D copy a cohort, the store O(touched clients)."""
+    import numpy as np
+    import torch
+    from repro_torch.federated import Experiment
+    from repro_torch.models.config import FederatedConfig
+
+    t0 = time.perf_counter()
+    cfg, params = yi_backbone(seed)
+    torch.cuda.synchronize()
+    print(f"[population] backbone built in {time.perf_counter() - t0:.1f}s")
+    data = token_batches(cfg, seed)
+    runs = {}
+    for prefetch in (True, False):
+        probe = WaitProbe()
+        torch.cuda.reset_peak_memory_stats()
+        exp = (Experiment(None, federation=FederatedConfig(**FED))
+               .with_strategy("flasc", selector="fused", quant_bits_up=4,
+                              density_down=0.25, density_up=0.25)
+               .with_lora(rank=8)
+               .with_training(rounds=POP_ROUNDS, seed=seed)
+               .with_params(params, cfg)
+               .with_data(data)
+               .with_engine("sim")
+               .with_population(YI_POPULATION, sampler="uniform", chunk=1,
+                                prefetch=prefetch)
+               .with_callbacks(probe))
+        launches = {}
+        probe.t = [time.perf_counter()]
+        with counted(launches):
+            res = exp.run()
+        bundle = exp._population_bundle
+        pre, store = bundle.last_prefetcher, bundle.store
+        ids = np.unique([c for h in res.history for c in h["cohort"]])
+        round_ms = [1e3 * (b - a) for a, b in zip(probe.t, probe.t[1:])]
+        wait_ms = [1e3 * (b - a) for a, b in zip(probe.wait, probe.wait[1:])]
+        tag = "on" if prefetch else "off"
+        print(f"[population] prefetch {tag}: {POP_ROUNDS} rounds of "
+              f"{FED['n_clients']} out of {YI_POPULATION}; losses "
+              + ", ".join(f"{h['loss']:.6f}" for h in res.history)
+              + f"; round ms {', '.join(f'{m:.3f}' for m in round_ms)}; "
+              f"take() wait ms a round {', '.join(f'{m:.3f}' for m in wait_ms)}"
+              f" (take_wait_s {pre.take_wait_s:.6f}); h2d_puts "
+              f"{pre.h2d_puts}; store {store.nbytes} B for {ids.size} "
+              f"clients ({store.n_chunks} chunks); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {json.dumps(launches)} (phase 6 a round: "
+              f"{json.dumps(FUSED_PER_ROUND)}); {card_line()}")
+        check(len(res.history) == POP_ROUNDS and
+              all(np.isfinite(h["loss"]) for h in res.history),
+              f"population {tag}: losses")
+        check(pre.h2d_puts == POP_ROUNDS, f"population {tag}: {pre.h2d_puts}"
+              f" H2D copies in {POP_ROUNDS} rounds")
+        check(store.nbytes == ids.size * YI_ROW_BYTES, f"population {tag}: "
+              f"store {store.nbytes} B for {ids.size} clients")
+        for name, per_round in FUSED_PER_ROUND.items():
+            check(launches[name] == per_round * POP_ROUNDS,
+                  f"population {tag}: {name} launched {launches[name]} times,"
+                  f" expected {per_round} x {POP_ROUNDS}")
+        runs[tag] = dict(res=res, flat=probe.state.flatP, launches=launches,
+                         round_ms=round_ms, wait_ms=wait_ms,
+                         nbytes=store.nbytes, clients=int(ids.size))
+        del exp, bundle, pre, store, probe
+    check(strip_wall(runs["on"]["res"].history)
+          == strip_wall(runs["off"]["res"].history),
+          "population: prefetch on and off give different histories")
+    check(same_tree(runs["on"]["flat"], runs["off"]["flat"]),
+          "population: prefetch on and off give different flat vectors")
+    print("[population] prefetch on == prefetch off: histories and final "
+          "flat vectors bitwise equal")
+    for r in runs.values():
+        r.pop("res")
+        r.pop("flat")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the training CLI at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_ARGS = ["--arch", "yi-9b", "--rounds", "2"]
+TRAFFIC = re.compile(r"traffic: total ([\d.]+)MB \(([\d.]+)% of dense\) \| "
+                     r"coded wire format ([\d.]+)MB \(down ([\d.]+) / up "
+                     r"([\d.]+)\)")
+PER_CLIENT = re.compile(r"per client per round: down ([\d.]+)kB \((\d+) "
+                        r"values\), up ([\d.]+)kB \((\d+) values\)")
+
+
+def train_cli_phase(seed: int):
+    """`python -m repro_torch.launch.train --arch yi-9b --rounds 2` in this
+    process, on the card at full width and depth: its printed ledger lines
+    positive and its losses finite."""
+    import io
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches), contextlib.redirect_stdout(buf):
+        res = train.main(TRAIN_CLI_ARGS + ["--seed", str(seed)])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"[train-cli] {line}")
+    traffic, per = TRAFFIC.search(text), PER_CLIENT.search(text)
+    check(traffic is not None and per is not None,
+          "train-cli: no ledger lines")
+    nums = [float(x) for x in traffic.groups() + per.groups()]
+    check(all(x > 0 for x in nums), f"train-cli: ledger numbers {nums}")
+    check("(full: 48L d4096)" in text, "train-cli: not the full config")
+    check(len(res.history) == 2 and
+          all(np.isfinite(h["loss"]) for h in res.history),
+          f"train-cli: losses {[h['loss'] for h in res.history]}")
+    print(f"[train-cli] {' '.join(TRAIN_CLI_ARGS)}: {wall:.3f} s with the "
+          f"backbone's build; losses "
+          + ", ".join(f"{h['loss']:.6f}" for h in res.history)
+          + f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{json.dumps(launches)}; {card_line()}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, wall_s=wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3058,7 +3547,8 @@ def main() -> int:
     print(f"[task] done in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    base_res = baseline_phase(args.seed, task_res.pop("vit_setup"))
+    vit = task_res.pop("vit_setup")     # phase 15 resumes on it too
+    base_res = baseline_phase(args.seed, vit)
     torch.cuda.empty_cache()
     print(f"[baselines] done in {time.perf_counter() - t0:.1f}s")
 
@@ -3066,7 +3556,38 @@ def main() -> int:
     fig2_res = fig2_phase(args.seed)
     torch.cuda.empty_cache()
     print(f"[fig2] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    resume_res = resume_phase(args.seed, vit)
+    del vit
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[resume] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    pop_res = population_phase(args.seed)
+    print(f"[population] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    cli_res = train_cli_phase(args.seed)
+    print(f"[train-cli] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
+
+    def later(name: str) -> str:
+        """The launches of phases 15-17 for the kernels JSON's paths."""
+        return (f"; resume (vit-b16, {RESUME_ROUNDS} rounds straight / "
+                f"{RESUME_ROUNDS - RESUME_EVERY} resumed): " + ", ".join(
+                    f"{tag} {r['launches'][name]} / "
+                    f"{r['resumed_launches'][name]}"
+                    for tag, r in resume_res.items() if tag != "sampler")
+                + f", async sampler hetlora_weighted "
+                f"{resume_res['sampler']['launches'][name]}"
+                + f"; population (yi-9b, {POP_ROUNDS} rounds): prefetch on "
+                f"{pop_res['on']['launches'][name]}, off "
+                f"{pop_res['off']['launches'][name]}"
+                + f"; train-cli (yi-9b, 2 rounds, default selector): "
+                f"{cli_res['launches'][name]}")
+    entry["path"] += later("grouped_lora_delta")
 
     entries = [entry]
     for name, replaces in TRANSPORT:
@@ -3087,7 +3608,7 @@ def main() -> int:
                 for tag, r in base_res.items())
             + f"; fig2 (vit-b16, {FIG2_ROUNDS} rounds): " + ", ".join(
                 f"{tag} {r['launches'][name]}"
-                for tag, r in fig2_res.items()),
+                for tag, r in fig2_res.items()) + later(name),
             "max_abs_err": errs[name], "ms": t4["ms"],
             "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
             "bound_by": t4["bound_by"], "library_ms": t4["library_ms"],
@@ -3107,7 +3628,7 @@ def main() -> int:
             f"{tag} {r['launches'][name]}" for tag, r in base_res.items())
             + "; fig2 (vit-b16): " + ", ".join(
                 f"{tag} {r['launches'][name]}"
-                for tag, r in fig2_res.items()))
+                for tag, r in fig2_res.items()) + later(name))
     for name, replaces in PACK:
         t1, t4 = ptimings[name][1], ptimings[name][4]
         launches_, path = paths[name]
@@ -3127,7 +3648,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:58",
         "launches": long_res["flash"],
         "launches_by_route": long_res["flash_routes"],
-        "path": "long-prefill, 48 per prefill",
+        "path": "long-prefill, 48 per prefill" + later("flash_attention"),
         "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
         "max_abs_err": ops_res["attn_err"],
         "max_row_rel_err_bf16": ops_res["attn_row"],
@@ -3146,7 +3667,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/lora_matmul.cu",
         "replaces": "src/repro/kernels/lora_matmul.py:66",
         "launches": ops_res["lora_launches"],
-        "launches_by_route": ops_res["lora_routes"], "path": "ops phase",
+        "launches_by_route": ops_res["lora_routes"],
+        "path": "ops phase" + later("lora_matmul"),
         "shape": "(M, K, N, r) = (8192, 4096, 4096, 16) bf16",
         "max_abs_err": ops_res["lora_err"], "ms": lmain["ms"],
         "plain_ms": lmain["plain_ms"], "bound_ms": lmain["bound_ms"],

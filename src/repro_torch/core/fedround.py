@@ -57,8 +57,11 @@ the same version (rep > 0); the download's with
 `fold_in(version_seed, n_clients)`.  With every slot and no repeats the
 client phase computes exactly one round's client block.
 
-Not ported yet: the population / momentum-carrying round (ROADMAP queue
-1, item 4).
+The population round (`make_population_round_fn`) threads each cohort
+client's persistent momentum row (`client_mu`, gathered from the
+`federated.population` store) through its local steps and returns the
+final rows in `metrics["client_mu"]`.  Without `client_mu` the round is
+the stateless one, launch for launch and bit for bit.
 """
 from __future__ import annotations
 
@@ -189,12 +192,14 @@ def init_server(flatP: torch.Tensor):
 
 
 def _client_update(flat0, cbatch, m_train, *, loss_of, meta: FlatMeta,
-                   fed: FederatedConfig):
+                   fed: FederatedConfig, mu0=None):
     """One client's local steps. cbatch leaves: (local_steps, local_bs, ...).
-    Returns (delta = flat0 - flat_T, mean loss).  The upload transport runs
-    over the whole cohort's stacked deltas in `_run_clients`."""
+    Returns (delta = flat0 - flat_T, mean loss, final momentum).  `mu0` is
+    the client's persistent momentum row (population runs); None starts
+    from zeros.  The upload transport runs over the whole cohort's stacked
+    deltas in `_run_clients`."""
     flat = flat0
-    mu = torch.zeros_like(flat0)
+    mu = torch.zeros_like(flat0) if mu0 is None else mu0
     losses = []
     steps = next(iter(cbatch.values())).shape[0]
     for i in range(steps):
@@ -208,7 +213,7 @@ def _client_update(flat0, cbatch, m_train, *, loss_of, meta: FlatMeta,
         mu = fed.client_momentum * mu + g
         flat = flat - fed.client_lr * mu
         losses.append(loss.detach())
-    return flat0 - flat, torch.stack(losses).mean()
+    return flat0 - flat, torch.stack(losses).mean(), mu
 
 
 def _share_or_stack(items):
@@ -222,13 +227,16 @@ def _share_or_stack(items):
 def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
                  loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
                  phases: PhaseTimes, round_idx: int, kdown=None,
-                 upgens=None):
+                 upgens=None, client_mu=None):
     """Send the download, run every client's local update, and pass the
     stacked deltas through the upload pipeline once.  `phases` gets one
     mark per phase; `round_idx` seeds the random low-rank projections.
 
     Returns ((upload values (C, p_len), up_nnz (C,), losses (C,),
     down_nnz (C,)), (m_down, axis)) like the reference's `_run_clients`.
+    With `client_mu` (C, p_len), each client's local steps start from its
+    momentum row and the first tuple gains a fifth element, the (C, p_len)
+    final rows.
     """
     C = len(plans)
     m_down_cs, ax_down = _share_or_stack([p.m_down for p in plans])
@@ -267,16 +275,19 @@ def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
     phases.mark("download")
 
     # --- local training, one client at a time ------------------------------
-    deltas, losses = [], []
+    deltas, losses, mus = [], [], []
     for c in range(C):
         cb = {k: v[c] for k, v in client_batches.items()}
         flat0 = down.values if ax_down is None else down.values[c]
         m_tr = None if m_train_cs is None else (
             m_train_cs if ax_train is None else m_train_cs[c])
-        delta, loss = _client_update(flat0, cb, m_tr, loss_of=loss_of,
-                                     meta=meta, fed=fed)
+        delta, loss, mu = _client_update(
+            flat0, cb, m_tr, loss_of=loss_of, meta=meta, fed=fed,
+            mu0=None if client_mu is None else client_mu[c])
         deltas.append(delta)
         losses.append(loss)
+        if client_mu is not None:
+            mus.append(mu)
         phases.mark("local_update")
     deltas = torch.stack(deltas)
 
@@ -291,8 +302,10 @@ def _run_clients(P_base, plans, client_batches, s: st.StrategySpec, *,
                                   lowrank=lr_up)
     up = pipe(deltas, rng=upgens)
     phases.mark("upload")
-    return (up.values, up.nnz, torch.stack(losses), down_nnz), \
-        (m_down_cs, ax_down)
+    out = (up.values, up.nnz, torch.stack(losses), down_nnz)
+    if client_mu is not None:
+        out += (torch.stack(mus),)
+    return out, (m_down_cs, ax_down)
 
 
 def _aggregate_uploads(strat: st.Strategy, deltas, ctx):
@@ -314,15 +327,18 @@ def _aggregate_uploads(strat: st.Strategy, deltas, ctx):
 
 def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
                     loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
-                    strategy: st.StrategyLike, params=None):
+                    strategy: st.StrategyLike, params=None, client_mu=None):
     """One round.  client_batches: dict of tensors shaped (n_clients,
     local_steps, local_bs, ...).  `rng_seed` (int, or None for no
     stochastic rounding) seeds the round's quantization generators and its
     DP noise (see the module doc).  `params`, when given, is the frozen backbone, passed to
-    `loss_of(params, tree, mb)`.  Returns (flatP', server_state', sstate',
-    metrics), every metric a tensor on the device except `phase_ms`, the
-    round's `PhaseTimes` (download mask, download, local updates, upload,
-    server step), which the engine reads after its metrics pull."""
+    `loss_of(params, tree, mb)`.  `client_mu` (n_clients, p_len), when
+    given, holds the cohort's persistent momentum rows; the final rows come
+    back in `metrics["client_mu"]`.  Returns (flatP', server_state',
+    sstate', metrics), every metric a tensor on the device except
+    `phase_ms`, the round's `PhaseTimes` (download mask, download, local
+    updates, upload, server step), which the engine reads after its
+    metrics pull."""
     strat = st.resolve(strategy)
     if params is not None:
         loss_of = functools.partial(loss_of, params)
@@ -353,9 +369,11 @@ def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
         upgens = [generator(fold_in(rng_seed, c), dev)
                   for c in range(n_clients)]
 
-    (deltas, nnzs, losses, down_nnzs), (m_down_cs, ax_down) = _run_clients(
+    out, (m_down_cs, ax_down) = _run_clients(
         P_base, plans, client_batches, s, loss_of=loss_of, meta=meta, fed=fed,
-        phases=phases, round_idx=round_idx, kdown=kdown, upgens=upgens)
+        phases=phases, round_idx=round_idx, kdown=kdown, upgens=upgens,
+        client_mu=client_mu)
+    deltas, nnzs, losses, down_nnzs = out[:4]
 
     lr_down = tp.lowrank_stage(s, "down")
     if lr_down is not None and lr_down.active(meta.p_len):
@@ -401,6 +419,8 @@ def federated_round(flatP, server_state, sstate, client_batches, rng_seed, *,
         "loss_clients": losses,
         "phase_ms": phases,
     }
+    if client_mu is not None:
+        metrics["client_mu"] = out[4]
     return flatP, server_state, sstate, metrics
 
 
@@ -418,6 +438,33 @@ def make_round_fn(loss_of: LossFn, meta: FlatMeta, fed: FederatedConfig,
         return federated_round(flatP, server_state, sstate, client_batches,
                                rng_seed, loss_of=loss_of, meta=meta, fed=fed,
                                strategy=strat, params=params)
+
+    if with_params:
+        return fn
+    return functools.partial(fn, None)
+
+
+def make_population_round_fn(loss_of: LossFn, meta: FlatMeta,
+                             fed: FederatedConfig, strategy: st.StrategyLike,
+                             *, with_params: bool = False):
+    """`make_round_fn` with the sampled cohort's momentum rows threaded
+    through (population runs):
+
+        fn(flatP, server_state, sstate, client_batches, client_mu, rng_seed)
+            -> (flatP', server_state', sstate', metrics)
+
+    `client_mu` is the (cohort, p_len) block the engine staged from the
+    store; the final rows ride back in `metrics["client_mu"]`.  A cohort
+    whose rows are all zero computes the stateless round bit for bit.  With
+    `with_params=True` the frozen backbone comes first."""
+    strat = st.resolve(strategy)
+
+    def fn(params, flatP, server_state, sstate, client_batches, client_mu,
+           rng_seed):
+        return federated_round(flatP, server_state, sstate, client_batches,
+                               rng_seed, loss_of=loss_of, meta=meta, fed=fed,
+                               strategy=strat, params=params,
+                               client_mu=client_mu)
 
     if with_params:
         return fn

@@ -29,16 +29,27 @@ LoRA: the flat vector is the whole backbone (`{"lora": {}, "head": {},
 runs the trained backbone (the reference evaluates the pretrained one,
 ROADMAP queue 3 item 5(d)).
 
-Not ported yet, and raising `NotImplementedError`: checkpoint/resume
-(ROADMAP queue 1, item 3), client populations (item 4) and a device mesh
-(item 8).
+`with_checkpoint(dir, every)` snapshots the run in the reference's format
+(`checkpoint/io.py`: the same npz keys, shapes and dtypes and the same
+`meta.json` keys, so either package resumes the other's snapshot), and
+`Experiment.resume(dir)` rebuilds the experiment and runs the remaining
+rounds, bit for bit the uninterrupted run's (an async run's event queue
+and a population's store included).  `with_population(N, sampler=...)`
+samples each round's cohort out of N clients with persistent momentum
+rows in a host store (`federated/population.py`).
+
+Not ported yet, and raising `NotImplementedError`: a device mesh
+(ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import comm as comm_mod
 from repro_torch.core import fedround
 from repro_torch.core import strategies as st
@@ -46,10 +57,11 @@ from repro_torch.core import transport as tp
 from repro_torch.data.datasets import FederatedTask
 from repro_torch.data.pipeline import sample_round
 from repro_torch.federated import engine as eng
+from repro_torch.federated import population as popn
 from repro_torch.federated import runtime as rt
 from repro_torch.models import lora as lora_mod
 from repro_torch.models import model as mdl
-from repro_torch.models.config import FederatedConfig, LoRAConfig
+from repro_torch.models.config import FederatedConfig, LoRAConfig, ModelConfig
 from repro_torch.models.layers import init_params
 
 
@@ -108,7 +120,12 @@ class Experiment:
         self.device = resolve_device(device)
         self._params_and_cfg: Optional[Tuple[Any, Any]] = None
         self._data_provider: Optional[eng.DataProvider] = None
+        self._checkpoint: Optional[Tuple[str, int, bool]] = None
         self._callbacks: List[eng.Callback] = []
+        self._restore: Optional[Tuple[Any, Dict[str, Any]]] = None
+        self._frozen_written = False
+        self._population: Optional[Dict[str, Any]] = None
+        self._population_bundle: Optional[popn.Population] = None
 
     # --- builder facets ----------------------------------------------------
     def with_strategy(self, strategy: Optional[st.StrategyLike] = None,
@@ -174,8 +191,8 @@ class Experiment:
     def with_engine(self, engine: eng.EngineLike, **kwargs) -> "Experiment":
         """Execution backend: "sim", or "async" with the `AsyncEngine`
         arguments (concurrency, buffer_size, staleness_alpha,
-        max_staleness, allow_version_repeats, profile).  "sharded" and the
-        async engine's `sampler=` raise (ROADMAP queue 1)."""
+        max_staleness, allow_version_repeats, profile, sampler).
+        "sharded" raises (ROADMAP queue 1, item 8)."""
         self.engine = eng.resolve_engine(engine, **kwargs)
         return self
 
@@ -190,8 +207,20 @@ class Experiment:
         self._data_provider = provider
         return self
 
-    def with_checkpoint(self, directory: str, every: int = 10) -> "Experiment":
-        raise _not_ported("checkpoint/resume of experiments", "item 3")
+    def with_checkpoint(self, directory: str, every: int = 10, *,
+                        save_model_config: bool = False) -> "Experiment":
+        """Snapshot the run into `directory` every `every` rounds;
+        `Experiment.resume(directory)` restarts from the latest snapshot.
+
+        Resume rebuilds the model from `ModelOptions`, as the reference
+        does, so a backbone given by `with_params` under another ModelConfig
+        is refused at `run()`.  `save_model_config=True` accepts it and
+        writes the config to the sidecar (`meta["model_config"]`, a key the
+        port adds), from which the port's `resume` rebuilds it; the
+        reference's `resume` does not read that key, so such a snapshot
+        resumes in the port only."""
+        self._checkpoint = (directory, int(every), bool(save_model_config))
+        return self
 
     def with_callbacks(self, *callbacks: eng.Callback) -> "Experiment":
         """Append user callbacks (they run after the ledger, eval and
@@ -199,8 +228,23 @@ class Experiment:
         self._callbacks.extend(callbacks)
         return self
 
-    def with_population(self, *args, **kwargs) -> "Experiment":
-        raise _not_ported("client populations", "item 4")
+    def with_population(self, population: int, *,
+                        sampler: popn.SamplerLike = "uniform",
+                        chunk: int = 4096, prefetch: bool = True,
+                        **sampler_kw) -> "Experiment":
+        """Sample each round's `n_clients` cohort out of `population`
+        clients with the named `CohortSampler` (e.g. `sampler="fraction",
+        participation=0.3`), gather their momentum rows from a chunked host
+        `PopulationStore` (`chunk` clients a chunk, each chunk `chunk x
+        p_len x 4` bytes once written; 0 selects the dense device store, a
+        test backend) and commit the final rows after the round.
+        `prefetch` stages the next cohort while the current round computes.
+        Synchronous engines only (`AsyncEngine` takes `sampler=`)."""
+        self._population = {"population": int(population),
+                            "sampler": sampler, "chunk": int(chunk),
+                            "prefetch": bool(prefetch),
+                            "sampler_kw": dict(sampler_kw)}
+        return self
 
     # --- assembly ----------------------------------------------------------
     def build_backbone(self):
@@ -275,11 +319,23 @@ class Experiment:
             return mdl.loss_fn(p, cfg, rt._task_batch(cfg, mb),
                                lora=tree["lora"], lora_scale=scale)
 
+        pop = None
+        if self._population is not None:
+            ps = self._population
+            pop = popn.Population.build(
+                ps["population"], meta.p_len, cohort=self.federation.n_clients,
+                sampler=ps["sampler"], seed=t.seed, chunk=ps["chunk"],
+                prefetch=ps["prefetch"], device=self.device,
+                **ps["sampler_kw"])
+            self._population_bundle = pop
         plan = eng.RoundTask(loss_of, meta, self.federation, self.strategy,
-                             seed=t.seed, params=params)
+                             seed=t.seed, population=pop, params=params)
         state = eng.RunState.fresh(plan, meta.flatten(trainable),
                                    rounds=t.rounds)
-        ledger = self.build_ledger(meta.p_len)
+        if self._restore is not None:
+            state, ledger, saved_acc = self._restore_state(state)
+        else:
+            ledger, saved_acc = self.build_ledger(meta.p_len), 0.0
         callbacks: List[eng.Callback] = [eng.LedgerCallback(ledger)]
         eval_cb = None
         if task is not None:
@@ -287,10 +343,153 @@ class Experiment:
                 lambda flatP: rt.evaluate(params, cfg, trainable, meta, task,
                                           scale, flatP),
                 every=t.eval_every)
+            eval_cb.acc = saved_acc
             callbacks.append(eval_cb)
         callbacks.append(eng.LoggingCallback(t.verbose, every=t.log_every))
+        if self._checkpoint is not None:
+            if task is None:
+                raise ValueError("checkpointing needs a FederatedTask")
+            directory, every, save_cfg = self._checkpoint
+            if (self._params_and_cfg is not None and self._restore is None
+                    and not save_cfg
+                    and cfg != rt.model_for_task(task, **self.model.kwargs())):
+                raise ValueError(
+                    "with_checkpoint cannot snapshot a custom ModelConfig "
+                    "supplied via with_params: resume rebuilds the config "
+                    "from ModelOptions — configure the model through "
+                    "with_model(...) instead (or pass "
+                    "with_checkpoint(..., save_model_config=True), a "
+                    "snapshot only the port resumes)")
+            callbacks.append(eng.CheckpointCallback(
+                directory, every,
+                lambda d, s: self._save_checkpoint(d, s, params, cfg, ledger,
+                                                   eval_cb)))
         callbacks.extend(self._callbacks)
         data = self._data_provider or self._default_data()
         state = self.engine.run_rounds(state, data, callbacks)
         acc = eval_cb.acc if eval_cb is not None else 0.0
         return rt.ExperimentResult(state.history, ledger, acc)
+
+    # --- checkpoint / resume ----------------------------------------------
+    def _save_checkpoint(self, directory: str, state: eng.RunState, params,
+                         cfg: ModelConfig, ledger, eval_cb) -> str:
+        """One snapshot with the reference's npz keys and sidecar keys (plus
+        `model_config` when `save_model_config`)."""
+        task = self.task
+        arrays = {"P": state.flatP, "server": state.server,
+                  "strategy": state.sstate}
+        if state.aux is not None:   # engine-owned state: clock or store
+            arrays["aux"] = state.aux
+        frozen = {        # run-constant payload, written once per directory
+            "params": params,
+            "task": {"parts": {str(i): p for i, p in enumerate(task.parts)},
+                     "data": task.data, "eval_data": task.eval_data},
+        }
+        directory_, every, save_cfg = self._checkpoint
+        meta_json = {
+            "version": 1,
+            "round": state.round,
+            "history": state.history,
+            "acc": float(eval_cb.acc) if eval_cb is not None else 0.0,
+            "ledger": {f.name: getattr(ledger, f.name)
+                       for f in dataclasses.fields(ledger)},
+            "strategy": dataclasses.asdict(self.strategy.spec),
+            "federation": dataclasses.asdict(self.federation),
+            "model": self.model.kwargs(),
+            "lora": dataclasses.asdict(self.lora),
+            "train": dataclasses.asdict(self.train),
+            "task_meta": {"name": task.name, "kind": task.kind,
+                          "n_classes": task.n_classes},
+            "checkpoint": {"dir": directory_, "every": every},
+            "engine": {"name": self.engine.name,
+                       "config": self.engine.config(),
+                       "rounds_per_call":
+                           int(getattr(self.engine, "rounds_per_call", 1))},
+        }
+        if save_cfg:
+            meta_json["model_config"] = dataclasses.asdict(cfg)
+        if self._population_bundle is not None:
+            # the store itself rides state.aux; the sidecar keeps the facets
+            meta_json["population"] = self._population_bundle.config()
+        # a fresh run's first save replaces a frozen payload left by
+        # another run in the same directory
+        overwrite = not (self._frozen_written or self._restore is not None)
+        self._frozen_written = True
+        return ckpt_io.save_experiment_checkpoint(directory, arrays, meta_json,
+                                                  frozen=frozen,
+                                                  overwrite_frozen=overwrite)
+
+    def _restore_state(self, fresh: eng.RunState):
+        """The snapshot's state in the form of the fresh state `fresh`:
+        tensors on its device in its dtypes, the round index and the
+        strategy's flags as host scalars."""
+        arrays, mj = self._restore
+        flatP = ckpt_io.restore_like(arrays["P"], fresh.flatP)
+        server = ckpt_io.restore_like(arrays["server"], fresh.server)
+        sstate = ckpt_io.restore_like(arrays.get("strategy", {}),
+                                      fresh.sstate)
+        state = eng.RunState(fresh.plan, flatP, server, sstate,
+                             round=int(mj["round"]), rounds=self.train.rounds,
+                             history=list(mj["history"]),
+                             aux=arrays.get("aux"))
+        ledger = comm_mod.CommLedger(**mj["ledger"])
+        return state, ledger, float(mj.get("acc", 0.0))
+
+    @classmethod
+    def resume(cls, directory: str, task: Optional[FederatedTask] = None,
+               device: DeviceLike = None) -> "Experiment":
+        """Rebuild an experiment from its latest snapshot, on `device` (the
+        card by default): the frozen backbone goes there in its saved
+        dtypes, the task arrays stay host numpy arrays in theirs.  `.run()`
+        then runs exactly the remaining rounds; restored history plus the
+        new records reproduce the uninterrupted run bit for bit.  Extend a
+        run with `.with_training(rounds=...)` before `.run()`.  The saved
+        engine (name and `config()`) is restored; an async run also
+        restores its event queue, a population run its store."""
+        arrays, mj = ckpt_io.load_experiment_checkpoint(directory)
+        if task is None:
+            tm, tarr = mj["task_meta"], arrays["task"]
+            parts = [np.asarray(tarr["parts"][str(i)])
+                     for i in range(len(tarr["parts"]))]
+            task = FederatedTask(tm["name"], tm["kind"], parts,
+                                 tarr["data"], tarr["eval_data"],
+                                 tm["n_classes"])
+        sj = dict(mj["strategy"])
+        for k in ("client_densities", "hetlora_ranks"):
+            sj[k] = tuple(sj.get(k, ()))
+        lj = dict(mj["lora"])
+        lj["targets"] = tuple(lj.get("targets", ()))
+        exp = cls(task,
+                  strategy=st.StrategySpec(**sj),
+                  federation=FederatedConfig(**mj["federation"]),
+                  model=ModelOptions(**mj["model"]),
+                  lora=LoRAConfig(**lj),
+                  train=TrainOptions(**mj["train"]),
+                  device=device)
+        cj = mj.get("model_config")
+        if cj is not None:
+            cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                 for k, v in cj.items()})
+        else:
+            cfg = rt.model_for_task(task, **exp.model.kwargs())
+        exp.with_params(ckpt_io.tree_from_numpy(arrays["params"],
+                                                device=exp.device), cfg)
+        exp.with_checkpoint(mj["checkpoint"]["dir"], mj["checkpoint"]["every"],
+                            save_model_config=cj is not None)
+        ej = mj.get("engine", {"name": "sim"})
+        ekw = ej.get("config")
+        if ekw is None:     # pre-config snapshots stored only the chunk
+            ekw = ({"rounds_per_call": ej["rounds_per_call"]}
+                   if ej.get("rounds_per_call", 1) > 1 else {})
+        exp.with_engine(ej["name"], **ekw)
+        pj = mj.get("population")
+        if pj is not None:
+            # the sampler spec carries cohort and seed; the store comes
+            # back from the snapshot's aux when run() enters the loop
+            exp._population = {"population": int(pj["population"]),
+                               "sampler": dict(pj["sampler"]),
+                               "chunk": int(pj["chunk"]),
+                               "prefetch": bool(pj["prefetch"]),
+                               "sampler_kw": {}}
+        exp._restore = (arrays, mj)
+        return exp

@@ -8,10 +8,12 @@ callback-instrumented loop:
     compile(plan)  -> step
     run_rounds(state, data, callbacks) -> state'
 
-The loop body is a `Callback` pipeline (`on_round_end` / `on_eval`);
-`LedgerCallback` does the communication accounting, `EvalCallback`
-evaluates the flat vector on its cadence and `LoggingCallback` prints
-progress.  A callback may raise `StopRun`.
+The loop body is a `Callback` pipeline (`on_round_end` / `on_eval` /
+`on_checkpoint`); `LedgerCallback` does the communication accounting,
+`EvalCallback` evaluates the flat vector on its cadence, `LoggingCallback`
+prints progress and `CheckpointCallback` saves a resumable snapshot
+(`checkpoint/io.save_experiment_checkpoint`) every `every` rounds.  A
+callback may raise `StopRun`.
 
 After each round the engine pulls the round's metrics to the host once:
 the only host sync of a round.  Recorded losses and ledger entries are
@@ -19,12 +21,17 @@ reduced on the host in a fixed order (`_mean_f32`, `_sum_f32`), as the
 reference does, so the records do not depend on a device's reduction
 order.
 
+With a `population.Population` on the `RoundTask` the synchronous loop
+samples each round's cohort out of a larger client population, stages
+the cohort's momentum rows from the host store (prefetching the next
+cohort while the round computes) and commits the final rows back
+(`_run_population_rounds`).
+
 `AsyncEngine` runs split client / server phases on a virtual clock
 (`federated/async_clock.py`); at its defaults it reproduces `SimEngine`
 bit for bit.
 
-Not ported yet: the sharded engine (ROADMAP queue 1, item 8), population
-runs (item 4) and the checkpoint callback (item 3).
+Not ported yet: the sharded engine (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.core import fedround
 from repro_torch.core import strategies as st
 from repro_torch.core import transport as tp
 from repro_torch.federated import async_clock as ac
+from repro_torch.federated import population as popn
 from repro_torch.models.config import FederatedConfig
 
 DataProvider = Callable[[int], Any]
@@ -76,6 +84,9 @@ class RoundTask:
     strategy -- the resolved `Strategy` instance.
     seed     -- base seed; round r quantizes with generators derived from
                 `fedround.fold_in(seed + 2, r)`.
+    population -- optional `population.Population` (host store, cohort
+                sampler, prefetch switch); when set the synchronous
+                engines run `_run_population_rounds`.
     params   -- the frozen backbone (nested dict of tensors), or None.
     """
     loss_of: fedround.LossFn
@@ -83,6 +94,7 @@ class RoundTask:
     fed: FederatedConfig
     strategy: st.Strategy
     seed: int = 0
+    population: Optional[popn.Population] = None
     params: Any = None
 
 
@@ -92,8 +104,11 @@ class RunState:
     to run; `flatP` the flat trainable vector; `server` the server
     optimizer state (`fedround.init_server`); `sstate` the strategy's.
     `aux` is engine-owned state: None for `sim`; the async engine's
-    virtual-clock snapshot (`VirtualClock.to_arrays`), from which a later
-    `run_rounds` on the same state continues."""
+    virtual-clock snapshot (`VirtualClock.to_arrays`) or a population
+    run's store (`{"population": store.to_arrays()}`), from which a later
+    `run_rounds` on the same state (or a resumed checkpoint) continues.
+    Engines refresh it on every round a callback `wants_state`, and at the
+    end of `run_rounds`."""
     plan: RoundTask
     flatP: Any
     server: Any
@@ -124,17 +139,30 @@ class RoundEvent:
     state: RunState
     metrics: Dict[str, Any]
     record: Dict[str, Any]
-    evaluated: bool = False
+    evaluated: bool = False             # set by EvalCallback
+    checkpoint_due: bool = False        # set by CheckpointCallback
+    checkpoint_path: Optional[str] = None
 
 
 class Callback:
     """Round-loop hook protocol; all hooks default to no-ops.  `on_eval`
-    runs after every `on_round_end` when a hook set `ev.evaluated`."""
+    runs after every `on_round_end` when a hook set `ev.evaluated`;
+    `on_checkpoint` runs last, after the round's history append and round
+    advance, on rounds a `CheckpointCallback` marked due (never after a
+    `StopRun`).  `wants_state(round_idx, rounds)` marks rounds where the
+    callback needs the post-round state on the host: engines refresh
+    `state.aux` then."""
+
+    def wants_state(self, round_idx: int, rounds: int) -> bool:
+        return False
 
     def on_round_end(self, ev: RoundEvent) -> None:
         pass
 
     def on_eval(self, ev: RoundEvent) -> None:
+        pass
+
+    def on_checkpoint(self, ev: RoundEvent) -> None:
         pass
 
 
@@ -173,6 +201,9 @@ class EvalCallback(Callback):
         at_cadence = self.every > 0 and (round_idx + 1) % self.every == 0
         return at_cadence or round_idx == rounds - 1
 
+    def wants_state(self, round_idx: int, rounds: int) -> bool:
+        return self._due(round_idx, rounds)
+
     def on_round_end(self, ev: RoundEvent) -> None:
         if self._due(ev.round, ev.state.rounds):
             self.acc = self.eval_fn(ev.state.flatP)
@@ -202,6 +233,40 @@ class LoggingCallback(Callback):
     def on_eval(self, ev: RoundEvent) -> None:
         if self.verbose:
             print(self._line(ev))
+
+
+class CheckpointCallback(Callback):
+    """Saves a resumable snapshot every `every` rounds through
+    `save_fn(directory, state) -> path` (`Experiment.with_checkpoint` wires
+    it to `checkpoint/io.save_experiment_checkpoint`)."""
+
+    def __init__(self, directory: str, every: int,
+                 save_fn: Callable[[str, RunState], str]):
+        self.directory = directory
+        self.every = max(int(every), 1)
+        self.save_fn = save_fn
+        self.last_path: Optional[str] = None
+
+    def _due(self, round_idx: int) -> bool:
+        return (round_idx + 1) % self.every == 0
+
+    def wants_state(self, round_idx: int, rounds: int) -> bool:
+        return self._due(round_idx)
+
+    def on_round_end(self, ev: RoundEvent) -> None:
+        if self._due(ev.round):
+            ev.checkpoint_due = True
+
+    def on_checkpoint(self, ev: RoundEvent) -> None:
+        self.last_path = self.save_fn(self.directory, ev.state)
+        ev.checkpoint_path = self.last_path
+
+
+def _wants_state(callbacks: Sequence[Callback], state: RunState) -> bool:
+    """Whether a callback wants the state after round `state.round` (a
+    callback without the hook, not derived from `Callback`, does not)."""
+    return any(cb.wants_state(state.round, state.rounds)
+               for cb in callbacks if hasattr(cb, "wants_state"))
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +306,8 @@ class Engine:
                    callbacks: Sequence[Callback] = ()) -> RunState:
         """Run rounds [state.round, state.rounds); mutates and returns
         `state`.  Round r's rng seed is `fold_in(seed + 2, r)`."""
+        if state.plan.population is not None:
+            return self._run_population_rounds(state, data, callbacks)
         plan = state.plan
         pargs = self._step_params(plan)
         step = self.compile(plan)
@@ -256,6 +323,82 @@ class Engine:
                     r += 1
         except StopRun:
             pass
+        return state
+
+    # --- the population round loop -----------------------------------------
+    def compile_population(self, plan: RoundTask):
+        """-> step(flatP, server, sstate, batch, client_mu, rng_seed) ->
+        (flatP', server', sstate', metrics), `metrics["client_mu"]` the
+        cohort's final momentum rows (the backbone first with
+        `plan.params` set)."""
+        return fedround.make_population_round_fn(
+            plan.loss_of, plan.meta, plan.fed, plan.strategy,
+            with_params=plan.params is not None)
+
+    def _run_population_rounds(self, state: RunState, data: DataProvider,
+                               callbacks: Sequence[Callback] = ()
+                               ) -> RunState:
+        """The population variant of the round loop.
+
+        Each round takes its cohort of `fed.n_clients` ids and their
+        momentum rows from the prefetcher (one H2D copy of the stacked
+        rows), runs the round, and commits the final rows back to the host
+        store.  With `population.prefetch` on, round r+1's sample, gather
+        and copy are issued after round r's work is queued and before the
+        blocking pull of its rows, so staging overlaps the device's
+        compute; prefetch never changes values.  The final rows come back
+        as one D2H copy into pinned memory.  The store rides `state.aux`
+        (`{"population": ...}`) on rounds a callback wants state and at
+        the end, so a checkpoint resumes mid-flight."""
+        plan = state.plan
+        pop = plan.population
+        n = plan.fed.n_clients
+        if pop.sampler.cohort != n:
+            raise ValueError(f"sampler cohort {pop.sampler.cohort} != "
+                             f"fed.n_clients {n}")
+        if pop.store.row_len != plan.meta.p_len:
+            raise ValueError(f"store rows of {pop.store.row_len} != p_len "
+                             f"{plan.meta.p_len}")
+        if state.aux and "population" in state.aux:
+            pop.store.load_arrays(state.aux["population"])
+        device = state.flatP.device
+        pargs = self._step_params(plan)
+        step = self.compile_population(plan)
+        # every round stages through the prefetcher: its cold take() is
+        # the same sample + gather + copy the inline path would run
+        pre = popn.CohortPrefetcher(pop.store, pop.sampler, device)
+        pop.last_prefetcher = pre
+        pinned = None
+        try:
+            with torch.no_grad():
+                r = state.round
+                while r < state.rounds:
+                    ids, mu_dev = pre.take(r)
+                    seed = fedround.fold_in(plan.seed + 2, r)
+                    state.flatP, state.server, state.sstate, metrics = step(
+                        *pargs, state.flatP, state.server, state.sstate,
+                        data(r), mu_dev, seed)
+                    if pop.prefetch and r + 1 < state.rounds:
+                        # round r is queued: stage round r+1 meanwhile
+                        pre.prefetch(r + 1, exclude=ids)
+                    mu = metrics.pop("client_mu")
+                    if mu.device.type == "cuda":
+                        if pinned is None or pinned.shape != mu.shape:
+                            pinned = torch.empty(mu.shape, dtype=mu.dtype,
+                                                 pin_memory=True)
+                        pinned.copy_(mu)    # blocks on round r's work
+                        mu_host = pinned.numpy()
+                    else:
+                        mu_host = mu.numpy()
+                    pop.store.commit_cohort(ids, mu_host)
+                    if _wants_state(callbacks, state):
+                        state.aux = {"population": pop.store.to_arrays()}
+                    self._finish_round(state, r, metrics, callbacks,
+                                       extra={"cohort": ids.tolist()})
+                    r += 1
+        except StopRun:
+            pass
+        state.aux = {"population": pop.store.to_arrays()}
         return state
 
     def _finish_round(self, state: RunState, round_idx: int, metrics,
@@ -282,6 +425,10 @@ class Engine:
             stop = e
         state.history.append(record)
         state.round = round_idx + 1
+        if ev.checkpoint_due and stop is None:
+            for cb in callbacks:
+                if hasattr(cb, "on_checkpoint"):
+                    cb.on_checkpoint(ev)
         if stop is not None:
             raise stop
 
@@ -381,10 +528,20 @@ class AsyncEngine(Engine):
     full fresh cohort at staleness 0, and the run reproduces `SimEngine`
     bit for bit.
 
-    Refused: DP aggregation (`fed.dp_clip > 0`).  Not ported yet
-    (`NotImplementedError`, ROADMAP queue 1, item 4): `sampler=` and the
-    slot-specialised server phase a non-uniform `Strategy.aggregate` needs
-    under partial buffers.
+    Client participation: an optional `sampler=` (a registered
+    `population.CohortSampler` name, spec dict or instance) gates which
+    idle clients may start a job against each server version.  A version
+    whose every startable client is gated, with nothing in flight or
+    buffered, ignores the gate (the FedBuff-timeout analog), so the event
+    loop cannot starve.  A non-uniform aggregate (`hetlora_weighted`) runs
+    under partial, stale or version-repeat buffers through a server phase
+    specialised to the buffer's slot tuple (`cohort_slots`), so rank
+    coverage counts the rows present.  A snapshot of the clock goes to
+    `state.aux` on every event a callback `wants_state`, so a checkpoint
+    resumes the event queue mid-flight.
+
+    Refused: DP aggregation (`fed.dp_clip > 0`) and a population bundle on
+    the `RoundTask` (the async cohort is the client population).
     """
 
     def __init__(self, *, concurrency: Optional[int] = None,
@@ -393,10 +550,6 @@ class AsyncEngine(Engine):
                  max_staleness: Optional[int] = None,
                  allow_version_repeats: bool = False,
                  profile=None, sampler=None):
-        if sampler is not None:
-            raise NotImplementedError(
-                "AsyncEngine(sampler=...) needs federated/population.py, "
-                "which is not ported yet (ROADMAP queue 1, item 4)")
         if isinstance(profile, dict):   # config() round trip
             profile = ac.ClientSystemProfile(
                 **{k: tuple(v) if isinstance(v, list) else v
@@ -415,15 +568,21 @@ class AsyncEngine(Engine):
         self.allow_version_repeats = bool(allow_version_repeats)
         self.profile = profile if profile is not None \
             else ac.ClientSystemProfile()
+        # None, a registered sampler name, a CohortSampler or a config()
+        # spec dict: gates which idle clients may start a job each version
+        self.sampler = sampler
 
     def config(self) -> Dict[str, Any]:
+        sampler = (self.sampler.config()
+                   if isinstance(self.sampler, popn.CohortSampler)
+                   else self.sampler)
         return {"concurrency": self.concurrency,
                 "buffer_size": self.buffer_size,
                 "staleness_alpha": self.staleness_alpha,
                 "max_staleness": self.max_staleness,
                 "allow_version_repeats": self.allow_version_repeats,
                 "profile": dataclasses.asdict(self.profile),
-                "sampler": None}
+                "sampler": sampler}
 
     def compile(self, plan: RoundTask):
         raise NotImplementedError(
@@ -441,6 +600,12 @@ class AsyncEngine(Engine):
                 "AsyncEngine: DP aggregation (dp_clip > 0) under buffered/"
                 "partial aggregation is unsupported: the noise scale "
                 "assumes one uniform synchronous cohort")
+        if plan.population is not None:
+            raise NotImplementedError(
+                "AsyncEngine: the host population store is a synchronous-"
+                "engine path (the async cohort IS the client population); "
+                "pass sampler= to the engine for participation/"
+                "availability gating instead")
         n = fed.n_clients
         concurrency = (n if self.concurrency is None
                        else min(self.concurrency, n))
@@ -448,6 +613,8 @@ class AsyncEngine(Engine):
         if concurrency < 1 or buffer_size < 1:
             raise ValueError(f"concurrency {concurrency} and buffer_size "
                              f"{buffer_size} must be >= 1")
+        sampler = (None if self.sampler is None
+                   else popn.resolve_sampler(self.sampler, population=n))
         prof = self.profile
         spec = plan.strategy.spec
         down_vb, down_dense = tp.wire_format(spec, meta.p_len, "down")
@@ -459,15 +626,24 @@ class AsyncEngine(Engine):
             fedround.make_server_phase_fn(meta, fed, plan.strategy,
                                           sparse=True) if pack_cap else None)
         full_slots = tuple(range(n))
+        slot_server_fns: Dict[Any, Any] = {}
 
         def get_server_fns(slots):
+            """(dense_fn, sparse_fn or None) for a buffer of the jobs of
+            `slots` (seq order, repeats allowed).  A uniform aggregate, and
+            the full fresh cohort, take the shared pair; a weighted
+            `Strategy.aggregate` gets phases specialised to the slots, so
+            its coverage counts the rows present."""
             if plan.strategy.uniform_aggregation or slots == full_slots:
                 return server_fns
-            raise NotImplementedError(
-                "AsyncEngine: a non-uniform Strategy.aggregate under a "
-                "partial or stale buffer needs the slot-specialised server "
-                "phase (cohort_slots), not ported yet (ROADMAP queue 1, "
-                "item 4)")
+            if slots not in slot_server_fns:
+                def mk(sparse):
+                    return fedround.make_server_phase_fn(
+                        meta, fed, plan.strategy, sparse=sparse,
+                        cohort_slots=slots)
+                slot_server_fns[slots] = (mk(False),
+                                          mk(True) if pack_cap else None)
+            return slot_server_fns[slots]
 
         clock = (ac.VirtualClock.from_arrays(state.aux, n, meta.p_len)
                  if state.aux is not None
@@ -559,7 +735,18 @@ class AsyncEngine(Engine):
             startable = [c for c in clock.idle
                          if (self.allow_version_repeats
                              or clock.last_version[c] < version)]
-            starters = startable[:budget]
+            avail = startable
+            if sampler is not None:
+                elig = sampler.eligible(version)
+                avail = [c for c in startable if bool(elig[c])]
+                if not avail and startable and not clock.inflight \
+                        and not clock.buffer:
+                    # every startable client is outside its window with
+                    # nothing in flight or buffered: the version can only
+                    # advance through an aggregation, so ignore the gate
+                    # for this version (FedBuff-timeout analog)
+                    avail = startable
+            starters = avail[:budget]
             taken = set(starters)
             clock.idle = [c for c in clock.idle if c not in taken]
             if not starters:
@@ -667,5 +854,9 @@ class AsyncEngine(Engine):
                  "launch_bytes": list(pending_bytes)}
         pending_phases.clear()
         pending_bytes.clear()
+        # the snapshot a checkpoint of this event saves: only on rounds a
+        # callback asks for state (a StopRun is covered by the final one)
+        if _wants_state(callbacks, state):
+            state.aux = clock.to_arrays()
         self._finish_round(state, state.round, metrics, callbacks,
                            extra=extra)

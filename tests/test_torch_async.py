@@ -23,8 +23,9 @@ overlap >= 0.999, equal ledger bytes where the masks agree):
     profile, max_staleness 1, 4 events, no quantization (the two
     packages draw different random numbers).  `applied`, `dropped`,
     `staleness` and `sim_time` are equal wherever the upload sizes are.
-And the virtual clock's array form, the engine's `config()` and the
-refusals (`dp_clip > 0`, `sampler=`, the sharded engine).
+And the virtual clock's array form, the engine's `config()` (with a
+`sampler=`, equal to the reference's) and the refusals (`dp_clip > 0`,
+the sharded engine).
 """
 import dataclasses
 
@@ -407,8 +408,12 @@ def test_async_engine_config_and_refusals(model):
     assert isinstance(teng.resolve_engine("async", **cfg), teng.AsyncEngine)
     exp = Experiment(None, device="cpu").with_engine("async", concurrency=2)
     assert exp.engine.concurrency == 2
-    with pytest.raises(NotImplementedError, match="item 4"):
-        teng.AsyncEngine(sampler="fraction")
+    # the sampler argument round-trips through config(), as the
+    # reference's does
+    frac = teng.AsyncEngine(**dict(kw, sampler="fraction"))
+    assert frac.config() == jeng.AsyncEngine(
+        **dict(jkw, sampler="fraction")).config()
+    assert teng.AsyncEngine(**frac.config()).config() == frac.config()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(None, device="cpu").with_engine("sharded")
     with pytest.raises(NotImplementedError):

@@ -1008,3 +1008,72 @@ def test_lowrank_stage_on_the_card_matches_the_cpu(mode, monkeypatch):
     rel = ((gpu.values.cpu() - cpu.values).norm(dim=-1)
            / cpu.values.norm(dim=-1))
     assert rel.max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_prefetcher_stages_one_pinned_copy_per_cohort():
+    """Each cohort's rows reach the card as one copy from a pinned slab
+    (two slabs, alternating), equal to the store's rows; an overlapping
+    next cohort is gathered after the commit."""
+    _need_card()
+    from repro_torch.federated import population as popn
+    rng = np.random.default_rng(0)
+    store = popn.PopulationStore(population=1000, row_len=4099, chunk=3)
+    store.scatter(np.arange(0, 1000, 7),
+                  rng.standard_normal((143, 4099), dtype=np.float32))
+    samp = popn.resolve_sampler("uniform", population=1000, cohort=8, seed=1)
+    pre = popn.CohortPrefetcher(store, samp, "cuda")
+    ids, rows = pre.take(0)
+    assert pre.h2d_puts == 1 and rows.is_cuda
+    assert all(s.is_pinned() for s in pre._slabs) and len(pre._slabs) == 2
+    assert torch.equal(rows.cpu(), torch.from_numpy(store.gather(ids)))
+    for r in range(1, 6):
+        pre.prefetch(r, exclude=ids)
+        store.scatter(ids, rows.cpu().numpy() + 1.0)    # round r-1's commit
+        ids, rows = pre.take(r)
+        assert pre.h2d_puts == r + 1
+        assert torch.equal(rows.cpu(), torch.from_numpy(store.gather(ids)))
+    everyone = popn.resolve_sampler("uniform", population=8, cohort=8)
+    small = popn.PopulationStore(population=8, row_len=5, chunk=2)
+    pre = popn.CohortPrefetcher(small, everyone, "cuda")
+    ids, rows = pre.take(0)
+    pre.prefetch(1, exclude=ids)            # the same 8 clients: deferred
+    assert pre.h2d_puts == 1
+    small.scatter(ids, np.ones((8, 5), np.float32))
+    _, rows = pre.take(1)
+    assert pre.h2d_puts == 2 and bool((rows == 1).all())
+
+
+@pytest.mark.cuda
+def test_population_prefetch_on_equals_off_on_the_card():
+    _need_card()
+    from repro_torch.data import make_synth_image
+    from repro_torch.federated import Experiment
+    task = make_synth_image(n_examples=128, n_clients=8, n_patches=4, dim=16,
+                            seed=0, n_eval=128)
+    flats = {}
+
+    def run(prefetch):
+        class Keep:
+            def on_round_end(self, ev):
+                flats[prefetch] = ev.state.flatP.clone()
+
+            def on_eval(self, ev):
+                pass
+        exp = (Experiment(task, device="cuda")
+               .with_strategy("flasc", selector="fused", quant_bits_up=4)
+               .with_federation(n_clients=4, local_batch=4, local_steps=2)
+               .with_model(d_model=16, num_layers=1, num_heads=2, d_ff=32)
+               .with_lora(rank=4)
+               .with_training(rounds=4, pretrain_steps=2, eval_every=2)
+               .with_population(64, sampler="fraction", participation=0.5,
+                                prefetch=prefetch)
+               .with_callbacks(Keep()))
+        res = exp.run()
+        assert exp._population_bundle.last_prefetcher.h2d_puts == 4
+        return [{k: v for k, v in h.items() if k != "phase_ms"}
+                for h in res.history]
+    assert run(True) == run(False)
+    assert flats[True].is_cuda
+    assert torch.equal(flats[True].view(torch.int32),
+                       flats[False].view(torch.int32))

@@ -29,6 +29,9 @@ def test_import_leaves_jax_out():
             "repro_torch.data.datasets, repro_torch.data.partition, "
             "repro_torch.data.pipeline, repro_torch.federated.runtime, "
             "repro_torch.configs.paper_models, repro_torch.core.dp, "
+            "repro_torch.federated.population, repro_torch.federated.api, "
+            "repro_torch.launch.train, "
+            "benchmarks_torch.population_bench, "
             "benchmarks_torch.run, benchmarks_torch.fig2_comm_efficiency, "
             "benchmarks_torch.fig3_async_bandwidth, "
             "benchmarks_torch.fig4_freezing, "
@@ -63,7 +66,8 @@ def test_no_port_file_imports_jax_or_repro():
              os.path.join(ROOT, "scripts", "ab_trees.py"),
              os.path.join(ROOT, "scripts", "flash_ab.py"),
              os.path.join(ROOT, "scripts", "pack_ab.py"),
-             os.path.join(ROOT, "examples", "quickstart_torch.py")]
+             os.path.join(ROOT, "examples", "quickstart_torch.py"),
+             os.path.join(ROOT, "examples", "federated_finetune_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     # the port's figure harnesses: neither the reference package nor the
@@ -79,6 +83,9 @@ def test_no_port_file_imports_jax_or_repro():
     assert os.path.join(PORT, "kernels", "ref.py") in files
     assert os.path.join(PORT, "kernels", "ops.py") in files
     assert os.path.join(PORT, "core", "dp.py") in files
+    assert os.path.join(PORT, "federated", "population.py") in files
+    assert os.path.join(PORT, "launch", "train.py") in files
+    assert os.path.join(HARNESS, "population_bench.py") in files
     for name in ("datasets.py", "partition.py", "pipeline.py"):
         assert os.path.join(PORT, "data", name) in files
     for path in files:
@@ -115,6 +122,9 @@ def test_entry_points_default_to_the_card():
         ServingEngine(params, cfg, cache)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "yi-9b", "--smoke"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "yi-9b", "--smoke", "--rounds", "1"])
     from repro_torch.data import make_synth_image
     from repro_torch.federated import Experiment
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -300,8 +300,4 @@ def test_port_experiment_runs_end_to_end_on_cpu():
     assert set(res.history[0]["phase_ms"]) == {
         "download_mask", "download", "local_update", "upload", "server"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(None, device="cpu").with_population(16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Experiment(None, device="cpu").with_engine("sharded")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Experiment(None, device="cpu").with_checkpoint("/nonexistent")
