@@ -11,8 +11,9 @@ Phases, each fatal on failure:
                  bin_counts kernel or an instantiation of the packs' scan
                  (pack_scan_kernel<Rows>: pack_batch's and
                  mask_quantize_pack's at bits 0, nearest and stochastic)
-                 or their fill has a stack frame or spills, or ptxas
-                 serialised a wgmma or ignored a setmaxnreg.
+                 or their fill, or a kernel of the flash backward, has a
+                 stack frame or spills, or ptxas serialised a wgmma or
+                 ignored a setmaxnreg.
   2. kernels  -- the grouped LoRA kernel against its plain PyTorch version
                  on the card at the serving decode shapes and ragged ones
                  (M in {1, 8, 130}, N in {4096, 512, 50}, R in {1, 16, 64},
@@ -219,9 +220,35 @@ Phases, each fatal on failure:
   17. train-cli -- `python -m repro_torch.launch.train --arch yi-9b
                  --rounds 2` in this process at full width and depth: its
                  ledger lines positive, its losses finite.
+  18. long-train -- LoRA training at 8192 tokens or more: (a) the flash
+                 backward (csrc/flash_attention_bwd.cu) at q (1, 8192, 32,
+                 128), k / v (1, 8192, 4, 128) bf16 causal and at a ragged
+                 f32 shape at hd 64 with H == KV (causal and full), each row
+                 of dq, dk and dv against `flash_attention_bwd_plain` in f64
+                 on the same inputs (bf16 1e-2, f32 1e-4 of the row's
+                 largest value, floored at 1e-2 of the tensor's), the error
+                 against the exact gradient printed beside it, the
+                 forward's lse against the f64 one (1e-4), two calls bitwise
+                 equal, out bitwise the same with and without lse; its
+                 device time beside its bound, its plain version and SDPA's
+                 backward.  (b) Yi-9B at full width, 2 layers, 8192 tokens,
+                 bf16: the flat LoRA gradient of `loss_fn` through the
+                 kernels against the one through chunked_attention's
+                 autograd on the card, relative L2 within 2e-2.  (c)
+                 `Experiment(None)` on full Yi-9B (48 layers): FLASC (fused,
+                 4-bit up, density 0.25/0.25, rank 8), one local step of one
+                 sequence a client, 2 rounds of 2 clients at 8192 tokens,
+                 then 1 round of 1 client at 32768.  Launches zeroed just
+                 before each run and read just after: flash forward 96 a
+                 client step (the forward and its recomputation), all on
+                 the wgmma route, the backward 48 a client step (mma_sync),
+                 the transport kernels phase 6's a round; losses finite;
+                 round ms, ms a client step and peak memory printed.
 --profile adds torch.profiler windows over a few decode steps of phase
-3's engine, over one more round of phase 6 and over one 8192-token
-prefill of phase 11's engine, and writes their traces under chiprun_out/.
+3's engine, over one more round of phase 6, over one 8192-token
+prefill of phase 11's engine and over one 8192-token client step of
+phase 18 (device busy share, GEMM, flash forward and backward ms), and
+writes their traces under chiprun_out/.
 
 The last three lines are the kernels JSON, the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}.  With no CUDA device, or
@@ -337,8 +364,15 @@ PACK_SCAN_KERNELS = tuple(
         "MaskQuantizeRows<1, 1>"))
 TRANSPORT_KERNELS = ("bin_partial_kernel<12>", "bin_sum_kernel",
                      *PACK_SCAN_KERNELS, "pack_fill_kernel")
+# the flash backward (csrc/flash_attention_bwd.cu): D, then dK / dV and dQ
+# on the bf16 (mma.sync) and f32 (FMA) routes at every head size
+FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel<__nv_bfloat16>",
+                     "flash_bwd_dot_kernel<float>") + tuple(
+    f"flash_bwd_{part}_{dt}_kernel<{hd}>" for part in ("dkdv", "dq")
+    for dt in ("bf16", "f32") for hd in (32, 64, 128))
 # kernels that must build with no stack frame and no spills
-GATED_KERNELS = HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
+GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
+                 + FLASH_BWD_KERNELS)
 
 
 # what cu++filt prints beside a kernel's name and template arguments: the
@@ -382,7 +416,8 @@ def build_report(libs) -> None:
     compiler warning.  Fail if a library's compiler log is missing, if a
     gated kernel (the two wgmma kernels, the grouped kernel's rank buckets,
     the bin_counts kernels, every instantiation of the packs' scan and
-    their fill) is not in its library's log with its stack frame and spill
+    their fill, the flash backward's kernels) is not in its library's log
+    with its stack frame and spill
     counts, if it has any of them, or if ptxas serialised a wgmma or
     ignored a setmaxnreg (each of which quietly costs most of what the
     design buys)."""
@@ -643,11 +678,12 @@ def profile_decode(eng, seed: int, steps: int = 4):
 
 
 def summarize_trace(prof, fname: str, label: str, steps: int,
-                    wall_ms: float) -> None:
+                    wall_ms: float) -> dict:
     """Write the profiler's trace to chiprun_out/<fname>.gz and print the
     device busy share of the wall time (union of kernel intervals), the
     kernel and launch-call counts per step, and the ten kernels that take
-    the most device time."""
+    the most device time.  Returns {"busy_ms", "by_name": {kernel: (us,
+    launches)}} over the window."""
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, fname)
@@ -678,6 +714,7 @@ def summarize_trace(prof, fname: str, label: str, steps: int,
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"[profile]   {t / 1e3 / steps:8.3f} ms/step {c // steps:5d} "
               f"launches/step  {name[:80]}")
+    return {"busy_ms": busy / 1e3, "by_name": by_name}
 
 
 def profile_round(state, data) -> None:
@@ -2175,7 +2212,7 @@ def ops_phase(seed: int):
 
         def kernel(i, q=q, k=k, v=v, out=out, causal=causal, route=route):
             fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), 1, LONG_S, LONG_S, 32, 4, hd,
+                     out.data_ptr(), None, 1, LONG_S, LONG_S, 32, 4, hd,
                      fa.DTYPES[q.dtype], int(causal), hd ** -0.5,
                      fa.ROUTES[route])
 
@@ -3010,7 +3047,8 @@ def kernel_functions():
     from repro_torch.kernels import lora_matmul as lm
     return {**transport_functions(), **pack_functions(),
             "grouped_lora_delta": lm.resolve_grouped_kernel("grouped_pallas"),
-            "flash_attention": fa.FLASH, "lora_matmul": lm.LORA_MATMUL}
+            "flash_attention": fa.FLASH,
+            "flash_attention_bwd": fa.FLASH_BWD, "lora_matmul": lm.LORA_MATMUL}
 
 
 @contextlib.contextmanager
@@ -3201,7 +3239,7 @@ def resume_phase(seed: int, vit: dict):
         per_round = {k: v // RESUME_ROUNDS for k, v in r["launches"].items()}
         check(r["launches"] == fig2_launches("fused", RESUME_ROUNDS)
               | {k: 0 for k in ("grouped_lora_delta", "flash_attention",
-                                "lora_matmul")},
+                                "flash_attention_bwd", "lora_matmul")},
               f"resume sim: straight launches {r['launches']}")
         want = {k: v * (RESUME_ROUNDS - RESUME_EVERY)
                 for k, v in per_round.items()}
@@ -3448,6 +3486,424 @@ def train_cli_phase(seed: int):
     return dict(launches=launches, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LoRA training at 8192 tokens or more, Yi-9B at full width and depth
+# ---------------------------------------------------------------------------
+
+LONG_TRAIN = ((8192, 2, 2), (32768, 1, 1))     # (tokens, clients, rounds)
+LONG_FED = dict(local_batch=1, local_steps=1, client_lr=1e-3, server_lr=2e-3)
+# dq, dk and dv against `flash_attention_bwd_plain` in f64 on the same
+# inputs (q, k, v, out, lse, dout), row by row (grad_row_err): the bf16
+# contract of csrc/flash_attention_bwd.cu (the outputs' own rounding takes
+# 2^-9 of it), and f32 sums against exact ones
+BWD_ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# a row's largest value is floored at this share of the gradient's largest:
+# the first query row under causal masking has an exact dq of 0 (a softmax
+# over one key), and a row that cancels so far has no relative error
+BWD_ROW_FLOOR = 1e-2
+# the lse the forward writes, against the f64 rows' log-sum-exp
+LSE_TOL = 1e-4
+# the model's flat LoRA gradient through the kernels against the one through
+# chunked_attention's autograd, relative L2: both run in bf16 with p and dS
+# at f32 precision, so they differ by bf16 roundings (2^-9 each) of q, k, v,
+# the attention output and their gradients
+GRAD_REL_L2 = 2e-2
+# cuBLAS GEMM kernels on Hopper, by name in a profiler trace
+GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass", re.I)
+
+
+def attn_bwd_bound(B, S, T, H, KV, hd, dtype, causal):
+    """(bound_ms, bound_by) of the attention backward: q, k, v, out, dout
+    and lse read once, dq, dk and dv written once, against five products
+    of S T hd multiply-adds per head (Q K^T, P^T dO, dO V^T, dS K, dS^T Q),
+    halved under the causal mask."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * B * (4 * S * H * hd + 4 * T * KV * hd) + 4 * B * H * S
+    flops = 10 * B * H * S * T * hd / (2 if causal else 1)
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def grad_row_err(got, want) -> float:
+    """The worst row's largest |got - want| over that row's largest |want|,
+    floored at BWD_ROW_FLOOR of the tensor's largest |want|."""
+    want = want.double()
+    d = (got.double() - want).abs().amax(-1)
+    m = want.abs().amax(-1).clamp_min(BWD_ROW_FLOOR * want.abs().max().item())
+    return (d / m.clamp_min(1e-300)).max().item()
+
+
+def grad_errs(got, want) -> dict:
+    """{name: {"row": grad_row_err, "rel_l2": ||got - want|| / ||want||}}
+    of (dq, dk, dv)."""
+    return {n: {"row": grad_row_err(g, w), "rel_l2": (
+        (g.double() - w).norm() / w.double().norm().clamp_min(1e-300)).item()}
+        for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def flash_bwd_check(seed: int):
+    """(a) The backward kernels on the card against
+    `flash_attention_bwd_plain` in f64 on the same inputs (the contract),
+    at the Yi-9B shape of an 8192-token sequence (bf16, causal) and a
+    ragged f32 one at hd 64 with H == KV; the error against the exact
+    gradient (f64 attention's own out and lse) printed beside it; two calls
+    bitwise equal; the forward's out bitwise the same with and without lse;
+    then the backward's device time at the Yi-9B shape beside its bound,
+    its plain version and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    res = {"cases": []}
+    for B, S, T, H, KV, hd, dt, causal in (
+            (1, LONG_S, LONG_S, 32, 4, 128, "bfloat16", True),
+            (2, 1000, 1100, 4, 4, 64, "float32", True),
+            (2, 1000, 1100, 4, 4, 64, "float32", False)):
+        q, k, v = attn_inputs(gen, B, S, T, H, KV, hd, dt)
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        scale = hd ** -0.5
+        what = (f"B {B}, S {S}, T {T}, H {H}, KV {KV}, hd {hd}, {dt}, "
+                f"{'causal' if causal else 'full'}")
+        out, lse = fa._forward(q, k, v, causal, scale, want_lse=True)
+        same_out = torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
+                                                       scale=scale))
+        route = fa.flash_bwd_route(q.dtype, hd)
+        n = fa.FLASH_BWD.launches_by_route.get(route, 0)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                     scale=scale)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                       causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        check(fa.FLASH_BWD.launches_by_route.get(route, 0) == n + 2,
+              f"flash_attention_bwd at {what} missed route {route}")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        x64 = [t.double() for t in (q, k, v, out, lse, dout)]
+        want = fa.flash_attention_bwd_plain(*x64, causal=causal, scale=scale)
+        errs = grad_errs(got, want)
+        abs_err = max((g.double() - w).abs().max().item()
+                      for g, w in zip(got, want))
+        del want
+        o64, l64 = fa.flash_attention_plain(*x64[:3], causal=causal,
+                                            scale=scale, return_lse=True)
+        lse_err = (lse.double() - l64).abs().max().item()
+        exact = fa.flash_attention_bwd_plain(*x64[:3], o64, l64, x64[5],
+                                             causal=causal, scale=scale)
+        exact_errs = grad_errs(got, exact)
+        del x64, o64, l64, exact
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        tol = BWD_ROW_TOL[dt]
+        worst = max(e["row"] for e in errs.values())
+        ok = (finite and same and same_out and lse_err <= LSE_TOL
+              and worst <= tol)
+        print(f"[long-train] flash_attention_bwd {what}, route {route}: "
+              f"against the plain backward in f64 on the same inputs "
+              f"{json.dumps(errs)} (row tol {tol:g}), max|err| "
+              f"{abs_err:.3e}; against the exact gradient (f64 attention's "
+              f"out and lse) {json.dumps(exact_errs)}; lse max|err| "
+              f"{lse_err:.3e} (tol {LSE_TOL:g}); two calls bitwise equal: "
+              f"{same}; out with and without lse bitwise equal: {same_out} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"flash_attention_bwd at {what} misses its contract")
+        res["cases"].append({"case": what, "route": route, "errs": errs,
+                             "exact_errs": exact_errs, "max_row_err": worst,
+                             "max_abs_err": abs_err, "lse_err": lse_err})
+        if S == LONG_S:
+            res["main"] = res["cases"][-1]
+        torch.cuda.empty_cache()
+        if S != LONG_S:
+            continue
+        # device times at the Yi-9B shape
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        dsum = torch.empty(B, H, S, dtype=torch.float32, device="cuda")
+
+        def kernel(i, q=q, k=k, v=v, out=out, lse=lse, dout=dout, outs=outs,
+                   dsum=dsum, route=route):
+            fa.FLASH_BWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                         *(t.data_ptr() for t in outs), dsum.data_ptr(), B, S,
+                         T, H, KV, hd, fa.DTYPES[q.dtype], int(causal), scale,
+                         fa.ROUTES[route])
+
+        qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        doh = dout.transpose(1, 2).contiguous()
+
+        def sdpa(i):
+            o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                               enable_gqa=True)
+            torch.autograd.grad(o, (qh, kh, vh), doh)
+
+        def sdpa_fwd(i):
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                               enable_gqa=True)
+
+        bound, by = attn_bwd_bound(B, S, T, H, KV, hd, dt, causal)
+        fb, fwd = device_ms(sdpa, 5), device_ms(sdpa_fwd, 5)
+        row = {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd,
+               "dtype": dt, "causal": causal, "route": route,
+               "ms": device_ms(kernel, 5),
+               "wrapper_ms": device_ms(lambda i: fa.flash_attention_bwd(
+                   q, k, v, out, lse, dout, causal=causal, scale=scale), 5),
+               "plain_ms": cuda_ms(lambda i: fa.flash_attention_bwd_plain(
+                   q, k, v, out, lse, dout, causal=causal, scale=scale), 2,
+                   warmup=1),
+               "library_ms": fb - fwd, "library_fwd_bwd_ms": fb,
+               "library_fwd_ms": fwd, "bound_ms": bound, "bound_by": by}
+        print(f"[long-train] timing {json.dumps(row)}")
+        res["timing"] = row
+        del outs, dsum, qh, kh, vh, doh
+    torch.cuda.empty_cache()
+    return res
+
+
+def first_layers(tree, n: int):
+    """Every leaf of a layer-stacked tree cut to its first n layers (views)."""
+    if isinstance(tree, dict):
+        return {k: first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def long_grad_parity(cfg, params, seed: int):
+    """(b) Yi-9B at full width, 2 layers, one 8192-token sequence in bf16:
+    the flat LoRA gradient of `loss_fn` through the flash kernels, and the
+    same with `chunked_attention` (plain torch on the card, differentiated
+    by autograd) put in the kernel's place on the attention module."""
+    import torch
+    from repro_torch.core.fedround import FlatMeta
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as mdl
+    from repro_torch.models.config import LoRAConfig
+    from repro_torch.models.lora import init_lora
+
+    L = 2
+    cfg2 = dataclasses.replace(cfg, num_layers=L)
+    p2 = dict(params)
+    p2["groups"] = {"g0": first_layers(params["groups"]["g0"], L)}
+    lcfg = LoRAConfig(rank=8)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    lora = init_lora(cfg2, lcfg, device="cuda", generator=gen)
+    for sec in lora["g0"].values():
+        for pair in sec.values():
+            pair["b"] = 0.01 * torch.randn(pair["b"].shape, generator=gen,
+                                           device="cuda")
+    meta = FlatMeta.of(lora)
+    flat0 = meta.flatten(lora)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_S), generator=gen,
+                           device="cuda")
+
+    def grad():
+        f = flat0.clone().requires_grad_(True)
+        loss = mdl.loss_fn(p2, cfg2, {"tokens": tokens},
+                           lora=meta.unflatten(f), lora_scale=lcfg.scale)
+        (g,) = torch.autograd.grad(loss, f)
+        torch.cuda.synchronize()
+        return loss.detach(), g
+
+    def chunked(q, k, v, *, causal, scale):
+        return A.chunked_attention(q, k, v, scale, causal=causal,
+                                   cq=cfg.attn_chunk_q, ckv=cfg.attn_chunk_kv)
+
+    launches = {}
+    with counted(launches):
+        lk, gk = grad()
+    kernel = A.flash_attention
+    A.flash_attention = chunked
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        plain_launches = {}
+        with counted(plain_launches):
+            lp, gp = grad()
+    finally:
+        A.flash_attention = kernel
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = ((gk - gp).norm() / gp.norm()).item()
+    print(f"[long-train] gradient parity, {cfg.name} at full width, {L} "
+          f"layers, {LONG_S} tokens, bf16: loss {lk.item():.6f} (kernels) / "
+          f"{lp.item():.6f} (chunked_attention); flat LoRA gradient (p_len "
+          f"{meta.p_len}) relative L2 error {rel:.3e} (bound "
+          f"{GRAD_REL_L2:g}); flash launches {launches['flash_attention']} "
+          f"forward / {launches['flash_attention_bwd']} backward (plain path "
+          f"{plain_launches['flash_attention']} / "
+          f"{plain_launches['flash_attention_bwd']}, peak device memory "
+          f"{plain_peak:.2f} GiB)")
+    check(launches["flash_attention"] == 2 * L
+          and launches["flash_attention_bwd"] == L,
+          f"gradient parity: kernel launches {launches}, expected {2 * L} "
+          f"forward and {L} backward")
+    check(plain_launches["flash_attention"] == 0
+          and plain_launches["flash_attention_bwd"] == 0,
+          "gradient parity: the plain path launched a flash kernel")
+    check(bool(torch.isfinite(gk).all()) and gk.norm().item() > 0,
+          "gradient parity: the kernels' gradient is not finite or is zero")
+    check(rel <= GRAD_REL_L2, f"gradient parity: relative L2 error {rel:.3e}"
+          f" above {GRAD_REL_L2:g}")
+    del gk, gp, flat0, lora, p2
+    torch.cuda.empty_cache()
+    return {"rel_l2": rel, "p_len": meta.p_len,
+            "loss": [lk.item(), lp.item()]}
+
+
+def long_token_batches(cfg, seed: int, clients: int, S: int):
+    """data(r): random tokens (clients, 1, 1, S) drawn on the card."""
+    import torch
+
+    def data(r):
+        gen = torch.Generator(device="cuda").manual_seed(
+            1_000_003 * seed + 7919 * S + r)
+        return {"tokens": torch.randint(0, cfg.vocab_size, (clients, 1, 1, S),
+                                        generator=gen, device="cuda")}
+    return data
+
+
+def long_train_runs(cfg, params, seed: int):
+    """(c) `Experiment(None)` on full Yi-9B: FLASC (fused, 4-bit up,
+    density 0.25 / 0.25, rank 8) with one local step of one sequence a
+    client, 2 rounds of 2 clients at 8192 tokens, then 1 round of 1 client
+    at 32768; launches asserted."""
+    import numpy as np
+    import torch
+    from repro_torch.federated import Experiment
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.config import FederatedConfig
+
+    L = cfg.num_layers
+    runs = {}
+    for S, C, R in LONG_TRAIN:
+        probe = RoundProbe()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        exp = (Experiment(None, federation=FederatedConfig(n_clients=C,
+                                                           **LONG_FED))
+               .with_strategy("flasc", selector="fused", quant_bits_up=4,
+                              density_down=0.25, density_up=0.25)
+               .with_lora(rank=8)
+               .with_training(rounds=R, seed=seed)
+               .with_params(params, cfg)
+               .with_data(long_token_batches(cfg, seed, C, S))
+               .with_engine("sim")
+               .with_callbacks(probe))
+        launches = {}
+        with counted(launches):
+            fa.FLASH.reset()
+            fa.FLASH_BWD.reset()
+            probe.t = [time.perf_counter()]
+            res = exp.run()
+            routes = {"flash_attention": dict(fa.FLASH.launches_by_route),
+                      "flash_attention_bwd":
+                          dict(fa.FLASH_BWD.launches_by_route)}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = C * R                    # one local step a client a round
+        round_ms = [1e3 * (b - a) for a, b in zip(probe.t, probe.t[1:])]
+        step_ms = [h["phase_ms"]["local_update"] / C for h in res.history]
+        losses = [h["loss"] for h in res.history]
+        for r, h in enumerate(res.history):
+            print(f"[long-train] {S} tokens, round {r}: loss {h['loss']:.6f}, "
+                  f"wall {round_ms[r]:.3f} ms; local update "
+                  f"{step_ms[r]:.3f} ms a client step (device events); up_nnz "
+                  f"per client {probe.up_nnz[r]}")
+        print(f"[long-train] {cfg.name} {L}L d{cfg.d_model} {cfg.param_dtype}"
+              f": {R} FLASC round(s) of {C} client(s) x 1 step x 1 x {S} "
+              f"tokens (fused, 4-bit up, density 0.25/0.25, rank 8); peak "
+              f"device memory {peak:.3f} GiB; launches {json.dumps(launches)}"
+              f", by route {json.dumps(routes)}; {card_line()}")
+        check(len(res.history) == R and all(np.isfinite(x) for x in losses),
+              f"long-train {S}: losses {losses}")
+        want = {"flash_attention": 2 * L * steps,
+                "flash_attention_bwd": L * steps,
+                **{k: v * R for k, v in FUSED_PER_ROUND.items()}}
+        for name, n in want.items():
+            check(launches[name] == n, f"long-train {S}: {name} launched "
+                  f"{launches[name]} times, expected {n}")
+        check(routes == {"flash_attention": {"wgmma": 2 * L * steps},
+                         "flash_attention_bwd": {"mma_sync": L * steps}},
+              f"long-train {S}: flash launches by route {routes}")
+        runs[S] = {"clients": C, "rounds": R, "round_ms": round_ms,
+                   "step_ms": step_ms, "losses": losses, "peak_gib": peak,
+                   "launches": launches, "routes": routes}
+        del exp, res, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def profile_long_step(cfg, params, seed: int) -> dict:
+    """(d) torch.profiler over one 8192-token client step of full Yi-9B
+    (the loss and its LoRA gradient, as `_client_update` takes them), after
+    one unprofiled step: device busy share, GEMM, flash forward and
+    backward ms and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.fedround import FlatMeta
+    from repro_torch.models import model as mdl
+    from repro_torch.models.config import LoRAConfig
+    from repro_torch.models.lora import init_lora
+
+    lcfg = LoRAConfig(rank=8)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    lora = init_lora(cfg, lcfg, device="cuda", generator=gen)
+    meta = FlatMeta.of(lora)
+    flat0 = meta.flatten(lora)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_S), generator=gen,
+                           device="cuda")
+
+    def step():
+        f = flat0.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = mdl.loss_fn(params, cfg, {"tokens": tokens},
+                               lora=meta.unflatten(f), lora_scale=lcfg.scale)
+            (g,) = torch.autograd.grad(loss, f)
+        return g
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    stats = summarize_trace(prof, "long_train_step_trace.json",
+                            f"1 client step of {LONG_S} tokens", 1, wall_ms)
+    parts = {"gemm": 0.0, "flash_fwd": 0.0, "flash_bwd": 0.0, "rest": 0.0}
+    for name, (us, _) in stats["by_name"].items():
+        key = ("flash_bwd" if "flash_bwd_" in name else
+               "flash_fwd" if "flash_" in name and "_kernel" in name else
+               "gemm" if GEMM_NAME.search(name) else "rest")
+        parts[key] += us / 1e3
+    out = {"wall_ms": wall_ms, "busy_ms": stats["busy_ms"],
+           "busy_share": stats["busy_ms"] / wall_ms, **{
+               f"{k}_ms": v for k, v in parts.items()}}
+    print(f"[long-train] profiled client step: {json.dumps(out)}")
+    return out
+
+
+def long_train_phase(seed: int, profile: bool = False):
+    """Phase 18: (a) the backward kernels against their plain version; (b)
+    the model's LoRA gradient through them against chunked_attention's; (c)
+    FLASC rounds of full Yi-9B at 8192 and 32768 tokens a sequence through
+    `Experiment(None)`; (d) under --profile, one profiled client step."""
+    import torch
+    kern = flash_bwd_check(seed)
+    t0 = time.perf_counter()
+    cfg, params = yi_backbone(seed)
+    torch.cuda.synchronize()
+    print(f"[long-train] backbone built in {time.perf_counter() - t0:.1f}s")
+    parity = long_grad_parity(cfg, params, seed)
+    runs = long_train_runs(cfg, params, seed)
+    prof = profile_long_step(cfg, params, seed) if profile else None
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernel": kern, "parity": parity, "runs": runs, "profile": prof}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3571,10 +4027,15 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_res = train_cli_phase(args.seed)
     print(f"[train-cli] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    lt_res = long_train_phase(args.seed, args.profile)
+    print(f"[long-train] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
+    lt_runs = lt_res["runs"]
 
     def later(name: str) -> str:
-        """The launches of phases 15-17 for the kernels JSON's paths."""
+        """The launches of phases 15-18 for the kernels JSON's paths."""
         return (f"; resume (vit-b16, {RESUME_ROUNDS} rounds straight / "
                 f"{RESUME_ROUNDS - RESUME_EVERY} resumed): " + ", ".join(
                     f"{tag} {r['launches'][name]} / "
@@ -3586,7 +4047,11 @@ def main() -> int:
                 f"{pop_res['on']['launches'][name]}, off "
                 f"{pop_res['off']['launches'][name]}"
                 + f"; train-cli (yi-9b, 2 rounds, default selector): "
-                f"{cli_res['launches'][name]}")
+                f"{cli_res['launches'][name]}"
+                + "; long-train (yi-9b): " + ", ".join(
+                    f"{S} tokens {r['launches'][name]} in {r['rounds']} "
+                    f"round(s) of {r['clients']} client(s)"
+                    for S, r in lt_runs.items()))
     entry["path"] += later("grouped_lora_delta")
 
     entries = [entry]
@@ -3648,7 +4113,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:58",
         "launches": long_res["flash"],
         "launches_by_route": long_res["flash_routes"],
-        "path": "long-prefill, 48 per prefill" + later("flash_attention"),
+        "path": ("long-prefill, 48 per prefill; long-train, 96 per client "
+                 "step (forward and recomputation)")
+        + later("flash_attention"),
         "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
         "max_abs_err": ops_res["attn_err"],
         "max_row_rel_err_bf16": ops_res["attn_row"],
@@ -3662,6 +4129,32 @@ def main() -> int:
         "library": "F.scaled_dot_product_attention(enable_gqa=True)",
         "route_timed": amain["route"],
         "wrapper_ms": amain["wrapper_ms"], "timings": ops_res["attn_rows"]})
+    bmain, btime = lt_res["kernel"]["main"], lt_res["kernel"]["timing"]
+    first = lt_runs[LONG_TRAIN[0][0]]
+    entries.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:102",
+        "replaces_note": "no Pallas kernel: the reference trains through "
+                         "XLA's autodiff of the jnp chunked_attention",
+        "launches": first["launches"]["flash_attention_bwd"],
+        "launches_by_route": first["routes"]["flash_attention_bwd"],
+        "path": (f"long-train (c), {LONG_TRAIN[0][0]} tokens, 48 per client "
+                 "step") + later("flash_attention_bwd"),
+        "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
+        "max_abs_err": bmain["max_abs_err"],
+        "max_row_err_vs_f64": bmain["max_row_err"],
+        "err_vs_f64": bmain["errs"], "err_vs_exact": bmain["exact_errs"],
+        "lse_err": bmain["lse_err"],
+        "cases": lt_res["kernel"]["cases"],
+        "model_grad_rel_l2": lt_res["parity"]["rel_l2"],
+        "ms": btime["ms"], "plain_ms": btime["plain_ms"],
+        "bound_ms": btime["bound_ms"], "bound_by": btime["bound_by"],
+        "library_ms": btime["library_ms"],
+        "library": "autograd.grad of F.scaled_dot_product_attention("
+                   "enable_gqa=True) less its forward (p rounded to bf16)",
+        "route_timed": btime["route"], "wrapper_ms": btime["wrapper_ms"],
+        "timing": btime})
     entries.append({
         "name": "lora_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/lora_matmul.cu",

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import sys
 
 import ab_trees
@@ -42,12 +43,21 @@ ITERS = 10                     # launches a timed turn
 SEED = 18
 
 
+def takes_lse(csrc) -> bool:
+    """Whether the tree's flash_attention_fwd takes the lse pointer after
+    out (the trees that have the backward do; older ones do not)."""
+    text = (csrc / "flash_attention.cu").read_text()
+    m = re.search(r"flash_attention_fwd\(([^)]*)\)", text)
+    return m is not None and re.search(r"\blse_?\b", m.group(1)) is not None
+
+
 def launch(fn, q, k, v, out, causal: bool) -> None:
     import torch
     B, S, _, _ = q.shape
     T = k.shape[1]
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            T, H, KV, HD, 0, int(causal), HD ** -0.5, 0,
+    lse = (None,) if fn.takes_lse else ()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse,
+            B, S, T, H, KV, HD, 0, int(causal), HD ** -0.5, 0,
             torch.cuda.current_stream().cuda_stream)
     cs.check(rc == 0, f"flash_attention_fwd failed: CUDA error {rc}")
 
@@ -64,9 +74,12 @@ def main() -> int:
             srcs, "flash_attention.cu",
             lambda name: name == "flash_wgmma_kernel").items():
         fn = so.flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lse = takes_lse(srcs[label])
+        fn.argtypes = [ctypes.c_void_p] * (5 if lse else 4) + [
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn.takes_lse = lse
         libs[label] = fn
     labels = list(libs)
     ok = labels == list(srcs)

@@ -1,7 +1,11 @@
-// Flash attention forward (online softmax) for Hopper, sm_90a.
+// Flash attention forward (online softmax) for Hopper, sm_90a.  The
+// backward is csrc/flash_attention_bwd.cu; it reads the row log-sum-exp
+// that this file's kernels write when asked for it.
 //
 //   out[b, s, h, :] = sum_t softmax_t(scale * q[b, s, h, :] . k[b, t, kh, :])
 //                     * v[b, t, kh, :],     kh = h / (H / KV)
+//   lse[b, h, s]    = m + log(max(l, 1e-30))   (f32, natural log; m the row's
+//                     largest scaled score, l the sum of exp(score - m))
 //
 // q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), all contiguous,
 // one dtype: bf16 or f32.  hd in {32, 64, 128}.  Causal: key t > query s is
@@ -18,6 +22,9 @@
 //   - Ragged S and T are masked inside the kernel (rows past S are not
 //     stored; keys past T weigh exactly 0), so there is no padding and no
 //     shape gate.
+//   - lse, when its pointer is not null, is written in each kernel's
+//     epilogue from the m and l it already holds (route 0 keeps m in log2
+//     units: lse = (m + log2 l) ln 2); out is the same with or without it.
 //   - Under causal masking the KV tiles wholly above the diagonal are not
 //     visited.  That cannot change a bit: after a live tile, a fully masked
 //     one has m_new = m, so it multiplies acc and l by exp(0) = 1 and adds
@@ -185,8 +192,8 @@ __global__ void __launch_bounds__(kThreadsMma)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int S, int T, int H,
-                  int KV, float scale, int causal) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int S, int T, int H, int KV, float scale, int causal) {
   using SM = MmaSmem<HD>;
   constexpr int LD = SM::LD;
   constexpr int NT = kBKV / 8;        // n-tiles of the score tile
@@ -374,6 +381,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int qpos = rr ? qpos1 : qpos0;
     if (qpos >= S) continue;
     const float den = fmaxf(l[rr], 1e-30f);
+    if (lse != nullptr && t == 0) {
+      lse[static_cast<size_t>(bh) * S + qpos] = m[rr] + logf(den);
+    }
     __nv_bfloat16* orow = ob + qpos * q_stride;
 #pragma unroll
     for (int d = 0; d < DT; ++d) {
@@ -412,8 +422,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ out, int S, int T, int H,
-                   int KV, float scale_log2, int causal) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int S, int T, int H, int KV, float scale_log2, int causal) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -595,6 +605,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qpos = rr ? r_hi : r_lo;
       if (qpos >= S) continue;
       const float den = fmaxf(l[rr], 1e-30f);
+      if (lse != nullptr && t == 0) {
+        // m and the scores are in log2 units (scale_log2)
+        lse[static_cast<size_t>(bh) * S + qpos] =
+            (m[rr] + log2f(den)) * 0.69314718055994531f;
+      }
       __nv_bfloat16* orow = out + (static_cast<size_t>(b) * S + qpos) * H * 128 +
                             static_cast<size_t>(h) * 128;
 #pragma unroll
@@ -607,9 +622,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
-                 int S, int T, int H, int KV, int causal, float scale,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int B, int S, int T, int H, int KV, int causal,
+                 float scale, cudaStream_t stream) {
   // 4-D maps over (hd, heads, seq, batch), 128 hd of 2 bytes
   CUtensorMap tq, tk, tv;
   const uint64_t qdim[4] = {128, static_cast<uint64_t>(H),
@@ -628,7 +643,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (S + kWgRows - 1) / kWgRows);
   flash_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, T, H, KV,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, T, H, KV,
       scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -650,8 +665,9 @@ struct F32Smem {
 template <int HD>
 __global__ void __launch_bounds__(kThreadsF32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int S,
-                 int T, int H, int KV, float scale, int causal) {
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int S, int T, int H, int KV,
+                 float scale, int causal) {
   using SM = F32Smem<HD>;
   constexpr int LDQ = SM::LDQ, LDP = SM::LDP;
   constexpr int DC = HD / 16;             // output columns per thread
@@ -786,6 +802,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) {
+      lse[static_cast<size_t>(bh) * S + qpos] = m[i] + logf(den);
+    }
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       ob[qpos * q_stride + tx + 16 * c] = acc[i][c] / den;
@@ -795,9 +814,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // route 1: bf16, hd 32 or 64
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int T, int H, int KV, int causal, float scale,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int S, int T, int H, int KV, int causal,
+               float scale, cudaStream_t stream) {
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   constexpr int bytes = MmaSmem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -808,15 +827,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), S, T, H, KV, scale, causal);
+      static_cast<__nv_bfloat16*>(out), lse, S, T, H, KV, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 // route 2: f32, hd 32, 64 or 128
 template <int HD>
-int launch_fma(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int T, int H, int KV, int causal, float scale,
-               cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int S, int T, int H, int KV, int causal,
+               float scale, cudaStream_t stream) {
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   constexpr int bytes = F32Smem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -825,8 +844,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_f32_kernel<HD><<<grid, kThreadsF32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, T, H, KV,
-      scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, T, H,
+      KV, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -837,11 +856,14 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B,
 // 16-byte aligned; B, S, T, H >= 1 and H % KV == 0.  dtype 0 = bf16, 1 =
 // f32.  route 0 = wgmma (bf16, hd 128), 1 = mma_sync (bf16, hd 32 or 64),
 // 2 = fma (f32, hd 32, 64 or 128); a route that the dtype and hd do not
-// select is refused.
+// select is refused.  lse: null, or f32 (B, H, S) to receive each row's
+// log-sum-exp.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, int B, int S, int T, int H,
-                                   int KV, int hd, int dtype, int causal,
-                                   float scale, int route, void* stream) {
+                                   void* out, void* lse_, int B, int S, int T,
+                                   int H, int KV, int hd, int dtype,
+                                   int causal, float scale, int route,
+                                   void* stream) {
+  float* lse = static_cast<float*>(lse_);
   const bool fits =
       (route == 0 && dtype == 0 && hd == 128) ||
       (route == 1 && dtype == 0 && (hd == 32 || hd == 64)) ||
@@ -853,20 +875,23 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
-    return launch_wgmma(q, k, v, out, B, S, T, H, KV, causal, scale, s);
+    return launch_wgmma(q, k, v, out, lse, B, S, T, H, KV, causal, scale, s);
   }
   if (route == 1) {
     return hd == 32
-        ? launch_mma<32>(q, k, v, out, B, S, T, H, KV, causal, scale, s)
-        : launch_mma<64>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
+        ? launch_mma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale, s)
+        : launch_mma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale, s);
   }
   switch (hd) {
     case 32:
-      return launch_fma<32>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
+      return launch_fma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                             s);
     case 64:
-      return launch_fma<64>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
+      return launch_fma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                             s);
     default:
-      return launch_fma<128>(q, k, v, out, B, S, T, H, KV, causal, scale, s);
+      return launch_fma<128>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                             s);
   }
 }
 

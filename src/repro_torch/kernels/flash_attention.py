@@ -1,4 +1,4 @@
-"""Flash attention (online-softmax tiling): wrapper, plain version.
+"""Flash attention (online-softmax tiling): wrapper, gradient, plain versions.
 
 `flash_attention` replaces the TPU kernel
 `src/repro/kernels/flash_attention.py::flash_attention_pallas` with the
@@ -6,15 +6,17 @@ hand-written CUDA kernel of `csrc/flash_attention.cu`: per (batch, query
 head) and tile of query rows, KV tiles stream through shared memory while
 a running max `m`, sum `l` and output `acc` are kept in f32; masked
 scores are -1e30 where key > query; the output is acc / max(l, 1e-30) in
-q.dtype.
+q.dtype.  Asked for it, the kernel also writes each row's log-sum-exp
+`lse = m + log(max(l, 1e-30))` (f32, (B, H, S), natural log), which the
+backward needs; `out` is the same with or without it.
 
 It takes GQA directly: q (B, S, H, hd), k and v (B, T, KV, hd) with query
 head h reading KV head h // (H // KV), so the KV heads are never repeated
 H times (KV == H is the reference's pre-broadcast call).  Any S and T:
 the kernel masks the ragged tiles.  hd in {32, 64, 128}, bf16 or f32.
 
-Three kernels behind one C entry point; `flash_route` picks one from the
-dtype and hd alone, before the launch (never as a retry):
+Three forward kernels behind one C entry point; `flash_route` picks one
+from the dtype and hd alone, before the launch (never as a retry):
   - "wgmma": bf16, hd 128 (Yi-9B, every long prompt) -- TMA loads into an
     mbarrier ring fed by a producer warpgroup, wgmma for both products;
   - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
@@ -23,20 +25,37 @@ dtype and hd alone, before the launch (never as a retry):
 `FLASH.launches` counts every launch and `FLASH.launches_by_route` each
 route's.
 
+The gradient.  Whenever autograd records (grad mode on and q, k or v
+requiring a gradient), `flash_attention` on CUDA tensors runs as a
+`torch.autograd.Function`: its forward launches the forward kernel with
+`lse` and saves q, k, v, out and lse; its backward launches
+`csrc/flash_attention_bwd.cu` (`FLASH_BWD`), three kernels behind one C
+entry point: D = rowsum(dout * out), then dK and dV per (batch, KV head,
+key tile) summing the G query heads of the group inside the block, then
+dQ per (batch, query head, query tile), each recomputing P = exp(scale
+q k^T - lse).  No atomics: the gradient is bitwise the same run to run.
+The reference has no Pallas backward; this is the port's counterpart of
+XLA's autodiff of `chunked_attention`, the reference's path at these
+lengths.  `flash_bwd_route` picks "mma_sync" for bf16 (every hd) and
+"fma" for f32.  `flash_attention_bwd_plain` is the backward's function in
+plain PyTorch.
+
 The probabilities stay in f32 in both dtypes, as in the Pallas kernel
 (which promotes v to f32) and `chunked_attention`.  In bf16 the tensor
-cores take bf16 operands, so the kernel splits p into a hi + lo pair of
-bf16 and runs the second product on each half: p keeps about 16 bits, and
-v stays bf16.  The contract in bf16: each output row within 4e-3 of its
-largest value of an f64 attention on the same inputs (the output's own
-rounding to bf16 allows up to 2^-8 = 3.9e-3).  `flash_attention_plain` is
-this function in plain PyTorch; the reference's oracle
-(`ref.flash_attention_ref`), which casts p to v.dtype first, misses that
-bound (5e-3 to 6e-3 at 512 keys).
+cores take bf16 operands, so the kernels split p (and, in the backward,
+dS) into a hi + lo pair of bf16 and run the product on each half: they
+keep about 16 bits.  The contracts in bf16: each output row within 4e-3
+of its largest value of an f64 attention on the same inputs (the output's
+own rounding to bf16 allows up to 2^-8 = 3.9e-3); each row of dq, dk and
+dv within 1e-2 of its largest value of `flash_attention_bwd_plain` in f64
+on the same q, k, v, out, lse and dout (a row's largest value floored at
+1e-2 of the gradient's: a causal first row has an exact dq of 0).
+`flash_attention_plain` is the forward's function; the reference's
+oracle (`ref.flash_attention_ref`), which casts p to v.dtype first,
+misses the forward's bound (5e-3 to 6e-3 at 512 keys).
 
-On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
-it runs `flash_attention_plain`.  Forward only, as the reference's kernel:
-a CUDA input that requires a gradient raises.
+On CUDA tensors the wrapper launches the kernels or raises; on CPU
+tensors it runs `flash_attention_plain`, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -49,16 +68,21 @@ from repro_torch.kernels.ref import NEG_INF
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2}   # the C entry point's `route`
+ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2}   # the C entry points' `route`
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (q, k, v, out, lse or None, B, S, T, H, KV, hd, dtype, causal, scale, route)
 FLASH = CudaFunction("flash_attention", "flash_attention_fwd",
-                     [_P, _P, _P, _P] + [_I] * 8 + [_F, _I])
+                     [_P] * 5 + [_I] * 8 + [_F, _I])
+# (q, k, v, out, lse, dout, dq, dk, dv, dsum scratch, B, S, T, H, KV, hd,
+#  dtype, causal, scale, route)
+FLASH_BWD = CudaFunction("flash_attention_bwd", "flash_attention_bwd",
+                         [_P] * 10 + [_I] * 8 + [_F, _I])
 
 
 def flash_route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel that serves (dtype, hd): "wgmma" for bf16 at hd 128,
-    "mma_sync" for bf16 at hd 32 or 64, "fma" for f32."""
+    """The forward kernel that serves (dtype, hd): "wgmma" for bf16 at hd
+    128, "mma_sync" for bf16 at hd 32 or 64, "fma" for f32."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: the CUDA kernel takes bf16 or f32, "
                         f"got {dtype}")
@@ -70,30 +94,85 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
     return "wgmma" if hd == 128 else "mma_sync"
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          scale: float) -> torch.Tensor:
+def flash_bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernels that serve (dtype, hd): "mma_sync" for bf16,
+    "fma" for f32 (the forward's tensor-core / FMA split)."""
+    return "fma" if flash_route(dtype, hd) == "fma" else "mma_sync"
+
+
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 for bf16 and f32 inputs (the kernels' arithmetic); f64 stays
+    f64, so that the plain versions give exact references."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _keep(S: int, T: int, device):
+    """(S, T) bool, key t <= query s: the causal mask."""
+    return (torch.arange(T, device=device)[None, :]
+            <= torch.arange(S, device=device)[:, None])
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float,
+                          return_lse: bool = False):
     """The kernel's function in plain PyTorch, as the Pallas `_kernel`
     computes it: f32 scores q k^T times `scale`, -1e30 above the diagonal,
     f32 softmax, p @ v with v promoted to f32, the output cast once to
     q.dtype.  GQA in place: query head h reads kv head h // (H // KV).  One
     kv head's group of query heads at a time, so the (S, T) scores of only
-    H / KV heads are held at once."""
+    H / KV heads are held at once.  f64 inputs are computed in f64.
+    return_lse=True also returns the rows' log-sum-exp (B, H, S), in f32
+    (f64 for f64 inputs), as the kernel writes it."""
     S, H = q.shape[1], q.shape[2]
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
-    keep = None
-    if causal:
-        keep = (torch.arange(T, device=q.device)[None, :]
-                <= torch.arange(S, device=q.device)[:, None])
-    outs = []
+    wt = _work_dtype(q.dtype)
+    keep = _keep(S, T, q.device) if causal else None
+    outs, lses = [], []
     for h in range(KV):
-        s = torch.einsum("bsgd,btd->bgst", q[:, :, h * G:(h + 1) * G].float(),
-                         k[:, :, h].float()) * scale
+        s = torch.einsum("bsgd,btd->bgst", q[:, :, h * G:(h + 1) * G].to(wt),
+                         k[:, :, h].to(wt)) * scale
         if keep is not None:
             s = torch.where(keep, s, NEG_INF)
+        if return_lse:
+            lses.append(torch.logsumexp(s, dim=-1))
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bgst,btd->bsgd", p, v[:, :, h].float()))
-    return torch.cat(outs, dim=2).to(q.dtype)
+        outs.append(torch.einsum("bgst,btd->bsgd", p, v[:, :, h].to(wt)))
+    out = torch.cat(outs, dim=2).to(q.dtype)
+    return (out, torch.cat(lses, dim=1)) if return_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool,
+                              scale: float):
+    """The backward kernels' function in plain PyTorch: with P = exp(scale
+    q k^T - lse) (0 above the diagonal under `causal`) and D = rowsum(dout
+    * out), dV = P^T dout, dS = P * (dout v^T - D), dQ = scale dS k and
+    dK = scale dS^T q, the GQA sum over each KV head's G query heads taken
+    per group.  f32 arithmetic (f64 for f64 inputs); returns (dq, dk, dv)
+    in q's dtype.  lse (B, H, S) as `flash_attention_plain(...,
+    return_lse=True)` or the forward kernel gives it."""
+    S, H = q.shape[1], q.shape[2]
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    wt = _work_dtype(q.dtype)
+    keep = _keep(S, T, q.device) if causal else None
+    dsum = torch.einsum("bshd,bshd->bhs", dout.to(wt), out.to(wt))
+    dqs, dks, dvs = [], [], []
+    for h in range(KV):
+        grp = slice(h * G, (h + 1) * G)
+        qg, dog = q[:, :, grp].to(wt), dout[:, :, grp].to(wt)
+        kh, vh = k[:, :, h].to(wt), v[:, :, h].to(wt)
+        s = torch.einsum("bsgd,btd->bgst", qg, kh) * scale
+        p = torch.exp(s - lse[:, grp, :, None].to(wt))
+        if keep is not None:
+            p = torch.where(keep, p, 0.0)
+        dvs.append(torch.einsum("bgst,bsgd->btd", p, dog))
+        dp = torch.einsum("bsgd,btd->bgst", dog, vh)
+        ds = p * (dp - dsum[:, grp, :, None])
+        dqs.append(scale * torch.einsum("bgst,btd->bsgd", ds, kh))
+        dks.append(scale * torch.einsum("bgst,bsgd->btd", ds, qg))
+    dt = q.dtype
+    return (torch.cat(dqs, dim=2).to(dt), torch.stack(dks, dim=2).to(dt),
+            torch.stack(dvs, dim=2).to(dt))
 
 
 def _check_shapes(q, k, v) -> None:
@@ -113,36 +192,111 @@ def _check_shapes(q, k, v) -> None:
                          f"over {KV} kv heads")
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale, causal) v per query head, GQA layout; returns
-    (B, S, H, hd) in q.dtype."""
-    _check_shapes(q, k, v)
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel is forward-only, as the "
-            "reference's; training at chunked_attn_threshold tokens or more "
-            "on the card is ROADMAP queue 1, item 5")
-    B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    for name, t in (("k", k), ("v", v)):
+def _check_cuda(q, *others) -> str:
+    """Devices and dtypes the kernels take; returns the forward route."""
+    for name, t in others:
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, q "
                              f"on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
                             f"{q.dtype}")
+    B, S, H, hd = q.shape
     route = flash_route(q.dtype, hd)
     if B * H > 2**31 - 1 or -(-S // 64) > 65535:
         raise ValueError(f"flash_attention: B * H = {B * H} or S = {S} "
                          "exceeds the kernel's grid")
-    q, k, v = aligned(q), aligned(k), aligned(v)
+    return route
+
+
+def _forward(q, k, v, causal: bool, scale: float, want_lse: bool):
+    """Launch the forward kernel on aligned, contiguous q, k, v: (out, lse
+    or None)."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    route = _check_cuda(q, ("k", k), ("v", v))
     out = torch.empty_like(q)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if out.numel() == 0 or T == 0:
-        return out.zero_() if T == 0 else out
+        if lse is not None:
+            lse.fill_(NEG_INF)
+        return (out.zero_() if T == 0 else out), lse
     FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          B, S, T, H, KV, hd, DTYPES[q.dtype], int(causal), float(scale),
-          ROUTES[route], route=route)
-    return out
+          None if lse is None else lse.data_ptr(), B, S, T, H, KV, hd,
+          DTYPES[q.dtype], int(causal), float(scale), ROUTES[route],
+          route=route)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
+                        scale: float):
+    """(dq, dk, dv) of `flash_attention` at (q, k, v) for the output
+    gradient `dout`, given the forward's `out` and `lse` (B, H, S) f32.  On
+    CUDA tensors one launch of the backward entry point (three kernels);
+    on CPU tensors `flash_attention_bwd_plain`."""
+    _check_shapes(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must be q's "
+                         f"{tuple(q.shape)}")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if lse.shape != (B, H, S):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} must "
+                         f"be (B, H, S) = {(B, H, S)}")
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, scale=scale)
+    _check_cuda(q, ("k", k), ("v", v), ("out", out), ("dout", dout))
+    if lse.dtype != torch.float32 or lse.device != q.device:
+        raise TypeError(f"flash_attention_bwd: lse must be f32 on "
+                        f"{q.device}, got {lse.dtype} on {lse.device}")
+    route = flash_bwd_route(q.dtype, hd)
+    q, k, v, out, dout, lse = (aligned(t) for t in (q, k, v, out, dout, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    FLASH_BWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+              dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, S, T, H, KV,
+              hd, DTYPES[q.dtype], int(causal), float(scale), ROUTES[route],
+              route=route)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernels with their gradient: the forward saves q, k, v, out and
+    lse; the backward launches `flash_attention_bwd` once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        q, k, v = aligned(q), aligned(k), aligned(v)
+        out, lse = _forward(q, k, v, causal, scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale, causal) v per query head, GQA layout; returns
+    (B, S, H, hd) in q.dtype.  On CUDA tensors, differentiable through the
+    backward kernels whenever autograd records."""
+    _check_shapes(q, k, v)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _check_cuda(q, ("k", k), ("v", v))
+        return _FlashAttention.apply(q, k, v, causal, float(scale))
+    q, k, v = aligned(q), aligned(k), aligned(v)
+    return _forward(q, k, v, causal, scale, want_lse=False)[0]

@@ -6,8 +6,11 @@ materialized KV repeat); scores and softmax are f32.
 
 A prompt of `cfg.chunked_attn_threshold` tokens or more takes the
 flash-style path, as in the reference: on CUDA tensors the hand-written
-flash kernel (`kernels/flash_attention.py`), on CPU tensors its plain
-version on the model's path, `chunked_attention`.
+flash kernel (`kernels/flash_attention.py`), which also carries the
+gradient there (its backward kernels, `csrc/flash_attention_bwd.cu`), so
+training at these lengths runs on the card; on CPU tensors its plain
+version on the model's path, `chunked_attention`, which autograd
+differentiates.
 
 Not ported yet: sliding windows, cross attention and MLA.
 """
@@ -189,9 +192,9 @@ def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
     (`causal=False`, the classifiers' encoder) full with no mask; RoPE is
     applied either way, as in the reference.  A causal prompt of
     `cfg.chunked_attn_threshold` tokens or more takes the flash-style path:
-    the CUDA flash kernel on CUDA tensors, `chunked_attention` on the CPU,
-    both held to the reference's chunk contract (`attn_chunk_q`/`_kv` must
-    divide S)."""
+    the CUDA flash kernel on CUDA tensors (forward and, when autograd
+    records, backward), `chunked_attention` on the CPU, both held to the
+    reference's chunk contract (`attn_chunk_q`/`_kv` must divide S)."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     lget = (lora or {}).get

@@ -5,7 +5,10 @@ LMs, and the paper's task models (a ViT-style classifier over embedding
 inputs, GPT-style classifiers and LMs with learned positions).  Params are
 stacked on a leading layer axis as in the reference; where the reference
 runs `lax.scan` over that axis, the port runs a Python loop over layer
-slices (views, no copies).  One device, so no sharding constraints.
+slices (views, no copies), and where it runs the scan under
+`jax.checkpoint`, the port recomputes each block in the backward pass
+(`_Recompute`): a training forward keeps one layer input per layer.  One
+device, so no sharding constraints.
 
 The decode KV cache is updated in place (see `attention._cache_write`):
 `decode_step` returns the cache it was given, now holding the new slot.
@@ -21,7 +24,7 @@ from repro_torch.models.config import ATTN_MLP, ModelConfig
 from repro_torch.models.layers import (P, chunked_softmax_ce, cross_entropy,
                                        layer_slice, linear, mlp_apply,
                                        mlp_spec, param_count, rms_norm,
-                                       stack_spec, torch_dtype)
+                                       stack_spec, torch_dtype, tree_leaves)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -126,6 +129,56 @@ def block_decode(lp, x1, cache, pos, cfg: ModelConfig, *, lora, ls):
     return x1, {"self": kv}
 
 
+def _rebuild(tree, leaves):
+    """`tree` with its leaves replaced, in `tree_leaves` order, by the
+    next items of the iterator `leaves`."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return tuple(_rebuild(v, leaves) for v in tree)
+    return next(leaves)
+
+
+class _Recompute(torch.autograd.Function):
+    """One block run with no activations kept, and run again in the
+    backward pass: the reference's `jax.checkpoint` of its scanned layer.
+    The block's weights and LoRA tensors are explicit inputs (not captured
+    in `run`), so every one that requires a gradient gets it.  The forward
+    keeps only the inputs; the backward's recomputation repeats the same
+    ops on the same tensors, so the gradient is bitwise the one of the
+    plain loop.  (`torch.utils.checkpoint` without reentrance recomputes
+    the same way, through a Python hook per saved tensor that doubles the
+    host time of a step.)"""
+
+    @staticmethod
+    def forward(ctx, run, x, *leaves):
+        ctx.run = run
+        ctx.save_for_backward(x, *leaves)
+        with torch.no_grad():
+            return run(x, *leaves)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        need = ctx.needs_input_grad[1:]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = ctx.run(*ins)
+        grads = iter(torch.autograd.grad(
+            y, [t for t, n in zip(ins, need) if n], dy))
+        return (None, *(next(grads) if n else None for n in need))
+
+
+def _recomputed_block(lp, x, cfg: ModelConfig, *, lora, ls, causal):
+    """block_forward's x through `_Recompute`."""
+    def run(x, *leaves):
+        it = iter(leaves)
+        return block_forward(_rebuild(lp, it), x, cfg, lora=_rebuild(lora, it),
+                             ls=ls, causal=causal)[0]
+    return _Recompute.apply(run, x, *tree_leaves(lp), *tree_leaves(lora))
+
+
 # ---------------------------------------------------------------------------
 # top level
 # ---------------------------------------------------------------------------
@@ -165,10 +218,20 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, lora=None,
         x = embed_tokens(params, cfg, batch["tokens"])
     gp = params["groups"]["g0"]
     gl = (lora or {}).get("g0") or {}
+    # the reference's jax.checkpoint of the scanned layer: while autograd
+    # records, each block keeps only its input and is recomputed in the
+    # backward pass (a forward that returns the KV cache keeps its blocks)
+    remat = (torch.is_grad_enabled() and not want_cache and (
+        x.requires_grad or any(t.requires_grad for t in
+                               (*tree_leaves(gp), *tree_leaves(gl)))))
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, c = block_forward(layer_slice(gp, i), x, cfg,
-                             lora=layer_slice(gl, i), ls=lora_scale,
+        lp, ll = layer_slice(gp, i), layer_slice(gl, i)
+        if remat:
+            x = _recomputed_block(lp, x, cfg, lora=ll, ls=lora_scale,
+                                  causal=causal)
+            continue
+        x, c = block_forward(lp, x, cfg, lora=ll, ls=lora_scale,
                              causal=causal, want_cache=want_cache)
         if want_cache:
             ks.append(c["self"][0])

@@ -32,10 +32,10 @@ def _names(csrc):
 
 
 def test_sources_are_the_cu_files_and_headers_are_shared():
-    assert _build.sources() == ["flash_attention", "grouped_lora",
-                                "lora_matmul", "transport"]
+    assert _build.sources() == ["flash_attention", "flash_attention_bwd",
+                                "grouped_lora", "lora_matmul", "transport"]
     assert (_build.CSRC / "hopper.cuh").is_file()
-    for name in ("flash_attention", "lora_matmul"):
+    for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
         assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
 
 
@@ -77,6 +77,18 @@ def test_the_flags_rename_every_library(csrc, monkeypatch):
 def test_flash_route(dtype, hd, route):
     assert fa.flash_route(dtype, hd) == route
     assert fa.ROUTES[route] in (0, 1, 2)
+
+
+# the backward's kernels: the forward's tensor-core / FMA split, mma.sync
+# at every bf16 head size
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 128, "mma_sync"), (torch.bfloat16, 64, "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fma"),
+    (torch.float32, 32, "fma")])
+def test_flash_bwd_route(dtype, hd, route):
+    assert fa.flash_bwd_route(dtype, hd) == route
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_bwd_route(dtype, 48)
 
 
 def test_flash_route_refuses_what_no_kernel_takes():
@@ -131,6 +143,10 @@ def test_route_counts_start_empty_and_reset():
      "pack_scan_kernel<NonzeroRows>"),
     ("void <unnamed>::pack_scan_kernel<<unnamed>::MaskQuantizeRows<(bool)1, "
      "(bool)0>>", "pack_scan_kernel<MaskQuantizeRows<1, 0>>"),
+    ("void <unnamed>::flash_bwd_dkdv_bf16_kernel<(int)128>",
+     "flash_bwd_dkdv_bf16_kernel<128>"),
+    ("void <unnamed>::flash_bwd_dot_kernel<__nv_bfloat16>",
+     "flash_bwd_dot_kernel<__nv_bfloat16>"),
 ])
 def test_build_report_names_kernels_with_their_template_arguments(demangled,
                                                                   name):

@@ -669,15 +669,145 @@ def test_flash_kernel_bf16_matches_chunked_attention(B, S, H, KV, hd, causal):
 def test_flash_kernel_refuses_what_it_cannot_run():
     _need_card()
     q, k, v = _attn(4, 1, 16, 16, 2, 1, 64, torch.float32)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        fa.flash_attention(q.requires_grad_(), k, v, scale=0.125)
-    q = q.detach()
+    # an input that requires a gradient no longer raises: the output
+    # carries the backward kernels, which one backward pass launches once
+    n_fwd, n_bwd = fa.FLASH.launches, fa.FLASH_BWD.launches
+    out = fa.flash_attention(q.clone().requires_grad_(), k, v, scale=0.125)
+    assert out.requires_grad and fa.FLASH.launches == n_fwd + 1
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert fa.FLASH_BWD.launches_by_route.get("fma", 0) >= 1
+    assert fa.FLASH_BWD.launches == n_bwd + 1
     with pytest.raises(ValueError, match="head size"):
         fa.flash_attention(q[..., :48], k[..., :48], v[..., :48], scale=0.125)
     with pytest.raises(TypeError, match="bf16 or f32"):
         fa.flash_attention(q.half(), k.half(), v.half(), scale=0.125)
     with pytest.raises(TypeError, match="k is"):
         fa.flash_attention(q, k.bfloat16(), v, scale=0.125)
+
+
+# the flash backward (csrc/flash_attention_bwd.cu) against its plain
+# version in f64 on the same inputs (q, k, v, out, lse, dout): each row of
+# dq, dk and dv within BWD_ROW_TOL of that row's largest |value| (bf16: the
+# contract; f32: the kernels' f32 sums against exact ones), a row's largest
+# value floored at BWD_ROW_FLOOR of the tensor's (the first query row under
+# causal masking has an exact dq of 0: a softmax over one key)
+BWD_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+BWD_ROW_FLOOR = 1e-2
+
+
+def _bwd_case(seed, B, S, T, H, KV, hd, dtype, causal):
+    """q, k, v, dout on the card; the kernel's out and lse (forward with
+    lse); the plain backward in f64 on those inputs."""
+    q, k, v = _attn(seed, B, S, T, H, KV, hd, dtype)
+    dout = _attn(seed + 1, B, S, S, H, H, hd, dtype)[0]
+    out, lse = fa._forward(q, k, v, causal, hd ** -0.5, want_lse=True)
+    want = fa.flash_attention_bwd_plain(
+        *(t.double() for t in (q, k, v, out, lse, dout)), causal=causal,
+        scale=hd ** -0.5)
+    return (q, k, v, dout, out, lse), want
+
+
+def _grad_rows_ok(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        d = (g.double() - w).abs().amax(-1)
+        m = w.abs().amax(-1).clamp_min(BWD_ROW_FLOOR * w.abs().max().item())
+        err = (d / m.clamp_min(1e-300)).max().item()
+        assert err <= BWD_ROW_TOL[dtype], (name, err)
+
+
+# ragged S and T (one past a tile, one short of one, T past S and S past
+# T; S 2 against T 3, whose first causal row has an exact dq of 0), H ==
+# KV and GQA, B 2; hd 32 / 64 / 128 in bf16 take the mma.sync
+# kernels, f32 the FMA ones
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,T,H,KV,hd", [
+    (1, 2, 3, 1, 1, 32), (2, 65, 65, 4, 4, 32), (1, 100, 37, 4, 2, 64),
+    (2, 37, 100, 6, 3, 64), (1, 257, 257, 32, 4, 128),
+    (2, 129, 300, 8, 8, 128), (1, 300, 129, 16, 4, 128),
+    (2, 256, 256, 8, 1, 128)])
+def test_flash_backward_matches_plain(B, S, T, H, KV, hd, causal, dtype):
+    _need_card()
+    (q, k, v, dout, out, lse), want = _bwd_case(S + T + hd, B, S, T, H, KV,
+                                                hd, dtype, causal)
+    route = fa.flash_bwd_route(dtype, hd)
+    n, nr = _route_launches(fa.FLASH_BWD, route)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH_BWD, route) == (n + 1, nr + 1)
+    _grad_rows_ok(got, want, dtype)
+    # the lse the forward wrote is the rows' log-sum-exp
+    _, l64 = fa.flash_attention_plain(*(t.double() for t in (q, k, v)),
+                                      causal=causal, scale=hd ** -0.5,
+                                      return_lse=True)
+    assert (lse.double() - l64).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.float32, 64)])
+def test_flash_backward_is_deterministic_and_lse_leaves_out_unchanged(dtype,
+                                                                      hd):
+    # two backward calls give the same bits (no atomics); the forward's
+    # out is the same bits with and without its lse output
+    _need_card()
+    (q, k, v, dout, out, lse), _ = _bwd_case(9, 2, 300, 300, 8, 2, hd, dtype,
+                                             True)
+    a = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                               scale=hd ** -0.5)
+    b = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                               scale=hd ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for causal in (True, False):
+        with_lse, _ = fa._forward(q, k, v, causal, hd ** -0.5, want_lse=True)
+        without, none = fa._forward(q, k, v, causal, hd ** -0.5,
+                                    want_lse=False)
+        assert none is None and torch.equal(with_lse, without)
+        assert torch.equal(without, fa.flash_attention(q, k, v, causal=causal,
+                                                        scale=hd ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradient_gradcheck_style_f32(causal):
+    # at a tiny f32 shape, the gradient through the kernels (autograd on
+    # the card) against autograd of the plain version in f64, and its
+    # directional derivatives against central differences of the plain
+    # f64 forward
+    _need_card()
+    q, k, v = _attn(11, 1, 5, 7, 2, 1, 32, torch.float32)
+    dout = _attn(12, 1, 5, 5, 2, 2, 32, torch.float32)[0]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n = fa.FLASH_BWD.launches
+    got = torch.autograd.grad(
+        fa.flash_attention(*leaves, causal=causal, scale=0.2), leaves, dout)
+    assert fa.FLASH_BWD.launches == n + 1
+    ref = [t.double().requires_grad_(True) for t in (q, k, v)]
+
+    def f(*xs):
+        return fa.flash_attention_plain(*xs, causal=causal, scale=0.2)
+
+    want = torch.autograd.grad(f(*ref), ref, dout.double())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x64 = [t.double() for t in (q, k, v)]
+    for i in range(3):
+        u = torch.randn(x64[i].shape, generator=gen, device="cuda",
+                        dtype=torch.float64)
+        eps = 1e-6
+        plus = [x + eps * u if j == i else x for j, x in enumerate(x64)]
+        minus = [x - eps * u if j == i else x for j, x in enumerate(x64)]
+        fd = ((f(*plus) - f(*minus)) * dout.double()).sum() / (2 * eps)
+        np.testing.assert_allclose((got[i].double() * u).sum().item(),
+                                   fd.item(), rtol=1e-5, atol=1e-6)
 
 
 def _lora(seed, M, K, N, r, dtype):
@@ -740,8 +870,8 @@ def test_flash_entry_point_refuses_a_route_the_shape_does_not_select(
     n = fa.FLASH.launches
     with pytest.raises(RuntimeError, match="launch failed"):
         fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), 1, 64, 64, 2, 1, hd, fa.DTYPES[dtype], 1,
-                 hd ** -0.5, fa.ROUTES[route], route=route)
+                 out.data_ptr(), None, 1, 64, 64, 2, 1, hd, fa.DTYPES[dtype],
+                 1, hd ** -0.5, fa.ROUTES[route], route=route)
     assert fa.FLASH.launches == n
 
 

@@ -106,25 +106,36 @@ def test_flat_meta_matches_reference(model):
         assert torch.equal(a, b), path
 
 
-@pytest.mark.parametrize("chunk", [1024, 16])
-def test_loss_and_lora_gradient_match_reference(model, chunk):
+# a long-prompt cut of CFG: 64 tokens take chunked_attention (chunks of 16,
+# the reference's fori_loop branch) under the reference's remat-scanned
+# layers and the port's recomputed blocks
+LONG_CFG = dataclasses.replace(CFG, chunked_attn_threshold=32,
+                               attn_chunk_q=16, attn_chunk_kv=16)
+
+
+@pytest.mark.parametrize("chunk,cfg,seq", [
+    pytest.param(1024, CFG, SEQ, id="1024"),
+    pytest.param(16, CFG, SEQ, id="16"),
+    pytest.param(16, LONG_CFG, 64, id="long")])
+def test_loss_and_lora_gradient_match_reference(model, chunk, cfg, seq):
     """rtol 1e-5, atol 1e-6; chunk=16 takes the chunked-vocab branch (the
-    reference's remat scan, the port's checkpointed loop)."""
-    tokens = _tokens(2, 3, SEQ)
-    mask = (np.random.default_rng(3).random((3, SEQ)) < 0.8).astype(np.int32)
+    reference's remat scan, the port's checkpointed loop); "long" takes
+    the long-prompt attention, chunked_attention, at S 64."""
+    tokens = _tokens(2, 3, seq)
+    mask = (np.random.default_rng(3).random((3, seq)) < 0.8).astype(np.int32)
     batch = {"tokens": tokens, "loss_mask": mask}
     jmeta = jfr.FlatMeta.of(model["lora"])
     jflat = jmeta.flatten(model["lora"])
 
     def jloss(flat):
-        return JM.loss_fn(model["params"], CFG, batch,
+        return JM.loss_fn(model["params"], cfg, batch,
                           lora=jmeta.unflatten(flat), lora_scale=LCFG.scale,
                           loss_chunk=chunk)
 
     want_l, want_g = jax.value_and_grad(jloss)(jflat)
     tmeta = tfr.FlatMeta.of(model["tlora"])
     flat = tmeta.flatten(model["tlora"]).requires_grad_(True)
-    loss = TM.loss_fn(model["tparams"], model["tcfg"],
+    loss = TM.loss_fn(model["tparams"], ModelConfig(**dataclasses.asdict(cfg)),
                       {k: _t(v) for k, v in batch.items()},
                       lora=tmeta.unflatten(flat), lora_scale=LCFG.scale,
                       loss_chunk=chunk)
