@@ -230,8 +230,9 @@ Phases, each fatal on failure:
                  against the exact gradient printed beside it, the
                  forward's lse against the f64 one (1e-4), two calls bitwise
                  equal, out bitwise the same with and without lse; its
-                 device time beside its bound, its plain version and SDPA's
-                 backward.  (b) Yi-9B at full width, 2 layers, 8192 tokens,
+                 device time (bf16 at hd 128 takes the wgmma route) beside
+                 its bound, its plain version and SDPA's backward, split
+                 into its kernels by torch.profiler.  (b) Yi-9B at full width, 2 layers, 8192 tokens,
                  bf16: the flat LoRA gradient of `loss_fn` through the
                  kernels against the one through chunked_attention's
                  autograd on the card, relative L2 within 2e-2.  (c)
@@ -241,7 +242,7 @@ Phases, each fatal on failure:
                  then 1 round of 1 client at 32768.  Launches zeroed just
                  before each run and read just after: flash forward 96 a
                  client step (the forward and its recomputation), all on
-                 the wgmma route, the backward 48 a client step (mma_sync),
+                 the wgmma route, the backward 48 a client step (wgmma),
                  the transport kernels phase 6's a round; losses finite;
                  round ms, ms a client step and peak memory printed.
 --profile adds torch.profiler windows over a few decode steps of phase
@@ -349,7 +350,13 @@ def device_ms(fn, n_iter: int) -> float:
 # ---------------------------------------------------------------------------
 
 # the kernels built on csrc/hopper.cuh (TMA, mbarriers, wgmma, setmaxnreg)
-HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel")
+# and the libraries that hold them
+HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel",
+                  "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+WGMMA_LIBS = ("flash_attention", "flash_attention_bwd", "lora_matmul")
+# what the backward's wgmma route launches, in order: lse and D, dK / dV, dQ
+FLASH_BWD_WGMMA = ("flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                   "flash_bwd_dq_wgmma_kernel")
 # the grouped LoRA kernel (thread-block clusters): one per rank bucket, with
 # 16-byte loads (1) or element loads (0)
 GROUPED_KERNELS = tuple(f"grouped_lora_cluster_kernel<{rp}, {vec}>"
@@ -364,12 +371,16 @@ PACK_SCAN_KERNELS = tuple(
         "MaskQuantizeRows<1, 1>"))
 TRANSPORT_KERNELS = ("bin_partial_kernel<12>", "bin_sum_kernel",
                      *PACK_SCAN_KERNELS, "pack_fill_kernel")
-# the flash backward (csrc/flash_attention_bwd.cu): D, then dK / dV and dQ
-# on the bf16 (mma.sync) and f32 (FMA) routes at every head size
-FLASH_BWD_KERNELS = ("flash_bwd_dot_kernel<__nv_bfloat16>",
+# the flash backward (csrc/flash_attention_bwd.cu): lse and D, then dK / dV
+# and dQ on the wgmma route (bf16, hd 128); D, then dK / dV and dQ on the
+# mma.sync (bf16, hd 32 and 64) and FMA (f32, every head size) routes
+FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel",
+                     "flash_bwd_dot_kernel<__nv_bfloat16>",
                      "flash_bwd_dot_kernel<float>") + tuple(
-    f"flash_bwd_{part}_{dt}_kernel<{hd}>" for part in ("dkdv", "dq")
-    for dt in ("bf16", "f32") for hd in (32, 64, 128))
+    f"flash_bwd_{part}_bf16_kernel<{hd}>" for part in ("dkdv", "dq")
+    for hd in (32, 64)) + tuple(
+    f"flash_bwd_{part}_f32_kernel<{hd}>" for part in ("dkdv", "dq")
+    for hd in (32, 64, 128))
 # kernels that must build with no stack frame and no spills
 GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
                  + FLASH_BWD_KERNELS)
@@ -414,12 +425,12 @@ def ptxas_kernels(log: str):
 def build_report(libs) -> None:
     """Print every kernel's registers, shared memory and spills, and every
     compiler warning.  Fail if a library's compiler log is missing, if a
-    gated kernel (the two wgmma kernels, the grouped kernel's rank buckets,
-    the bin_counts kernels, every instantiation of the packs' scan and
-    their fill, the flash backward's kernels) is not in its library's log
-    with its stack frame and spill
-    counts, if it has any of them, or if ptxas serialised a wgmma or
-    ignored a setmaxnreg (each of which quietly costs most of what the
+    gated kernel (the four wgmma kernels, the grouped kernel's rank
+    buckets, the bin_counts kernels, every instantiation of the packs' scan
+    and their fill, the flash backward's kernels) is not in its library's
+    log with its stack frame and spill counts, if it has any of them, or if
+    ptxas serialised a wgmma or ignored a setmaxnreg in a library that
+    holds a wgmma kernel (each of which quietly costs most of what the
     design buys)."""
     checked = {}
     for lib, path in sorted(libs.items()):
@@ -441,7 +452,7 @@ def build_report(libs) -> None:
                     "Potential Performance Loss" in ln]
         for ln in warnings:
             print(f"[build] {lib}: {ln}")
-        if lib in ("flash_attention", "lora_matmul"):
+        if lib in WGMMA_LIBS:
             check(not any("wgmma" in ln or "setmaxnreg" in ln or "C75" in ln
                           for ln in warnings),
                   f"ptxas serialised the wgmma or ignored setmaxnreg in {lib}")
@@ -457,6 +468,13 @@ def build_report(libs) -> None:
               f"{vals[0].value} bytes dynamic shared memory, setmaxnreg "
               f"{vals[1].value} registers (producer) / {vals[2].value} "
               "(consumers)")
+    vals = [ctypes.c_int() for _ in range(4)]
+    _build.load("flash_attention_bwd").flash_attention_bwd_wgmma_config(
+        *(ctypes.byref(v) for v in vals))
+    print(f"[build] flash_attention_bwd: {HOPPER_KERNELS[2]} / "
+          f"{HOPPER_KERNELS[3]}: {vals[0].value} / {vals[1].value} bytes "
+          f"dynamic shared memory, setmaxnreg {vals[2].value} registers "
+          f"(producer) / {vals[3].value} (consumers)")
     print(f"[build] {', '.join(GATED_KERNELS)}: no stack frame, no spills; "
           "no wgmma serialisation, no ignored setmaxnreg")
 
@@ -715,6 +733,38 @@ def summarize_trace(prof, fname: str, label: str, steps: int,
         print(f"[profile]   {t / 1e3 / steps:8.3f} ms/step {c // steps:5d} "
               f"launches/step  {name[:80]}")
     return {"busy_ms": busy / 1e3, "by_name": by_name}
+
+
+def kernel_split_ms(fn, n_iter: int, names=(), windows: int = 4) -> dict:
+    """{kernel name: device ms per call of fn(i)}, by torch.profiler's
+    key_averages over n_iter calls after one unprofiled call: the parts of
+    an entry point that launches several kernels.  After the profiled
+    phases of a `--profile` run, the profiler's windows record the card's
+    kernels only every other time (eight windows in a row: none, all,
+    none, all, ...; the same with TEARDOWN_CUPTI=0), so a window that
+    records no kernel, or lacks one of `names`, is opened again, up to
+    `windows` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        # CPU and CUDA activities, as every other window here
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(n_iter):
+                fn(i)
+            torch.cuda.synchronize()
+        ms: dict = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("(")[0]
+                ms[name] = (ms.get(name, 0.0)
+                            + e.device_time_total / 1e3 / n_iter)
+        if ms and all(n in ms for n in names):
+            break
+    return ms
 
 
 def profile_round(state, data) -> None:
@@ -3546,12 +3596,14 @@ def grad_errs(got, want) -> dict:
 def flash_bwd_check(seed: int):
     """(a) The backward kernels on the card against
     `flash_attention_bwd_plain` in f64 on the same inputs (the contract),
-    at the Yi-9B shape of an 8192-token sequence (bf16, causal) and a
-    ragged f32 one at hd 64 with H == KV; the error against the exact
+    at the Yi-9B shape of an 8192-token sequence (bf16, causal: the wgmma
+    route), a ragged bf16 one at hd 64 with G = 4 (mma_sync) and ragged
+    f32 ones at hd 64 with H == KV (fma); the error against the exact
     gradient (f64 attention's own out and lse) printed beside it; two calls
     bitwise equal; the forward's out bitwise the same with and without lse;
-    then the backward's device time at the Yi-9B shape beside its bound,
-    its plain version and SDPA's backward."""
+    then the backward's device time at the Yi-9B shape (the wgmma route)
+    beside its bound, its plain version and SDPA's backward, and its
+    kernels' parts of it (lse and D, dK / dV, dQ) by torch.profiler."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3560,6 +3612,7 @@ def flash_bwd_check(seed: int):
     res = {"cases": []}
     for B, S, T, H, KV, hd, dt, causal in (
             (1, LONG_S, LONG_S, 32, 4, 128, "bfloat16", True),
+            (2, 1000, 1100, 8, 2, 64, "bfloat16", True),
             (2, 1000, 1100, 4, 4, 64, "float32", True),
             (2, 1000, 1100, 4, 4, 64, "float32", False)):
         q, k, v = attn_inputs(gen, B, S, T, H, KV, hd, dt)
@@ -3618,7 +3671,7 @@ def flash_bwd_check(seed: int):
             continue
         # device times at the Yi-9B shape
         outs = [torch.empty_like(t) for t in (q, k, v)]
-        dsum = torch.empty(B, H, S, dtype=torch.float32, device="cuda")
+        dsum = fa.flash_bwd_scratch(B, H, S, q.device)
 
         def kernel(i, q=q, k=k, v=v, out=out, lse=lse, dout=dout, outs=outs,
                    dsum=dsum, route=route):
@@ -3653,7 +3706,13 @@ def flash_bwd_check(seed: int):
                    q, k, v, out, lse, dout, causal=causal, scale=scale), 2,
                    warmup=1),
                "library_ms": fb - fwd, "library_fwd_bwd_ms": fb,
-               "library_fwd_ms": fwd, "bound_ms": bound, "bound_by": by}
+               "library_fwd_ms": fwd, "bound_ms": bound, "bound_by": by,
+               "kernel_ms": kernel_split_ms(kernel, 3, FLASH_BWD_WGMMA)}
+        split = row["kernel_ms"]
+        check(route == "wgmma" and all(split.get(n, 0.0) > 0.0
+                                       for n in FLASH_BWD_WGMMA),
+              f"the profiler's split of the backward {split} lacks a kernel "
+              f"of {FLASH_BWD_WGMMA}")
         print(f"[long-train] timing {json.dumps(row)}")
         res["timing"] = row
         del outs, dsum, qh, kh, vh, doh
@@ -3822,7 +3881,7 @@ def long_train_runs(cfg, params, seed: int):
             check(launches[name] == n, f"long-train {S}: {name} launched "
                   f"{launches[name]} times, expected {n}")
         check(routes == {"flash_attention": {"wgmma": 2 * L * steps},
-                         "flash_attention_bwd": {"mma_sync": L * steps}},
+                         "flash_attention_bwd": {"wgmma": L * steps}},
               f"long-train {S}: flash launches by route {routes}")
         runs[S] = {"clients": C, "rounds": R, "round_ms": round_ms,
                    "step_ms": step_ms, "losses": losses, "peak_gib": peak,

@@ -10,10 +10,11 @@
 //
 // per query head h and its KV head kh = h / (H / KV); dk and dv sum over
 // the G = H / KV query heads of their group.  q, out, dout, dq (B, S, H,
-// hd); k, v, dk, dv (B, T, KV, hd); lse and the scratch D (B, H, S) f32,
-// lse in natural-log units as the forward writes it.  One dtype, bf16 or
-// f32, hd in {32, 64, 128}; any S and T (ragged tiles are masked); causal
-// compares absolute positions, key t against query s, as the forward does.
+// hd); k, v, dk, dv (B, T, KV, hd); lse (B, H, S) f32 in natural-log units
+// as the forward writes it; an f32 scratch for D (see the entry point at
+// the end of this file).  One dtype, bf16 or f32, hd in {32, 64, 128}; any
+// S and T (ragged tiles are masked); causal compares absolute positions,
+// key t against query s, as the forward does.
 //
 // Replaces no TPU kernel: the reference has no Pallas backward.  At
 // chunked_attn_threshold tokens or more it trains through the jnp
@@ -25,39 +26,67 @@
 // function is five products of S T hd H / 2 multiply-adds each (Q K^T to
 // recompute P, P^T dO, dO V^T, dS K, dS^T Q): 1.37e12 flop, 1.39 ms of bf16
 // tensor-core work against some 0.3 GB of inputs and outputs (0.1 ms).  It
-// is bound by operations.  This first version is the simple one: mma.sync
-// from shared memory, Q K^T and dO V^T computed once in each of the two
-// gradient kernels (seven products where five are needed), P and dS as hi
-// + lo pairs of bf16 (another product each); wgmma, TMA and a fused dQ are
-// left for a redesign.
-//
-// Three kernels behind one C entry point, launched in order on one stream:
-//   (a) flash_bwd_dot_kernel: D = rowsum(dout * out) in f32, one warp a row.
-//   (b) dK, dV: one block per (batch, KV head, tile of 64 keys), the
-//       accumulators in registers.  It loops over the G query heads of its
-//       group and over the query tiles at or below the diagonal, so the
-//       GQA sum is taken inside the block: no atomics, no second pass.
-//   (c) dQ: one block per (batch, query head, tile of 64 query rows),
-//       looping over the key tiles at or below the diagonal.
-// Every output element is summed by one thread in a fixed order: the
-// gradient is bitwise the same run to run.
+// is bound by operations.  The bf16 kernels keep P and dS in f32 and feed
+// them to the products that consume them as hi + lo pairs of bf16, two
+// products each, and recompute S (and dP) in both gradient kernels: route
+// 0 does ten product-units of work for the bound's five (S^T, dP^T and dV,
+// dK as pairs in (b'); S, dP and dQ as a pair in (c')).
 //
 // Routes (the caller's flash_bwd_route, from dtype and hd alone):
-//   route 1, "mma_sync" -- bf16, hd 32, 64 and 128: 4 warps, 16 rows (keys
-//     in (b), queries in (c)) a warp.  mma.sync m16n8k16, bf16 operands,
-//     f32 accumulation; operands by ldmatrix from shared memory (the .trans
-//     form where the product runs over the rows of a tile), tiles streamed
-//     by cp.async, double-buffered, zero-filled past S and T.  P and dS stay
-//     in f32 and enter the products that consume them as a hi + lo pair of
-//     bf16 (hopper::split_bf16), two mma.sync on the same B fragment, as the
-//     forward does for P V: about 16 bits of P and dS.  Registers: the two
-//     64 x hd f32 accumulators of (b) are 2 hd per thread at hd 128, so (b)
-//     steps over 32 queries at a time (a 16 x 32 score tile per warp) and
-//     reloads its K and V fragments from shared memory at every step
-//     instead of holding them.
+//   route 0, "wgmma" -- bf16, hd 128 (Yi-9B's long-sequence training):
+//     (a') writes each row's lse log2 e and D into a scratch padded to 128
+//     rows (lse +inf, D 0 past S, so that padded rows weigh exactly 0), 64
+//     rows of each in turn.  (b') and (c') are the forward's route 0 turned
+//     around: one producer warpgroup of which one thread issues TMA loads
+//     from 4-D tensor maps over the real (hd, heads, seq, batch) layouts
+//     (zero-filled past S and T), a ring of three stages with a full and an
+//     empty mbarrier each, two consumer warpgroups on wgmma, setmaxnreg
+//     24 / 240.
+//     (b') one block per (batch, KV head, 64 keys), K and V loaded once;
+//     64-row tiles of Q and dO with their 64 lse and D (one bulk copy)
+//     stream through the ring for each of the G query heads in turn, so the
+//     GQA sum is taken in the block.  Consumer 0 computes S^T = K Q^T
+//     (m64n64k16, both K-major) and P^T = exp2(S^T scale log2 e - lse log2
+//     e) (masked on the diagonal tile only), hands P^T to consumer 1
+//     through a two-slot ring of its own (each thread's 32 values in
+//     register order: both consumers hold the same (key, query) positions)
+//     and accumulates dV += P^T dO; consumer 1 computes dP^T = V dO^T, dS^T
+//     = P^T (dP^T - D) and dK += dS^T Q.  Each last product takes its A from
+//     registers as hi + lo pairs (m64n128k16, dO or Q read MN-major through
+//     the transpose bit).  One warpgroup holding dK and dV for its keys
+//     (2 x 64 accumulator registers a thread beside the score tiles) was
+//     spilled and serialised by ptxas (C7512) at 64- and at 32-query steps.
+//     dK / dV a launch at 8192 tokens on an H100, by scripts/flash_bwd_ab.py
+//     (PERF.md, section 6): both consumers computing S^T, 2.8 ms; consumer 1 handing P^T to
+//     consumer 0 (a longer chain for one of them), 3.0 ms; issuing the next
+//     step's first product ahead of the last one, serialised by ptxas
+//     (C7515), 3.4 ms; this design 2.6 ms.  Key tiles are issued heaviest
+//     first (tile 0 has the most query tiles under causal masking): at 8192
+//     tokens 512 blocks on 132 SMs, one an SM.
+//     (c') one block per (batch, query head, 128 rows), Q and dO loaded once;
+//     64-key tiles of K and V stream through the ring.  Each consumer owns
+//     64 rows: S = Q K^T and dP = dO V^T (m64n64k16), P, dS = P (dP - D),
+//     dQ += dS K (m64n128k16, dS as hi + lo pairs, K MN-major).  Query
+//     tiles last-first, the blocks with the most keys first; a 64-key tile
+//     wholly after a consumer's rows (causal) is only handed back.
+//   route 1, "mma_sync" -- bf16, hd 32 and 64 (the first version): 4 warps,
+//     16 rows (keys in (b), queries in (c)) a warp.  mma.sync m16n8k16, bf16
+//     operands, f32 accumulation; operands by ldmatrix from shared memory
+//     (the .trans form where the product runs over the rows of a tile),
+//     tiles streamed by cp.async, double-buffered, zero-filled past S and T.
+//     P and dS stay in f32 and enter the products that consume them as a hi
+//     + lo pair of bf16 (hopper::split_bf16), two mma.sync on the same B
+//     fragment, as the forward does for P V: about 16 bits of P and dS.
+//     (b) steps over 32 queries at a time (a 16 x 32 score tile per warp)
+//     and reloads its K and V fragments from shared memory at every step.
 //   route 2, "fma" -- f32, hd 32, 64 and 128: FMA (never TF32), 256 threads
 //     as 16 x 16 over 64 x 64 score tiles, the tiles stored transposed in
 //     shared memory, P and dS passed through shared memory to the products.
+// Routes 1 and 2 launch (a) D = rowsum(dout * out), one warp a row, then
+// (b) dK, dV per (batch, KV head, 64 keys), looping over the G query heads
+// and the query tiles at or below the diagonal, then (c) dQ per (batch,
+// query head, 64 rows).  Every output element of every route is summed by
+// one thread in a fixed order: the gradient is bitwise the same run to run.
 //
 // The contract (bf16): each row of dq, dk and dv within 1e-2 of that row's
 // largest |value| of the same function in f64 on the same inputs (q, k, v,
@@ -523,6 +552,508 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// route 0, bf16, hd 128: TMA, an mbarrier ring, wgmma, a producer warpgroup
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;        // consumers: warpgroups 0, 1; producer: 2
+constexpr int kWgProducerRegs = 24;    // setmaxnreg, per thread
+constexpr int kWgConsumerRegs = 240;   // (24 + 2 x 240) x 128 = 168 x 384
+constexpr int kWgStages = 3;           // the ring of streamed tiles
+constexpr int kRowTile = 64;           // (b') keys a block, rows a step; (c') keys a step
+constexpr int kWgBlock = 128;          // query rows of a (c') block
+constexpr int kBox64 = 64 * 128;       // a TMA box of 64 rows x 64 bf16
+constexpr int kBox128 = 128 * 128;     // a TMA box of 128 rows x 64 bf16
+// per 64 query rows of the scratch: lse in log2 units, then D (f32 each)
+constexpr int kRowsF32 = 2 * kRowTile;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// (b'): K and V (64 keys), then per stage Q, dO (64 rows), then the P^T
+// ring (128 threads x 32 f32 a slot), then the stages' lse and D rows;
+// barriers after; 1 KB of slack to align the base
+constexpr int kDkvStage = 4 * kBox64;
+constexpr int kPSlots = 2;              // P^T handed from dV's warpgroup to dK's
+constexpr int kPSlot = 128 * 32 * 4;
+constexpr int kDkvBars = 1 + 2 * kWgStages + 2 * kPSlots;
+constexpr int kDkvSmem = 1024 + 4 * kBox64 + kWgStages * kDkvStage +
+                         kPSlots * kPSlot + kWgStages * kRowsF32 * 4 +
+                         8 * kDkvBars;
+// (c'): Q and dO (128 rows), then per stage K and V (64 keys)
+constexpr int kDqStage = 4 * kBox64;
+constexpr int kDqBars = 1 + 2 * kWgStages;
+constexpr int kDqSmem = 1024 + 4 * kBox128 + kWgStages * kDqStage +
+                        8 * kDqBars;
+
+// 2^x by the special-function unit, a result below 2^-126 flushed to 0 (as
+// in the forward's route 0)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Where row s of (b, h) = bh lies in route 0's scratch: the rows in chunks
+// of 64, each chunk's 64 lse values followed by its 64 D values.
+template <typename F>
+__device__ __forceinline__ F* scratch_rows(F* rows, int bh, int S_pad, int s) {
+  return rows + (static_cast<size_t>(bh) * (S_pad / kRowTile) + s / kRowTile) *
+                    kRowsF32 + s % kRowTile;
+}
+
+// A 64 x N f32 accumulator (the M = N / 2 values a thread holds) as the A
+// operands of N / 16 k16 steps, hi + lo pairs of bf16: step kk takes
+// elements 8 kk .. 8 kk + 7 (chunks 2 kk and 2 kk + 1).
+template <int M>
+__device__ __forceinline__ void make_pairs(const float (&x)[M],
+                                           uint32_t (&hi)[M / 8][4],
+                                           uint32_t (&lo)[M / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < M / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], hi[kk][e],
+                 lo[kk][e]);
+    }
+  }
+}
+
+// (a') For every (b, h) and row s < S_pad: lse * log2 e and D = rowsum(dout
+// * out) in f32 into the scratch, 64 rows of lse then their 64 D; rows
+// past S get lse = +inf and D = 0.  One warp a row, rows in (b, s, h) order
+// so that a warp's neighbours read the next 256 bytes.
+__global__ void __launch_bounds__(32 * kDotRows)
+flash_bwd_rows_kernel(const __nv_bfloat16* __restrict__ out,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ rows,
+                      int S, int S_pad, int H, long long n_rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * kDotRows +
+                        threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  const int h = static_cast<int>(row % H);
+  const int s = static_cast<int>((row / H) % S_pad);
+  const long long b = row / (static_cast<long long>(H) * S_pad);
+  float acc = 0.0f;
+  if (s < S) {
+    const size_t off = ((b * S + s) * H + h) * 128 + 4 * lane;
+    const uint2 o = *reinterpret_cast<const uint2*>(out + off);
+    const uint2 d = *reinterpret_cast<const uint2*>(dout + off);
+    const float2 o0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&o.x));
+    const float2 o1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&o.y));
+    const float2 d0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d.x));
+    const float2 d1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d.y));
+    acc = o0.x * d0.x + o0.y * d0.y + o1.x * d1.x + o1.y * d1.y;
+#pragma unroll
+    for (int off2 = 16; off2 > 0; off2 >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, off2);
+    }
+  }
+  if (lane == 0) {
+    const int bh = static_cast<int>(b * H + h);
+    float* r = scratch_rows(rows, bh, S_pad, s);
+    r[0] = s < S ? lse[static_cast<size_t>(bh) * S + s] * kLog2e : INFINITY;
+    r[kRowTile] = acc;
+  }
+}
+
+// (b')'s shared memory, as the consumers address it: K and V (64 keys),
+// stage s's Q at q0_addr + s kDkvStage and dO 2 kBox64 after it, the P^T
+// ring, the stages' lse and D rows, the barriers.
+struct DkvTiles {
+  uint32_t k_addr, v_addr, q0_addr;
+  float4* p0;
+  const float* rows_s;
+  uint64_t *kv_full, *full, *empty, *p_full, *p_empty;
+};
+
+// (b')'s consumer warpgroups, keys k0 .. k0 + 63, one code path a role so
+// that ptxas sees each role's wgmma pipeline whole.  dV's (GRAD_K false):
+// S^T = K Q^T (m64n64k16, both K-major), P^T = exp2(S^T scale log2 e -
+// lse log2 e) (masked on the diagonal tile only), handed to dK's
+// warpgroup through the P^T ring, then dV += P^T dO.  dK's: dP^T = V dO^T,
+// dS^T = P^T (dP^T - D) with P^T from the ring, then dK += dS^T Q.  Both
+// warpgroups hold the same (key, query) positions in their accumulators,
+// so each thread hands its 32 values to the same thread of the other in
+// register order.  A of the last product from registers as hi + lo pairs
+// of bf16 (queries 16 kk .. + 15 are accumulator chunks 2 kk and 2 kk +
+// 1), B = dO or Q read MN-major through the transpose bit.  Three
+// product-units a step each, six in all.
+template <bool GRAD_K>
+__device__ __forceinline__ void dkdv_consumer(
+    const DkvTiles& tl, int k0, int qt0, int per_head, int n_it, int T, int KV,
+    int b, int kh, float scale_log2, int causal, __nv_bfloat16* out,
+    float mul) {
+  using namespace hopper;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key_lo = k0 + warp * 16 + g;            // accumulator rows g, g + 8
+  const int me = threadIdx.x % 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  if (n_it > 0) mbar_wait(tl.kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kWgStages, slot = it % kPSlots;
+    const int q0 = (qt0 + it % per_head) * kRowTile;
+    mbar_wait(&tl.full[s], (it / kWgStages) & 1);
+    const uint32_t q_addr = tl.q0_addr + s * kDkvStage;
+    const uint32_t do_addr = q_addr + 2 * kBox64;
+    const float* rs_ = tl.rows_s + s * kRowsF32;
+    float4* ring = tl.p0 + slot * (kPSlot / 16);
+    // x[4 j + e] is key key_lo (e < 2) or key_lo + 8, query q0 + 8 j + 2 t +
+    // (e & 1): S^T, then P^T (dV's) or dP^T, then dS^T (dK's)
+    float x[32];
+    const uint32_t a_addr = GRAD_K ? tl.v_addr : tl.k_addr;
+    const uint32_t b_addr = GRAD_K ? do_addr : q_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_m64n64k16_ss(
+          x, desc_sw128(a_addr + (kk / 4) * kBox64 + (kk % 4) * 32, 16, 1024),
+          desc_sw128(b_addr + (kk / 4) * kBox64 + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if constexpr (!GRAD_K) {
+      // rows past S carry lse = +inf (P = 0), keys past T are never stored
+      const bool diag = causal && k0 + 63 > q0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(rs_ + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float p = ex2_ftz(fmaf(x[i], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if (diag && key_lo + (e & 2) * 4 > q0 + 8 * j + 2 * t + (e & 1)) {
+            p = 0.0f;
+          }
+          x[i] = p;
+        }
+      }
+      mbar_wait(&tl.p_empty[slot], ((it / kPSlots) & 1) ^ 1);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        ring[c * 128 + me] = make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2],
+                                         x[4 * c + 3]);
+      }
+      mbar_arrive(&tl.p_full[slot]);
+    } else {
+      mbar_wait(&tl.p_full[slot], (it / kPSlots) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = ring[j * 128 + me];
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(rs_ + kRowTile + 8 * j + 2 * t);
+        x[4 * j] = p.x * (x[4 * j] - d2.x);
+        x[4 * j + 1] = p.y * (x[4 * j + 1] - d2.y);
+        x[4 * j + 2] = p.z * (x[4 * j + 2] - d2.x);
+        x[4 * j + 3] = p.w * (x[4 * j + 3] - d2.y);
+      }
+      mbar_arrive(&tl.p_empty[slot]);
+    }
+    uint32_t ah[4][4], al[4][4];
+    make_pairs(x, ah, al);
+    const uint32_t c_addr = GRAD_K ? q_addr : do_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = desc_sw128(c_addr + kk * 2048, kBox64, 1024);
+      wgmma_m64n128k16_rs(acc, ah[kk], d, 1);
+      wgmma_m64n128k16_rs(acc, al[kk], d, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&tl.empty[s]);
+  }
+  fence_regs(acc);
+
+  const size_t kv_stride = static_cast<size_t>(KV) * 128;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = key_lo + 8 * rr;
+    if (key >= T) continue;
+    __nv_bfloat16* row = out + (static_cast<size_t>(b) * T + key) * kv_stride +
+                         static_cast<size_t>(kh) * 128;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int i = 4 * j + 2 * rr;
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(mul * acc[i], mul * acc[i + 1]);
+    }
+  }
+}
+
+// (b') dK, dV: block (b * KV + kh, tile of 64 keys).  Consumer warpgroup
+// 0 accumulates dV, warpgroup 1 dK (dkdv_consumer): each holds one 64 x
+// 128 f32 accumulator beside one 64 x 64 score tile.  One warpgroup
+// holding both accumulators (2 x 64 registers a thread) left ptxas too
+// few: it spilled and serialised the wgmma (C7512) at score tiles of 64
+// and of 32 queries, whatever setmaxnreg asked for.  Key tiles in
+// blockIdx.y order: under causal masking tile 0 has the most query tiles,
+// so the heaviest blocks are issued first.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const float* __restrict__ rows,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int S, int S_pad,
+                            int T, int H, int KV, float scale,
+                            float scale_log2, int causal) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = base;                                   // box c: hd 64 c ..
+  uint8_t* vs = base + 2 * kBox64;
+  auto qs = [&](int s) { return base + 4 * kBox64 + s * kDkvStage; };
+  auto dos = [&](int s) { return qs(s) + 2 * kBox64; };
+  uint8_t* p0 = base + 4 * kBox64 + kWgStages * kDkvStage;   // P^T ring
+  float* rows_s = reinterpret_cast<float*>(p0 + kPSlots * kPSlot);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s +
+                                                  kWgStages * kRowsF32);
+  uint64_t* full = kv_full + 1;                         // [kWgStages] each
+  uint64_t* empty = full + kWgStages;
+  uint64_t* p_full = empty + kWgStages;                 // [kPSlots] each
+  uint64_t* p_empty = p_full + kPSlots;
+
+  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
+  const int k0 = blockIdx.y * kRowTile;
+  // query tiles qt0 .. n_qt - 1 of each of the G heads; under causal
+  // masking the tiles before the block's first key hold no query that sees
+  // it
+  const int n_qt = (S + kRowTile - 1) / kRowTile;
+  const int qt0 = causal ? min(k0 / kRowTile, n_qt) : 0;
+  const int per_head = n_qt - qt0;
+  const int n_it = G * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);               // the producer's expect_tx
+      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+    }
+    for (int i = 0; i < kPSlots; ++i) {
+      mbar_init(&p_full[i], 128);           // every thread of dV's warpgroup
+      mbar_init(&p_empty[i], 128);          // every thread of dK's
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<kWgProducerRegs>();
+    if (threadIdx.x == 256 && n_it > 0) {
+      mbar_arrive_expect_tx(kv_full, 4 * kBox64);
+      tma_load_4d(ks, &tm_k, kv_full, 0, kh, k0, b);
+      tma_load_4d(ks + kBox64, &tm_k, kv_full, 64, kh, k0, b);
+      tma_load_4d(vs, &tm_v, kv_full, 0, kh, k0, b);
+      tma_load_4d(vs + kBox64, &tm_v, kv_full, 64, kh, k0, b);
+      int it = 0;
+      for (int gi = 0; gi < G; ++gi) {
+        const int hh = kh * G + gi;
+        const float* head_rows = rows + static_cast<size_t>(b * H + hh) *
+                                            (S_pad / kRowTile) * kRowsF32;
+        for (int qt = qt0; qt < n_qt; ++qt, ++it) {
+          const int s = it % kWgStages;
+          mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], kDkvStage + kRowsF32 * 4);
+          const int q0 = qt * kRowTile;
+          tma_load_4d(qs(s), &tm_q, &full[s], 0, hh, q0, b);
+          tma_load_4d(qs(s) + kBox64, &tm_q, &full[s], 64, hh, q0, b);
+          tma_load_4d(dos(s), &tm_do, &full[s], 0, hh, q0, b);
+          tma_load_4d(dos(s) + kBox64, &tm_do, &full[s], 64, hh, q0, b);
+          bulk_load(rows_s + s * kRowsF32, head_rows + qt * kRowsF32,
+                    kRowsF32 * 4, &full[s]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kWgConsumerRegs>();
+    const DkvTiles tiles{smem_addr(ks), smem_addr(vs), smem_addr(qs(0)),
+                         reinterpret_cast<float4*>(p0), rows_s, kv_full, full,
+                         empty, p_full, p_empty};
+    if (wg == 1) {
+      dkdv_consumer<true>(tiles, k0, qt0, per_head, n_it, T, KV, b, kh,
+                          scale_log2, causal, dk, scale);
+    } else {
+      dkdv_consumer<false>(tiles, k0, qt0, per_head, n_it, T, KV, b, kh,
+                           scale_log2, causal, dv, 1.0f);
+    }
+  }
+}
+
+// (c') dQ: block (b * H + h, tile of 128 query rows); consumer warpgroup w
+// owns rows q0 + 64 w .. + 63.  Query tiles last-first, so that under
+// causal masking the blocks with the most keys are issued first.
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ rows,
+                          __nv_bfloat16* __restrict__ dq, int S, int S_pad,
+                          int T, int H, int KV, float scale, float scale_log2,
+                          int causal) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = base;                                   // box c: hd 64 c ..
+  uint8_t* dos = base + 2 * kBox128;
+  auto ks = [&](int s) { return base + 4 * kBox128 + s * kDqStage; };
+  auto vs = [&](int s) { return ks(s) + 2 * kBox64; };
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + 4 * kBox128 +
+                                                 kWgStages * kDqStage);
+  uint64_t* full = q_full + 1;                          // [kWgStages] each
+  uint64_t* empty = full + kWgStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBlock;
+  int n_tiles = (T + kRowTile - 1) / kRowTile;
+  if (causal) {
+    n_tiles = min(n_tiles, (min(q0 + kWgBlock, S) - 1) / kRowTile + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    setmaxnreg_dec<kWgProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, 4 * kBox128);
+      tma_load_4d(qs, &tm_q, q_full, 0, h, q0, b);
+      tma_load_4d(qs + kBox128, &tm_q, q_full, 64, h, q0, b);
+      tma_load_4d(dos, &tm_do, q_full, 0, h, q0, b);
+      tma_load_4d(dos + kBox128, &tm_do, q_full, 64, h, q0, b);
+      for (int jt = 0; jt < n_tiles; ++jt) {
+        const int s = jt % kWgStages;
+        const int j0 = jt * kRowTile;
+        mbar_wait(&empty[s], ((jt / kWgStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], kDqStage);
+        tma_load_4d(ks(s), &tm_k, &full[s], 0, kh, j0, b);
+        tma_load_4d(ks(s) + kBox64, &tm_k, &full[s], 64, kh, j0, b);
+        tma_load_4d(vs(s), &tm_v, &full[s], 0, kh, j0, b);
+        tma_load_4d(vs(s) + kBox64, &tm_v, &full[s], 64, kh, j0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kWgConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row_w = q0 + wg * 64;                 // this warpgroup's rows
+    const int r_lo = row_w + warp * 16 + g, r_hi = r_lo + 8;
+    const uint32_t q_addr = smem_addr(qs) + wg * 64 * 128;
+    const uint32_t do_addr = smem_addr(dos) + wg * 64 * 128;
+    // the scratch is padded to a multiple of 128 rows: r_lo, r_hi < S_pad
+    const float* lo_rows = scratch_rows(rows, bh, S_pad, r_lo);
+    const float* hi_rows = scratch_rows(rows, bh, S_pad, r_hi);
+    const float lse2[2] = {lo_rows[0], hi_rows[0]};
+    const float dsum[2] = {lo_rows[kRowTile], hi_rows[kRowTile]};
+    float dqa[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dqa[i] = 0.0f;
+
+    mbar_wait(q_full, 0);
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      const int s = jt % kWgStages;
+      const int j0 = jt * kRowTile;
+      mbar_wait(&full[s], (jt / kWgStages) & 1);
+      // under causal masking a key tile wholly after this warpgroup's last
+      // row adds nothing: only its stage is handed back
+      if (!(causal && j0 > row_w + 63)) {
+        const uint32_t k_addr = smem_addr(ks(s));
+        const uint32_t v_addr = smem_addr(vs(s));
+        // S = Q K^T and dP = dO V^T: sc[4 j + e] is row r_lo (e < 2) or
+        // r_hi, key j0 + 8 j + 2 t + (e & 1)
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_m64n64k16_ss(
+              sc, desc_sw128(q_addr + (kk / 4) * kBox128 + (kk % 4) * 32, 16, 1024),
+              desc_sw128(k_addr + (kk / 4) * kBox64 + (kk % 4) * 32, 16, 1024),
+              kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_m64n64k16_ss(
+              dp, desc_sw128(do_addr + (kk / 4) * kBox128 + (kk % 4) * 32, 16, 1024),
+              desc_sw128(v_addr + (kk / 4) * kBox64 + (kk % 4) * 32, 16, 1024),
+              kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        // P = exp2(S scale log2 e - lse log2 e), while dP runs; masked
+        // where key > row (causal) and past T (zero K rows would still
+        // weigh exp2(-lse))
+        const bool edge = (causal && j0 + kRowTile - 1 > row_w) ||
+                          j0 + kRowTile > T;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int rr = (i >> 1) & 1;
+          float p = ex2_ftz(fmaf(sc[i], scale_log2, -lse2[rr]));
+          if (edge) {
+            const int key = j0 + 8 * (i / 4) + 2 * t + (i & 1);
+            if (key >= T || (causal && key > (rr ? r_hi : r_lo))) p = 0.0f;
+          }
+          sc[i] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - D) as hi + lo pairs of bf16 A operands; dQ += dS K,
+        // K read MN-major through the transpose bit
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dsum[(i >> 1) & 1];
+        uint32_t sh[4][4], sl[4][4];
+        make_pairs(sc, sh, sl);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t d = desc_sw128(k_addr + kk * 2048, kBox64, 1024);
+          wgmma_m64n128k16_rs(dqa, sh[kk], d, 1);
+          wgmma_m64n128k16_rs(dqa, sl[kk], d, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    fence_regs(dqa);
+
+    const size_t q_stride = static_cast<size_t>(H) * 128;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = rr ? r_hi : r_lo;
+      if (r >= S) continue;
+      __nv_bfloat16* row = dq + (static_cast<size_t>(b) * S + r) * q_stride +
+                           static_cast<size_t>(h) * 128;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int i = 4 * j + 2 * rr;
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(scale * dqa[i], scale * dqa[i + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // route 2, f32: FMA
 // ---------------------------------------------------------------------------
 
@@ -830,6 +1361,64 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// route 0: (a'), then (b') and (c') on tensor maps over the real 4-D
+// layouts (hd, heads, seq, batch)
+int launch_wgmma(const Args& a, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int S_pad = (a.S + kWgBlock - 1) / kWgBlock * kWgBlock;
+  float* rows = static_cast<float*>(a.dsum);
+  const long long n_rows = static_cast<long long>(a.B) * S_pad * a.H;
+  const long long blocks = (n_rows + kDotRows - 1) / kDotRows;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_rows_kernel<<<static_cast<unsigned>(blocks), 32 * kDotRows, 0,
+                          stream>>>(
+      static_cast<const bf*>(a.out), static_cast<const bf*>(a.dout),
+      static_cast<const float*>(a.lse), rows, a.S, S_pad, a.H, n_rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  const uint64_t qdim[4] = {128, static_cast<uint64_t>(a.H),
+                            static_cast<uint64_t>(a.S),
+                            static_cast<uint64_t>(a.B)};
+  const uint64_t qstr[3] = {256, 256ull * a.H, 256ull * a.H * a.S};
+  const uint64_t kdim[4] = {128, static_cast<uint64_t>(a.KV),
+                            static_cast<uint64_t>(a.T),
+                            static_cast<uint64_t>(a.B)};
+  const uint64_t kstr[3] = {256, 256ull * a.KV, 256ull * a.KV * a.T};
+  const uint32_t box64[4] = {64, 1, kRowTile, 1};
+  const uint32_t box128[4] = {64, 1, kWgBlock, 1};
+  // (b') streams 64-row Q and dO tiles past 64 keys; (c') 64-key K and V
+  // tiles past 128 query rows
+  CUtensorMap q64, do64, q128, do128, k64, v64;
+  const struct { CUtensorMap* map; const void* base; bool q; bool wide; } maps[6] = {
+      {&q64, a.q, true, false},   {&do64, a.dout, true, false},
+      {&q128, a.q, true, true},   {&do128, a.dout, true, true},
+      {&k64, a.k, false, false},  {&v64, a.v, false, false}};
+  for (const auto& m : maps) {
+    err = hopper::make_tensor_map_bf16(m.map, m.base, 4, m.q ? qdim : kdim,
+                                       m.q ? qstr : kstr,
+                                       m.wide ? box128 : box64);
+    if (err != 0) return err;
+  }
+  const float scale_log2 = a.scale * kLog2e;
+  err = set_smem(flash_bwd_dkdv_wgmma_kernel, kDkvSmem);
+  if (err != 0) return err;
+  flash_bwd_dkdv_wgmma_kernel<<<dim3(a.B * a.KV, (a.T + kRowTile - 1) / kRowTile),
+                                kWgThreads, kDkvSmem, stream>>>(
+      q64, do64, k64, v64, rows, static_cast<bf*>(a.dk),
+      static_cast<bf*>(a.dv), a.S, S_pad, a.T, a.H, a.KV, a.scale, scale_log2,
+      a.causal);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = set_smem(flash_bwd_dq_wgmma_kernel, kDqSmem);
+  if (err != 0) return err;
+  flash_bwd_dq_wgmma_kernel<<<dim3(a.B * a.H, S_pad / kWgBlock), kWgThreads,
+                              kDqSmem, stream>>>(
+      q128, do128, k64, v64, rows, static_cast<bf*>(a.dq), a.S, S_pad, a.T,
+      a.H, a.KV, a.scale, scale_log2, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 int launch_f32(const Args& a, cudaStream_t stream) {
   using SM = BwdF32Smem<HD>;
@@ -871,13 +1460,17 @@ int launch_dot(const Args& a, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-// Launches (a), (b) and (c) on `stream` and returns the first nonzero
+// Launches the route's kernels on `stream` and returns the first nonzero
 // cudaGetLastError() (0 on success).  The caller checks devices, dtypes
 // and contiguity, and that the pointers are 16-byte aligned; B, S, T, H >= 1
-// and H % KV == 0.  lse (B, H, S) f32 from the forward; dsum is f32 scratch
-// of the same shape that (a) fills.  dtype 0 = bf16, 1 = f32.  route 1 =
-// mma_sync (bf16, hd 32, 64 or 128), 2 = fma (f32, hd 32, 64 or 128); a
-// route that the dtype and hd do not select is refused.
+// and H % KV == 0.  lse (B, H, S) f32 from the forward.  dtype 0 = bf16, 1
+// = f32.  route 0 = wgmma (bf16, hd 128), 1 = mma_sync (bf16, hd 32 or
+// 64), 2 = fma (f32, hd 32, 64 or 128); a route that the dtype and hd do
+// not select is refused.  dsum is f32 scratch of 2 B H S_pad floats (S_pad
+// = S rounded up to a multiple of 128; kernels/flash_attention.py::
+// flash_bwd_scratch allocates it): route 0's (a') fills it with lse log2 e
+// and D, 64 rows at a time; routes 1 and 2's (a) fill its first B H S
+// floats with D (B, H, S).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* lse,
                                    const void* dout, void* dq, void* dk,
@@ -885,9 +1478,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    int H, int KV, int hd, int dtype,
                                    int causal, float scale, int route,
                                    void* stream) {
-  const bool hd_ok = hd == 32 || hd == 64 || hd == 128;
-  const bool fits = hd_ok && ((route == 1 && dtype == 0) ||
-                              (route == 2 && dtype == 1));
+  const bool fits =
+      (route == 0 && dtype == 0 && hd == 128) ||
+      (route == 1 && dtype == 0 && (hd == 32 || hd == 64)) ||
+      (route == 2 && dtype == 1 && (hd == 32 || hd == 64 || hd == 128));
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       !fits || (S + 63) / 64 > 65535 || (T + 63) / 64 > 65535 ||
       static_cast<long long>(B) * H > 2147483647LL) {
@@ -896,19 +1490,28 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, out, lse, dout, dq, dk, dv, dsum,
                B, S, T, H, KV, causal, scale};
+  if (route == 0) return launch_wgmma(a, s);
   const int e = dtype == 0 ? launch_dot<__nv_bfloat16>(a, hd, s)
                            : launch_dot<float>(a, hd, s);
   if (e != 0) return e;
   if (route == 1) {
-    switch (hd) {
-      case 32: return launch_bf16<32>(a, s);
-      case 64: return launch_bf16<64>(a, s);
-      default: return launch_bf16<128>(a, s);
-    }
+    return hd == 32 ? launch_bf16<32>(a, s) : launch_bf16<64>(a, s);
   }
   switch (hd) {
     case 32: return launch_f32<32>(a, s);
     case 64: return launch_f32<64>(a, s);
     default: return launch_f32<128>(a, s);
   }
+}
+
+// The wgmma kernels' dynamic shared memory and their setmaxnreg counts (the
+// build report prints them beside ptxas's).
+extern "C" void flash_attention_bwd_wgmma_config(int* dkdv_smem_bytes,
+                                                 int* dq_smem_bytes,
+                                                 int* producer_regs,
+                                                 int* consumer_regs) {
+  *dkdv_smem_bytes = kDkvSmem;
+  *dq_smem_bytes = kDqSmem;
+  *producer_regs = kWgProducerRegs;
+  *consumer_regs = kWgConsumerRegs;
 }

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
-// (flash_attention.cu, lora_matmul.cu, grouped_lora.cu, transport.cu):
-// thin inline-PTX wrappers for mbarriers, TMA tensor loads, the wgmma
-// shared-memory descriptor and the wgmma instructions, the cluster barrier
-// and distributed shared memory, setmaxnreg and programmatic dependent
-// launch, plus host helpers that encode a CUtensorMap and launch a
-// dependent kernel.  The two wgmma kernels load every wgmma operand
-// by TMA, so neither needs fence.proxy.async (it orders plain shared-memory
-// stores before async-proxy reads).
+// (flash_attention.cu, flash_attention_bwd.cu, lora_matmul.cu,
+// grouped_lora.cu, transport.cu): thin inline-PTX wrappers for mbarriers,
+// TMA tensor and bulk loads, the wgmma shared-memory descriptor and the
+// wgmma instructions, the cluster barrier and distributed shared memory,
+// setmaxnreg and programmatic dependent launch, plus host helpers that
+// encode a CUtensorMap and launch a dependent kernel.  The wgmma kernels
+// load every shared-memory wgmma operand by TMA, so none needs
+// fence.proxy.async (it orders plain shared-memory stores before
+// async-proxy reads).
 //
 // Conventions the kernels rely on:
 //   - Tiles are loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B and a box
@@ -137,6 +138,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) contiguous bytes from global `src` into shared
+// memory at `dst` (both 16-byte aligned), completing that many of the
+// barrier's transactions: TMA's one-dimensional bulk copy, no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -199,6 +213,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (+)= A B for a 64 x 64 f32 tile: A (64 x 16) and B (16 x 64) bf16 in
+// shared memory through descriptors, both K-major (K Q^T, Q K^T of the
+// flash backward).  scale_d 0 overwrites d, 1 accumulates.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -36,9 +36,17 @@ dQ per (batch, query head, query tile), each recomputing P = exp(scale
 q k^T - lse).  No atomics: the gradient is bitwise the same run to run.
 The reference has no Pallas backward; this is the port's counterpart of
 XLA's autodiff of `chunked_attention`, the reference's path at these
-lengths.  `flash_bwd_route` picks "mma_sync" for bf16 (every hd) and
-"fma" for f32.  `flash_attention_bwd_plain` is the backward's function in
-plain PyTorch.
+lengths.  `flash_bwd_route` picks the backward's kernels as
+`flash_route` picks the forward's:
+  - "wgmma": bf16, hd 128 (Yi-9B's long-sequence training) -- TMA loads
+    into an mbarrier ring fed by a producer warpgroup, wgmma for all five
+    products, P and dS entering theirs from registers;
+  - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
+    kernels;
+  - "fma": f32 -- FMA, never TF32.
+`flash_bwd_scratch` allocates the f32 scratch, sized for the largest
+route's need.
+`flash_attention_bwd_plain` is the backward's function in plain PyTorch.
 
 The probabilities stay in f32 in both dtypes, as in the Pallas kernel
 (which promotes v to f32) and `chunked_attention`.  In bf16 the tensor
@@ -95,9 +103,19 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
 
 
 def flash_bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The backward kernels that serve (dtype, hd): "mma_sync" for bf16,
-    "fma" for f32 (the forward's tensor-core / FMA split)."""
-    return "fma" if flash_route(dtype, hd) == "fma" else "mma_sync"
+    """The backward kernels that serve (dtype, hd): the forward's route,
+    "wgmma" for bf16 at hd 128, "mma_sync" for bf16 at hd 32 or 64, "fma"
+    for f32."""
+    return flash_route(dtype, hd)
+
+
+def flash_bwd_scratch(B: int, H: int, S: int, device) -> torch.Tensor:
+    """The backward entry point's f32 scratch, 2 B H S_pad floats with
+    S_pad = S rounded up to a multiple of 128: the "wgmma" route writes lse
+    * log2 e and D there, 64 rows of each in turn (rows past S padded); the
+    "mma_sync" and "fma" routes write D (B, H, S) into its first B H S."""
+    rows = -(-S // 128) * 128 * 2
+    return torch.empty(B, H, rows, dtype=torch.float32, device=device)
 
 
 def _work_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -257,7 +275,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    dsum = flash_bwd_scratch(B, H, S, q.device)
     FLASH_BWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
               out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
               dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, S, T, H, KV,

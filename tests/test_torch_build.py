@@ -79,16 +79,26 @@ def test_flash_route(dtype, hd, route):
     assert fa.ROUTES[route] in (0, 1, 2)
 
 
-# the backward's kernels: the forward's tensor-core / FMA split, mma.sync
-# at every bf16 head size
+# the backward's kernels: the forward's routes, wgmma for bf16 at hd 128,
+# mma.sync at hd 32 and 64
 @pytest.mark.parametrize("dtype,hd,route", [
-    (torch.bfloat16, 128, "mma_sync"), (torch.bfloat16, 64, "mma_sync"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "mma_sync"),
     (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fma"),
     (torch.float32, 32, "fma")])
 def test_flash_bwd_route(dtype, hd, route):
     assert fa.flash_bwd_route(dtype, hd) == route
     with pytest.raises(ValueError, match="head size"):
         fa.flash_bwd_route(dtype, 48)
+
+
+@pytest.mark.parametrize("S,rows", [(1, 256), (128, 256), (129, 512),
+                                    (8192, 16384)])
+def test_flash_bwd_scratch_pads_the_wgmma_rows(S, rows):
+    # the wgmma route's lse and D, each padded to a multiple of 128 rows;
+    # the other routes' D (B, H, S) is a prefix of it
+    scratch = fa.flash_bwd_scratch(2, 3, S, "cpu")
+    assert scratch.shape == (2, 3, rows) and scratch.dtype == torch.float32
+    assert scratch.numel() >= 2 * 3 * S
 
 
 def test_flash_route_refuses_what_no_kernel_takes():
@@ -143,8 +153,9 @@ def test_route_counts_start_empty_and_reset():
      "pack_scan_kernel<NonzeroRows>"),
     ("void <unnamed>::pack_scan_kernel<<unnamed>::MaskQuantizeRows<(bool)1, "
      "(bool)0>>", "pack_scan_kernel<MaskQuantizeRows<1, 0>>"),
-    ("void <unnamed>::flash_bwd_dkdv_bf16_kernel<(int)128>",
-     "flash_bwd_dkdv_bf16_kernel<128>"),
+    ("void <unnamed>::flash_bwd_dkdv_bf16_kernel<(int)64>",
+     "flash_bwd_dkdv_bf16_kernel<64>"),
+    ("<unnamed>::flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"),
     ("void <unnamed>::flash_bwd_dot_kernel<__nv_bfloat16>",
      "flash_bwd_dot_kernel<__nv_bfloat16>"),
 ])

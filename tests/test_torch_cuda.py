@@ -720,8 +720,8 @@ def _grad_rows_ok(got, want, dtype):
 
 # ragged S and T (one past a tile, one short of one, T past S and S past
 # T; S 2 against T 3, whose first causal row has an exact dq of 0), H ==
-# KV and GQA, B 2; hd 32 / 64 / 128 in bf16 take the mma.sync
-# kernels, f32 the FMA ones
+# KV and GQA, B 2; hd 128 in bf16 takes the wgmma kernels, hd 32 / 64 the
+# mma.sync ones, f32 the FMA ones
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -746,6 +746,32 @@ def test_flash_backward_matches_plain(B, S, T, H, KV, hd, causal, dtype):
                                       causal=causal, scale=hd ** -0.5,
                                       return_lse=True)
     assert (lse.double() - l64).abs().max().item() <= 1e-4
+
+
+# the wgmma route (bf16, hd 128) around its tiles: 64-key (dK, dV) and
+# 128-row (dQ) blocks over 64-row steps, so S and T of 1, 63, 127, 129 and
+# 191, S < T and S > T, H == KV and G = 8, B 2.  A query row that sees one
+# key only has an exact dq of 0 (a softmax over one key), so S 1 runs
+# without the causal mask and T is never 1.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,causal", [
+    (1, 1, 129, 8, 8, False), (1, 63, 191, 32, 4, True),
+    (1, 191, 63, 32, 4, True), (2, 127, 129, 8, 1, True),
+    (2, 129, 127, 4, 4, False), (1, 191, 191, 16, 2, True),
+    (2, 127, 63, 8, 8, False)])
+def test_flash_backward_wgmma_route_on_ragged_tiles(B, S, T, H, KV, causal):
+    _need_card()
+    (q, k, v, dout, out, lse), want = _bwd_case(B + S + T, B, S, T, H, KV,
+                                                128, torch.bfloat16, causal)
+    n, nr = _route_launches(fa.FLASH_BWD, "wgmma")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 scale=128 ** -0.5)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH_BWD, "wgmma") == (n + 2, nr + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grad_rows_ok(got, want, torch.bfloat16)
 
 
 @pytest.mark.cuda
