@@ -113,7 +113,14 @@ Phases, each fatal on failure:
                  (p in f32, v promoted), every bf16 case against an f64
                  attention of its inputs row by row (4e-3 of each row's
                  largest value; at 8192 tokens on 256 sampled query rows of
-                 every head), at 8192 in bf16 also against
+                 every head); a causal sliding window on every route
+                 (bf16 wgmma, mma_sync at hd 64, hd256; f32 fma at hd 128
+                 and 256) at B 2, S 1000, T 1100 with W 1, 37, 100 and
+                 1100 (bitwise the call without a window) and at 9000
+                 tokens with W 4096 and 8192, and hd 256 (the hd256 route
+                 in bf16, fma in f32) at 8192 tokens and ragged, every one
+                 bitwise on repeat, bf16 rows against an f64 attention
+                 under the same window; at 8192 in bf16 also against
                  `chunked_attention`, and the pre-broadcast
                  `ops.flash_attention` bitwise equal to the GQA call; each
                  call's route is counted.  `ops.topk_mask` and `ops.histogram_threshold`
@@ -122,7 +129,11 @@ Phases, each fatal on failure:
                  x sqrt(K / 512), bf16 5e-2 matmul and 2e-2 attention,
                  elementwise and of each output row's largest value.  Then
                  device times beside bounds, plain versions and library
-                 calls (cuBLAS; F.scaled_dot_product_attention).
+                 calls (cuBLAS; F.scaled_dot_product_attention), also at
+                 (1, 32768, 32/4, 128) bf16 causal under a window of 8192
+                 (plain: chunked_attention(window=); library: SDPA's
+                 memory-efficient kernel with the band as a bool mask) and
+                 (1, 8192, 16/16, 256) bf16 causal.
   11. long-prefill -- `ServingEngine` on Yi-9B at full width and depth in
                  bf16: 4 tenants, rank-16 adapters, 2 pages, 2 lanes, 4
                  requests with prompts of 8192 or 9216 tokens.  The flash
@@ -245,6 +256,30 @@ Phases, each fatal on failure:
                  the wgmma route, the backward 48 a client step (wgmma),
                  the transport kernels phase 6's a round; losses finite;
                  round ms, ms a client step and peak memory printed.
+  19. window  -- (a) `ServingEngine(window=8192)` (registry.LONG_CONTEXT_
+                 WINDOW) on Yi-9B at full width and depth in bf16: 8
+                 lanes, 8 requests with prompts of 32768 or 64 tokens.
+                 Every prefill's cache must hold 8192 slots; the flash
+                 launches, zeroed just before and read just after, must
+                 be 48 a long prefill, every one windowed and on the
+                 wgmma route; the grouped kernel's decode steps x 48 x 4.
+                 Prints prefill ms, decode ms a step, peak memory and the
+                 batch cache's bytes against an unwindowed one at the same
+                 max_len.  (b) a 2-layer full-width f32 engine under the
+                 same window, prompts of 12288 or 64 tokens, against the
+                 single-adapter prefill + decode reference (phase 4's
+                 near-tie rule), and one 12288-token prompt through the
+                 kernel (2 windowed fma launches) and through
+                 chunked_attention(window=) in its place: completions
+                 under the same rule, the largest logit difference printed.
+  20. archs   -- minitron-8b, gemma-7b and qwen3-32b at full width and
+                 depth in bf16 through `launch/serve.py` with phase 3's
+                 settings: the grouped kernel's launches decode steps x L
+                 x 4; the device memory left once the weights are built;
+                 one 8192-token prefill each, L flash launches on the
+                 hd256 route (gemma-7b) or wgmma, its ms and peak memory.
+                 Then phase 4 on a 2-layer f32 cut of gemma-7b, whose
+                 8192-token prompt takes the f32 hd-256 route.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6, over one 8192-token
 prefill of phase 11's engine and over one 8192-token client step of
@@ -264,6 +299,7 @@ import dataclasses
 import gc
 import gzip
 import json
+import math
 import os
 import re
 import subprocess
@@ -384,6 +420,12 @@ FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel",
 # kernels that must build with no stack frame and no spills
 GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
                  + FLASH_BWD_KERNELS)
+# the flash forward's other kernels (csrc/flash_attention.cu): mma.sync at hd
+# 32 and 64, the hd256 route, FMA at every head size; each must be in its
+# library's log, and its registers and spills are printed (the hd256 route
+# may spill: a few bytes, PERF.md says how many)
+FLASH_FWD_KERNELS = tuple(f"flash_bf16_kernel<{hd}>" for hd in (32, 64, 256)) \
+    + tuple(f"flash_f32_kernel<{hd}>" for hd in (32, 64, 128, 256))
 
 
 # what cu++filt prints beside a kernel's name and template arguments: the
@@ -439,6 +481,8 @@ def build_report(libs) -> None:
         log = log_path.read_text()
         for name, report in ptxas_kernels(log):
             print(f"[build] {lib}: {name}: {report}")
+            if name in FLASH_FWD_KERNELS:
+                checked[name] = report
             if name in GATED_KERNELS:
                 m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores, (\d+) bytes spill loads", report)
@@ -456,7 +500,8 @@ def build_report(libs) -> None:
             check(not any("wgmma" in ln or "setmaxnreg" in ln or "C75" in ln
                           for ln in warnings),
                   f"ptxas serialised the wgmma or ignored setmaxnreg in {lib}")
-    missing = [k for k in GATED_KERNELS if k not in checked]
+    missing = [k for k in GATED_KERNELS + FLASH_FWD_KERNELS
+               if k not in checked]
     check(not missing, f"the compiler logs report no {missing}")
     import ctypes
     from repro_torch.kernels import _build
@@ -794,20 +839,23 @@ def profile_round(state, data) -> None:
 # phase 4: f32 parity against the single-adapter reference path
 # ---------------------------------------------------------------------------
 
-def parity_phase(seed: int):
+def arch_args(arch: str, args=SERVE_ARGS):
+    """Phase 3's serving flags (or `args`) for another arch."""
+    i = args.index("--arch")
+    return args[:i + 1] + [arch] + args[i + 2:]
+
+
+def engine_vs_reference(eng2, trace2, rep, cfg2, lcfg, tag: str,
+                        window=None) -> int:
+    """Each request of a serving run against the port's single-adapter
+    prefill + greedy decode of the same prompt: completions must match,
+    except where the reference's top-2 logit gap is below GAP_TOL (each
+    such case is printed).  Returns the number of near ties."""
     import torch
     from repro_torch.checkpoint.io import tree_from_numpy
-    from repro_torch.configs.registry import get_config
-    from repro_torch.launch import serve
     from repro_torch.models import model as mdl
 
-    # phase 3's engine settings on a 2-layer f32 cut of the full width
-    cfg2 = dataclasses.replace(get_config("yi-9b"), num_layers=2,
-                               param_dtype="float32", compute_dtype="float32")
-    eng2, trace2, _, lcfg = serve.build(
-        serve.parse_args(SERVE_ARGS + ["--seed", str(seed)]), cfg=cfg2)
-    rep = eng2.run(trace2)
-    check(len(rep.completions) == len(trace2), "parity engine dropped requests")
+    check(len(rep.completions) == len(trace2), f"{tag} engine dropped requests")
     store = eng2.cache.store
     near_ties = 0
     with torch.no_grad():
@@ -816,7 +864,7 @@ def parity_phase(seed: int):
             toks = torch.tensor([req.prompt], device="cuda")
             logits, c = mdl.prefill(eng2.params, cfg2, {"tokens": toks},
                                     lora=lt, lora_scale=lcfg.scale,
-                                    max_len=eng2.max_len)
+                                    window=window, max_len=eng2.max_len)
             want, gaps = [], []
             lg = logits[0, -1]
             pos = req.prompt_len
@@ -829,33 +877,53 @@ def parity_phase(seed: int):
                 out, c = mdl.decode_step(
                     eng2.params, cfg2, torch.tensor([want[-1]], device="cuda"),
                     torch.tensor(pos, device="cuda"), c, lora=lt,
-                    lora_scale=lcfg.scale)
+                    lora_scale=lcfg.scale, window=window)
                 lg = out[0, 0]
                 pos += 1
             got = rep.completions[req.rid]
             if got != want:
                 t = next(i for i, (p, q) in enumerate(zip(got, want)) if p != q)
-                print(f"[parity] request {req.rid} differs at token {t}: "
+                print(f"{tag} request {req.rid} differs at token {t}: "
                       f"engine {got[t]} vs reference {want[t]}, reference "
                       f"top-2 gap {gaps[t]:.3e}")
                 check(gaps[t] < GAP_TOL,
                       f"request {req.rid}: engine and reference disagree at a "
                       f"top-2 gap of {gaps[t]:.3e} >= {GAP_TOL}")
                 near_ties += 1
-    print(f"[parity] {cfg2.name} 2L d{cfg2.d_model} f32: "
+    return near_ties
+
+
+def parity_cfg(arch: str):
+    """A 2-layer f32 cut of an arch at its full width."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), num_layers=2,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def parity_phase(seed: int, arch: str = "yi-9b", tag: str = "[parity]"):
+    from repro_torch.launch import serve
+
+    # phase 3's engine settings on a 2-layer f32 cut of the full width
+    cfg2 = parity_cfg(arch)
+    eng2, trace2, _, lcfg = serve.build(
+        serve.parse_args(arch_args(arch) + ["--seed", str(seed)]), cfg=cfg2)
+    rep = eng2.run(trace2)
+    near_ties = engine_vs_reference(eng2, trace2, rep, cfg2, lcfg, tag)
+    print(f"{tag} {cfg2.name} 2L d{cfg2.d_model} f32: "
           f"{len(trace2) - near_ties}/{len(trace2)} completions identical to "
           f"the single-adapter reference, {near_ties} near-tie divergences")
-    long_prompt_parity(eng2, cfg2, lcfg, seed)
+    return long_prompt_parity(eng2, cfg2, lcfg, seed, tag=tag)
 
 
-def greedy(params, cfg, prompt, lora, scale, gen_len):
+def greedy(params, cfg, prompt, lora, scale, gen_len, window=None):
     """Single-adapter prefill + greedy decode: (last-position logits of
     every step, tokens, top-2 gaps)."""
     import torch
     from repro_torch.models import model as mdl
     toks = torch.tensor([prompt], device="cuda")
     logits, c = mdl.prefill(params, cfg, {"tokens": toks}, lora=lora,
-                            lora_scale=scale, max_len=len(prompt) + gen_len)
+                            lora_scale=scale, window=window,
+                            max_len=len(prompt) + gen_len)
     lg, pos = logits[0, -1], len(prompt)
     steps, out, gaps = [], [], []
     while True:
@@ -868,59 +936,71 @@ def greedy(params, cfg, prompt, lora, scale, gen_len):
         o, c = mdl.decode_step(params, cfg, torch.tensor([out[-1]],
                                                          device="cuda"),
                                torch.tensor(pos, device="cuda"), c,
-                               lora=lora, lora_scale=scale)
+                               lora=lora, lora_scale=scale, window=window)
         lg, pos = o[0, 0], pos + 1
 
 
-def long_prompt_parity(eng2, cfg2, lcfg, seed: int, gen_len: int = 4):
-    """One 8192-token prompt on phase 4's 2-layer f32 engine weights: the
-    prefill logits and greedy completion through the flash kernel, and the
-    same with `chunked_attention` (plain torch, on the card) put in the
-    kernel's place on the attention module for this one comparison."""
+def long_prompt_parity(eng2, cfg2, lcfg, seed: int, gen_len: int = 4,
+                       S: int = None, window=None, tag: str = "[parity]"):
+    """One long prompt (8192 tokens unless S says otherwise) on a 2-layer
+    f32 engine's weights: the prefill logits and greedy completion through
+    the flash kernel (under `window`, if given), and the same with
+    `chunked_attention` (plain torch, on the card) put in the kernel's
+    place on the attention module for this one comparison."""
     import numpy as np
     import torch
     from repro_torch.checkpoint.io import tree_from_numpy
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as A
 
+    S = S or LONG_S
     prompt = np.random.default_rng(seed + 11).integers(
-        0, cfg2.vocab_size, LONG_S).tolist()
+        0, cfg2.vocab_size, S).tolist()
     lt = tree_from_numpy(eng2.cache.store.get(0), device="cuda")
+    route = fa.flash_route(torch.float32, cfg2.hd)
     with torch.no_grad():
-        fa.FLASH.launches = 0
+        fa.FLASH.reset()
         k_logits, k_toks, _ = greedy(eng2.params, cfg2, prompt, lt,
-                                     lcfg.scale, gen_len)
+                                     lcfg.scale, gen_len, window)
         k_launches = fa.FLASH.launches
+        k_routes = dict(fa.FLASH.launches_by_route)
+        k_tagged = fa.FLASH.launches_by_tag.get("window", 0)
         kernel = A.flash_attention
 
-        def chunked(q, k, v, *, causal, scale):
+        def chunked(q, k, v, *, causal, scale, window=None):
             return A.chunked_attention(q, k, v, scale, causal=causal,
-                                       cq=cfg2.attn_chunk_q,
+                                       window=window, cq=cfg2.attn_chunk_q,
                                        ckv=cfg2.attn_chunk_kv)
 
         A.flash_attention = chunked
         try:
-            fa.FLASH.launches = 0
+            fa.FLASH.reset()
             c_logits, c_toks, c_gaps = greedy(eng2.params, cfg2, prompt, lt,
-                                              lcfg.scale, gen_len)
+                                              lcfg.scale, gen_len, window)
             c_launches = fa.FLASH.launches
         finally:
             A.flash_attention = kernel
     diff = max((a - b).abs().max().item() for a, b in zip(k_logits, c_logits))
-    print(f"[parity] {LONG_S}-token prompt, f32, 2 layers: flash kernel "
-          f"({k_launches} launches) {k_toks} vs chunked_attention "
+    what = f"{S}-token prompt" + (f", window {window}" if window else "")
+    print(f"{tag} {what}, f32, 2 layers, hd {cfg2.hd}: flash kernel "
+          f"({k_launches} launches, by route {json.dumps(k_routes)}, "
+          f"{k_tagged} windowed) {k_toks} vs chunked_attention "
           f"({c_launches} launches) {c_toks}; top-2 gaps "
           f"{[round(g, 6) for g in c_gaps]}; largest logit difference "
           f"{diff:.3e}")
-    check(k_launches == cfg2.num_layers and c_launches == 0,
-          f"the long prompt's prefill launched the flash kernel {k_launches} "
-          f"/ {c_launches} times, expected {cfg2.num_layers} / 0")
+    check(k_launches == cfg2.num_layers and c_launches == 0
+          and k_routes == {route: k_launches},
+          f"the long prompt's prefill launched the flash kernel {k_routes} "
+          f"/ {c_launches} times, expected {cfg2.num_layers} on {route} / 0")
+    check(k_tagged == (k_launches if window else 0),
+          f"{k_tagged} of {k_launches} flash launches windowed, window "
+          f"{window}")
     for t, (a, b) in enumerate(zip(k_toks, c_toks)):
         if a != b:
             check(c_gaps[t] < GAP_TOL,
                   f"long prompt: kernel and chunked_attention disagree at "
                   f"token {t} at a top-2 gap of {c_gaps[t]:.3e} >= {GAP_TOL}")
-            print(f"[parity] long prompt differs at token {t} (near tie, "
+            print(f"{tag} long prompt differs at token {t} (near tie, "
                   f"gap {c_gaps[t]:.3e}); the rest is not compared")
             break
     check(all(bool(torch.isfinite(x).all()) for x in k_logits),
@@ -2017,6 +2097,22 @@ def attn_bound(B, S, T, H, KV, hd, dtype, causal):
                                        else "operations")
 
 
+def attn_window_bound(B, S, H, KV, hd, dtype, window):
+    """(bound_ms, bound_by) of causal attention under a window of W keys
+    (S == T): q, k, v read once and out written once, against 4 hd
+    multiply-adds per head for each kept (query, key) pair, of which there
+    are sum over q of min(q + 1, W)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * B * (2 * S * H * hd + 2 * S * KV * hd)
+    W = min(window, S)
+    pairs = W * (W + 1) // 2 + (S - W) * W
+    flops = 4 * B * H * pairs * hd
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def attn_row_err(got, want) -> float:
     """The largest |got - want| of an output row (one query, one head) over
     the largest |want| of that row, the worst row's."""
@@ -2024,10 +2120,11 @@ def attn_row_err(got, want) -> float:
     return (d / want.double().abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
-def attn_f64(q, k, v, scale: float, causal: bool, rows=None):
+def attn_f64(q, k, v, scale: float, causal: bool, rows=None, window=None):
     """Attention of the same inputs in f64, not rounded, for the query rows
-    `rows` of every head (all rows when None): (B, len(rows), H, hd).  One
-    kv head's group of query heads at a time."""
+    `rows` of every head (all rows when None): (B, len(rows), H, hd), under
+    a causal window of `window` keys if given.  One kv head's group of
+    query heads at a time."""
     import torch
     S, H = q.shape[1], q.shape[2]
     T, KV = k.shape[1], k.shape[2]
@@ -2039,11 +2136,33 @@ def attn_f64(q, k, v, scale: float, causal: bool, rows=None):
         sc = torch.einsum("bsgd,btd->bgst", qd[:, :, h * G:(h + 1) * G],
                           k[:, :, h].double()) * scale
         if causal:
-            keep = torch.arange(T, device=q.device)[None, :] <= pos[:, None]
+            t = torch.arange(T, device=q.device)[None, :]
+            keep = t <= pos[:, None]
+            if window is not None:
+                keep &= t > pos[:, None] - window
             sc = torch.where(keep, sc, -1e30)
         outs.append(torch.einsum("bgst,btd->bsgd", torch.softmax(sc, -1),
                                  v[:, :, h].double()))
     return torch.cat(outs, dim=2)
+
+
+def attn_held(got, want, what):
+    """Phase 10's attention check: the bf16 cases are held elementwise and
+    row by row (ATTN_TOL's comment); the f32 ones elementwise (their row
+    error is printed).  Returns (max abs error, worst row's error)."""
+    import torch
+    tol = ATTN_TOL[str(got.dtype).split(".")[-1]]
+    err = (got.float() - want.float()).abs().max().item()
+    row = attn_row_err(got, want)
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    if got.dtype == torch.bfloat16:
+        ok = ok and row <= tol
+    print(f"[ops] flash_attention {what}: max|err| {err:.3e}, row "
+          f"max|err| / max|want| {row:.3e} (tol {tol:g}) "
+          f"{'ok' if ok else 'MISMATCH'}")
+    check(ok and bool(torch.isfinite(got.float()).all()),
+          f"flash_attention disagrees at {what}")
+    return err, row
 
 
 def ops_phase(seed: int):
@@ -2075,22 +2194,6 @@ def ops_phase(seed: int):
         check(ok and bool(torch.isfinite(got.float()).all()),
               f"{name} disagrees with its plain version at {what}")
         return err
-
-    def attn_held(got, want, what):
-        """The bf16 cases are held elementwise and row by row (ATTN_TOL's
-        comment); the f32 ones elementwise (their row error is printed)."""
-        tol = ATTN_TOL[str(got.dtype).split(".")[-1]]
-        err = (got.float() - want.float()).abs().max().item()
-        row = attn_row_err(got, want)
-        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        if got.dtype == torch.bfloat16:
-            ok = ok and row <= tol
-        print(f"[ops] flash_attention {what}: max|err| {err:.3e}, row "
-              f"max|err| / max|want| {row:.3e} (tol {tol:g}) "
-              f"{'ok' if ok else 'MISMATCH'}")
-        check(ok and bool(torch.isfinite(got.float()).all()),
-              f"flash_attention disagrees at {what}")
-        return err, row
 
     # the path: ops.lora_matmul once per Yi-9B projection, bf16, 8192 rows,
     # every call on the wgmma route
@@ -2202,6 +2305,7 @@ def ops_phase(seed: int):
             del pre
         del q, k, v, got, want
     torch.cuda.empty_cache()
+    win = window_cases(gen)
 
     # the Top-K wrappers at the Yi-9B LoRA length, bitwise
     x = torch.randn(P_LEN, generator=gen, device="cuda")
@@ -2264,7 +2368,7 @@ def ops_phase(seed: int):
             fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), None, 1, LONG_S, LONG_S, 32, 4, hd,
                      fa.DTYPES[q.dtype], int(causal), hd ** -0.5,
-                     fa.ROUTES[route])
+                     fa.ROUTES[route], 0)
 
         n = 10 if dt == "bfloat16" else 3
         bound, by = attn_bound(1, LONG_S, LONG_S, 32, 4, hd, dt, causal)
@@ -2283,11 +2387,209 @@ def ops_phase(seed: int):
         attn_rows.append(row)
         del q, k, v, out, qh, kh, vh
         torch.cuda.empty_cache()
+    win.update(window_timings(gen, win))
     return {"lora_err": lora_err, "attn_err": attn_err, "attn_row": attn_row,
             "attn_main": main_err, "attn_chunked": chunked,
             "attn_f64": f64_rows,
             "lora_launches": lora_launches, "lora_routes": lora_routes,
-            "lora_rows": rows, "attn_rows": attn_rows}
+            "lora_rows": rows, "attn_rows": attn_rows, **win}
+
+
+# the sliding window on every route (bf16 wgmma at hd 128, mma_sync at hd
+# 64, hd256; f32 fma at hd 128 and 256): ragged S and T with W of 1 (each
+# row its own key), 37 and 100 (not multiples of a tile: the lowest visited
+# tile holds no key of some rows' windows, and comes first for them), and W
+# >= S (no effect: bitwise the call without a window); W 4096 and 8192 over
+# 9000 tokens.  Then hd 256 without a window, bf16 and f32, at 8192 tokens
+# and ragged.  All causal but one full hd-256 case a dtype.
+WINDOW_ROUTES = ((32, 4, 128, "bfloat16"), (8, 2, 64, "bfloat16"),
+                 (16, 16, 256, "bfloat16"), (32, 4, 128, "float32"),
+                 (16, 16, 256, "float32"))
+WINDOW_SHAPES = ((2, 1000, 1100, 1), (2, 1000, 1100, 37),
+                 (2, 1000, 1100, 100), (2, 1000, 1100, 1100),
+                 (1, 9000, 9000, 4096), (1, 9000, 9000, 8192))
+HD256_SHAPES = ((1, LONG_S, LONG_S, True), (2, 1000, 1100, True),
+                (2, 1025, 1100, True), (2, 1000, 1100, False))
+WINDOW_S = 32768               # a long context: four windows of 8192
+
+
+def window_cases(gen) -> dict:
+    """Phase 10's window and hd-256 cases: each call held to its plain
+    version (`attn_held`), every bf16 one row by row to an f64 attention
+    of its inputs under the same window (F64_ROW_TOL; F64_ROWS sampled
+    query rows at 8192 tokens or more), two calls bitwise equal, each
+    launch on its route and, with a window, tagged windowed."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    cases = [(B, S, T, H, KV, hd, dt, True, W)
+             for H, KV, hd, dt in WINDOW_ROUTES
+             for B, S, T, W in WINDOW_SHAPES]
+    cases += [(B, S, T, 16, 16, 256, dt, causal, None)
+              for dt in ("bfloat16", "float32")
+              for B, S, T, causal in HD256_SHAPES]
+    res = {"win_err": 0.0, "win_f64": {}, "hd256_err": 0.0, "hd256_f64": {}}
+    for B, S, T, H, KV, hd, dt, causal, W in cases:
+        q, k, v = attn_inputs(gen, B, S, T, H, KV, hd, dt)
+        route = fa.flash_route(getattr(torch, dt), hd)
+        n_route = fa.FLASH.launches_by_route.get(route, 0)
+        n_win = fa.FLASH.launches_by_tag.get("window", 0)
+        got = fa.flash_attention(q, k, v, causal=causal, scale=hd ** -0.5,
+                                 window=W)
+        again = fa.flash_attention(q, k, v, causal=causal, scale=hd ** -0.5,
+                                   window=W)
+        check(fa.FLASH.launches_by_route.get(route, 0) == n_route + 2 and
+              fa.FLASH.launches_by_tag.get("window", 0) ==
+              n_win + (2 if W else 0),
+              f"flash_attention at {tuple(q.shape)} {dt}, window {W}, missed "
+              f"route {route} or its window tag")
+        check(torch.equal(got, again),
+              f"flash_attention at {tuple(q.shape)} {dt}, window {W}: two "
+              "calls differ")
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        scale=hd ** -0.5, window=W)
+        what = (f"B {B}, S {S}, T {T}, H {H}, KV {KV}, hd {hd}, {dt}, "
+                f"{'causal' if causal else 'full'}, window {W}, route "
+                f"{route}, bitwise on repeat")
+        err, _ = attn_held(got, want, what)
+        key = "win" if W else "hd256"
+        res[f"{key}_err"] = max(res[f"{key}_err"], err)
+        if dt == "bfloat16":
+            rows = None
+            if S >= LONG_S:
+                rows = torch.randperm(S, generator=gen, device="cuda")
+                rows = rows[:F64_ROWS].sort().values
+            exact = attn_f64(q, k, v, hd ** -0.5, causal, rows, W)
+            row64 = attn_row_err(got if rows is None else got[:, rows], exact)
+            print(f"[ops] flash_attention {what} against f64 attention "
+                  f"({'all' if rows is None else len(rows)} query rows of "
+                  f"every head): row max|err| / max|want| {row64:.3e} (tol "
+                  f"{F64_ROW_TOL:g}) "
+                  f"{'ok' if row64 <= F64_ROW_TOL else 'MISMATCH'}")
+            check(row64 <= F64_ROW_TOL,
+                  f"flash_attention at {what} is {row64:.3e} from f64 "
+                  f"attention, above {F64_ROW_TOL:g}")
+            res[f"{key}_f64"][what] = row64
+            del exact
+        if W is not None and W >= S:
+            same = torch.equal(got, fa.flash_attention(q, k, v, causal=True,
+                                                       scale=hd ** -0.5))
+            print(f"[ops] flash_attention {what}: equal to the call without "
+                  f"a window bit for bit: {same}")
+            check(same, f"a window of {W} >= S changed flash_attention")
+        del q, k, v, got, again, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def window_timings(gen, res: dict) -> dict:
+    """Device times of the window's and hd 256's timed shapes beside their
+    bounds, plain versions and library calls: (1, 32768, 32/4, 128) bf16
+    causal under a window of 8192 (the plain version is chunked_attention,
+    the model's plain path: flash_attention_plain's f32 scores would take
+    34 GB a KV group; the library call SDPA's memory-efficient kernel with
+    the band as a bool mask and K, V repeated per query head), and (1, 8192,
+    16/16, 256) bf16 causal (SDPA, causal).  The windowed shape is the one
+    the window phase's prefills run, so its output is first held to
+    chunked_attention's (`attn_held`) and, on F64_ROWS sampled query rows
+    of every head, to an f64 windowed attention (F64_ROW_TOL); the errors
+    go into `res`, window_cases' result."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.configs.registry import LONG_CONTEXT_WINDOW
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+
+    def kernel_fn(q, k, v, out, route, causal, W):
+        B, S, H, hd = q.shape
+        T, KV = k.shape[1], k.shape[2]
+        return lambda i: fa.FLASH(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), None, B, S, T, H, KV, hd, fa.DTYPES[q.dtype],
+            int(causal), hd ** -0.5, fa.ROUTES[route], W or 0)
+
+    W = LONG_CONTEXT_WINDOW
+    q, k, v = attn_inputs(gen, 1, WINDOW_S, WINDOW_S, 32, 4, 128, "bfloat16")
+    got = fa.flash_attention(q, k, v, causal=True, scale=128 ** -0.5,
+                             window=W)
+    what = (f"B 1, S {WINDOW_S}, T {WINDOW_S}, H 32, KV 4, hd 128, bfloat16, "
+            f"causal, window {W}, route {fa.flash_route(q.dtype, 128)}")
+    plain = A.chunked_attention(q, k, v, 128 ** -0.5, causal=True, window=W,
+                                cq=1024, ckv=1024)
+    err, _ = attn_held(got, plain, what + " against chunked_attention")
+    del plain
+    rows = torch.randperm(WINDOW_S, generator=gen, device="cuda")
+    rows = rows[:F64_ROWS].sort().values
+    row64 = attn_row_err(got[:, rows],
+                         attn_f64(q, k, v, 128 ** -0.5, True, rows, W))
+    print(f"[ops] flash_attention {what} against f64 attention ({F64_ROWS} "
+          f"query rows of every head): row max|err| / max|want| {row64:.3e} "
+          f"(tol {F64_ROW_TOL:g}) {'ok' if row64 <= F64_ROW_TOL else 'MISMATCH'}")
+    check(row64 <= F64_ROW_TOL,
+          f"flash_attention at {what} is {row64:.3e} from f64 attention, "
+          f"above {F64_ROW_TOL:g}")
+    res["win_err"] = max(res["win_err"], err)
+    res["win_f64"][what] = row64
+    out = torch.empty_like(q)
+    bound, by = attn_window_bound(1, WINDOW_S, 32, 4, 128, "bfloat16", W)
+    win = {"B": 1, "S": WINDOW_S, "T": WINDOW_S, "H": 32, "KV": 4, "hd": 128,
+           "dtype": "bfloat16", "causal": True, "window": W,
+           "route": fa.flash_route(q.dtype, 128),
+           "ms": device_ms(kernel_fn(q, k, v, out, "wgmma", True, W), 5),
+           "wrapper_ms": device_ms(lambda i: fa.flash_attention(
+               q, k, v, causal=True, scale=128 ** -0.5, window=W), 5),
+           "plain": "chunked_attention(window=8192, cq = ckv = 1024)",
+           "plain_ms": cuda_ms(lambda i: A.chunked_attention(
+               q, k, v, 128 ** -0.5, causal=True, window=W, cq=1024,
+               ckv=1024), 1, warmup=0),
+           "bound_ms": bound, "bound_by": by,
+           "library": "F.scaled_dot_product_attention, memory-efficient "
+                      "kernel, the band as a bool mask (1 GiB), K and V "
+                      "repeated per query head"}
+    # the card's own verdict on whether SDPA takes this call: a library
+    # call that no backend runs is reported as such, not retried elsewhere
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.repeat_interleave(8, 2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    pos = torch.arange(WINDOW_S, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            win["library_ms"] = device_ms(
+                lambda i: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=band), 3)
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        win["library_ms"] = None
+        win["library_note"] = f"did not run: {str(e).splitlines()[0][:200]}"
+    print(f"[ops] timing {json.dumps(win)}")
+    same = torch.equal(out, got)
+    print(f"[ops] flash_attention {what}: the timed launches' output equals "
+          f"the checked call's bit for bit: {same}")
+    check(same, f"flash_attention at {what}: two calls differ")
+    del q, k, v, out, got, qh, kh, vh, band
+    torch.cuda.empty_cache()
+
+    q, k, v = attn_inputs(gen, 1, LONG_S, LONG_S, 16, 16, 256, "bfloat16")
+    out = torch.empty_like(q)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bound, by = attn_bound(1, LONG_S, LONG_S, 16, 16, 256, "bfloat16", True)
+    hd256 = {"B": 1, "S": LONG_S, "T": LONG_S, "H": 16, "KV": 16, "hd": 256,
+             "dtype": "bfloat16", "causal": True,
+             "route": fa.flash_route(q.dtype, 256),
+             "ms": device_ms(kernel_fn(q, k, v, out, "hd256", True, None), 5),
+             "wrapper_ms": device_ms(lambda i: fa.flash_attention(
+                 q, k, v, causal=True, scale=256 ** -0.5), 5),
+             "plain_ms": cuda_ms(lambda i: fa.flash_attention_plain(
+                 q, k, v, causal=True, scale=256 ** -0.5), 2, warmup=1),
+             "library_ms": device_ms(
+                 lambda i: F.scaled_dot_product_attention(
+                     qh, kh, vh, is_causal=True), 5),
+             "library": "F.scaled_dot_product_attention(is_causal=True)",
+             "bound_ms": bound, "bound_by": by}
+    print(f"[ops] timing {json.dumps(hd256)}")
+    del q, k, v, out, qh, kh, vh
+    torch.cuda.empty_cache()
+    return {"win_timing": win, "hd256_timing": hd256}
 
 
 # ---------------------------------------------------------------------------
@@ -2438,6 +2740,267 @@ def long_prefill_phase(seed: int, profile: bool = False):
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 19: sliding-window serving with a rolling KV cache
+# ---------------------------------------------------------------------------
+
+WINDOW_ARGS = ["--arch", "yi-9b", "--clients", "8", "--pages", "4",
+               "--lanes", "8", "--requests", "8", "--rank", "16",
+               "--max-len", str(WINDOW_S + 16)]
+WINDOW_BUCKETS = (64, WINDOW_S)
+WINDOW_PARITY_S = 12288        # one and a half windows
+WINDOW_PARITY_ARGS = arch_args("yi-9b", ["--arch", "yi-9b", "--clients", "4",
+                                         "--pages", "2", "--lanes", "2",
+                                         "--requests", "4", "--rank", "16",
+                                         "--max-len",
+                                         str(WINDOW_PARITY_S + 16)])
+
+
+def cache_bytes(cfg, lanes: int, max_len: int, window=None) -> int:
+    """Bytes of the serving engine's batch KV cache (`cache_spec`)."""
+    import torch
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import tree_leaves, torch_dtype
+    return sum(math.prod(p.shape) * torch.empty(
+        (), dtype=torch_dtype(p.dtype)).element_size()
+        for p in tree_leaves(mdl.cache_spec(cfg, lanes, max_len, window)))
+
+
+def window_serve_phase(seed: int):
+    """(a) `ServingEngine(window=LONG_CONTEXT_WINDOW)` on full-width,
+    full-depth Yi-9B in bf16: 8 lanes, 8 requests with prompts of 32768 or
+    64 tokens, every lane's cache 8192 slots; each long prefill launches the
+    flash kernel 48 times, windowed, on the wgmma route, and every decode
+    step the grouped kernel 48 x 4 times.  (b) A 2-layer full-width f32
+    engine under the same window serving prompts of 12288 or 64 tokens
+    against the single-adapter prefill + decode reference, and one 12288-
+    token prompt through the kernel and through chunked_attention(window=)
+    in its place."""
+    import torch
+    from repro_torch.configs.registry import LONG_CONTEXT_WINDOW as W
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
+    from repro_torch.launch import serve
+    from repro_torch.serving import synth_trace
+
+    t0 = time.perf_counter()
+    eng, _, cfg, _ = serve.build(serve.parse_args(
+        WINDOW_ARGS + ["--window", str(W), "--seed", str(seed)]))
+    trace = synth_trace(8, 8, cfg.vocab_size, seed=seed,
+                        prompt_buckets=WINDOW_BUCKETS, gen_range=(4, 8))
+    torch.cuda.synchronize()
+    n_long = sum(r.prompt_len >= cfg.chunked_attn_threshold for r in trace)
+    print(f"[window] {cfg.name}: {cfg.num_layers}L d{cfg.d_model} "
+          f"{cfg.param_dtype}, window {W}, built in "
+          f"{time.perf_counter() - t0:.1f}s; prompts "
+          f"{[r.prompt_len for r in trace]}, generating "
+          f"{[r.gen_len for r in trace]}, max_len {eng.max_len}")
+    check({r.prompt_len for r in trace} == set(WINDOW_BUCKETS),
+          f"the trace does not hold both prompt lengths {WINDOW_BUCKETS}")
+    prefills, prefill = [], eng._prefill
+
+    def timed_prefill(page, prompt):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok, row = prefill(page, prompt)      # syncs: pulls the argmax
+        prefills.append((len(prompt), 1e3 * (time.perf_counter() - t1),
+                         row["g0"]["self"][0].shape[2]))
+        return tok, row
+
+    eng._prefill = timed_prefill          # removed again below (phase 11)
+    grouped = resolve_grouped_kernel("grouped_pallas")
+    torch.cuda.reset_peak_memory_stats()
+    fa.FLASH.reset()
+    grouped.launches = 0
+    try:
+        rep = eng.run(trace)
+    finally:
+        del eng._prefill
+    del prefill, timed_prefill
+    flash, routes = fa.FLASH.launches, dict(fa.FLASH.launches_by_route)
+    windowed = fa.FLASH.launches_by_tag.get("window", 0)
+    g_launches = grouped.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    slots = {n: T for n, _, T in prefills}
+    lanes_bytes = cache_bytes(cfg, eng.n_lanes, eng.max_len, W)
+    full_bytes = cache_bytes(cfg, eng.n_lanes, eng.max_len)
+    for n, ms, T in prefills:
+        print(f"[window] prefill of {n} tokens: {ms:.3f} ms, cache {T} slots")
+    print(f"[window] {len(rep.completions)}/{rep.requests} requests served: "
+          f"{rep.generated_tokens} tokens in {rep.wall_s:.3f}s "
+          f"({rep.tokens_per_s:.3f} tok/s), {rep.prefills} prefills, "
+          f"{rep.steps} decode steps, "
+          f"{1e3 * rep.decode_s / max(rep.steps, 1):.3f} ms/decode step; "
+          f"peak device memory {peak:.2f} GiB; batch KV cache "
+          f"{lanes_bytes / 2**30:.3f} GiB ({eng.n_lanes} lanes x "
+          f"{min(W, eng.max_len)} slots) against "
+          f"{full_bytes / 2**30:.3f} GiB unwindowed at max_len "
+          f"{eng.max_len}")
+    print(f"[window] flash_attention launches {flash} ({windowed} windowed) "
+          f"= {n_long} long prefills x {cfg.num_layers}, by route "
+          f"{json.dumps(routes)}; grouped_pallas launches {g_launches} = "
+          f"{rep.steps} steps x {cfg.num_layers} x 4")
+    check(len(rep.completions) == len(trace) == rep.requests,
+          "not every windowed request was served")
+    for req in trace:
+        toks = rep.completions[req.rid]
+        check(len(toks) == req.gen_len
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"request {req.rid}: bad completion {toks}")
+    check(slots == {64: W, WINDOW_S: W},
+          f"prefill cache slots {slots}: every lane must hold {W}")
+    check(min(W, eng.max_len) == W and
+          lanes_bytes * (eng.max_len // W) <= full_bytes,
+          f"the batch cache holds {lanes_bytes} B against {full_bytes}")
+    check(flash == windowed == n_long * cfg.num_layers > 0 and
+          routes == {"wgmma": flash},
+          f"flash_attention launched {routes} ({windowed} windowed), "
+          f"expected {n_long} x {cfg.num_layers} windowed on wgmma")
+    check(g_launches == rep.steps * cfg.num_layers * 4,
+          f"grouped_pallas launched {g_launches} times, expected "
+          f"{rep.steps} x {cfg.num_layers} x 4")
+    res = {"flash": flash, "windowed": windowed, "flash_routes": routes,
+           "grouped": g_launches, "steps": rep.steps, "peak_gib": peak,
+           "prefill_ms": {n: ms for n, ms, _ in prefills},
+           "decode_ms": 1e3 * rep.decode_s / max(rep.steps, 1),
+           "cache_bytes": lanes_bytes, "unwindowed_cache_bytes": full_bytes}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the 2-layer f32 parity at full width under the same window
+    cfg2 = parity_cfg("yi-9b")
+    eng2, _, _, lcfg = serve.build(serve.parse_args(
+        WINDOW_PARITY_ARGS + ["--window", str(W), "--seed", str(seed)]),
+        cfg=cfg2)
+    trace2 = synth_trace(4, 4, cfg2.vocab_size, seed=seed + 1,
+                         prompt_buckets=(64, WINDOW_PARITY_S),
+                         gen_range=(4, 8))
+    check(WINDOW_PARITY_S in {r.prompt_len for r in trace2},
+          f"the parity trace holds no {WINDOW_PARITY_S}-token prompt")
+    rep2 = eng2.run(trace2)
+    near = engine_vs_reference(eng2, trace2, rep2, cfg2, lcfg, "[window]",
+                               window=W)
+    print(f"[window] {cfg2.name} 2L d{cfg2.d_model} f32, window {W}, "
+          f"prompts {[r.prompt_len for r in trace2]}: "
+          f"{len(trace2) - near}/{len(trace2)} completions identical to the "
+          f"single-adapter reference, {near} near-tie divergences")
+    res["parity_logit_diff"] = long_prompt_parity(
+        eng2, cfg2, lcfg, seed, S=WINDOW_PARITY_S, window=W, tag="[window]")
+    del eng2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the other dense archs at full width
+# ---------------------------------------------------------------------------
+
+ARCHS = ("minitron-8b", "gemma-7b", "qwen3-32b")
+
+
+def arch_serve_phase(seed: int):
+    """minitron-8b, gemma-7b and qwen3-32b each at full width and depth in
+    bf16 through `launch/serve.py` with phase 3's settings: the grouped
+    kernel's launches must equal decode steps x L x 4.  Then one
+    8192-token prompt through the engine's prefill: L flash launches, on
+    the hd256 route for gemma-7b and wgmma for the others.  The device
+    memory left once the weights are built is printed (qwen3-32b's 65.5 GB
+    of bf16 weights leave what the cache and the prefill may use).
+    gemma-7b then gets phase 4's 2-layer full-width f32 parity, an
+    8192-token prompt included (the f32 hd-256 route end to end)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import tree_leaves
+
+    grouped = resolve_grouped_kernel("grouped_pallas")
+    res = {}
+    for arch in ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng, trace, cfg, _ = serve.build(serve.parse_args(
+            arch_args(arch) + ["--seed", str(seed)]))
+        torch.cuda.synchronize()
+        free, total = torch.cuda.mem_get_info()
+        held = torch.cuda.memory_allocated()
+        # what the cache and the prefill may still take: the CUDA driver's
+        # free memory and what the allocator holds but has not handed out
+        left = free + torch.cuda.memory_reserved() - held
+        wbytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(eng.params))
+        print(f"[archs] {cfg.name}: {cfg.num_layers}L d{cfg.d_model} "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads hd {cfg.hd}, "
+              f"{cfg.param_dtype}, {cfg.param_count() / 1e9:.3f} B params "
+              f"({wbytes / 1e9:.2f} GB), built in "
+              f"{time.perf_counter() - t0:.1f}s; device memory allocated "
+              f"{held / 2**30:.2f} GiB, left for the cache and the prefill "
+              f"{left / 2**30:.2f} of {total / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        grouped.launches = 0
+        rep = eng.run(trace)
+        g_launches = grouped.launches
+        print(f"[archs] {cfg.name}: {len(rep.completions)}/{rep.requests} "
+              f"requests served, {rep.generated_tokens} tokens in "
+              f"{rep.wall_s:.3f}s ({rep.tokens_per_s:.2f} tok/s), "
+              f"{rep.steps} decode steps, "
+              f"{1e3 * rep.decode_s / max(rep.steps, 1):.3f} ms/decode "
+              f"step; cache {rep.cache['hits']} hits / "
+              f"{rep.cache['misses']} misses / {rep.cache['evictions']} "
+              f"evictions; grouped_pallas launches {g_launches} = "
+              f"{rep.steps} steps x {cfg.num_layers} x 4")
+        check(len(rep.completions) == len(trace) == rep.requests,
+              f"{arch}: not every request was served")
+        for req in trace:
+            toks = rep.completions[req.rid]
+            check(len(toks) == req.gen_len
+                  and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"{arch} request {req.rid}: bad completion {toks}")
+        check(g_launches == rep.steps * cfg.num_layers * 4 > 0,
+              f"{arch}: grouped_pallas launched {g_launches} times, "
+              f"expected {rep.steps} x {cfg.num_layers} x 4")
+        prompt = np.random.default_rng(seed + 13).integers(
+            0, cfg.vocab_size, LONG_S).tolist()
+        route = fa.flash_route(torch.bfloat16, cfg.hd)
+        fa.FLASH.reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            tok, row = eng._prefill(0, prompt)
+        ms = 1e3 * (time.perf_counter() - t1)
+        launches = dict(fa.FLASH.launches_by_route)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[archs] {cfg.name}: one {LONG_S}-token prefill {ms:.3f} ms, "
+              f"first token {tok}, flash_attention launches by route "
+              f"{json.dumps(launches)}; peak device memory {peak:.2f} GiB")
+        check(launches == {route: cfg.num_layers} and
+              fa.FLASH.launches == cfg.num_layers,
+              f"{arch}: the {LONG_S}-token prefill launched {launches}, "
+              f"expected {cfg.num_layers} on {route}")
+        check(0 <= tok < cfg.vocab_size and
+              tuple(row["g0"]["self"][0].shape[:3]) ==
+              (cfg.num_layers, 1, LONG_S),
+              f"{arch}: bad prefill output")
+        res[arch] = {"layers": cfg.num_layers, "hd": cfg.hd, "route": route,
+                     "grouped": g_launches, "steps": rep.steps,
+                     "flash": fa.FLASH.launches, "prefill_ms": ms,
+                     "left_gib": left / 2**30, "peak_gib": peak,
+                     "weight_gb": wbytes / 1e9,
+                     "decode_ms": 1e3 * rep.decode_s / max(rep.steps, 1)}
+        del eng, row
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["gemma_parity_logit_diff"] = parity_phase(seed, "gemma-7b",
+                                                  "[archs] parity")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
 
 # ---------------------------------------------------------------------------
 # phase 12: the paper's task path, ViT-B/16 and GPT-2 Small
@@ -3764,9 +4327,10 @@ def long_grad_parity(cfg, params, seed: int):
         torch.cuda.synchronize()
         return loss.detach(), g
 
-    def chunked(q, k, v, *, causal, scale):
+    def chunked(q, k, v, *, causal, scale, window=None):
         return A.chunked_attention(q, k, v, scale, causal=causal,
-                                   cq=cfg.attn_chunk_q, ckv=cfg.attn_chunk_kv)
+                                   window=window, cq=cfg.attn_chunk_q,
+                                   ckv=cfg.attn_chunk_kv)
 
     launches = {}
     with counted(launches):
@@ -4090,6 +4654,14 @@ def main() -> int:
     t0 = time.perf_counter()
     lt_res = long_train_phase(args.seed, args.profile)
     print(f"[long-train] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    win_res = window_serve_phase(args.seed)
+    print(f"[window] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    arch_res = arch_serve_phase(args.seed)
+    print(f"[archs] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
     lt_runs = lt_res["runs"]
 
@@ -4111,7 +4683,11 @@ def main() -> int:
                     f"{S} tokens {r['launches'][name]} in {r['rounds']} "
                     f"round(s) of {r['clients']} client(s)"
                     for S, r in lt_runs.items()))
-    entry["path"] += later("grouped_lora_delta")
+    entry["path"] += later("grouped_lora_delta") + (
+        f"; window (yi-9b, 8 lanes, window 8192): {win_res['grouped']} in "
+        f"{win_res['steps']} decode steps; archs: " + ", ".join(
+            f"{a} {arch_res[a]['grouped']} in {arch_res[a]['steps']} steps "
+            f"x {arch_res[a]['layers']} x 4" for a in ARCHS))
 
     entries = [entry]
     for name, replaces in TRANSPORT:
@@ -4174,7 +4750,10 @@ def main() -> int:
         "launches_by_route": long_res["flash_routes"],
         "path": ("long-prefill, 48 per prefill; long-train, 96 per client "
                  "step (forward and recomputation)")
-        + later("flash_attention"),
+        + later("flash_attention")
+        + f"; window (yi-9b): {win_res['flash']} windowed; archs: "
+        + ", ".join(f"{a} {arch_res[a]['flash']} ({arch_res[a]['route']})"
+                    for a in ARCHS),
         "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
         "max_abs_err": ops_res["attn_err"],
         "max_row_rel_err_bf16": ops_res["attn_row"],
@@ -4188,6 +4767,49 @@ def main() -> int:
         "library": "F.scaled_dot_product_attention(enable_gqa=True)",
         "route_timed": amain["route"],
         "wrapper_ms": amain["wrapper_ms"], "timings": ops_res["attn_rows"]})
+    wt, ht = ops_res["win_timing"], ops_res["hd256_timing"]
+    entries.append({
+        "name": "flash_attention_window", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:58",
+        "replaces_note": "the Pallas kernel has no window; the reference "
+                         "serves a window through models/attention.py::"
+                         "chunked_attention (:102, its skip at :161)",
+        "launches": win_res["windowed"],
+        "launches_by_route": win_res["flash_routes"],
+        "path": ("window (yi-9b, window 8192): 48 per prompt of 32768 "
+                 "tokens, every one windowed"),
+        "shape": "q (1, 32768, 32, 128), k/v (1, 32768, 4, 128) bf16 "
+                 "causal, window 8192",
+        "max_abs_err": ops_res["win_err"],
+        "max_row_err_vs_f64": max(ops_res["win_f64"].values()),
+        "row_err_vs_f64": ops_res["win_f64"],
+        "model_logit_diff_vs_chunked": win_res["parity_logit_diff"],
+        "ms": wt["ms"], "plain_ms": wt["plain_ms"], "plain": wt["plain"],
+        "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"],
+        "library_ms": wt["library_ms"], "library": wt["library"],
+        "route_timed": wt["route"], "wrapper_ms": wt["wrapper_ms"],
+        "timing": wt})
+    entries.append({
+        "name": "flash_attention_hd256", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:58",
+        "kernel": "flash_bf16_kernel<256> (route hd256); "
+                  "flash_f32_kernel<256> (fma)",
+        "launches": arch_res["gemma-7b"]["flash"],
+        "launches_by_route": {arch_res["gemma-7b"]["route"]:
+                              arch_res["gemma-7b"]["flash"]},
+        "path": "archs (gemma-7b): one 8192-token prefill, 28 layers",
+        "shape": "q, k, v (1, 8192, 16, 256) bf16 causal",
+        "max_abs_err": ops_res["hd256_err"],
+        "max_row_err_vs_f64": max(ops_res["hd256_f64"].values()),
+        "row_err_vs_f64": ops_res["hd256_f64"],
+        "model_logit_diff_vs_chunked": arch_res["gemma_parity_logit_diff"],
+        "ms": ht["ms"], "plain_ms": ht["plain_ms"],
+        "bound_ms": ht["bound_ms"], "bound_by": ht["bound_by"],
+        "library_ms": ht["library_ms"], "library": ht["library"],
+        "route_timed": ht["route"], "wrapper_ms": ht["wrapper_ms"],
+        "timing": ht})
     bmain, btime = lt_res["kernel"]["main"], lt_res["kernel"]["timing"]
     first = lt_runs[LONG_TRAIN[0][0]]
     entries.append({

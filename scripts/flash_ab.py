@@ -12,7 +12,10 @@ such as a checkout's src/repro_torch/csrc (an older commit unpacked with
 with the port's nvcc flags into build/flash_attention_ab/, all at once
 (scripts/ab_trees.py); the ptxas report of its flash_wgmma_kernel
 (registers, stack frame, spills) is printed, with any compiler warning or
-note that a wgmma was serialised.
+note that a wgmma was serialised.  The entry point's arguments are read
+from each tree's source: trees before the backward take no lse pointer,
+and trees with the sliding window take a trailing window, passed as 0
+(none), so that a tree of either kind times against this one.
 
 Cases: phase 10 of chip_smoke.py on the wgmma route (bf16, hd 128, H 32,
 KV 4): B 1, S = T = 8192 and 1000; B 2, S 1000 and 1025, T 1100; causal and
@@ -43,12 +46,23 @@ ITERS = 10                     # launches a timed turn
 SEED = 18
 
 
+def _fwd_params(csrc) -> str:
+    text = (csrc / "flash_attention.cu").read_text()
+    m = re.search(r"flash_attention_fwd\(([^)]*)\)", text)
+    return "" if m is None else m.group(1)
+
+
 def takes_lse(csrc) -> bool:
     """Whether the tree's flash_attention_fwd takes the lse pointer after
     out (the trees that have the backward do; older ones do not)."""
-    text = (csrc / "flash_attention.cu").read_text()
-    m = re.search(r"flash_attention_fwd\(([^)]*)\)", text)
-    return m is not None and re.search(r"\blse_?\b", m.group(1)) is not None
+    return re.search(r"\blse_?\b", _fwd_params(csrc)) is not None
+
+
+def takes_window(csrc) -> bool:
+    """Whether the tree's flash_attention_fwd takes a trailing `window`
+    after `route` (the trees with the sliding window do; this script
+    passes 0, none)."""
+    return re.search(r"\bint window\b", _fwd_params(csrc)) is not None
 
 
 def launch(fn, q, k, v, out, causal: bool) -> None:
@@ -56,8 +70,9 @@ def launch(fn, q, k, v, out, causal: bool) -> None:
     B, S, _, _ = q.shape
     T = k.shape[1]
     lse = (None,) if fn.takes_lse else ()
+    window = (0,) if fn.takes_window else ()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse,
-            B, S, T, H, KV, HD, 0, int(causal), HD ** -0.5, 0,
+            B, S, T, H, KV, HD, 0, int(causal), HD ** -0.5, 0, *window,
             torch.cuda.current_stream().cuda_stream)
     cs.check(rc == 0, f"flash_attention_fwd failed: CUDA error {rc}")
 
@@ -74,12 +89,12 @@ def main() -> int:
             srcs, "flash_attention.cu",
             lambda name: name == "flash_wgmma_kernel").items():
         fn = so.flash_attention_fwd
-        lse = takes_lse(srcs[label])
+        lse, window = takes_lse(srcs[label]), takes_window(srcs[label])
         fn.argtypes = [ctypes.c_void_p] * (5 if lse else 4) + [
-            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int] + [
+                ctypes.c_int] * window + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fn.takes_lse = lse
+        fn.takes_lse, fn.takes_window = lse, window
         libs[label] = fn
     labels = list(libs)
     ok = labels == list(srcs)

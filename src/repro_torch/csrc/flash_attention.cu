@@ -8,8 +8,10 @@
 //                     largest scaled score, l the sum of exp(score - m))
 //
 // q (B, S, H, hd), k and v (B, T, KV, hd), out (B, S, H, hd), all contiguous,
-// one dtype: bf16 or f32.  hd in {32, 64, 128}.  Causal: key t > query s is
-// masked with -1e30 (the reference's value).
+// one dtype: bf16 or f32.  hd in {32, 64, 128, 256}.  Causal: key t > query s
+// is masked with -1e30 (the reference's value); with a sliding window W
+// (causal only) key t <= s - W is masked too, so that each query sees the W
+// keys up to its own (src/repro/models/attention.py::causal_mask).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_pallas (its `_kernel`): per (batch x head, tile of query
@@ -28,7 +30,15 @@
 //   - Under causal masking the KV tiles wholly above the diagonal are not
 //     visited.  That cannot change a bit: after a live tile, a fully masked
 //     one has m_new = m, so it multiplies acc and l by exp(0) = 1 and adds
-//     exp(-1e30 - m) = 0.
+//     exp(-1e30 - m) = 0.  Under a window the tiles wholly below every row's
+//     window are not visited either (the loop and the producer run from key
+//     tile max(0, q0 - W + 1) / tile), as the reference's chunked_attention
+//     skips its kv chunks below `lo`.  A visited tile at the window's lower
+//     edge may hold no key of some row's window, and may come first for it:
+//     m stays -1e30 and every p of that tile is exp(0) = 1, which the row's
+//     first key in its window then scales by exp(-1e30 - m) = 0, exactly as
+//     the plain online softmax (and a row that no key could reach is refused
+//     by the entry point: S <= T + W - 1).
 //   - scale multiplies the f32 dot product (the Pallas kernel scales q
 //     first; the oracle divides the product by sqrt(hd)).
 //   - bf16: the tensor cores take bf16 operands, so p goes into acc += p v
@@ -51,8 +61,9 @@
 // issue 1.5 times that tensor work (Q K^T once, P V twice); the bound
 // counts the function's operations, not the split's.
 //
-// Three kernels; the caller (kernels/flash_attention.py::flash_route) picks
-// one from dtype and hd alone, before the launch, and passes it as `route`:
+// Four routes on three kernels; the caller (kernels/flash_attention.py::
+// flash_route) picks one from dtype and hd alone, before the launch, and
+// passes it as `route`:
 //
 //   route 0, "wgmma" -- bf16, hd 128 (Yi-9B and every long prompt).  One
 //     block owns 128 query rows of one (batch, head): two consumer
@@ -114,8 +125,16 @@
 //     thread owning 4 query rows x 4 keys of a score tile and 4 rows x
 //     hd/16 columns of acc; p goes through shared memory between the two
 //     products.
+//   route 3, "hd256" -- bf16 at hd 256 (gemma-7b): route 1's kernel at hd
+//     256, its q tile kept in a fifth shared-memory buffer and read a k-step
+//     pair at a time (held in registers, its 64 beside acc's 128 would
+//     spill); 64-key K and V tiles of 64 x (256 + 8) bf16, double-buffered:
+//     165 KB of shared memory, one block of 4 warps an SM.
+//   route 2 at hd 256 is the same template at 219 KB of shared memory.
 //   Query tiles are issued last-first so the causal tiles with the most
-//   keys start first.  Routes 1 and 2 use expf, route 0 ex2.approx.ftz of
+//   keys start first.  Under a window every query tile past the first W
+//   keys visits about W / tile + 1 key tiles, so the order no longer
+//   matters there; the first tiles, which visit fewer, still go last.  Routes 1 and 2 use expf, route 0 ex2.approx.ftz of
 //   the log2-scaled scores (exp2f's own instruction, less its handling of
 //   results below 2^-126, which it flushes to 0); no fast math.
 #include <cuda_bf16.h>
@@ -180,12 +199,32 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
+// Below hd 256 the q tile is staged in K buffer 1 and held in registers as
+// A fragments; at hd 256 those would take 64 registers beside the 128 of
+// acc, so the q tile keeps a fifth buffer of its own and each k-step reads
+// its fragment from there.
 template <int HD>
 struct MmaSmem {
+  static constexpr bool kQInSmem = HD > 128;
   static constexpr int LD = HD + kPad;            // bf16 per smem row
   static constexpr int kTile = kBKV * LD;         // one K or V tile
-  static constexpr int kBytes = 4 * kTile * 2;    // K and V, double-buffered
+  // K and V, double-buffered, and at hd 256 the q tile
+  static constexpr int kBytes = (kQInSmem ? 5 : 4) * kTile * 2;
 };
+
+// The first key tile of size `tile` that a query tile starting at q0 can
+// see: under a causal window W (W > 0) the key q0 - W + 1, else key 0.
+__device__ __forceinline__ int first_tile(int q0, int causal, int window,
+                                          int tile) {
+  return causal && window > 0 ? max(0, q0 - window + 1) / tile : 0;
+}
+
+// How far below its query a key may lie and still be seen: W keys including
+// the query's own are kept (key > qpos - W), so a key is masked where key +
+// span <= qpos.  Without a window the span is 2^30, which no position reaches.
+__device__ __forceinline__ int window_span(int causal, int window) {
+  return causal && window > 0 ? window : (1 << 30);
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreadsMma)
@@ -193,8 +232,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                  int S, int T, int H, int KV, float scale, int causal) {
+                  int S, int T, int H, int KV, float scale, int causal,
+                  int window) {
   using SM = MmaSmem<HD>;
+  constexpr bool kQInSmem = SM::kQInSmem;
   constexpr int LD = SM::LD;
   constexpr int NT = kBKV / 8;        // n-tiles of the score tile
   constexpr int KD = HD / 16;         // k-steps over the head dim
@@ -202,9 +243,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int CH = HD / 8;          // 16-byte chunks per row
   static_assert(kBQ == kBKV, "the q tile is staged in a K buffer");
   extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  // buffers: K0, V0, K1, V1, each kBKV rows of LD
+  // buffers: K0, V0, K1, V1, each kBKV rows of LD; at hd 256 then Q
   auto kbuf = [&](int i) { return smem_bf16 + (2 * i) * SM::kTile; };
   auto vbuf = [&](int i) { return smem_bf16 + (2 * i + 1) * SM::kTile; };
+  __nv_bfloat16* qs = kQInSmem ? smem_bf16 + 4 * SM::kTile : kbuf(1);
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kh = h / (H / KV);
@@ -236,37 +278,37 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   };
 
+  // key tiles lo .. n_tiles - 1: those below a causal window's lower edge
+  // and those above the diagonal are not visited
+  const int lo = first_tile(q0, causal, window, kBKV);
+  const int span = window_span(causal, window);
   int n_tiles = (T + kBKV - 1) / kBKV;
   if (causal) {
     const int last_q = min(q0 + kBQ, S) - 1;
     n_tiles = min(n_tiles, last_q / kBKV + 1);
   }
 
-  // q tile -> K buffer 1 (zeros past S), while tile 0 streams into buffer 0
-  {
-    __nv_bfloat16* qs = kbuf(1);
-    for (int i = tid; i < kBQ * CH; i += kThreadsMma) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool in = q0 + r < S;
-      cp_async16(qs + r * LD + c, qb + (in ? (q0 + r) * q_stride + c : 0), in);
-    }
-    cp_async_commit();
+  // q tile -> its buffer (zeros past S), while tile lo streams into buffer 0
+  for (int i = tid; i < kBQ * CH; i += kThreadsMma) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool in = q0 + r < S;
+    cp_async16(qs + r * LD + c, qb + (in ? (q0 + r) * q_stride + c : 0), in);
   }
-  load_kv(0, 0);
+  cp_async_commit();
+  load_kv(lo * kBKV, 0);
   cp_async_wait<1>();                 // the q tile has landed
   __syncthreads();
-  uint32_t qf[KD][4];
-  {
-    // A fragments of rows warp*16 .. +15: matrix i of ldmatrix.x4 is rows
-    // (i & 1) * 8 .., columns (i >> 1) * 8 .. of each 16 x 16 block
-    const __nv_bfloat16* qs = kbuf(1);
-    const int row = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+  // A fragments of rows warp*16 .. +15: matrix i of ldmatrix.x4 is rows
+  // (i & 1) * 8 .., columns (i >> 1) * 8 .. of each 16 x 16 block
+  const int q_row = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+  [[maybe_unused]] uint32_t qf[kQInSmem ? 1 : KD][4];
+  if constexpr (!kQInSmem) {
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      ldsm_x4(qf[kk], qs + row * LD + kk * 16 + (lane >> 4) * 8);
+      ldsm_x4(qf[kk], qs + q_row * LD + kk * 16 + (lane >> 4) * 8);
     }
+    __syncthreads();                  // buffer 1 is free for tile lo + 1
   }
-  __syncthreads();                    // buffer 1 is free for tile 1
 
   // this thread's two query rows: row0 (c0, c1) and row0 + 8 (c2, c3)
   const int qpos0 = q0 + warp * 16 + g, qpos1 = qpos0 + 8;
@@ -278,17 +320,18 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.0f;
   }
 
-  for (int jt = 0; jt < n_tiles; ++jt) {
+  for (int jt = lo; jt < n_tiles; ++jt) {
     const int j0 = jt * kBKV;
+    const int buf = (jt - lo) & 1;
     if (jt + 1 < n_tiles) {
-      load_kv(j0 + kBKV, (jt + 1) & 1);
+      load_kv(j0 + kBKV, buf ^ 1);
       cp_async_wait<1>();             // tile jt has landed, jt + 1 in flight
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* ks = kbuf(jt & 1);
-    const __nv_bfloat16* vs = vbuf(jt & 1);
+    const __nv_bfloat16* ks = kbuf(buf);
+    const __nv_bfloat16* vs = vbuf(buf);
 
     // scores for 16 rows x 64 keys: s[nt][0..1] row0, s[nt][2..3] row0 + 8.
     // ldmatrix.x4 on K rows nt*8 .. +7 gives b0, b1 of two k-steps.
@@ -296,13 +339,34 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+    }
+    if constexpr (kQInSmem) {
+      // two k-steps of q fragments at a time, each used on every n-tile
 #pragma unroll
       for (int kk = 0; kk < KD; kk += 2) {
-        uint32_t kf[4];
-        ldsm_x4(kf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
-                        (lane >> 3) * 8);
-        mma_bf16(s[nt], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[nt], qf[kk + 1], kf[2], kf[3]);
+        uint32_t qa[4], qb2[4];
+        ldsm_x4(qa, qs + q_row * LD + kk * 16 + (lane >> 4) * 8);
+        ldsm_x4(qb2, qs + q_row * LD + (kk + 1) * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t kf[4];
+          ldsm_x4(kf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
+                          (lane >> 3) * 8);
+          mma_bf16(s[nt], qa, kf[0], kf[1]);
+          mma_bf16(s[nt], qb2, kf[2], kf[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int kk = 0; kk < KD; kk += 2) {
+          uint32_t kf[4];
+          ldsm_x4(kf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
+                          (lane >> 3) * 8);
+          mma_bf16(s[nt], qf[kk], kf[0], kf[1]);
+          mma_bf16(s[nt], qf[kk + 1], kf[2], kf[3]);
+        }
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -313,9 +377,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const int key = j0 + nt * 8 + 2 * t + (e & 1);
         const int qpos = e < 2 ? qpos0 : qpos1;
         float x = s[nt][e] * scale;
+        // the window's test apart from the diagonal's: one condition of
+        // both spilled at hd 32 and 256
         if (key >= T) {
           x = -INFINITY;                  // absent: weighs exactly 0
         } else if (causal && key > qpos) {
+          x = kNegInf;
+        } else if (key + span <= qpos) {
           x = kNegInf;
         }
         s[nt][e] = x;
@@ -423,7 +491,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                   int S, int T, int H, int KV, float scale_log2, int causal) {
+                   int S, int T, int H, int KV, float scale_log2, int causal,
+                   int window) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -440,6 +509,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  // key tiles lo .. n_tiles - 1, the ring's stages counted from lo
+  const int lo = first_tile(q0, causal, window, kWgKeys);
+  const int span = window_span(causal, window);
   int n_tiles = (T + kWgKeys - 1) / kWgKeys;
   if (causal) {
     n_tiles = min(n_tiles, (min(q0 + kWgRows, S) - 1) / kWgKeys + 1);
@@ -468,9 +540,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive_expect_tx(q_full, kWgTile);
       tma_load_4d(qs, &tm_q, q_full, 0, h, q0, b);
       tma_load_4d(qs + kWgBox, &tm_q, q_full, 64, h, q0, b);
-      for (int jt = 0; jt < n_tiles; ++jt) {
-        const int s = jt % kWgStages;
-        const uint32_t ph = (jt / kWgStages) & 1;
+      for (int jt = lo; jt < n_tiles; ++jt) {
+        const int s = (jt - lo) % kWgStages;
+        const uint32_t ph = ((jt - lo) / kWgStages) & 1;
         const int j0 = jt * kWgKeys;
         mbar_wait(&k_empty[s], ph ^ 1);
         mbar_arrive_expect_tx(&k_full[s], kWgTile);
@@ -497,9 +569,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float l[2] = {0.0f, 0.0f};            // this thread's part of each row sum
 
     mbar_wait(q_full, 0);
-    for (int jt = 0; jt < n_tiles; ++jt) {
-      const int s = jt % kWgStages;
-      const uint32_t ph = (jt / kWgStages) & 1;
+    for (int jt = lo; jt < n_tiles; ++jt) {
+      const int s = (jt - lo) % kWgStages;
+      const uint32_t ph = ((jt - lo) / kWgStages) & 1;
       const int j0 = jt * kWgKeys;
 
       // scores: sc[4 j + e] is row r_lo (e < 2) or r_hi, key j0 + 8 j + 2 t
@@ -522,14 +594,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 #pragma unroll
       for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
-      if (j0 + kWgKeys > T || (causal && j0 + kWgKeys - 1 > row0)) {
+      // the ragged end, the diagonal and a window's lower edge: masked on
+      // the tiles that cross them.  A row may see no key of a tile at the
+      // window's edge; with every score at -1e30 its m stays -1e30 and its p
+      // are 1, and the first key in its window rescales l and acc by
+      // exp2(-1e30 - m) = 0, as the plain online softmax does.
+      if (j0 + kWgKeys > T || (causal && j0 + kWgKeys - 1 > row0) ||
+          j0 + span <= row0 + 63) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
           const int key = j0 + 8 * (i / 4) + 2 * t + (i & 1);
           const int qpos = (i & 2) ? r_hi : r_lo;
           if (key >= T) {
             sc[i] = -INFINITY;            // absent: weighs exactly 0
-          } else if (causal && key > qpos) {
+          } else if (causal && (key > qpos || key + span <= qpos)) {
             sc[i] = kNegInf;
           }
         }
@@ -624,7 +702,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int S, int T, int H, int KV, int causal,
-                 float scale, cudaStream_t stream) {
+                 float scale, int window, cudaStream_t stream) {
   // 4-D maps over (hd, heads, seq, batch), 128 hd of 2 bytes
   CUtensorMap tq, tk, tv;
   const uint64_t qdim[4] = {128, static_cast<uint64_t>(H),
@@ -644,7 +722,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(B * H, (S + kWgRows - 1) / kWgRows);
   flash_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, T, H, KV,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -667,7 +745,7 @@ __global__ void __launch_bounds__(kThreadsF32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int S, int T, int H, int KV,
-                 float scale, int causal) {
+                 float scale, int causal, int window) {
   using SM = F32Smem<HD>;
   constexpr int LDQ = SM::LDQ, LDP = SM::LDP;
   constexpr int DC = HD / 16;             // output columns per thread
@@ -708,12 +786,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
   }
 
+  const int lo = first_tile(q0, causal, window, kBKV);
+  const int span = window_span(causal, window);
   int n_tiles = (T + kBKV - 1) / kBKV;
   if (causal) {
     const int last_q = min(q0 + kBQ, S) - 1;
     n_tiles = min(n_tiles, last_q / kBKV + 1);
   }
-  for (int jt = 0; jt < n_tiles; ++jt) {
+  for (int jt = lo; jt < n_tiles; ++jt) {
     const int j0 = jt * kBKV;
     for (int i = tid; i < kBKV * HD; i += kThreadsF32) {
       const int r = i / HD, c = i % HD;
@@ -752,7 +832,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float x = s[i][j] * scale;
         if (key >= T) {
           x = -INFINITY;
-        } else if (causal && key > qpos) {
+        } else if (causal && (key > qpos || key + span <= qpos)) {
           x = kNegInf;
         }
         s[i][j] = x;
@@ -812,11 +892,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// route 1: bf16, hd 32 or 64
+// route 1: bf16, hd 32 or 64; route 3: bf16, hd 256
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int S, int T, int H, int KV, int causal,
-               float scale, cudaStream_t stream) {
+               float scale, int window, cudaStream_t stream) {
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   constexpr int bytes = MmaSmem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -827,15 +907,16 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), lse, S, T, H, KV, scale, causal);
+      static_cast<__nv_bfloat16*>(out), lse, S, T, H, KV, scale, causal,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// route 2: f32, hd 32, 64 or 128
+// route 2: f32, hd 32, 64, 128 or 256
 template <int HD>
 int launch_fma(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int S, int T, int H, int KV, int causal,
-               float scale, cudaStream_t stream) {
+               float scale, int window, cudaStream_t stream) {
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   constexpr int bytes = F32Smem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -845,7 +926,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* out,
   flash_f32_kernel<HD><<<grid, kThreadsF32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, S, T, H,
-      KV, scale, causal);
+      KV, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -855,43 +936,63 @@ int launch_fma(const void* q, const void* k, const void* v, void* out,
 // caller checks devices, dtypes and contiguity, and that the pointers are
 // 16-byte aligned; B, S, T, H >= 1 and H % KV == 0.  dtype 0 = bf16, 1 =
 // f32.  route 0 = wgmma (bf16, hd 128), 1 = mma_sync (bf16, hd 32 or 64),
-// 2 = fma (f32, hd 32, 64 or 128); a route that the dtype and hd do not
-// select is refused.  lse: null, or f32 (B, H, S) to receive each row's
-// log-sum-exp.
+// 2 = fma (f32, hd 32, 64, 128 or 256), 3 = hd256 (bf16, hd 256); a route
+// that the dtype and hd do not select is refused.  lse: null, or f32 (B, H,
+// S) to receive each row's log-sum-exp.  window: 0 for none, else W >= 1
+// keys including the query's own under causal masking (key > query - W),
+// with S <= T + W - 1 so that every row sees a key.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse_, int B, int S, int T,
                                    int H, int KV, int hd, int dtype,
                                    int causal, float scale, int route,
-                                   void* stream) {
+                                   int window, void* stream) {
   float* lse = static_cast<float*>(lse_);
   const bool fits =
       (route == 0 && dtype == 0 && hd == 128) ||
       (route == 1 && dtype == 0 && (hd == 32 || hd == 64)) ||
-      (route == 2 && dtype == 1 && (hd == 32 || hd == 64 || hd == 128));
+      (route == 2 && dtype == 1 &&
+       (hd == 32 || hd == 64 || hd == 128 || hd == 256)) ||
+      (route == 3 && dtype == 0 && hd == 256);
+  const bool window_ok =
+      window == 0 || (window > 0 && causal &&
+                      static_cast<long long>(S) <=
+                          static_cast<long long>(T) + window - 1);
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      !fits || (S + kBQ - 1) / kBQ > 65535 ||
+      !fits || !window_ok || (S + kBQ - 1) / kBQ > 65535 ||
       static_cast<long long>(B) * H > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
-    return launch_wgmma(q, k, v, out, lse, B, S, T, H, KV, causal, scale, s);
+    return launch_wgmma(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                        window, s);
   }
-  if (route == 1) {
-    return hd == 32
-        ? launch_mma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale, s)
-        : launch_mma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale, s);
+  if (route == 1 || route == 3) {
+    switch (hd) {
+      case 32:
+        return launch_mma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                              window, s);
+      case 64:
+        return launch_mma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                              window, s);
+      default:
+        return launch_mma<256>(q, k, v, out, lse, B, S, T, H, KV, causal,
+                               scale, window, s);
+    }
   }
   switch (hd) {
     case 32:
       return launch_fma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
-                             s);
+                            window, s);
     case 64:
       return launch_fma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
-                             s);
-    default:
+                            window, s);
+    case 128:
       return launch_fma<128>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
-                             s);
+                             window, s);
+    default:
+      return launch_fma<256>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                             window, s);
   }
 }
 

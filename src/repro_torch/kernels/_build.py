@@ -9,8 +9,9 @@ are loaded with `ctypes`; the wrappers in `kernels/*.py` declare every
 pointer and the stream as `c_void_p`.
 
 `CudaFunction` binds one C entry point of a library and counts its
-launches, in all and by route where an entry point serves several
-kernels; every kernel wrapper of the port holds one.
+launches, in all, by route where an entry point serves several kernels,
+and by tag where a wrapper marks a variant of one (the flash forward's
+sliding window); every kernel wrapper of the port holds one.
 
 Nothing here runs on import: the CPU tests import every module, and a
 host without `nvcc` only fails when a kernel is actually asked for.
@@ -122,7 +123,9 @@ class CudaFunction:
     """One C entry point of `csrc/<source>.cu`: `int symbol(args..., void*
     stream)`, returning `cudaGetLastError()`.  Bound with ctypes at its
     first call (building the source if needed); `launches` counts the
-    successful launches and nothing else adds to it."""
+    successful launches and nothing else adds to it; `launches_by_route`
+    and `launches_by_tag` split them by the route and tag each call
+    names."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
@@ -130,18 +133,22 @@ class CudaFunction:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
         self.launches_by_route: Dict[str, int] = {}
+        self.launches_by_tag: Dict[str, int] = {}
         self._fn = None
 
     def reset(self) -> None:
-        """Zero the counts, in all and by route."""
+        """Zero the counts, in all, by route and by tag."""
         self.launches = 0
         self.launches_by_route.clear()
+        self.launches_by_tag.clear()
 
     def __call__(self, device: torch.device, *args,
-                 route: Optional[str] = None) -> None:
+                 route: Optional[str] = None,
+                 tag: Optional[str] = None) -> None:
         """Launch on `device`'s current stream; raises if the launch is
         refused.  Does not synchronise.  `route` names the kernel the
-        arguments select, for `launches_by_route`."""
+        arguments select, for `launches_by_route`; `tag` a variant of it,
+        for `launches_by_tag`."""
         if self._fn is None:
             fn = getattr(load(self.source), self.symbol)
             fn.argtypes = self.argtypes
@@ -156,3 +163,5 @@ class CudaFunction:
         if route is not None:
             self.launches_by_route[route] = \
                 self.launches_by_route.get(route, 0) + 1
+        if tag is not None:
+            self.launches_by_tag[tag] = self.launches_by_tag.get(tag, 0) + 1

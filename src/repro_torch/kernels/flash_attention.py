@@ -13,17 +13,25 @@ backward needs; `out` is the same with or without it.
 It takes GQA directly: q (B, S, H, hd), k and v (B, T, KV, hd) with query
 head h reading KV head h // (H // KV), so the KV heads are never repeated
 H times (KV == H is the reference's pre-broadcast call).  Any S and T:
-the kernel masks the ragged tiles.  hd in {32, 64, 128}, bf16 or f32.
+the kernel masks the ragged tiles.  hd in {32, 64, 128, 256}, bf16 or f32.
 
-Three forward kernels behind one C entry point; `flash_route` picks one
-from the dtype and hd alone, before the launch (never as a retry):
+A sliding window (`window=W`, causal only) keeps key t for query s when
+s - W < t <= s, as the reference's `causal_mask(..., window)`: W keys
+including the query's own.  The kernels skip the key tiles wholly below
+every row's window.  Every row must see a key, so S <= T + W - 1.
+
+Four forward routes on three kernels behind one C entry point;
+`flash_route` picks one from the dtype and hd alone, before the launch
+(never as a retry):
   - "wgmma": bf16, hd 128 (Yi-9B, every long prompt) -- TMA loads into an
     mbarrier ring fed by a producer warpgroup, wgmma for both products;
   - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
     kernel;
+  - "hd256": bf16, hd 256 (gemma-7b) -- the `mma.sync` kernel with its q
+    tile read from shared memory at each k-step;
   - "fma": f32 -- FMA, never TF32.
-`FLASH.launches` counts every launch and `FLASH.launches_by_route` each
-route's.
+`FLASH.launches` counts every launch, `FLASH.launches_by_route` each
+route's and `FLASH.launches_by_tag["window"]` those with a window.
 
 The gradient.  Whenever autograd records (grad mode on and q, k or v
 requiring a gradient), `flash_attention` on CUDA tensors runs as a
@@ -44,6 +52,9 @@ lengths.  `flash_bwd_route` picks the backward's kernels as
   - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
     kernels;
   - "fma": f32 -- FMA, never TF32.
+Neither a window nor hd 256 has backward kernels yet (ROADMAP queue 1
+item 11): on CUDA tensors a call that autograd records with either
+raises before it launches, and `flash_bwd_route` raises at hd 256.
 `flash_bwd_scratch` allocates the f32 scratch, sized for the largest
 route's need.
 `flash_attention_bwd_plain` is the backward's function in plain PyTorch.
@@ -74,14 +85,18 @@ import torch
 from repro_torch.kernels._build import CudaFunction, aligned
 from repro_torch.kernels.ref import NEG_INF
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2}   # the C entry points' `route`
+# the C entry points' `route`
+ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2, "hd256": 3}
+NO_BACKWARD = ("no flash backward kernel for a sliding window or hd 256 yet "
+               "(ROADMAP queue 1 item 11)")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (q, k, v, out, lse or None, B, S, T, H, KV, hd, dtype, causal, scale, route)
+# (q, k, v, out, lse or None, B, S, T, H, KV, hd, dtype, causal, scale, route,
+#  window: 0 for none)
 FLASH = CudaFunction("flash_attention", "flash_attention_fwd",
-                     [_P] * 5 + [_I] * 8 + [_F, _I])
+                     [_P] * 5 + [_I] * 8 + [_F, _I, _I])
 # (q, k, v, out, lse, dout, dq, dk, dv, dsum scratch, B, S, T, H, KV, hd,
 #  dtype, causal, scale, route)
 FLASH_BWD = CudaFunction("flash_attention_bwd", "flash_attention_bwd",
@@ -90,7 +105,8 @@ FLASH_BWD = CudaFunction("flash_attention_bwd", "flash_attention_bwd",
 
 def flash_route(dtype: torch.dtype, hd: int) -> str:
     """The forward kernel that serves (dtype, hd): "wgmma" for bf16 at hd
-    128, "mma_sync" for bf16 at hd 32 or 64, "fma" for f32."""
+    128, "mma_sync" for bf16 at hd 32 or 64, "hd256" for bf16 at hd 256,
+    "fma" for f32."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: the CUDA kernel takes bf16 or f32, "
                         f"got {dtype}")
@@ -99,14 +115,17 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
                          f"{HEAD_DIMS}, got {hd}")
     if dtype == torch.float32:
         return "fma"
-    return "wgmma" if hd == 128 else "mma_sync"
+    return {128: "wgmma", 256: "hd256"}.get(hd, "mma_sync")
 
 
 def flash_bwd_route(dtype: torch.dtype, hd: int) -> str:
     """The backward kernels that serve (dtype, hd): the forward's route,
     "wgmma" for bf16 at hd 128, "mma_sync" for bf16 at hd 32 or 64, "fma"
-    for f32."""
-    return flash_route(dtype, hd)
+    for f32.  hd 256 raises: it has no backward kernels yet."""
+    route = flash_route(dtype, hd)
+    if hd == 256:
+        raise NotImplementedError(f"flash_attention_bwd: {NO_BACKWARD}")
+    return route
 
 
 def flash_bwd_scratch(B: int, H: int, S: int, device) -> torch.Tensor:
@@ -124,27 +143,48 @@ def _work_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _keep(S: int, T: int, device):
-    """(S, T) bool, key t <= query s: the causal mask."""
-    return (torch.arange(T, device=device)[None, :]
-            <= torch.arange(S, device=device)[:, None])
+def _keep(S: int, T: int, device, window=None):
+    """(S, T) bool, key t <= query s and, given a window W, t > s - W: the
+    causal mask."""
+    t = torch.arange(T, device=device)[None, :]
+    s = torch.arange(S, device=device)[:, None]
+    keep = t <= s
+    return keep if window is None else keep & (t > s - window)
+
+
+def _check_window(window, causal: bool, S: int, T: int) -> int:
+    """The window as the C entry point takes it (0 for none), after the
+    checks it makes: a causal window of W >= 1 keys in which every query
+    row sees at least one key (S <= T + W - 1)."""
+    if window is None:
+        return 0
+    if not causal or int(window) < 1:
+        raise ValueError(f"flash_attention: a window needs causal=True and "
+                         f"W >= 1, got causal={causal}, window={window}")
+    if S > T + int(window) - 1:
+        raise ValueError(f"flash_attention: with window {window}, query rows "
+                         f"past T + W - 1 = {T + int(window) - 1} see no key "
+                         f"(S = {S})")
+    return int(window)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float,
-                          return_lse: bool = False):
+                          window=None, return_lse: bool = False):
     """The kernel's function in plain PyTorch, as the Pallas `_kernel`
-    computes it: f32 scores q k^T times `scale`, -1e30 above the diagonal,
-    f32 softmax, p @ v with v promoted to f32, the output cast once to
-    q.dtype.  GQA in place: query head h reads kv head h // (H // KV).  One
-    kv head's group of query heads at a time, so the (S, T) scores of only
-    H / KV heads are held at once.  f64 inputs are computed in f64.
+    computes it: f32 scores q k^T times `scale`, -1e30 above the diagonal
+    (and, given a causal window W, at keys t <= s - W), f32 softmax, p @ v
+    with v promoted to f32, the output cast once to q.dtype.  GQA in
+    place: query head h reads kv head h // (H // KV).  One kv head's group
+    of query heads at a time, so the (S, T) scores of only H / KV heads are
+    held at once.  f64 inputs are computed in f64.
     return_lse=True also returns the rows' log-sum-exp (B, H, S), in f32
     (f64 for f64 inputs), as the kernel writes it."""
     S, H = q.shape[1], q.shape[2]
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     wt = _work_dtype(q.dtype)
-    keep = _keep(S, T, q.device) if causal else None
+    _check_window(window, causal, S, T)
+    keep = _keep(S, T, q.device, window) if causal else None
     outs, lses = [], []
     for h in range(KV):
         s = torch.einsum("bsgd,btd->bgst", q[:, :, h * G:(h + 1) * G].to(wt),
@@ -227,9 +267,10 @@ def _check_cuda(q, *others) -> str:
     return route
 
 
-def _forward(q, k, v, causal: bool, scale: float, want_lse: bool):
+def _forward(q, k, v, causal: bool, scale: float, want_lse: bool,
+             window: int = 0):
     """Launch the forward kernel on aligned, contiguous q, k, v: (out, lse
-    or None)."""
+    or None).  window as `_check_window` returns it."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     route = _check_cuda(q, ("k", k), ("v", v))
@@ -242,8 +283,8 @@ def _forward(q, k, v, causal: bool, scale: float, want_lse: bool):
         return (out.zero_() if T == 0 else out), lse
     FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
           None if lse is None else lse.data_ptr(), B, S, T, H, KV, hd,
-          DTYPES[q.dtype], int(causal), float(scale), ROUTES[route],
-          route=route)
+          DTYPES[q.dtype], int(causal), float(scale), ROUTES[route], window,
+          route=route, tag="window" if window else None)
     return out, lse
 
 
@@ -305,16 +346,24 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale, causal) v per query head, GQA layout; returns
-    (B, S, H, hd) in q.dtype.  On CUDA tensors, differentiable through the
-    backward kernels whenever autograd records."""
+def flash_attention(q, k, v, *, causal: bool = True, scale: float,
+                    window=None) -> torch.Tensor:
+    """softmax(q k^T * scale, causal) v per query head, GQA layout, with an
+    optional causal sliding window of `window` keys; returns (B, S, H, hd)
+    in q.dtype.  On CUDA tensors, differentiable through the backward
+    kernels whenever autograd records, except with a window or at hd 256,
+    which raise there (no backward kernels yet)."""
     _check_shapes(q, k, v)
+    w = _check_window(window, causal, q.shape[1], k.shape[1])
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         _check_cuda(q, ("k", k), ("v", v))
+        if w or q.shape[3] == 256:
+            raise NotImplementedError(
+                f"flash_attention under autograd: {NO_BACKWARD}; run the "
+                "forward under torch.no_grad()")
         return _FlashAttention.apply(q, k, v, causal, float(scale))
     q, k, v = aligned(q), aligned(k), aligned(v)
-    return _forward(q, k, v, causal, scale, want_lse=False)[0]
+    return _forward(q, k, v, causal, scale, want_lse=False, window=w)[0]

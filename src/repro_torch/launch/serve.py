@@ -9,8 +9,12 @@ the architecture's full width and depth:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
       --clients 8 --pages 4 --lanes 4 --requests 16
 
---smoke serves the reduced config; --device cpu runs the plain PyTorch
-versions on the host.
+--arch takes every id of `configs/registry.py` (yi-9b, minitron-8b,
+gemma-7b, qwen3-32b).  --window W serves through a sliding window of W
+keys with a rolling cache of min(W, --max-len) slots a lane (the
+reference serves long contexts on dense archs at
+`registry.LONG_CONTEXT_WINDOW`).  --smoke serves the reduced config;
+--device cpu runs the plain PyTorch versions on the host.
 """
 from __future__ import annotations
 
@@ -34,7 +38,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--rank", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=48,
-                    help="per-lane KV cache capacity (prompt + generation)")
+                    help="per-lane positions (prompt + generation); the KV "
+                         "cache's slots unless --window is smaller")
+    ap.add_argument("--window", type=int, default=None,
+                    help="sliding window in keys: a rolling KV cache of "
+                         "min(window, max-len) slots (default: none)")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the architecture's reduced smoke config")
     ap.add_argument("--device", default=None,
@@ -77,7 +85,7 @@ def build(args: argparse.Namespace, cfg=None):
                         gen_range=(4, 12))
     eng = ServingEngine(params, cfg, cache, n_lanes=args.lanes,
                         lora_scale=lcfg.scale, max_len=args.max_len,
-                        device=device)
+                        window=args.window, device=device)
     return eng, trace, cfg, lcfg
 
 

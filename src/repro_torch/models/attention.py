@@ -12,7 +12,14 @@ training at these lengths runs on the card; on CPU tensors its plain
 version on the model's path, `chunked_attention`, which autograd
 differentiates.
 
-Not ported yet: sliding windows, cross attention and MLA.
+A sliding window of W keys (`window=W`, the reference's serving of long
+contexts on dense archs) masks key t for query s unless s - W < t <= s,
+in every path: the full mask, `chunked_attention` (which skips the kv
+chunks below the window where the reference does) and the flash kernel
+(which skips the key tiles below it).  Decode needs no mask for it: a
+cache of T = W slots written at pos % W holds exactly the window.
+
+Not ported yet: cross attention and MLA.
 """
 from __future__ import annotations
 
@@ -42,9 +49,13 @@ def gqa_spec(cfg: ModelConfig):
     return spec
 
 
-def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor):
-    """Bool mask (..., S, T): True = attend."""
-    return k_pos[..., None, :] <= q_pos[..., :, None]
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window=None):
+    """Bool mask (..., S, T): True = attend: key k <= query q and, given a
+    window W, k > q - W (W keys including the query's own)."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m
 
 
 def _grouped_scores(q, k, scale):
@@ -91,11 +102,9 @@ def chunked_attention(q, k, v, scale, *, causal: bool, window=None, cq: int,
     version of the flash kernel on the model's path (what `gqa_forward`
     runs on the CPU at long prompts), ported from the reference's function
     of the same name.  q (B, S, H, hd); k, v (B, T, KV, hd); q tokens are at
-    positions q_offset + i.  Sliding windows raise.
+    positions q_offset + i.  Under `causal`, a window W masks the keys at
+    or below q - W.
     """
-    if window is not None:
-        raise NotImplementedError("chunked_attention: sliding windows are not "
-                                  "ported (model.check_supported refuses them)")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
@@ -107,9 +116,10 @@ def chunked_attention(q, k, v, scale, *, causal: bool, window=None, cq: int,
     vc = v.reshape(B, nkv, ckv, KV, hdv)
     q_pos_all = q_offset + torch.arange(S, device=q.device).reshape(nq, cq)
     k_pos_all = torch.arange(T, device=q.device).reshape(nkv, ckv)
-    # the reference skips kv chunks above the diagonal only for few q chunks
-    # (its fori_loop branch); otherwise it scans every kv chunk (lax.map of
-    # lax.scan).  Both branches are kept, so each has a CPU counterpart.
+    # the reference skips kv chunks above the diagonal and below the window
+    # only for few q chunks (its fori_loop branch); otherwise it scans every
+    # kv chunk (lax.map of lax.scan).  Both branches are kept, so each has a
+    # CPU counterpart.
     skip = causal and q_offset == 0 and S == T and nq <= 8
     outs = []
     for i in range(nq):
@@ -120,10 +130,12 @@ def chunked_attention(q, k, v, scale, *, causal: bool, window=None, cq: int,
         acc = torch.zeros((B, cq, KV, G, hdv), dtype=torch.float32,
                           device=q.device)
         hi = min(((i + 1) * cq + ckv - 1) // ckv, nkv) if skip else nkv
-        for j in range(hi):
+        lo = max((i * cq - window) // ckv, 0) if skip and window else 0
+        for j in range(lo, hi):
             s = _grouped_scores(qi, kc[:, j], scale)          # (B,KV,G,cq,ckv)
             if causal:
-                s = torch.where(causal_mask(q_pos, k_pos_all[j]), s, NEG_INF)
+                s = torch.where(causal_mask(q_pos, k_pos_all[j], window), s,
+                                NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -187,14 +199,16 @@ def _maybe_qk_norm(params, q, k, cfg):
 
 
 def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
-                causal=True, return_kv=False):
-    """Self attention over a full sequence at positions 0..S-1, causal or
-    (`causal=False`, the classifiers' encoder) full with no mask; RoPE is
-    applied either way, as in the reference.  A causal prompt of
-    `cfg.chunked_attn_threshold` tokens or more takes the flash-style path:
-    the CUDA flash kernel on CUDA tensors (forward and, when autograd
-    records, backward), `chunked_attention` on the CPU, both held to the
-    reference's chunk contract (`attn_chunk_q`/`_kv` must divide S)."""
+                window=None, causal=True, return_kv=False):
+    """Self attention over a full sequence at positions 0..S-1, causal (with
+    an optional sliding window of `window` keys) or (`causal=False`, the
+    classifiers' encoder) full with no mask; RoPE is applied either way, as
+    in the reference.  A causal prompt of `cfg.chunked_attn_threshold`
+    tokens or more takes the flash-style path: the CUDA flash kernel on
+    CUDA tensors (forward and, when autograd records, backward; a window or
+    hd 256 there has no backward kernels yet, and raises under autograd),
+    `chunked_attention` on the CPU, both held to the reference's chunk
+    contract (`attn_chunk_q`/`_kv` must divide S)."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     lget = (lora or {}).get
@@ -209,12 +223,13 @@ def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
     if causal and S >= cfg.chunked_attn_threshold:
         cq, ckv = _chunk_sizes(S, S, cfg.attn_chunk_q, cfg.attn_chunk_kv)
         if q.is_cuda:
-            out = flash_attention(q, k, v, causal=True, scale=scale)
+            out = flash_attention(q, k, v, causal=True, scale=scale,
+                                  window=window)
         else:
-            out = chunked_attention(q, k, v, scale, causal=True, cq=cq,
-                                    ckv=ckv)
+            out = chunked_attention(q, k, v, scale, causal=True,
+                                    window=window, cq=cq, ckv=ckv)
     else:
-        mask = causal_mask(positions, positions) if causal else None
+        mask = causal_mask(positions, positions, window) if causal else None
         out = full_attention(q, k, v, mask, scale)
     y = linear(out.reshape(B, S, H * hd), params["wo"], lget("wo"), lora_scale)
     if return_kv:
@@ -223,10 +238,13 @@ def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
 
 
 def gqa_decode(params, x1, cache, pos, cfg: ModelConfig, *, lora=None,
-               lora_scale=1.0):
+               lora_scale=1.0, window=None):
     """One-token decode. cache = (k, v) with k/v (B, T, KV, hd), written in
-    place at slot pos % T.  pos is () shared across the batch, or (B,) per
-    row (continuous batching: each lane decodes at its own position)."""
+    place at slot pos % T; under a sliding window T == W (a rolling buffer:
+    the slots hold exactly the window, so `window` changes nothing here; it
+    is taken for the reference's signature).  pos is () shared across the
+    batch, or (B,) per row (continuous batching: each lane decodes at its
+    own position)."""
     B = x1.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     lget = (lora or {}).get

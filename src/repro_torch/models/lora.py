@@ -4,7 +4,8 @@ The LoRA tree holds only targeted linear leaves, each replaced by
 {'a': (.., d_in, r), 'b': (.., r, d_out)} with the stacked layer axis
 kept; `b` inits to zero (dW = 0 at start).  Same keys and shapes as
 `src/repro/models/lora.py` for the attention and MLP targets of the
-dense block.
+dense block.  `merge_lora` folds an adapter into the backbone for
+serving one tenant without the adapter path.
 """
 from __future__ import annotations
 
@@ -47,3 +48,27 @@ def init_lora(cfg: ModelConfig, lcfg: LoRAConfig, seed: int = 0, *,
               generator: Optional[torch.Generator] = None):
     return init_params(lora_spec(cfg, lcfg), seed, device=device,
                        generator=generator)
+
+
+def merge_lora(params, lora, cfg: ModelConfig, lcfg: LoRAConfig):
+    """The backbone with dW = a @ b * scale folded into every adapted
+    weight, in f32 and cast back to the weight's dtype, as the reference's
+    `merge_lora`.  Returns a new tree; `params` and `lora` are unchanged
+    (leaves the adapter does not touch are shared, not copied)."""
+    def fold(w, pair):
+        delta = torch.einsum("...ir,...ro->...io", pair["a"].float(),
+                             pair["b"].float()) * lcfg.scale
+        return (w.float() + delta).to(w.dtype)
+
+    def walk(ptree, ltree):
+        out = dict(ptree)
+        for k, v in ltree.items():
+            if isinstance(v, dict) and set(v) == {"a", "b"}:
+                out[k] = fold(ptree[k], v)
+            else:
+                out[k] = walk(ptree[k], v)
+        return out
+
+    merged = dict(params)
+    merged["groups"] = walk(params["groups"], lora)
+    return merged

@@ -12,6 +12,14 @@ device, so no sharding constraints.
 
 The decode KV cache is updated in place (see `attention._cache_write`):
 `decode_step` returns the cache it was given, now holding the new slot.
+
+A call's `window=W` (a sliding window of W keys, how the reference serves
+long contexts on dense archs) runs through `forward`, `loss_fn`,
+`prefill`, `decode_step` and `cache_spec`, as in the reference: the
+prefill cache keeps the last W positions rolled so that position p sits at
+slot p % W (`_roll_window`), and the decode cache has min(W, cache_len)
+slots.  A config's own `sliding_window` belongs to the hybrid family,
+which the port does not build.
 """
 from __future__ import annotations
 
@@ -103,26 +111,42 @@ def _sub(lora, key):
     return (lora or {}).get(key) or None
 
 
-def block_forward(lp, x, cfg: ModelConfig, *, lora, ls, causal=True,
-                  want_cache=False):
+def _roll_window(t: torch.Tensor, window: int) -> torch.Tensor:
+    """The last `window` cache entries (positions S-W..S-1 at indices
+    0..W-1) in rolling-buffer layout, where position p lives at slot p % W.
+    t (B, S, ...); unchanged when the sequence is shorter than the window."""
+    S = t.shape[1]
+    if S < window:
+        return t
+    return torch.roll(t[:, -window:], S % window, dims=1)
+
+
+def block_forward(lp, x, cfg: ModelConfig, *, lora, ls, window=None,
+                  causal=True, want_cache=False):
     """Returns (x, cache_dict)."""
     cache: Dict[str, Any] = {}
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     y = A.gqa_forward(lp["attn"], h, cfg, lora=_sub(lora, "attn"),
-                      lora_scale=ls, causal=causal, return_kv=want_cache)
+                      lora_scale=ls, window=window, causal=causal,
+                      return_kv=want_cache)
     if want_cache:
-        y, cache["self"] = y
+        y, kv = y
+        if window is not None:
+            kv = tuple(_roll_window(t, window) for t in kv)
+        cache["self"] = kv
     x = x + y
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     x = x + mlp_apply(lp["mlp"], h, cfg.activation, _sub(lora, "mlp"), ls)
     return x, cache
 
 
-def block_decode(lp, x1, cache, pos, cfg: ModelConfig, *, lora, ls):
+def block_decode(lp, x1, cache, pos, cfg: ModelConfig, *, lora, ls,
+                 window=None):
     """Returns (x1, cache) with cache['self'] written in place."""
     h = rms_norm(x1, lp["attn_norm"], cfg.norm_eps)
     y, kv = A.gqa_decode(lp["attn"], h, cache["self"], pos, cfg,
-                         lora=_sub(lora, "attn"), lora_scale=ls)
+                         lora=_sub(lora, "attn"), lora_scale=ls,
+                         window=window)
     x1 = x1 + y
     h = rms_norm(x1, lp["mlp_norm"], cfg.norm_eps)
     x1 = x1 + mlp_apply(lp["mlp"], h, cfg.activation, _sub(lora, "mlp"), ls)
@@ -170,12 +194,12 @@ class _Recompute(torch.autograd.Function):
         return (None, *(next(grads) if n else None for n in need))
 
 
-def _recomputed_block(lp, x, cfg: ModelConfig, *, lora, ls, causal):
+def _recomputed_block(lp, x, cfg: ModelConfig, *, lora, ls, window, causal):
     """block_forward's x through `_Recompute`."""
     def run(x, *leaves):
         it = iter(leaves)
         return block_forward(_rebuild(lp, it), x, cfg, lora=_rebuild(lora, it),
-                             ls=ls, causal=causal)[0]
+                             ls=ls, window=window, causal=causal)[0]
     return _Recompute.apply(run, x, *tree_leaves(lp), *tree_leaves(lora))
 
 
@@ -199,15 +223,17 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, lora=None,
-            lora_scale: float = 1.0, want_cache: bool = False,
+            lora_scale: float = 1.0, window=None, want_cache: bool = False,
             want_logits: bool = True):
     """Full-sequence forward over batch['tokens'] (B, S), or over
     batch['embeds'] (B, S, D) for a model with `embed_inputs`.  Attention
-    is causal for LMs and bidirectional for classifiers (`num_classes >
-    0`), whose logits are the f32 head over the mean of the final hidden
-    states.  Returns dict(hidden, logits, cache); cache leaves are stacked
-    (L, B, S, ...).  want_logits=False skips an LM's (B, S, V) logits (the
-    loss path takes the chunked vocab CE on `hidden` instead)."""
+    is causal for LMs (within a sliding window of `window` keys, if given)
+    and bidirectional for classifiers (`num_classes > 0`), whose logits are
+    the f32 head over the mean of the final hidden states.  Returns
+    dict(hidden, logits, cache); cache leaves are stacked (L, B, S, ...),
+    or (L, B, W, ...) rolled (`_roll_window`) under a window W <= S.
+    want_logits=False skips an LM's (B, S, V) logits (the loss path takes
+    the chunked vocab CE on `hidden` instead)."""
     check_supported(cfg)
     causal = cfg.num_classes == 0
     if cfg.embed_inputs:
@@ -229,9 +255,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, lora=None,
         lp, ll = layer_slice(gp, i), layer_slice(gl, i)
         if remat:
             x = _recomputed_block(lp, x, cfg, lora=ll, ls=lora_scale,
-                                  causal=causal)
+                                  window=window, causal=causal)
             continue
-        x, c = block_forward(lp, x, cfg, lora=ll, ls=lora_scale,
+        x, c = block_forward(lp, x, cfg, lora=ll, ls=lora_scale, window=window,
                              causal=causal, want_cache=want_cache)
         if want_cache:
             ks.append(c["self"][0])
@@ -249,14 +275,14 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *, lora=None,
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, lora=None,
-            lora_scale: float = 1.0, loss_chunk: int = 1024):
+            lora_scale: float = 1.0, window=None, loss_chunk: int = 1024):
     """A classifier's mean CE of its logits against batch['labels']; an
     LM's mean next-token CE of batch['tokens'] (..., S), masked by
     batch['loss_mask'] when present.  The reference's `loss_fn` without
     multi-token prediction (which raises in `check_supported`); the dense
     block adds no auxiliary loss."""
     out = forward(params, cfg, batch, lora=lora, lora_scale=lora_scale,
-                  want_logits=False)
+                  window=window, want_logits=False)
     if cfg.num_classes > 0:
         return cross_entropy(out["logits"], batch["labels"])
     tokens = batch["tokens"]
@@ -268,28 +294,33 @@ def loss_fn(params, cfg: ModelConfig, batch, *, lora=None,
 
 
 def prefill(params, cfg: ModelConfig, batch, *, lora=None, lora_scale=1.0,
-            max_len: Optional[int] = None):
+            window=None, max_len: Optional[int] = None):
     """max_len pads the attention caches to serving capacity (slots beyond
-    the prefilled length are masked out by decode's validity mask)."""
+    the prefilled length are masked out by decode's validity mask); under
+    a sliding window W, to min(max_len, W) slots, the rolled cache's."""
     check_servable(cfg)
     out = forward(params, cfg, batch, lora=lora, lora_scale=lora_scale,
-                  want_cache=True)
-    k, v = out["cache"]["g0"]["self"]          # (L, B, S, KV, hd)
-    if max_len is not None and k.shape[2] < max_len:
-        pad = (0, 0, 0, 0, 0, max_len - k.shape[2])
-        k = torch.nn.functional.pad(k, pad)
-        v = torch.nn.functional.pad(v, pad)
+                  window=window, want_cache=True)
+    k, v = out["cache"]["g0"]["self"]          # (L, B, S or W, KV, hd)
+    if max_len is not None:
+        target = max_len if window is None else min(max_len, window)
+        if k.shape[2] < target:
+            pad = (0, 0, 0, 0, 0, target - k.shape[2])
+            k = torch.nn.functional.pad(k, pad)
+            v = torch.nn.functional.pad(v, pad)
     return out["logits"][..., -1:, :], {"g0": {"self": (k, v)}}
 
 
 def decode_step(params, cfg: ModelConfig, token, pos, cache, *, lora=None,
-                lora_scale: float = 1.0):
+                lora_scale: float = 1.0, window=None):
     """token (B,) int; pos () shared, or (B,) per row (the continuous-
     batching serving path: each lane at its own position); cache as
     returned by prefill or `cache_spec`, updated in place.  A paged lora
     tree (leaf dicts carrying `gidx`, see `serving/cache.py::paged_lora`)
-    serves a different adapter per row through the same call.  Returns
-    (logits (B,1,V), cache)."""
+    serves a different adapter per row through the same call.  Under a
+    sliding window the cache is the rolling one of `cache_spec(...,
+    window)` or `prefill(..., window=)`.  Returns (logits (B,1,V),
+    cache)."""
     check_servable(cfg)
     x1 = embed_tokens(params, cfg, token[:, None])
     gp = params["groups"]["g0"]
@@ -297,12 +328,17 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache, *, lora=None,
     gc = cache["g0"]
     for i in range(cfg.num_layers):
         x1, _ = block_decode(layer_slice(gp, i), x1, layer_slice(gc, i), pos,
-                             cfg, lora=layer_slice(gl, i), ls=lora_scale)
+                             cfg, lora=layer_slice(gl, i), ls=lora_scale,
+                             window=window)
     x1 = rms_norm(x1, params["final_norm"], cfg.norm_eps)
     return linear(x1, _lm_head(params, cfg)), cache
 
 
-def cache_spec(cfg: ModelConfig, batch: int, cache_len: int):
-    kv = P((batch, cache_len, cfg.num_kv_heads, cfg.hd),
+def cache_spec(cfg: ModelConfig, batch: int, cache_len: int, window=None):
+    """The decode KV cache's spec: (L, batch, T, KV, hd) per k and v, with
+    T = cache_len, or min(window, cache_len) slots under a sliding window
+    (a rolling buffer)."""
+    T = cache_len if window is None else min(window, cache_len)
+    kv = P((batch, T, cfg.num_kv_heads, cfg.hd),
            ("batch", "kv_seq", None, None), dtype=cfg.param_dtype)
     return {"g0": stack_spec({"self": (kv, kv)}, cfg.num_layers)}

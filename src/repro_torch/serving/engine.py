@@ -10,6 +10,11 @@ adapters as a paged lora tree (`cache.paged_lora`), which
 `kernels/lora_matmul.py` -- on the card, the CUDA kernel, four launches
 per layer (wq, wk, wv, wo) per decode step.
 
+Under a sliding window W (`window=W`, how the reference serves contexts
+longer than its caches) each lane holds a rolling cache of min(W,
+max_len) slots, written at pos % W, and prefill and decode attend over the
+last W positions: the batch cache's size no longer grows with max_len.
+
 Idle lanes keep decoding against page 0 with their stale position; their
 outputs are discarded and their cache slots overwritten at the next
 admission, so the decode computation stays a single fixed shape.
@@ -64,14 +69,15 @@ class ServingEngine:
 
     def __init__(self, params, cfg, cache: PagedAdapterCache, *,
                  n_lanes: int = 4, lora_scale: float = 1.0,
-                 max_len: int = 64, step_dt: float = 0.25,
-                 device: DeviceLike = None):
+                 max_len: int = 64, window: Optional[int] = None,
+                 step_dt: float = 0.25, device: DeviceLike = None):
         self.device = resolve_device(device)
         if cfg.num_classes or cfg.encoder_decoder or cfg.embed_inputs:
             raise ValueError("serving requires a causal token LM architecture")
-        if n_lanes < 1 or max_len < 2:
-            raise ValueError(f"need n_lanes >= 1 and max_len >= 2, got "
-                             f"{n_lanes}, {max_len}")
+        if n_lanes < 1 or max_len < 2 or (window is not None and window < 1):
+            raise ValueError(f"need n_lanes >= 1, max_len >= 2 and window "
+                             f"None or >= 1, got {n_lanes}, {max_len}, "
+                             f"{window}")
         mdl.check_servable(cfg)
         for what, dev in (("params", next(tree_leaves(params)).device),
                           ("adapter pool", cache.device)):
@@ -83,6 +89,7 @@ class ServingEngine:
         self.n_lanes = n_lanes
         self.lora_scale = lora_scale
         self.max_len = max_len
+        self.window = window
         self.step_dt = step_dt
 
     # --- device work --------------------------------------------------------
@@ -92,7 +99,8 @@ class ServingEngine:
         logits, row_cache = mdl.prefill(
             self.params, self.cfg, {"tokens": tokens},
             lora=page_lora(self.cache.pool, page),
-            lora_scale=self.lora_scale, max_len=self.max_len)
+            lora_scale=self.lora_scale, window=self.window,
+            max_len=self.max_len)
         return int(torch.argmax(logits[0, -1])), row_cache
 
     @staticmethod
@@ -107,13 +115,15 @@ class ServingEngine:
             self.params, self.cfg, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(pos).to(dev), batch_cache,
             lora=paged_lora(self.cache.pool, torch.from_numpy(gidx).to(dev)),
-            lora_scale=self.lora_scale)
+            lora_scale=self.lora_scale, window=self.window)
         return torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
 
     # --- the loop -----------------------------------------------------------
     @torch.no_grad()
     def run(self, trace: List[Request],
             max_steps: Optional[int] = None) -> ServingReport:
+        # max_len counts positions; under a window the cache holds
+        # min(window, max_len) slots of them
         for req in trace:
             if req.prompt_len + req.gen_len > self.max_len:
                 raise ValueError(
@@ -121,7 +131,8 @@ class ServingEngine:
                     f"cache slots, engine has {self.max_len}")
         sched = ContinuousBatchingScheduler(trace, self.cache, self.n_lanes)
         batch_cache = zeros_from_spec(
-            mdl.cache_spec(self.cfg, self.n_lanes, self.max_len), self.device)
+            mdl.cache_spec(self.cfg, self.n_lanes, self.max_len, self.window),
+            self.device)
         tokens = np.zeros(self.n_lanes, np.int64)
         pos = np.zeros(self.n_lanes, np.int64)
         gidx = np.zeros(self.n_lanes, np.int32)

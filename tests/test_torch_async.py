@@ -27,6 +27,7 @@ And the virtual clock's array form, the engine's `config()` (with a
 `sampler=`, equal to the reference's) and the refusals (`dp_clip > 0`,
 the sharded engine).
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

@@ -22,6 +22,7 @@ the factors are not); the `Experiment` runs like the strategy runs
 (losses rtol 1e-5, flat vector atol 1e-6, equal ledger bytes) and equal
 accuracy.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

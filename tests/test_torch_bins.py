@@ -19,6 +19,7 @@ reference's Pallas kernel in tests/test_torch_transport.py), and, for the
 kinds XLA's CPU computes as IEEE does (it flushes denormals), against the
 reference's `bin_counts_pallas` in interpret mode directly.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

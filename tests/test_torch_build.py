@@ -6,6 +6,7 @@ stale one.  The flash-attention and LoRA-matmul wrappers pick their kernel
 (route) from the dtype and shape alone, before the launch, by a plain
 function that these tests hold to the routes the CUDA sources take.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import os
 import shutil
 import sys
@@ -73,10 +74,11 @@ def test_the_flags_rename_every_library(csrc, monkeypatch):
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "mma_sync"),
     (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fma"),
-    (torch.float32, 64, "fma"), (torch.float32, 32, "fma")])
+    (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
+    (torch.bfloat16, 256, "hd256"), (torch.float32, 256, "fma")])
 def test_flash_route(dtype, hd, route):
     assert fa.flash_route(dtype, hd) == route
-    assert fa.ROUTES[route] in (0, 1, 2)
+    assert fa.ROUTES[route] in (0, 1, 2, 3)
 
 
 # the backward's kernels: the forward's routes, wgmma for bf16 at hd 128,
@@ -89,6 +91,14 @@ def test_flash_bwd_route(dtype, hd, route):
     assert fa.flash_bwd_route(dtype, hd) == route
     with pytest.raises(ValueError, match="head size"):
         fa.flash_bwd_route(dtype, 48)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_route_refuses_hd_256(dtype):
+    # gemma-7b's head size has a forward kernel and no backward yet: the
+    # route raises by name, before any launch
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        fa.flash_bwd_route(dtype, 256)
 
 
 @pytest.mark.parametrize("S,rows", [(1, 256), (128, 256), (129, 512),
@@ -133,12 +143,29 @@ def test_yi_9b_takes_the_wgmma_kernels():
     assert fa.flash_route(torch.bfloat16, hd) == "wgmma"
 
 
+@pytest.mark.parametrize("arch,route", [
+    ("yi-9b", "wgmma"), ("minitron-8b", "wgmma"), ("qwen3-32b", "wgmma"),
+    ("gemma-7b", "hd256")])
+def test_every_arch_has_a_flash_forward_route(arch, route):
+    # every long prompt of the registry's archs reaches a forward kernel
+    assert fa.flash_route(torch.bfloat16, get_config(arch).hd) == route
+
+
 def test_route_counts_start_empty_and_reset():
     f = _build.CudaFunction("lora_matmul", "lora_matmul_fwd", [])
     assert f.launches == 0 and f.launches_by_route == {}
     f.launches, f.launches_by_route["wgmma"] = 3, 3
     f.reset()
     assert f.launches == 0 and f.launches_by_route == {}
+
+
+def test_tag_counts_start_empty_and_reset():
+    # the flash forward tags its windowed launches
+    f = _build.CudaFunction("flash_attention", "flash_attention_fwd", [])
+    assert f.launches_by_tag == {}
+    f.launches, f.launches_by_tag["window"] = 2, 2
+    f.reset()
+    assert f.launches == 0 and f.launches_by_tag == {}
 
 
 # chip_smoke.py's build report names each kernel as the CUDA toolkit's
@@ -168,3 +195,18 @@ def test_build_report_names_kernels_with_their_template_arguments(demangled,
         sys.path.pop(0)
     assert chip_smoke.short_name(demangled) == name
     assert name in chip_smoke.GATED_KERNELS
+
+
+def test_build_report_names_the_hd_256_forward_kernel():
+    # phase 1 reports every forward kernel of csrc/flash_attention.cu with
+    # its registers, shared memory and spills, the hd-256 route's included
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    assert chip_smoke.short_name("void <unnamed>::flash_bf16_kernel<(int)256>"
+                                 ) == "flash_bf16_kernel<256>"
+    assert "flash_bf16_kernel<256>" in chip_smoke.FLASH_FWD_KERNELS
+    assert "flash_f32_kernel<256>" in chip_smoke.FLASH_FWD_KERNELS
+    assert "flash_wgmma_kernel" in chip_smoke.GATED_KERNELS

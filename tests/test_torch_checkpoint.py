@@ -23,6 +23,7 @@ atol 1e-6 on every entry whose upload masks agreed in every round so far
 (elsewhere within the Adam steps taken, 4 server_lr a round), ledger bytes
 equal where the masks agree, accuracy within 2 of the 128 eval examples.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 import os
 

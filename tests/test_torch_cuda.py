@@ -19,6 +19,7 @@ against an f64 attention on the same inputs (the bf16 output's own
 rounding allows 2^-8 = 3.9e-3; a p rounded to bf16 before the second
 product gives 5e-3 to 6e-3).
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import math
 
 import numpy as np
@@ -552,16 +553,20 @@ def _row_err(got, want):
     return (d / want.double().abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
-def _attn_f64(q, k, v, scale, causal):
+def _attn_f64(q, k, v, scale, causal, window=None):
     """Attention of the same inputs in f64 (GQA: query head h reads kv head
-    h // (H // KV)), not rounded."""
+    h // (H // KV)), not rounded; under `causal`, a window W keeps the keys
+    t with s - W < t <= s."""
     S, H = q.shape[1], q.shape[2]
     T, G = k.shape[1], H // k.shape[2]
     kd, vd = (t.double().repeat_interleave(G, 2) for t in (k, v))
     s = torch.einsum("bshd,bthd->bhst", q.double(), kd) * scale
     if causal:
-        keep = (torch.arange(T, device=q.device)[None, :]
-                <= torch.arange(S, device=q.device)[:, None])
+        t_ = torch.arange(T, device=q.device)[None, :]
+        s_ = torch.arange(S, device=q.device)[:, None]
+        keep = t_ <= s_
+        if window is not None:
+            keep &= t_ > s_ - window
         s = torch.where(keep, s, -1e30)
     return torch.einsum("bhst,bthd->bshd", torch.softmax(s, -1), vd)
 
@@ -599,7 +604,9 @@ def _route_launches(fn, route):
     (1, 100, 37, 4, 4, 128), (2, 37, 100, 6, 3, 128), (1, 257, 257, 32, 4, 128),
     (1, 1, 1, 1, 1, 128), (2, 1000, 1100, 32, 4, 128),
     (2, 1025, 1100, 32, 4, 128), (2, 129, 300, 8, 8, 128),
-    (1, 300, 129, 16, 4, 128), (2, 256, 256, 8, 1, 128)])
+    (1, 300, 129, 16, 4, 128), (2, 256, 256, 8, 1, 128),
+    (1, 1, 1, 1, 1, 256), (2, 1000, 1100, 4, 4, 256),
+    (1, 257, 257, 8, 2, 256), (1, 300, 129, 4, 4, 256)])
 def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     _need_card()
     q, k, v = _attn(S + T + hd, B, S, T, H, KV, hd, dtype)
@@ -665,6 +672,69 @@ def test_flash_kernel_bf16_matches_chunked_attention(B, S, H, KV, hd, causal):
     assert _row_err(got, exact) <= F64_ROW_TOL
 
 
+# a causal sliding window on every route (wgmma, mma_sync at hd 32 and 64,
+# hd256, fma at hd 64, 128 and 256): W of 1 (each row sees its own key),
+# 37 and 100 (not multiples of a tile: the lowest visited tile holds no key
+# of some rows' windows, and comes first for them), 4096 and 8192 over 9000
+# tokens, and W >= S (no effect: bitwise the call without a window); T past
+# S and (with W 200) S past T
+WINDOW_ROUTES = [(torch.bfloat16, 128, 8, 2), (torch.bfloat16, 64, 8, 2),
+                 (torch.bfloat16, 32, 4, 4), (torch.bfloat16, 256, 4, 4),
+                 (torch.float32, 128, 4, 1), (torch.float32, 64, 4, 2),
+                 (torch.float32, 256, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,H,KV", WINDOW_ROUTES)
+@pytest.mark.parametrize("B,S,T,W", [
+    (2, 1000, 1100, 1), (2, 1000, 1100, 37), (2, 1000, 1100, 100),
+    (1, 300, 129, 200), (2, 1000, 1100, 1100), (1, 9000, 9000, 4096),
+    (1, 9000, 9000, 8192)])
+def test_flash_kernel_window_matches_plain(B, S, T, W, dtype, hd, H, KV):
+    _need_card()
+    q, k, v = _attn(S + W + hd, B, S, T, H, KV, hd, dtype)
+    scale = hd ** -0.5
+    route = fa.flash_route(dtype, hd)
+    n, nr = _route_launches(fa.FLASH, route)
+    nw = fa.FLASH.launches_by_tag.get("window", 0)
+    got = fa.flash_attention(q, k, v, causal=True, scale=scale, window=W)
+    again = fa.flash_attention(q, k, v, causal=True, scale=scale, window=W)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH, route) == (n + 2, nr + 2)
+    assert fa.FLASH.launches_by_tag["window"] == nw + 2
+    assert torch.equal(got, again)
+    want = fa.flash_attention_plain(q, k, v, causal=True, scale=scale,
+                                    window=W)
+    _assert_attn_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert _row_err(got, _attn_f64(q, k, v, scale, True, W)) \
+            <= F64_ROW_TOL
+    if W >= S:
+        assert torch.equal(got, fa.flash_attention(q, k, v, causal=True,
+                                                   scale=scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,window", [
+    (torch.bfloat16, 128, 64), (torch.bfloat16, 64, 5),
+    (torch.float32, 32, 7), (torch.bfloat16, 256, None),
+    (torch.float32, 256, 64)])
+def test_flash_under_autograd_refuses_a_window_and_hd_256(dtype, hd, window):
+    # no backward kernels for either yet: the forward refuses by name before
+    # it launches, and runs under no_grad
+    _need_card()
+    q, k, v = _attn(8, 1, 100, 100, 2, 2, hd, dtype)
+    n = fa.FLASH.launches
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        fa.flash_attention(q.clone().requires_grad_(), k, v, scale=0.1,
+                           window=window)
+    assert fa.FLASH.launches == n
+    with torch.no_grad():
+        out = fa.flash_attention(q.clone().requires_grad_(), k, v, scale=0.1,
+                                 window=window)
+    assert fa.FLASH.launches == n + 1 and not out.requires_grad
+
+
 @pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_cannot_run():
     _need_card()
@@ -684,6 +754,19 @@ def test_flash_kernel_refuses_what_it_cannot_run():
         fa.flash_attention(q.half(), k.half(), v.half(), scale=0.125)
     with pytest.raises(TypeError, match="k is"):
         fa.flash_attention(q, k.bfloat16(), v, scale=0.125)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, v, causal=False, scale=0.125, window=4)
+    with pytest.raises(ValueError, match="see no key"):
+        fa.flash_attention(q, k[:, :4], v[:, :4], scale=0.125, window=4)
+    # the C entry point makes the same checks: a window without causal, and
+    # rows that no key reaches, are refused before a launch
+    out, n = torch.empty_like(q), fa.FLASH.launches
+    for causal, T, window in ((0, 16, 4), (1, 4, 4), (1, 16, -1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), None, 1, 16, T, 2, 1, 64, 1, causal,
+                     0.125, fa.ROUTES["fma"], window, route="fma")
+    assert fa.FLASH.launches == n
 
 
 # the flash backward (csrc/flash_attention_bwd.cu) against its plain
@@ -885,7 +968,9 @@ def test_lora_matmul_kernel_validates_inputs():
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 128, "mma_sync"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "fma"), (torch.float32, 128, "wgmma"),
-    (torch.float32, 64, "mma_sync")])
+    (torch.float32, 64, "mma_sync"), (torch.bfloat16, 256, "mma_sync"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 128, "hd256"),
+    (torch.float32, 256, "hd256")])
 def test_flash_entry_point_refuses_a_route_the_shape_does_not_select(
         dtype, hd, route):
     # the route is a function of dtype and hd: the C entry point launches
@@ -897,7 +982,7 @@ def test_flash_entry_point_refuses_a_route_the_shape_does_not_select(
     with pytest.raises(RuntimeError, match="launch failed"):
         fa.FLASH(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), None, 1, 64, 64, 2, 1, hd, fa.DTYPES[dtype],
-                 1, hd ** -0.5, fa.ROUTES[route], route=route)
+                 1, hd ** -0.5, fa.ROUTES[route], 0, route=route)
     assert fa.FLASH.launches == n
 
 
@@ -938,14 +1023,18 @@ def test_ops_transport_wrappers_equal_their_plain_loops(n):
 
 
 # the smoke config in f32 (hd 32: the FMA kernel), and in bf16 at Yi-9B's
-# head size (hd 128, 32 / 4 heads: the wgmma kernel), where the card's and
-# the CPU's bf16 projections and the kernel's bf16 probabilities differ by
-# a few bf16 steps: held to the bf16 attention tolerance of each output
-# row's largest value
+# head size (hd 128, 32 / 4 heads: the wgmma kernel) and gemma-7b's (hd 256,
+# MHA: the hd256 kernel; f32 the FMA kernel), with and without a sliding
+# window, where the card's and the CPU's bf16 projections and the kernel's
+# bf16 probabilities differ by a few bf16 steps: held to the bf16 attention
+# tolerance of each output row's largest value
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 20])
 @pytest.mark.parametrize("dtype,hd,heads", [
-    (torch.float32, None, None), (torch.bfloat16, 128, (32, 4))])
-def test_long_prompt_gqa_forward_runs_the_flash_kernel(dtype, hd, heads):
+    (torch.float32, None, None), (torch.bfloat16, 128, (32, 4)),
+    (torch.bfloat16, 256, (4, 4)), (torch.float32, 256, (4, 4))])
+def test_long_prompt_gqa_forward_runs_the_flash_kernel(dtype, hd, heads,
+                                                       window):
     # at a lowered threshold the model's attention takes the kernel on the
     # card and chunked_attention on the CPU; both hold the chunk contract
     import dataclasses
@@ -963,12 +1052,12 @@ def test_long_prompt_gqa_forward_runs_the_flash_kernel(dtype, hd, heads):
               init_params(A.gqa_spec(cfg), 0, device="cpu").items()}
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 48, cfg.d_model), dtype=np.float32)).to(dtype)
-    want = A.gqa_forward(params, x, cfg)
+    want = A.gqa_forward(params, x, cfg, window=window)
     cuda_params = {k: v.cuda() for k, v in params.items()}
     route = fa.flash_route(dtype, cfg.hd)
     n, nr = _route_launches(fa.FLASH, route)
     with torch.no_grad():
-        got = A.gqa_forward(cuda_params, x.cuda(), cfg)
+        got = A.gqa_forward(cuda_params, x.cuda(), cfg, window=window)
     assert _route_launches(fa.FLASH, route) == (n + 1, nr + 1)
     if dtype == torch.float32:
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),

@@ -36,6 +36,7 @@ compared at ViT-B/16's width (d 768, 12 heads, d_ff 3072) at 1 layer and
 4 patches, at `PAPER_PRETRAIN`'s lr, in its dtype (bf16) and in f32: the
 two loss curves step by step.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import hashlib
 import json

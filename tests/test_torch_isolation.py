@@ -1,6 +1,7 @@
 """The port stands alone: it never imports jax or the reference package, and
 its entry points default to the card rather than silently running on the
 CPU."""
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import ast
 import os
 import subprocess
@@ -38,7 +39,10 @@ def test_import_leaves_jax_out():
             "benchmarks_torch.fig5_heterogeneity, "
             "benchmarks_torch.fig6_system_het, benchmarks_torch.fig7_privacy, "
             "benchmarks_torch.table1_partitions, "
-            "benchmarks_torch.pretrain_sweep; "
+            "benchmarks_torch.pretrain_sweep, "
+            "repro_torch.configs.registry, repro_torch.configs.gemma_7b, "
+            "repro_torch.configs.minitron_8b, repro_torch.configs.qwen3_32b, "
+            "repro_torch.models.lora, benchmarks_torch.serving_bench; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'repro.', 'benchmarks.')) "
             "or m in ('repro', 'benchmarks')); "
@@ -66,8 +70,10 @@ def test_no_port_file_imports_jax_or_repro():
              os.path.join(ROOT, "scripts", "ab_trees.py"),
              os.path.join(ROOT, "scripts", "flash_ab.py"),
              os.path.join(ROOT, "scripts", "pack_ab.py"),
+             os.path.join(ROOT, "scripts", "flash_bwd_ab.py"),
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
-             os.path.join(ROOT, "examples", "federated_finetune_torch.py")]
+             os.path.join(ROOT, "examples", "federated_finetune_torch.py"),
+             os.path.join(ROOT, "examples", "serve_lora_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     # the port's figure harnesses: neither the reference package nor the
@@ -125,6 +131,19 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "yi-9b", "--smoke", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "gemma-7b", "--smoke", "--window", "8"])
+    from benchmarks_torch import serving_bench
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving_bench.main([])
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "serve_lora_torch", os.path.join(ROOT, "examples",
+                                         "serve_lora_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        example.main([])
     from repro_torch.data import make_synth_image
     from repro_torch.federated import Experiment
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -5,6 +5,7 @@ both packages.
 Tolerance rtol = atol = 1e-6: torch's and XLA's CPU dots sum in different
 orders.  The CUDA kernel's own tests are in tests/test_torch_cuda.py.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -17,6 +17,7 @@ gradient and the per-layer recomputation, on the CPU at small sizes.
     recomputation, and a training forward saves for the backward pass no
     more than the layer inputs plus a few (B, S, D) tensors.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import functools
 

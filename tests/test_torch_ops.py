@@ -21,6 +21,7 @@ there), never against the Pallas flash kernel itself: on this jax
 (0.9.0) `pl.load` is gone and its interpret run fails
 (`test_flash_attention_kernel`, ROADMAP queue 3).
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

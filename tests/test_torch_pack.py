@@ -20,6 +20,7 @@ Every comparison here is BITWISE (raw f32 words, or integers):
     draw injected), k in {0, 1, n/4, n}, a tied row that overflows its
     capacity, and a row where survivors quantize to zero.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@ event's per-client losses rtol 1e-5), `sim_time`, `staleness`, `applied`,
 `dropped` and the ledger bytes equal, the clock's queue equal, and the
 flat vector atol 1e-6 (the upload masks of both kinds agree).
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import json
 
 import jax

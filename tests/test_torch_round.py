@@ -15,6 +15,7 @@ To tolerance, each stated where it is checked:
     atol 1e-6, upload-mask overlap >= 0.999, and equal ledger bytes where
     the masks agree.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

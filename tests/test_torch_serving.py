@@ -2,6 +2,7 @@
 LRU bookkeeping, the scheduler, and the whole engine on the same converted
 weights, adapters and trace (f32, small config of tests/test_serving.py).
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax

@@ -10,6 +10,7 @@ state: every round's download mask, the sparse adapter's one pruning mask
 and each of the lottery ticket's pruning steps (mask, density, pruned
 vector).
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import jax
 import numpy as np
 import pytest

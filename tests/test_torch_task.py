@@ -25,6 +25,7 @@ terms of the row's scale: 1.6e-6 apart at logits up to 3):
     accuracies equal under the same near-tie rule, final flatP atol 1e-6,
     equal ledger bytes where the upload masks agree.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 import functools
 import os

@@ -7,6 +7,7 @@ whose sizes do not depend on the weights) are the reference's exactly.
 Unknown strategy kinds, the sharded engine, --mesh / --fsdp and
 --dry-run / --multi-pod are refused with the ROADMAP item that ports them.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import sys
 
 import numpy as np

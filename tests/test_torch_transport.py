@@ -10,6 +10,7 @@ mode with a small explicit block.  Inputs are numpy draws from a seed in
 the normal f32 range (XLA's CPU flushes subnormals to zero, torch does
 not), and stochastic rounding gets the same uniform draw `u` in both.
 """
+import _torch_threads  # noqa: F401  (this process's share of the cores)
 import dataclasses
 
 import jax
