@@ -120,7 +120,8 @@ Phases, each fatal on failure:
                  tokens with W 4096 and 8192, and hd 256 (the hd256 route
                  in bf16, fma in f32) at 8192 tokens and ragged, every one
                  bitwise on repeat, bf16 rows against an f64 attention
-                 under the same window; at 8192 in bf16 also against
+                 under the same window, the hd256 route's lse within 1e-4
+                 of the plain version's in f64; at 8192 in bf16 also against
                  `chunked_attention`, and the pre-broadcast
                  `ops.flash_attention` bitwise equal to the GQA call; each
                  call's route is counted.  `ops.topk_mask` and `ops.histogram_threshold`
@@ -388,7 +389,8 @@ def device_ms(fn, n_iter: int) -> float:
 # the kernels built on csrc/hopper.cuh (TMA, mbarriers, wgmma, setmaxnreg)
 # and the libraries that hold them
 HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel",
-                  "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+                  "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                  "flash_wgmma_hd256_kernel")
 WGMMA_LIBS = ("flash_attention", "flash_attention_bwd", "lora_matmul")
 # what the backward's wgmma route launches, in order: lse and D, dK / dV, dQ
 FLASH_BWD_WGMMA = ("flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
@@ -421,10 +423,9 @@ FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel",
 GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
                  + FLASH_BWD_KERNELS)
 # the flash forward's other kernels (csrc/flash_attention.cu): mma.sync at hd
-# 32 and 64, the hd256 route, FMA at every head size; each must be in its
-# library's log, and its registers and spills are printed (the hd256 route
-# may spill: a few bytes, PERF.md says how many)
-FLASH_FWD_KERNELS = tuple(f"flash_bf16_kernel<{hd}>" for hd in (32, 64, 256)) \
+# 32 and 64, FMA at every head size; each must be in its library's log, and
+# its registers and spills are printed
+FLASH_FWD_KERNELS = tuple(f"flash_bf16_kernel<{hd}>" for hd in (32, 64)) \
     + tuple(f"flash_f32_kernel<{hd}>" for hd in (32, 64, 128, 256))
 
 
@@ -467,7 +468,7 @@ def ptxas_kernels(log: str):
 def build_report(libs) -> None:
     """Print every kernel's registers, shared memory and spills, and every
     compiler warning.  Fail if a library's compiler log is missing, if a
-    gated kernel (the four wgmma kernels, the grouped kernel's rank
+    gated kernel (the five wgmma kernels, the grouped kernel's rank
     buckets, the bin_counts kernels, every instantiation of the packs' scan
     and their fill, the flash backward's kernels) is not in its library's
     log with its stack frame and spill counts, if it has any of them, or if
@@ -520,6 +521,12 @@ def build_report(libs) -> None:
           f"{HOPPER_KERNELS[3]}: {vals[0].value} / {vals[1].value} bytes "
           f"dynamic shared memory, setmaxnreg {vals[2].value} registers "
           f"(producer) / {vals[3].value} (consumers)")
+    vals = [ctypes.c_int() for _ in range(2)]
+    _build.load("flash_attention").flash_attention_hd256_config(
+        *(ctypes.byref(v) for v in vals))
+    print(f"[build] flash_attention: {HOPPER_KERNELS[4]}: {vals[0].value} "
+          f"bytes dynamic shared memory, {vals[1].value} threads, no "
+          "setmaxnreg (every thread may take 255 registers)")
     print(f"[build] {', '.join(GATED_KERNELS)}: no stack frame, no spills; "
           "no wgmma serialisation, no ignored setmaxnreg")
 
@@ -2411,6 +2418,7 @@ WINDOW_SHAPES = ((2, 1000, 1100, 1), (2, 1000, 1100, 37),
 HD256_SHAPES = ((1, LONG_S, LONG_S, True), (2, 1000, 1100, True),
                 (2, 1025, 1100, True), (2, 1000, 1100, False))
 WINDOW_S = 32768               # a long context: four windows of 8192
+LSE_TOL = 1e-4                 # the written lse against the plain one in f64
 
 
 def window_cases(gen) -> dict:
@@ -2418,7 +2426,9 @@ def window_cases(gen) -> dict:
     version (`attn_held`), every bf16 one row by row to an f64 attention
     of its inputs under the same window (F64_ROW_TOL; F64_ROWS sampled
     query rows at 8192 tokens or more), two calls bitwise equal, each
-    launch on its route and, with a window, tagged windowed."""
+    launch on its route and, with a window, tagged windowed.  On the hd256
+    route the lse a third launch writes is held to the plain version's in
+    f64 (LSE_TOL), and that launch's output to the first's bit for bit."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     cases = [(B, S, T, H, KV, hd, dt, True, W)
@@ -2427,7 +2437,8 @@ def window_cases(gen) -> dict:
     cases += [(B, S, T, 16, 16, 256, dt, causal, None)
               for dt in ("bfloat16", "float32")
               for B, S, T, causal in HD256_SHAPES]
-    res = {"win_err": 0.0, "win_f64": {}, "hd256_err": 0.0, "hd256_f64": {}}
+    res = {"win_err": 0.0, "win_f64": {}, "hd256_err": 0.0, "hd256_f64": {},
+           "hd256_lse_err": 0.0}
     for B, S, T, H, KV, hd, dt, causal, W in cases:
         q, k, v = attn_inputs(gen, B, S, T, H, KV, hd, dt)
         route = fa.flash_route(getattr(torch, dt), hd)
@@ -2470,6 +2481,22 @@ def window_cases(gen) -> dict:
                   f"attention, above {F64_ROW_TOL:g}")
             res[f"{key}_f64"][what] = row64
             del exact
+        if route == "hd256":
+            out, lse = fa._forward(q, k, v, causal, hd ** -0.5, want_lse=True,
+                                   window=W or 0)
+            _, l64 = fa.flash_attention_plain(
+                *(t.double() for t in (q, k, v)), causal=causal,
+                scale=hd ** -0.5, window=W, return_lse=True)
+            lerr = (lse.double() - l64).abs().max().item()
+            same = torch.equal(out, got)
+            print(f"[ops] flash_attention {what}: lse max|err| {lerr:.3e} "
+                  f"against the plain version in f64 (tol {LSE_TOL:g}); out "
+                  f"with lse equals out without bit for bit: {same}")
+            check(lerr <= LSE_TOL and same,
+                  f"flash_attention at {what}: lse {lerr:.3e} from the plain "
+                  f"version's, or out changed with lse ({same})")
+            res["hd256_lse_err"] = max(res["hd256_lse_err"], lerr)
+            del out, lse, l64
         if W is not None and W >= S:
             same = torch.equal(got, fa.flash_attention(q, k, v, causal=True,
                                                        scale=hd ** -0.5))
@@ -4794,7 +4821,7 @@ def main() -> int:
         "name": "flash_attention_hd256", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:58",
-        "kernel": "flash_bf16_kernel<256> (route hd256); "
+        "kernel": "flash_wgmma_hd256_kernel (route hd256); "
                   "flash_f32_kernel<256> (fma)",
         "launches": arch_res["gemma-7b"]["flash"],
         "launches_by_route": {arch_res["gemma-7b"]["route"]:
@@ -4802,6 +4829,7 @@ def main() -> int:
         "path": "archs (gemma-7b): one 8192-token prefill, 28 layers",
         "shape": "q, k, v (1, 8192, 16, 256) bf16 causal",
         "max_abs_err": ops_res["hd256_err"],
+        "max_lse_err_vs_plain_f64": ops_res["hd256_lse_err"],
         "max_row_err_vs_f64": max(ops_res["hd256_f64"].values()),
         "row_err_vs_f64": ops_res["hd256_f64"],
         "model_logit_diff_vs_chunked": arch_res["gemma_parity_logit_diff"],

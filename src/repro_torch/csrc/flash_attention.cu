@@ -54,14 +54,15 @@
 //     flash_attention_plain) is this function.
 //
 // What bounds it on an H100: at the long-prompt shapes (S = T = 8192,
-// H = 32, hd = 128) a causal call does 4 S T hd H / 2 = 5.5e11 flop against
-// 0.27 GB of q, k, v and out: 0.56 ms of bf16 tensor-core work against
-// 0.08 ms of bytes.  It is bound by operations, so the design goal is to
-// keep the tensor cores fed.  The hi + lo split of p makes the bf16 routes
+// H = 32, hd = 128; gemma-7b's H = 16, hd = 256 does the same work) a
+// causal call does 4 S T hd H / 2 = 5.5e11 flop against 0.27 GB of q, k,
+// v and out: 0.56 ms of bf16 tensor-core work against 0.08 ms of bytes.
+// It is bound by operations, so the design goal is to keep the tensor
+// cores fed.  The hi + lo split of p makes the bf16 routes
 // issue 1.5 times that tensor work (Q K^T once, P V twice); the bound
 // counts the function's operations, not the split's.
 //
-// Four routes on three kernels; the caller (kernels/flash_attention.py::
+// Four routes on four kernels; the caller (kernels/flash_attention.py::
 // flash_route) picks one from dtype and hd alone, before the launch, and
 // passes it as `route`:
 //
@@ -107,6 +108,34 @@
 //     three instructions an element to produce results below 2^-126, which
 //     round away in every sum here), and a warp-uniform warpgroup index,
 //     so that the wgmma descriptors stay in uniform registers.
+//   route 3, "hd256" -- bf16, hd 256 (gemma-7b): route 0's design at twice
+//     the head size.  One block owns 128 query rows of one (batch, head),
+//     a warpgroup 64 of them.  Q (64 KB, four boxes of (64, 1, 128, 1))
+//     is loaded once; 64-key K and V tiles (32 KB each, four boxes of
+//     (64, 1, 64, 1)) stream through a ring of two stages: 193 KB of
+//     shared memory.  (128-key tiles would take 256 KB.)  S = Q K^T is 16
+//     wgmma m64n64k16 from shared memory (32 accumulator registers); acc
+//     += P V is wgmma m64n256k16 with p's hi + lo pairs from registers
+//     and V read MN-major through the transpose bit, its four 64-wide
+//     boxes LBO apart: two wgmma per 16 keys into 128 accumulator
+//     registers.  p and its pairs are made 16 keys at a time, each step's
+//     exp2 and pairs while the previous step's P V runs, in two buffers of
+//     pairs; each tile's last P V is followed in the same wgmma queue by
+//     the next tile's Q K^T into a second score buffer, and a warp whose
+//     rows all kept their max skips the rescale of acc (a multiply by
+//     exactly 1): together 7% faster on an H100 (one A/B call), at 254
+//     registers a thread (210 without the second buffer).  Registers
+//     are split over an SM's four sub-partitions, a warp's from its own:
+//     with a producer warpgroup (12 warps, three a sub-partition) ptxas
+//     gave this kernel's consumers no more than the launch's 168 at
+//     setmaxnreg 240 or 232, spilled 408 B and serialised the wgmma
+//     (C7512); a single producer warp (9 warps) capped them at 168 too.
+//     So the block is the two warpgroups alone (8 warps, 255 registers a
+//     thread)
+//     and thread 0 issues the TMA loads: Q and the first two tiles at the
+//     start, then, at the end of tile j, K and V of tile j + 2 once both
+//     warpgroups have read tile j's (the other warpgroup, running in
+//     step, has passed that point or nearly so).
 //   route 1, "mma_sync" -- the first version, for bf16 with hd 32
 //     and 64: grid (B*H, ceil(S/64)), 4 warps; each warp owns 16 query rows.
 //     The q tile is staged through shared memory into mma.sync A fragments
@@ -125,16 +154,12 @@
 //     thread owning 4 query rows x 4 keys of a score tile and 4 rows x
 //     hd/16 columns of acc; p goes through shared memory between the two
 //     products.
-//   route 3, "hd256" -- bf16 at hd 256 (gemma-7b): route 1's kernel at hd
-//     256, its q tile kept in a fifth shared-memory buffer and read a k-step
-//     pair at a time (held in registers, its 64 beside acc's 128 would
-//     spill); 64-key K and V tiles of 64 x (256 + 8) bf16, double-buffered:
-//     165 KB of shared memory, one block of 4 warps an SM.
 //   route 2 at hd 256 is the same template at 219 KB of shared memory.
 //   Query tiles are issued last-first so the causal tiles with the most
 //   keys start first.  Under a window every query tile past the first W
 //   keys visits about W / tile + 1 key tiles, so the order no longer
-//   matters there; the first tiles, which visit fewer, still go last.  Routes 1 and 2 use expf, route 0 ex2.approx.ftz of
+//   matters there; the first tiles, which visit fewer, still go last.
+//   Routes 1 and 2 use expf, routes 0 and 3 ex2.approx.ftz of
 //   the log2-scaled scores (exp2f's own instruction, less its handling of
 //   results below 2^-126, which it flushes to 0); no fast math.
 #include <cuda_bf16.h>
@@ -199,17 +224,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
-// Below hd 256 the q tile is staged in K buffer 1 and held in registers as
-// A fragments; at hd 256 those would take 64 registers beside the 128 of
-// acc, so the q tile keeps a fifth buffer of its own and each k-step reads
-// its fragment from there.
+// The q tile is staged in K buffer 1 and held in registers as A fragments.
 template <int HD>
 struct MmaSmem {
-  static constexpr bool kQInSmem = HD > 128;
   static constexpr int LD = HD + kPad;            // bf16 per smem row
   static constexpr int kTile = kBKV * LD;         // one K or V tile
-  // K and V, double-buffered, and at hd 256 the q tile
-  static constexpr int kBytes = (kQInSmem ? 5 : 4) * kTile * 2;
+  static constexpr int kBytes = 4 * kTile * 2;    // K and V, double-buffered
 };
 
 // The first key tile of size `tile` that a query tile starting at q0 can
@@ -235,7 +255,6 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   int S, int T, int H, int KV, float scale, int causal,
                   int window) {
   using SM = MmaSmem<HD>;
-  constexpr bool kQInSmem = SM::kQInSmem;
   constexpr int LD = SM::LD;
   constexpr int NT = kBKV / 8;        // n-tiles of the score tile
   constexpr int KD = HD / 16;         // k-steps over the head dim
@@ -243,10 +262,10 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int CH = HD / 8;          // 16-byte chunks per row
   static_assert(kBQ == kBKV, "the q tile is staged in a K buffer");
   extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  // buffers: K0, V0, K1, V1, each kBKV rows of LD; at hd 256 then Q
+  // buffers: K0, V0, K1, V1, each kBKV rows of LD
   auto kbuf = [&](int i) { return smem_bf16 + (2 * i) * SM::kTile; };
   auto vbuf = [&](int i) { return smem_bf16 + (2 * i + 1) * SM::kTile; };
-  __nv_bfloat16* qs = kQInSmem ? smem_bf16 + 4 * SM::kTile : kbuf(1);
+  __nv_bfloat16* qs = kbuf(1);
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kh = h / (H / KV);
@@ -301,14 +320,12 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // A fragments of rows warp*16 .. +15: matrix i of ldmatrix.x4 is rows
   // (i & 1) * 8 .., columns (i >> 1) * 8 .. of each 16 x 16 block
   const int q_row = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-  [[maybe_unused]] uint32_t qf[kQInSmem ? 1 : KD][4];
-  if constexpr (!kQInSmem) {
+  uint32_t qf[KD][4];
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      ldsm_x4(qf[kk], qs + q_row * LD + kk * 16 + (lane >> 4) * 8);
-    }
-    __syncthreads();                  // buffer 1 is free for tile lo + 1
+  for (int kk = 0; kk < KD; ++kk) {
+    ldsm_x4(qf[kk], qs + q_row * LD + kk * 16 + (lane >> 4) * 8);
   }
+  __syncthreads();                    // buffer 1 is free for tile lo + 1
 
   // this thread's two query rows: row0 (c0, c1) and row0 + 8 (c2, c3)
   const int qpos0 = q0 + warp * 16 + g, qpos1 = qpos0 + 8;
@@ -340,33 +357,15 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < NT; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
     }
-    if constexpr (kQInSmem) {
-      // two k-steps of q fragments at a time, each used on every n-tile
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int kk = 0; kk < KD; kk += 2) {
-        uint32_t qa[4], qb2[4];
-        ldsm_x4(qa, qs + q_row * LD + kk * 16 + (lane >> 4) * 8);
-        ldsm_x4(qb2, qs + q_row * LD + (kk + 1) * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          uint32_t kf[4];
-          ldsm_x4(kf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
-                          (lane >> 3) * 8);
-          mma_bf16(s[nt], qa, kf[0], kf[1]);
-          mma_bf16(s[nt], qb2, kf[2], kf[3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int kk = 0; kk < KD; kk += 2) {
-          uint32_t kf[4];
-          ldsm_x4(kf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
-                          (lane >> 3) * 8);
-          mma_bf16(s[nt], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[nt], qf[kk + 1], kf[2], kf[3]);
-        }
+        uint32_t kf[4];
+        ldsm_x4(kf, ks + (nt * 8 + (lane & 7)) * LD + kk * 16 +
+                        (lane >> 3) * 8);
+        mma_bf16(s[nt], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[nt], qf[kk + 1], kf[2], kf[3]);
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -378,7 +377,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const int qpos = e < 2 ? qpos0 : qpos1;
         float x = s[nt][e] * scale;
         // the window's test apart from the diagonal's: one condition of
-        // both spilled at hd 32 and 256
+        // both spilled at hd 32
         if (key >= T) {
           x = -INFINITY;                  // absent: weighs exactly 0
         } else if (causal && key > qpos) {
@@ -727,6 +726,289 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
+// route 3, bf16, hd 256: route 0's design with 64-key tiles, m64n256 P V
+// and thread 0 as the producer
+// ---------------------------------------------------------------------------
+
+constexpr int kH2Rows = 128;              // query rows a block, 64 a warpgroup
+constexpr int kH2Keys = 64;               // keys per K / V tile
+constexpr int kH2Stages = 2;              // K / V ring
+// two warpgroups, no producer warp: each SM sub-partition then holds two
+// warps, which may take 255 registers a thread (the kernel uses 254); a
+// third warp there, as a producer's, caps every thread at 168
+constexpr int kH2Threads = 256;
+constexpr int kH2QBox = 128 * 128;        // one Q box: 128 rows x 64 bf16
+constexpr int kH2KBox = 64 * 128;         // one K or V box: 64 rows x 64 bf16
+constexpr int kH2Q = 4 * kH2QBox;         // Q, 128 x 256 bf16 (64 KB)
+constexpr int kH2Tile = 4 * kH2KBox;      // a 64 x 256 K or V tile (32 KB)
+constexpr int kH2Bars = 1 + 4 * kH2Stages;
+// Q, then per stage K and V; barriers after; 1 KB of slack to align the base
+constexpr int kH2Smem = 1024 + kH2Q + 2 * kH2Stages * kH2Tile + 8 * kH2Bars;
+
+__global__ void __launch_bounds__(kH2Threads, 1)
+flash_wgmma_hd256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int S, int T, int H, int KV,
+                         float scale_log2, int causal, int window) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = base;                                     // box c: hd 64c..
+  auto ks = [&](int s) { return base + kH2Q + kH2Tile * (2 * s); };
+  auto vs = [&](int s) { return base + kH2Q + kH2Tile * (2 * s + 1); };
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      base + kH2Q + 2 * kH2Stages * kH2Tile);
+  uint64_t* k_full = q_full + 1;                          // [kH2Stages] each
+  uint64_t* v_full = k_full + kH2Stages;
+  uint64_t* k_empty = v_full + kH2Stages;
+  uint64_t* v_empty = k_empty + kH2Stages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kH2Rows;
+  // key tiles lo .. n_tiles - 1, the ring's stages counted from lo
+  const int lo = first_tile(q0, causal, window, kH2Keys);
+  const int span = window_span(causal, window);
+  int n_tiles = (T + kH2Keys - 1) / kH2Keys;
+  if (causal) {
+    n_tiles = min(n_tiles, (min(q0 + kH2Rows, S) - 1) / kH2Keys + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kH2Stages; ++s) {
+      mbar_init(&k_full[s], 1);             // thread 0's expect_tx
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);            // one arrival per warp
+      mbar_init(&v_empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: Q and the first two tiles now; then, at
+  // the end of tile jt, K and V of tile jt + 2 once both warpgroups have
+  // read tile jt's
+  auto load_k = [&](int jt) {
+    const int s = (jt - lo) % kH2Stages;
+    mbar_arrive_expect_tx(&k_full[s], kH2Tile);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(ks(s) + c * kH2KBox, &tm_k, &k_full[s], 64 * c, kh,
+                  jt * kH2Keys, b);
+    }
+  };
+  auto load_v = [&](int jt) {
+    const int s = (jt - lo) % kH2Stages;
+    mbar_arrive_expect_tx(&v_full[s], kH2Tile);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(vs(s) + c * kH2KBox, &tm_v, &v_full[s], 64 * c, kh,
+                  jt * kH2Keys, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(q_full, kH2Q);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(qs + c * kH2QBox, &tm_q, q_full, 64 * c, h, q0, b);
+    }
+    for (int jt = lo; jt < min(lo + kH2Stages, n_tiles); ++jt) {
+      load_k(jt);
+      load_v(jt);
+    }
+  }
+
+  // warpgroup wg: query rows row0 .. row0 + 63.  Warp-uniform to the
+  // compiler (a broadcast from lane 0), so that the wgmma descriptors
+  // derived from it are computed in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + wg * 64;
+  const int r_lo = row0 + warp * 16 + g, r_hi = r_lo + 8;
+  const uint32_t q_addr = smem_addr(qs) + wg * 64 * 128;
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};            // this thread's part of each row sum
+
+  mbar_wait(q_full, 0);
+  // S = Q K^T of tile jt into acc (sc[4 j + e] is row r_lo (e < 2) or
+  // r_hi, key 64 jt + 8 j + 2 t + (e & 1)): 16 k16 steps over hd, four of
+  // each 64-wide box, committed as one group
+  auto qk = [&](float (&acc)[32], int jt) {
+    const int s = (jt - lo) % kH2Stages;
+    mbar_wait(&k_full[s], ((jt - lo) / kH2Stages) & 1);
+    const uint32_t k_addr = smem_addr(ks(s));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_m64n64k16_ss(
+          acc, desc_sw128(q_addr + (kk / 4) * kH2QBox + off, 16, 1024),
+          desc_sw128(k_addr + (kk / 4) * kH2KBox + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  float sc[32];
+  qk(sc, lo);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&k_empty[0]);
+  for (int jt = lo; jt < n_tiles; ++jt) {
+    const int s = (jt - lo) % kH2Stages;
+    const uint32_t ph = ((jt - lo) / kH2Stages) & 1;
+    const int j0 = jt * kH2Keys;
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= scale_log2;
+    // the ragged end, the diagonal and a window's lower edge, as route 0
+    if (j0 + kH2Keys > T || (causal && j0 + kH2Keys - 1 > row0) ||
+        j0 + span <= row0 + 63) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = j0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const int qpos = (i & 2) ? r_hi : r_lo;
+        if (key >= T) {
+          sc[i] = -INFINITY;            // absent: weighs exactly 0
+        } else if (causal && (key > qpos || key + span <= qpos)) {
+          sc[i] = kNegInf;
+        }
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float corr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      corr[rr] = ex2_ftz(m[rr] - mx[rr]);
+      m[rr] = mx[rr];
+      l[rr] *= corr[rr];
+    }
+    // a warp whose rows all kept their max (corr 1) skips the rescale,
+    // which would multiply by exactly 1
+    if (__any_sync(0xffffffffu, corr[0] != 1.0f || corr[1] != 1.0f)) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) o[i] *= corr[(i >> 1) & 1];
+    }
+    // p = exp2(s - m) and its hi + lo pairs, 16 keys (accumulator chunks
+    // 2 kk and 2 kk + 1) at a time, each step's exp2 and pairs while the
+    // previous step's P V runs; two buffers of pairs, each free again
+    // once the step two back has been waited for
+    const uint32_t v_addr = smem_addr(vs(s));
+    uint32_t p_hi[2][4], p_lo[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+        const int rr = (i >> 1) & 1;
+        sc[i] = ex2_ftz(sc[i] - m[rr]);
+        l[rr] += sc[i];
+      }
+      if (kk >= 2) wgmma_wait<1>();     // step kk - 2 has read its pairs
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1],
+                   p_hi[kk & 1][e], p_lo[kk & 1][e]);
+      }
+      if (kk == 0) mbar_wait(&v_full[s], ph);
+      wgmma_fence();
+      // keys 16 kk .. + 15 of the four 64-wide hd boxes, kH2KBox apart
+      const uint64_t v_desc =
+          desc_sw128(v_addr + kk * 2048, kH2KBox, 1024);
+      wgmma_m64n256k16_rs(o, p_hi[kk & 1], v_desc, 1);
+      wgmma_m64n256k16_rs(o, p_lo[kk & 1], v_desc, 1);
+      wgmma_commit();
+      // the next step's exp2 reads sc after this issue, not before it
+      fence_regs(sc);
+    }
+    // the next tile's Q K^T queued behind this tile's last P V, so the
+    // tensor cores go on to it without waiting for this warpgroup
+    float sn[32];
+    if (jt + 1 < n_tiles) qk(sn, jt + 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(sn);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&v_empty[s]);
+      if (jt + 1 < n_tiles) mbar_arrive(&k_empty[s ^ 1]);
+    }
+    if (threadIdx.x == 0 && jt + 2 < n_tiles) {
+      // K and V of tile jt read by both warpgroups: tile jt + 2's
+      mbar_wait(&k_empty[s], ph);
+      load_k(jt + 2);
+      mbar_wait(&v_empty[s], ph);
+      load_v(jt + 2);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = sn[i];
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qpos = rr ? r_hi : r_lo;
+    if (qpos >= S) continue;
+    const float den = fmaxf(l[rr], 1e-30f);
+    if (lse != nullptr && t == 0) {
+      // m and the scores are in log2 units (scale_log2)
+      lse[static_cast<size_t>(bh) * S + qpos] =
+          (m[rr] + log2f(den)) * 0.69314718055994531f;
+    }
+    __nv_bfloat16* orow = out + (static_cast<size_t>(b) * S + qpos) * H * 256 +
+                          static_cast<size_t>(h) * 256;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(o[4 * j + 2 * rr] / den,
+                                o[4 * j + 2 * rr + 1] / den);
+    }
+  }
+}
+
+int launch_hd256(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int B, int S, int T, int H, int KV, int causal,
+                 float scale, int window, cudaStream_t stream) {
+  // 4-D maps over (hd, heads, seq, batch), 256 hd of 2 bytes; Q in boxes of
+  // 128 rows, K and V of 64
+  CUtensorMap tq, tk, tv;
+  const uint64_t qdim[4] = {256, static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t qstr[3] = {512, 512ull * H, 512ull * H * S};
+  const uint64_t kdim[4] = {256, static_cast<uint64_t>(KV),
+                            static_cast<uint64_t>(T), static_cast<uint64_t>(B)};
+  const uint64_t kstr[3] = {512, 512ull * KV, 512ull * KV * T};
+  const uint32_t qbox[4] = {64, 1, kH2Rows, 1};
+  const uint32_t kbox[4] = {64, 1, kH2Keys, 1};
+  int err = hopper::make_tensor_map_bf16(&tq, q, 4, qdim, qstr, qbox);
+  if (err == 0) err = hopper::make_tensor_map_bf16(&tk, k, 4, kdim, kstr, kbox);
+  if (err == 0) err = hopper::make_tensor_map_bf16(&tv, v, 4, kdim, kstr, kbox);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_hd256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kH2Smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * H, (S + kH2Rows - 1) / kH2Rows);
+  flash_wgmma_hd256_kernel<<<grid, kH2Threads, kH2Smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, T, H, KV,
+      scale * 1.4426950408889634f, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // route 2, f32: FMA
 // ---------------------------------------------------------------------------
 
@@ -892,7 +1174,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// route 1: bf16, hd 32 or 64; route 3: bf16, hd 256
+// route 1: bf16, hd 32 or 64
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int S, int T, int H, int KV, int causal,
@@ -967,18 +1249,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return launch_wgmma(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
                         window, s);
   }
-  if (route == 1 || route == 3) {
-    switch (hd) {
-      case 32:
-        return launch_mma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
-                              window, s);
-      case 64:
-        return launch_mma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
-                              window, s);
-      default:
-        return launch_mma<256>(q, k, v, out, lse, B, S, T, H, KV, causal,
-                               scale, window, s);
+  if (route == 3) {
+    return launch_hd256(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                        window, s);
+  }
+  if (route == 1) {
+    if (hd == 32) {
+      return launch_mma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                            window, s);
     }
+    return launch_mma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+                          window, s);
   }
   switch (hd) {
     case 32:
@@ -1003,4 +1284,11 @@ extern "C" void flash_attention_wgmma_config(int* smem_bytes, int* producer_regs
   *smem_bytes = kWgSmem;
   *producer_regs = kWgProducerRegs;
   *consumer_regs = kWgConsumerRegs;
+}
+
+// The hd-256 wgmma kernel's (route 3) dynamic shared memory and threads; it
+// sets no register counts.
+extern "C" void flash_attention_hd256_config(int* smem_bytes, int* threads) {
+  *smem_bytes = kH2Smem;
+  *threads = kH2Threads;
 }

@@ -20,15 +20,17 @@ s - W < t <= s, as the reference's `causal_mask(..., window)`: W keys
 including the query's own.  The kernels skip the key tiles wholly below
 every row's window.  Every row must see a key, so S <= T + W - 1.
 
-Four forward routes on three kernels behind one C entry point;
+Four forward routes on four kernels behind one C entry point;
 `flash_route` picks one from the dtype and hd alone, before the launch
 (never as a retry):
   - "wgmma": bf16, hd 128 (Yi-9B, every long prompt) -- TMA loads into an
     mbarrier ring fed by a producer warpgroup, wgmma for both products;
   - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
     kernel;
-  - "hd256": bf16, hd 256 (gemma-7b) -- the `mma.sync` kernel with its q
-    tile read from shared memory at each k-step;
+  - "hd256": bf16, hd 256 (gemma-7b) -- the same design with 64-key tiles
+    and P V as wgmma m64n256k16, its loads issued by one thread of the
+    two warpgroups (producer warps would cap every thread at 168
+    registers; the kernel uses 254);
   - "fma": f32 -- FMA, never TF32.
 `FLASH.launches` counts every launch, `FLASH.launches_by_route` each
 route's and `FLASH.launches_by_tag["window"]` those with a window.

@@ -199,14 +199,18 @@ def test_build_report_names_kernels_with_their_template_arguments(demangled,
 
 def test_build_report_names_the_hd_256_forward_kernel():
     # phase 1 reports every forward kernel of csrc/flash_attention.cu with
-    # its registers, shared memory and spills, the hd-256 route's included
+    # its registers, shared memory and spills; the hd-256 route's wgmma
+    # kernel is gated (no stack, no spill, no serialised wgmma) and the
+    # mma.sync kernel it replaced is no longer looked for
     sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     try:
         import chip_smoke
     finally:
         sys.path.pop(0)
-    assert chip_smoke.short_name("void <unnamed>::flash_bf16_kernel<(int)256>"
-                                 ) == "flash_bf16_kernel<256>"
-    assert "flash_bf16_kernel<256>" in chip_smoke.FLASH_FWD_KERNELS
+    assert chip_smoke.short_name("<unnamed>::flash_wgmma_hd256_kernel"
+                                 ) == "flash_wgmma_hd256_kernel"
+    assert "flash_wgmma_hd256_kernel" in chip_smoke.GATED_KERNELS
+    assert "flash_wgmma_hd256_kernel" in chip_smoke.HOPPER_KERNELS
+    assert "flash_bf16_kernel<256>" not in chip_smoke.FLASH_FWD_KERNELS
     assert "flash_f32_kernel<256>" in chip_smoke.FLASH_FWD_KERNELS
     assert "flash_wgmma_kernel" in chip_smoke.GATED_KERNELS

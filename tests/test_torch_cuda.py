@@ -591,11 +591,28 @@ def _route_launches(fn, route):
     return fn.launches, fn.launches_by_route.get(route, 0)
 
 
+def _assert_lse_and_repeat(q, k, v, causal, scale, out, window=None):
+    """The forward with lse: its out equals `out` bit for bit (a second
+    launch, lse asked for) and its lse is within 1e-4 of the plain
+    version's in f64 on the same inputs."""
+    w = fa._check_window(window, causal, q.shape[1], k.shape[1])
+    again, lse = fa._forward(q, k, v, causal, scale, want_lse=True, window=w)
+    assert torch.equal(again, out)
+    _, l64 = fa.flash_attention_plain(*(t.double() for t in (q, k, v)),
+                                      causal=causal, scale=scale,
+                                      window=window, return_lse=True)
+    assert (lse.double() - l64).abs().max().item() <= 1e-4
+
+
 # hd 128 in bf16 takes the wgmma kernel (ragged S and T, B = 2, H / KV in
 # {1, 2, 4, 8}, a last query tile of one row past a 128-row tile, keys one
 # past a 128-key tile; at S 1000 the last block's second consumer
 # warpgroup holds 40 rows, at S 1025 none); hd 32 and 64 in bf16 the
-# mma.sync kernel; f32 the FMA kernel
+# mma.sync kernel; hd 256 in bf16 the hd-256 wgmma kernel (64-key tiles,
+# 128-row blocks: S and T of 1, 63, 64, 65, 127, 128, 129, 1000 / 1100 and
+# 1025 / 1100, 16 / 16 and 8 / 2 heads); f32 the FMA kernel.  Each call is
+# also bitwise equal to a second launch that writes lse, and that lse is
+# the plain version's
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -606,7 +623,12 @@ def _route_launches(fn, route):
     (2, 1025, 1100, 32, 4, 128), (2, 129, 300, 8, 8, 128),
     (1, 300, 129, 16, 4, 128), (2, 256, 256, 8, 1, 128),
     (1, 1, 1, 1, 1, 256), (2, 1000, 1100, 4, 4, 256),
-    (1, 257, 257, 8, 2, 256), (1, 300, 129, 4, 4, 256)])
+    (1, 257, 257, 8, 2, 256), (1, 300, 129, 4, 4, 256),
+    (1, 63, 63, 16, 16, 256), (2, 64, 64, 8, 2, 256),
+    (1, 65, 65, 16, 16, 256), (1, 127, 129, 8, 2, 256),
+    (2, 128, 128, 16, 16, 256), (1, 129, 127, 8, 2, 256),
+    (1, 1, 65, 8, 2, 256), (2, 1000, 1100, 8, 2, 256),
+    (2, 1025, 1100, 16, 16, 256)])
 def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     _need_card()
     q, k, v = _attn(S + T + hd, B, S, T, H, KV, hd, dtype)
@@ -620,8 +642,9 @@ def test_flash_kernel_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     _assert_attn_close(got, want, dtype)
     if dtype == torch.bfloat16:
-        # p kept to f32 precision (a hi + lo pair of bf16) on both bf16 routes
+        # p kept to f32 precision (a hi + lo pair of bf16) on the bf16 routes
         assert _row_err(got, _attn_f64(q, k, v, scale, causal)) <= F64_ROW_TOL
+    _assert_lse_and_repeat(q, k, v, causal, scale, got)
 
 
 # at hd 128 in bf16 the wgmma kernel, whose two consumer warpgroups take
@@ -654,7 +677,8 @@ def test_flash_kernel_gqa_equals_prebroadcast_and_oracle(B, S, T, H, KV, hd,
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,KV,hd", [
-    (1, 1024, 8, 2, 128), (2, 768, 32, 4, 128), (2, 512, 8, 1, 64)])
+    (1, 1024, 8, 2, 128), (2, 768, 32, 4, 128), (2, 512, 8, 1, 64),
+    (1, 1024, 16, 16, 256)])
 def test_flash_kernel_bf16_matches_chunked_attention(B, S, H, KV, hd, causal):
     # chunked_attention, the model's plain path, keeps the probabilities in
     # f32, as the bf16 kernels do (a hi + lo pair of bf16)
@@ -673,13 +697,16 @@ def test_flash_kernel_bf16_matches_chunked_attention(B, S, H, KV, hd, causal):
 
 
 # a causal sliding window on every route (wgmma, mma_sync at hd 32 and 64,
-# hd256, fma at hd 64, 128 and 256): W of 1 (each row sees its own key),
-# 37 and 100 (not multiples of a tile: the lowest visited tile holds no key
-# of some rows' windows, and comes first for them), 4096 and 8192 over 9000
-# tokens, and W >= S (no effect: bitwise the call without a window); T past
-# S and (with W 200) S past T
+# hd256 at 4 / 4 and 8 / 2 heads, fma at hd 64, 128 and 256): W of 1 (each
+# row sees its own key), 37 and 100 (not multiples of a tile: the lowest
+# visited tile holds no key of some rows' windows, and comes first for
+# them), 4096 and 8192 over 9000 tokens, and W >= S (no effect: bitwise
+# the call without a window); T past S and (with W 200) S past T; S and T
+# of 65, 127, 128 and 129 around the 64-key tiles.  The lse a second launch
+# writes is the plain version's.
 WINDOW_ROUTES = [(torch.bfloat16, 128, 8, 2), (torch.bfloat16, 64, 8, 2),
                  (torch.bfloat16, 32, 4, 4), (torch.bfloat16, 256, 4, 4),
+                 (torch.bfloat16, 256, 8, 2),
                  (torch.float32, 128, 4, 1), (torch.float32, 64, 4, 2),
                  (torch.float32, 256, 2, 2)]
 
@@ -689,7 +716,8 @@ WINDOW_ROUTES = [(torch.bfloat16, 128, 8, 2), (torch.bfloat16, 64, 8, 2),
 @pytest.mark.parametrize("B,S,T,W", [
     (2, 1000, 1100, 1), (2, 1000, 1100, 37), (2, 1000, 1100, 100),
     (1, 300, 129, 200), (2, 1000, 1100, 1100), (1, 9000, 9000, 4096),
-    (1, 9000, 9000, 8192)])
+    (1, 9000, 9000, 8192), (1, 65, 65, 37), (2, 129, 128, 100),
+    (1, 127, 128, 1), (1, 128, 128, 128)])
 def test_flash_kernel_window_matches_plain(B, S, T, W, dtype, hd, H, KV):
     _need_card()
     q, k, v = _attn(S + W + hd, B, S, T, H, KV, hd, dtype)
@@ -712,6 +740,7 @@ def test_flash_kernel_window_matches_plain(B, S, T, W, dtype, hd, H, KV):
     if W >= S:
         assert torch.equal(got, fa.flash_attention(q, k, v, causal=True,
                                                    scale=scale))
+    _assert_lse_and_repeat(q, k, v, True, scale, got, W)
 
 
 @pytest.mark.cuda
@@ -1032,7 +1061,8 @@ def test_ops_transport_wrappers_equal_their_plain_loops(n):
 @pytest.mark.parametrize("window", [None, 20])
 @pytest.mark.parametrize("dtype,hd,heads", [
     (torch.float32, None, None), (torch.bfloat16, 128, (32, 4)),
-    (torch.bfloat16, 256, (4, 4)), (torch.float32, 256, (4, 4))])
+    (torch.bfloat16, 256, (4, 4)), (torch.bfloat16, 256, (8, 2)),
+    (torch.float32, 256, (4, 4))])
 def test_long_prompt_gqa_forward_runs_the_flash_kernel(dtype, hd, heads,
                                                        window):
     # at a lowered threshold the model's attention takes the kernel on the

@@ -113,6 +113,38 @@ def test_flash_bwd_plain_matches_autograd_f64(B, S, T, H, KV, hd, causal):
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
+# the function the hd-256 kernel is held to on the card, lse included: the
+# plain forward at hd 256 against the reference's mask (causal_mask, with a
+# window of 37 too), softmax and the log-sum-exp of its scaled, masked
+# scores, f32 on both sides; ragged S < T and GQA 4 / 2
+@pytest.mark.parametrize("B,S,T,H,KV,causal,window", [
+    (1, 40, 40, 4, 4, True, None), (2, 33, 50, 4, 2, True, None),
+    (1, 48, 48, 4, 2, True, 37), (2, 30, 45, 4, 2, True, 37),
+    (2, 33, 50, 4, 2, False, None)])
+def test_flash_plain_with_lse_matches_reference_at_hd_256(B, S, T, H, KV,
+                                                          causal, window):
+    hd = 256
+    q, k, v, _ = _qkv(S + T + (window or 0), B, S, T, H, KV, hd)
+    scale = hd ** -0.5
+    out, lse = fa.flash_attention_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        scale=scale, window=window, return_lse=True)
+    mask = (JA.causal_mask(jnp.arange(S), jnp.arange(T), window) if causal
+            else None)
+    want = JA.full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             mask, scale)
+    scores = JA._grouped_scores(jnp.asarray(q).reshape(B, S, KV, H // KV, hd),
+                                jnp.asarray(k), scale)
+    if mask is not None:
+        scores = jnp.where(mask, scores, JA.NEG_INF)
+    want_lse = jax.nn.logsumexp(scores, axis=-1).reshape(B, H, S)
+    assert out.dtype == lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_flash_bwd_plain_matches_reference_gradient():
     (q, k, v, dout), want = _case_and_jax_grads(64)
     tq, tk, tv, tdo = (torch.from_numpy(a).double() for a in (q, k, v, dout))
