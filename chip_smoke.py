@@ -257,6 +257,29 @@ Phases, each fatal on failure:
                  the wgmma route, the backward 48 a client step (wgmma),
                  the transport kernels phase 6's a round; losses finite;
                  round ms, ms a client step and peak memory printed.
+                 (a) also holds the widened backward, each case to
+                 the f64 plain backward under the same window and bitwise
+                 on repeat: a causal window of 1, 63, 64, 65 and 8192 keys
+                 (8192 >= S: bitwise the call without one) at B 2, S 1000,
+                 T 1100 on every route (bf16 wgmma 32/4 at hd 128,
+                 mma_sync 8/2 at hd 64, hd256 16/16, f32 fma 8/2 at hd
+                 128); the hd256 route at S / T of 1 / 63, 63, 64, 65 /
+                 129, 127 / 128, 128, 129 / 127 and 1000 / 1100, heads
+                 16/16 and 8/2, causal and full, and f32 at hd 256 ragged
+                 and under a window (where every row sees one key, W 1,
+                 the exact dq and dk are 0 and are held by their size,
+                 grad_worst); then times the hd256 backward at (1, 8192,
+                 16/16, 256) and the windowed wgmma backward at (1, 32768,
+                 32/4, 128), W 8192, each first held to the f64 plain
+                 backward at that shape (every row at hd 256; sampled
+                 rows of dq, dk and dv under the window) and its timed
+                 launches to the checked call's bits, beside their
+                 bounds, plain versions and SDPA's backward, split into
+                 kernels.  (e) full Yi-9B's LoRA gradient of
+                 loss_fn(window=8192) on one 32768-token sequence: 96
+                 windowed wgmma forward and 48 windowed wgmma backward
+                 launches, ms and peak memory; then (b) on a 2-layer cut
+                 at 8192 tokens under a window of 4096.
   19. window  -- (a) `ServingEngine(window=8192)` (registry.LONG_CONTEXT_
                  WINDOW) on Yi-9B at full width and depth in bf16: 8
                  lanes, 8 requests with prompts of 32768 or 64 tokens.
@@ -281,6 +304,23 @@ Phases, each fatal on failure:
                  hd256 route (gemma-7b) or wgmma, its ms and peak memory.
                  Then phase 4 on a 2-layer f32 cut of gemma-7b, whose
                  8192-token prompt takes the f32 hd-256 route.
+  21. gemma-train -- gemma-7b at full width and depth in bf16 (hd 256):
+                 phase 18 (b)'s gradient parity on a 2-layer cut at 8192
+                 tokens, then phase 18 (c)'s FLASC rounds (2 rounds of 2
+                 clients at 8192 tokens): 56 hd256 forward and 28 hd256
+                 backward launches a client step; ms a client step, round
+                 ms and peak memory.
+  22. gpt-serve -- GPT-2 Small (configs/paper_models.py, learned positions,
+                 tied 50,257 vocab) at full width and depth in bf16 through
+                 `ServingEngine` with phase 3's tenants, pages, lanes and
+                 rank: 16 requests with prompts of 16 or 1000 tokens, 4-12
+                 generated, max_len 1024; the grouped kernel's launches
+                 decode steps x 12 x 4; decode ms a step, tok/s, a
+                 1000-token prefill's ms.  Then a 2-layer f32 cut against
+                 a greedy loop over `forward` on the whole sequence (phase
+                 4's near-tie rule: the reference's decode adds position
+                 0's embedding to every token, its forward each token's
+                 own).
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6, over one 8192-token
 prefill of phase 11's engine and over one 8192-token client step of
@@ -390,7 +430,9 @@ def device_ms(fn, n_iter: int) -> float:
 # and the libraries that hold them
 HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel",
                   "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                  "flash_wgmma_hd256_kernel")
+                  "flash_wgmma_hd256_kernel",
+                  "flash_bwd_dkdv_wgmma_window_kernel",
+                  "flash_bwd_dq_wgmma_window_kernel")
 WGMMA_LIBS = ("flash_attention", "flash_attention_bwd", "lora_matmul")
 # what the backward's wgmma route launches, in order: lse and D, dK / dV, dQ
 FLASH_BWD_WGMMA = ("flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
@@ -411,14 +453,23 @@ TRANSPORT_KERNELS = ("bin_partial_kernel<12>", "bin_sum_kernel",
                      *PACK_SCAN_KERNELS, "pack_fill_kernel")
 # the flash backward (csrc/flash_attention_bwd.cu): lse and D, then dK / dV
 # and dQ on the wgmma route (bf16, hd 128); D, then dK / dV and dQ on the
-# mma.sync (bf16, hd 32 and 64) and FMA (f32, every head size) routes
+# mma.sync (bf16, hd 32 and 64), hd256 (bf16: the warp-pair dK / dV kernel
+# and mma.sync's dQ at hd 256) and FMA (f32, every head size) routes; each
+# dK / dV and dQ kernel with its twin under a window (`_window_kernel`)
 FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel",
                      "flash_bwd_dot_kernel<__nv_bfloat16>",
-                     "flash_bwd_dot_kernel<float>") + tuple(
-    f"flash_bwd_{part}_bf16_kernel<{hd}>" for part in ("dkdv", "dq")
-    for hd in (32, 64)) + tuple(
-    f"flash_bwd_{part}_f32_kernel<{hd}>" for part in ("dkdv", "dq")
-    for hd in (32, 64, 128))
+                     "flash_bwd_dot_kernel<float>",
+                     "flash_bwd_dkdv_hd256_kernel") + tuple(
+    f"flash_bwd_{part}_bf16{win}_kernel<{hd}>"
+    for part, hds in (("dkdv", (32, 64)), ("dq", (32, 64, 256)))
+    for win in ("", "_window") for hd in hds
+    if (part, win, hd) != ("dq", "_window", 64)) + tuple(
+    f"flash_bwd_{part}_f32{win}_kernel<{hd}>" for part in ("dkdv", "dq")
+    for win in ("", "_window") for hd in (32, 64, 128, 256))
+# flash backward kernels that ptxas builds with a spill: reported with
+# their registers and spills, not gated (the windowed mma.sync dQ at hd 64:
+# 12 bytes of spill stores)
+FLASH_BWD_REPORTED = ("flash_bwd_dq_bf16_window_kernel<64>",)
 # kernels that must build with no stack frame and no spills
 GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
                  + FLASH_BWD_KERNELS)
@@ -482,7 +533,7 @@ def build_report(libs) -> None:
         log = log_path.read_text()
         for name, report in ptxas_kernels(log):
             print(f"[build] {lib}: {name}: {report}")
-            if name in FLASH_FWD_KERNELS:
+            if name in FLASH_FWD_KERNELS + FLASH_BWD_REPORTED:
                 checked[name] = report
             if name in GATED_KERNELS:
                 m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -502,7 +553,7 @@ def build_report(libs) -> None:
                           for ln in warnings),
                   f"ptxas serialised the wgmma or ignored setmaxnreg in {lib}")
     missing = [k for k in GATED_KERNELS + FLASH_FWD_KERNELS
-               if k not in checked]
+               + FLASH_BWD_REPORTED if k not in checked]
     check(not missing, f"the compiler logs report no {missing}")
     import ctypes
     from repro_torch.kernels import _build
@@ -529,6 +580,9 @@ def build_report(libs) -> None:
           "setmaxnreg (every thread may take 255 registers)")
     print(f"[build] {', '.join(GATED_KERNELS)}: no stack frame, no spills; "
           "no wgmma serialisation, no ignored setmaxnreg")
+    print(f"[build] reported, not gated: "
+          + "; ".join(f"{k}: {checked[k]}"
+                      for k in FLASH_FWD_KERNELS + FLASH_BWD_REPORTED))
 
 
 # ---------------------------------------------------------------------------
@@ -4166,6 +4220,21 @@ def attn_bwd_bound(B, S, T, H, KV, hd, dtype, causal):
                                        else "operations")
 
 
+def attn_window_bwd_bound(B, S, H, KV, hd, dtype, window):
+    """(bound_ms, bound_by) of the attention backward under a causal window
+    of W keys (S == T): attn_bwd_bound's bytes against its five products
+    over the kept (query, key) pairs only, sum over q of min(q + 1, W)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * B * (4 * S * H * hd + 4 * S * KV * hd) + 4 * B * H * S
+    W = min(window, S)
+    pairs = W * (W + 1) // 2 + (S - W) * W
+    flops = 10 * B * H * pairs * hd
+    rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def grad_row_err(got, want) -> float:
     """The worst row's largest |got - want| over that row's largest |want|,
     floored at BWD_ROW_FLOOR of the tensor's largest |want|."""
@@ -4183,6 +4252,347 @@ def grad_errs(got, want) -> dict:
         for n, g, w in zip(("dq", "dk", "dv"), got, want)}
 
 
+def grad_worst(got, want, one_key: bool) -> float:
+    """The case's error under the contract: grad_errs' worst row.  Where
+    every query row sees one key alone (a window of 1, or T = 1), P = 1 and
+    the exact dq and dk are 0 (dP - D cancels): the row measure has no
+    scale there, so dq and dk are held instead by their largest |value|
+    over BWD_ROW_FLOOR of dv's largest (dv = the rows' dout), the floor
+    that every other row measure takes."""
+    errs = grad_errs(got, want)
+    if not one_key:
+        return max(e["row"] for e in errs.values())
+    scale = BWD_ROW_FLOOR * want[2].abs().max().item()
+    return max(errs["dv"]["row"],
+               *(g.double().abs().max().item() / scale for g in got[:2]))
+
+
+# phase 18 (a)'s windowed backward cases: every route, (H, KV, hd, dtype),
+# each at B 2, S 1000, T 1100 under windows around the 64-key tiles (W 1:
+# each row sees its own key; W 8192 >= S: bitwise the call without one)
+BWD_WINDOW_ROUTES = ((32, 4, 128, "bfloat16"), (8, 2, 64, "bfloat16"),
+                     (8, 2, 128, "float32"), (16, 16, 256, "bfloat16"))
+BWD_WINDOWS = (1, 63, 64, 65, 8192)
+# its hd-256 cases: (B, S, T, H, KV, dtype, causal, window)
+BWD_HD256_CASES = (
+    (1, 1, 63, 16, 16, "bfloat16", False, None),
+    (1, 63, 63, 8, 2, "bfloat16", True, None),
+    (1, 64, 64, 16, 16, "bfloat16", True, None),
+    (1, 65, 129, 8, 2, "bfloat16", True, None),
+    (1, 127, 128, 16, 16, "bfloat16", False, None),
+    (1, 128, 128, 8, 2, "bfloat16", True, None),
+    (1, 129, 127, 16, 16, "bfloat16", True, None),
+    (2, 1000, 1100, 16, 16, "bfloat16", True, None),
+    (2, 1000, 1100, 8, 2, "bfloat16", False, None),
+    (2, 100, 129, 4, 2, "float32", True, None),
+    (2, 129, 100, 4, 2, "float32", False, None),
+    (2, 300, 310, 4, 2, "float32", True, 65))
+# what the hd256 route launches, in order: D, dK / dV, dQ
+FLASH_BWD_HD256 = ("flash_bwd_dot_kernel<__nv_bfloat16>",
+                   "flash_bwd_dkdv_hd256_kernel",
+                   "flash_bwd_dq_bf16_kernel<256>")
+# ... and the wgmma route under a window
+FLASH_BWD_WGMMA_WINDOW = ("flash_bwd_rows_kernel",
+                          "flash_bwd_dkdv_wgmma_window_kernel",
+                          "flash_bwd_dq_wgmma_window_kernel")
+
+
+def bwd_case(gen, B, S, T, H, KV, hd, dt, causal, window=None):
+    """One backward case of phase 18 (a)'s widened set: the wrapper twice
+    (bitwise equal, both launches on the route and, with a window, tagged
+    windowed), held to `flash_attention_bwd_plain` in f64 on the same
+    inputs under the same window (grad_worst against BWD_ROW_TOL); a window
+    of W >= S must give the bits of the call without one."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = attn_inputs(gen, B, S, T, H, KV, hd, dt)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    scale = hd ** -0.5
+    out, lse = fa._forward(q, k, v, causal, scale, want_lse=True,
+                           window=window or 0)
+    route = fa.flash_route(q.dtype, hd)
+    n = fa.FLASH_BWD.launches_by_route.get(route, 0)
+    nw = fa.FLASH_BWD.launches_by_tag.get("window", 0)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 scale=scale, window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   scale=scale, window=window)
+    torch.cuda.synchronize()
+    what = (f"B {B}, S {S}, T {T}, H {H}, KV {KV}, hd {hd}, {dt}, "
+            f"{'causal' if causal else 'full'}, window {window}, route "
+            f"{route}")
+    check(fa.FLASH_BWD.launches_by_route.get(route, 0) == n + 2 and
+          fa.FLASH_BWD.launches_by_tag.get("window", 0) ==
+          nw + (2 if window else 0),
+          f"flash_attention_bwd at {what} missed its route or window tag")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    no_window = None
+    if window is not None and window >= S:
+        plain_out, plain_lse = fa._forward(q, k, v, causal, scale,
+                                           want_lse=True)
+        no_window = (torch.equal(plain_out, out) and torch.equal(plain_lse, lse)
+                     and all(torch.equal(a, b) for a, b in zip(
+                         got, fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                     causal=causal,
+                                                     scale=scale))))
+        del plain_out, plain_lse
+    x64 = [t.double() for t in (q, k, v, out, lse, dout)]
+    want = fa.flash_attention_bwd_plain(*x64, causal=causal, scale=scale,
+                                        window=window)
+    del x64
+    errs = grad_errs(got, want)
+    worst = grad_worst(got, want, window == 1 or T == 1)
+    abs_err = max((g.double() - w).abs().max().item()
+                  for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    tol = BWD_ROW_TOL[dt]
+    ok = finite and same and worst <= tol and no_window is not False
+    print(f"[long-train] flash_attention_bwd {what}: against the plain "
+          f"backward in f64 on the same inputs {json.dumps(errs)}, worst "
+          f"{worst:.3e} (row tol {tol:g}{'; every row sees one key: dq, dk '
+          'held to 0' if window == 1 or T == 1 else ''}), max|err| "
+          f"{abs_err:.3e}; two calls bitwise equal: {same}"
+          + ("" if no_window is None else
+             f"; bitwise the call without a window: {no_window}")
+          + f" {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"flash_attention_bwd at {what} misses its contract")
+    del q, k, v, dout, out, lse, got, want
+    return {"case": what, "route": route, "window": window, "errs": errs,
+            "max_row_err": worst, "max_abs_err": abs_err}
+
+
+def bwd_plain_by_head(q, k, v, out, lse, dout, *, causal, scale, window):
+    """`flash_attention_bwd_plain` one query head at a time (dk, dv summed
+    over each KV head's group in head order, as the plain version sums
+    them): the same function where one KV group's (S, T) f32 scores do not
+    fit the card."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    dq = torch.empty_like(q, dtype=torch.float32)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    for h in range(H):
+        kh = h // G
+        g = fa.flash_attention_bwd_plain(
+            q[:, :, h:h + 1].float(), k[:, :, kh:kh + 1].float(),
+            v[:, :, kh:kh + 1].float(), out[:, :, h:h + 1].float(),
+            lse[:, h:h + 1], dout[:, :, h:h + 1].float(), causal=causal,
+            scale=scale, window=window)
+        dq[:, :, h:h + 1] = g[0]
+        dk[:, :, kh:kh + 1] += g[1]
+        dv[:, :, kh:kh + 1] += g[2]
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def bwd_rows_f64(q, k, v, out, lse, dout, *, scale, window, qrows, krows):
+    """`flash_attention_bwd_plain` in f64 under the causal mask (and
+    `window`), at the query rows `qrows` of dq and the key rows `krows` of
+    dk and dv only: (dq[:, qrows], dk[:, krows], dv[:, krows]), every head.
+    Each sampled row is the whole sum the plain version takes for it (dq
+    over every key, dk and dv over every query and the G heads of the
+    group), one KV head's group at a time: the f64 check where a group's
+    (S, T) scores do not fit the card."""
+    import torch
+    S, H = q.shape[1], q.shape[2]
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+
+    def keep(srow, tcol):
+        m = tcol[None, :] <= srow[:, None]
+        return m if window is None else m & (tcol[None, :] > srow[:, None]
+                                             - window)
+
+    kq = keep(qrows, torch.arange(T, device=dev))
+    kk = keep(torch.arange(S, device=dev), krows)
+    dsum = torch.einsum("bshd,bshd->bhs", dout.double(), out.double())
+    dqs, dks, dvs = [], [], []
+    for h in range(KV):
+        grp = slice(h * G, (h + 1) * G)
+        kh, vh = k[:, :, h].double(), v[:, :, h].double()
+        qg, dog = q[:, qrows, grp].double(), dout[:, qrows, grp].double()
+        p = torch.exp(torch.einsum("bsgd,btd->bgst", qg, kh) * scale
+                      - lse[:, grp][:, :, qrows, None].double())
+        p = torch.where(kq, p, 0.0)
+        dp = torch.einsum("bsgd,btd->bgst", dog, vh)
+        ds = p * (dp - dsum[:, grp][:, :, qrows, None])
+        dqs.append(scale * torch.einsum("bgst,btd->bsgd", ds, kh))
+        del qg, dog, p, dp, ds
+        qa, doa = q[:, :, grp].double(), dout[:, :, grp].double()
+        kc, vc = kh[:, krows], vh[:, krows]
+        p = torch.exp(torch.einsum("bsgd,btd->bgst", qa, kc) * scale
+                      - lse[:, grp, :, None].double())
+        p = torch.where(kk, p, 0.0)
+        dvs.append(torch.einsum("bgst,bsgd->btd", p, doa))
+        dp = torch.einsum("bsgd,btd->bgst", doa, vc)
+        ds = p * (dp - dsum[:, grp, :, None])
+        dks.append(scale * torch.einsum("bgst,bsgd->btd", ds, qa))
+        del qa, doa, p, dp, ds, kh, vh
+    return (torch.cat(dqs, dim=2), torch.stack(dks, dim=2),
+            torch.stack(dvs, dim=2))
+
+
+def edge_rows(gen, S: int, window, n: int):
+    """n rows of 0..S-1 drawn from `gen`, with the rows at the sequence's
+    ends, at the 64- and 128-row tiles' first edges and, under a window W,
+    around W and S - W (where the window's lower edge enters and leaves a
+    tile), sorted and unique: the rows a sampled check must not miss."""
+    import torch
+    fixed = [0, 1, 63, 64, 65, 127, 128, S - 65, S - 64, S - 2, S - 1]
+    if window is not None:
+        fixed += [window - 1, window, window + 1, S - window - 1,
+                  S - window, S - window + 1]
+    drawn = torch.randperm(S, generator=gen, device=gen.device)[:n]
+    rows = torch.cat([drawn, torch.tensor([r for r in fixed if 0 <= r < S],
+                                          device=gen.device)])
+    return torch.unique(rows)
+
+
+def bwd_timing(gen, B, S, H, KV, hd, window, names):
+    """The backward at (B, S, S, H, KV, hd) bf16 causal under `window`,
+    the shape a main path gives it: first held to the plain backward in f64
+    on the same inputs (grad_worst against BWD_ROW_TOL) -- all of it
+    without a window; under one, where a KV group's f64 scores would take
+    69 GB at 32768 tokens, F64_ROWS sampled rows of dq and of dk / dv
+    (`edge_rows`, `bwd_rows_f64`), each row's largest value floored at
+    BWD_ROW_FLOOR of the sampled rows' largest.  Then device ms: the C
+    entry point (its outputs must be the checked call's bits), the
+    wrapper, the plain version (one query head at a time under a window: a
+    KV group's f32 scores would take 34 GB at 32768 tokens), SDPA's
+    backward (its forward and backward less its forward: is_causal, or
+    under a window the band as a bool mask with K and V repeated per query
+    head, the memory-efficient kernel; where the card does not take the
+    call the line says so), the bound, and the kernels' split by
+    torch.profiler (which must name `names`)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = attn_inputs(gen, B, S, S, H, KV, hd, "bfloat16")
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    scale = hd ** -0.5
+    out, lse = fa._forward(q, k, v, True, scale, want_lse=True,
+                           window=window or 0)
+    route = fa.flash_route(q.dtype, hd)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                 scale=scale, window=window)
+    what = (f"B {B}, S {S}, T {S}, H {H}, KV {KV}, hd {hd}, bfloat16, "
+            f"causal, window {window}, route {route}")
+    if window:
+        qrows = edge_rows(gen, S, window, F64_ROWS)
+        krows = edge_rows(gen, S, window, F64_ROWS)
+        want = bwd_rows_f64(q, k, v, out, lse, dout, scale=scale,
+                            window=window, qrows=qrows, krows=krows)
+        held = (got[0][:, qrows], got[1][:, krows], got[2][:, krows])
+        checked = (f"{len(qrows)} dq rows and {len(krows)} dk / dv rows of "
+                   f"every head (bwd_rows_f64)")
+    else:
+        want = fa.flash_attention_bwd_plain(
+            *(t.double() for t in (q, k, v, out, lse, dout)), causal=True,
+            scale=scale)
+        held = got
+        checked = "every row (flash_attention_bwd_plain in f64)"
+    errs = grad_errs(held, want)
+    worst = grad_worst(held, want, False)
+    abs_err = max((g.double() - w).abs().max().item()
+                  for g, w in zip(held, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del want, held
+    tol = BWD_ROW_TOL["bfloat16"]
+    print(f"[long-train] flash_attention_bwd {what}: against the plain "
+          f"backward in f64 on the same inputs, {checked}: "
+          f"{json.dumps(errs)}, worst {worst:.3e} (row tol {tol:g}), "
+          f"max|err| {abs_err:.3e} "
+          f"{'ok' if finite and worst <= tol else 'MISMATCH'}")
+    check(finite and worst <= tol,
+          f"flash_attention_bwd at {what} misses its contract")
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    dsum = fa.flash_bwd_scratch(B, H, S, q.device)
+
+    def kernel(i):
+        fa.FLASH_BWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                     *(t.data_ptr() for t in outs), dsum.data_ptr(), B, S, S,
+                     H, KV, hd, fa.DTYPES[q.dtype], 1, scale,
+                     fa.ROUTES[route], window or 0)
+
+    if window:
+        bound, by = attn_window_bwd_bound(B, S, H, KV, hd, "bfloat16", window)
+        plain = bwd_plain_by_head
+        plain_name = ("flash_attention_bwd_plain, one query head at a time "
+                      "(bwd_plain_by_head)")
+    else:
+        bound, by = attn_bwd_bound(B, S, S, H, KV, hd, "bfloat16", True)
+        plain = fa.flash_attention_bwd_plain
+        plain_name = "flash_attention_bwd_plain"
+    row = {"B": B, "S": S, "T": S, "H": H, "KV": KV, "hd": hd,
+           "dtype": "bfloat16", "causal": True, "window": window,
+           "route": route, "checked": checked, "errs": errs,
+           "max_row_err": worst, "max_abs_err": abs_err,
+           "ms": device_ms(kernel, 5),
+           "wrapper_ms": device_ms(lambda i: fa.flash_attention_bwd(
+               q, k, v, out, lse, dout, causal=True, scale=scale,
+               window=window), 5),
+           "plain": plain_name,
+           "plain_ms": cuda_ms(lambda i: plain(
+               q, k, v, out, lse, dout, causal=True, scale=scale,
+               window=window), 1, warmup=1),
+           "bound_ms": bound, "bound_by": by,
+           "kernel_ms": kernel_split_ms(kernel, 3, names)}
+    check(all(row["kernel_ms"].get(n, 0.0) > 0.0 for n in names),
+          f"the profiler's split of the backward {row['kernel_ms']} lacks a "
+          f"kernel of {names}")
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(outs, got))
+    print(f"[long-train] flash_attention_bwd {what}: the timed launches' "
+          f"output equals the checked call's bit for bit: {same}")
+    check(same, f"flash_attention_bwd at {what}: two calls differ")
+    row["timed_bits_as_checked"] = same
+    del got
+    qh = q.transpose(1, 2).contiguous().requires_grad_(True)
+    rep = 1 if window is None else H // KV
+    kh, vh = (t.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+              .requires_grad_(True) for t in (k, v))
+    doh = dout.transpose(1, 2).contiguous()
+    kw = {"is_causal": True}
+    ctx = contextlib.nullcontext()
+    if window:
+        pos = torch.arange(S, device="cuda")
+        kw = {"attn_mask": (pos[None, :] <= pos[:, None])
+              & (pos[None, :] > pos[:, None] - window)}
+        ctx = sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)
+        row["library"] = ("autograd.grad of F.scaled_dot_product_attention, "
+                          "memory-efficient kernel, the band as a bool mask, "
+                          "K and V repeated per query head, less its forward")
+    else:
+        row["library"] = ("autograd.grad of F.scaled_dot_product_attention("
+                          "is_causal=True) less its forward")
+
+    def sdpa(i):
+        o = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+        torch.autograd.grad(o, (qh, kh, vh), doh)
+
+    def sdpa_fwd(i):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qh, kh, vh, **kw)
+
+    try:
+        with ctx:
+            fb, fwd = device_ms(sdpa, 3), device_ms(sdpa_fwd, 3)
+        row.update(library_ms=fb - fwd, library_fwd_bwd_ms=fb,
+                   library_fwd_ms=fwd)
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        row["library_ms"] = None
+        row["library_note"] = f"did not run: {str(e).splitlines()[0][:200]}"
+    print(f"[long-train] timing {json.dumps(row)}")
+    del q, k, v, dout, out, lse, outs, dsum, qh, kh, vh, doh, kw
+    torch.cuda.empty_cache()
+    return row
+
+
 def flash_bwd_check(seed: int):
     """(a) The backward kernels on the card against
     `flash_attention_bwd_plain` in f64 on the same inputs (the contract),
@@ -4196,6 +4606,7 @@ def flash_bwd_check(seed: int):
     kernels' parts of it (lse and D, dK / dV, dQ) by torch.profiler."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.registry import LONG_CONTEXT_WINDOW
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 18)
@@ -4213,7 +4624,7 @@ def flash_bwd_check(seed: int):
         out, lse = fa._forward(q, k, v, causal, scale, want_lse=True)
         same_out = torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
                                                        scale=scale))
-        route = fa.flash_bwd_route(q.dtype, hd)
+        route = fa.flash_route(q.dtype, hd)
         n = fa.FLASH_BWD.launches_by_route.get(route, 0)
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                      scale=scale)
@@ -4269,7 +4680,7 @@ def flash_bwd_check(seed: int):
                          out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                          *(t.data_ptr() for t in outs), dsum.data_ptr(), B, S,
                          T, H, KV, hd, fa.DTYPES[q.dtype], int(causal), scale,
-                         fa.ROUTES[route])
+                         fa.ROUTES[route], 0)
 
         qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
@@ -4307,6 +4718,19 @@ def flash_bwd_check(seed: int):
         res["timing"] = row
         del outs, dsum, qh, kh, vh, doh
     torch.cuda.empty_cache()
+    # the widened backward: a window on every route, and hd 256
+    for H, KV, hd, dt in BWD_WINDOW_ROUTES:
+        for W in BWD_WINDOWS:
+            res["cases"].append(bwd_case(gen, 2, 1000, 1100, H, KV, hd, dt,
+                                         True, W))
+    for B, S, T, H, KV, dt, causal, W in BWD_HD256_CASES:
+        res["cases"].append(bwd_case(gen, B, S, T, H, KV, 256, dt, causal, W))
+    torch.cuda.empty_cache()
+    res["hd256_timing"] = bwd_timing(gen, 1, LONG_S, 16, 16, 256, None,
+                                     FLASH_BWD_HD256)
+    res["window_timing"] = bwd_timing(gen, 1, WINDOW_S, 32, 4, 128,
+                                      LONG_CONTEXT_WINDOW,
+                                      FLASH_BWD_WGMMA_WINDOW)
     return res
 
 
@@ -4317,11 +4741,14 @@ def first_layers(tree, n: int):
     return tree[:n]
 
 
-def long_grad_parity(cfg, params, seed: int):
-    """(b) Yi-9B at full width, 2 layers, one 8192-token sequence in bf16:
-    the flat LoRA gradient of `loss_fn` through the flash kernels, and the
-    same with `chunked_attention` (plain torch on the card, differentiated
-    by autograd) put in the kernel's place on the attention module."""
+def long_grad_parity(cfg, params, seed: int, S: int = LONG_S, window=None,
+                     tag: str = "[long-train]"):
+    """(b) an arch at full width, 2 layers, one S-token sequence in bf16:
+    the flat LoRA gradient of `loss_fn(window=)` through the flash kernels,
+    and the same with `chunked_attention` (plain torch on the card,
+    differentiated by autograd) put in the kernel's place on the attention
+    module; launches on the route of the arch's head size (and, under a
+    window, every one tagged windowed)."""
     import torch
     from repro_torch.core.fedround import FlatMeta
     from repro_torch.kernels import flash_attention as fa
@@ -4343,13 +4770,14 @@ def long_grad_parity(cfg, params, seed: int):
                                            device="cuda")
     meta = FlatMeta.of(lora)
     flat0 = meta.flatten(lora)
-    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_S), generator=gen,
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                            device="cuda")
 
     def grad():
         f = flat0.clone().requires_grad_(True)
         loss = mdl.loss_fn(p2, cfg2, {"tokens": tokens},
-                           lora=meta.unflatten(f), lora_scale=lcfg.scale)
+                           lora=meta.unflatten(f), lora_scale=lcfg.scale,
+                           window=window)
         (g,) = torch.autograd.grad(loss, f)
         torch.cuda.synchronize()
         return loss.detach(), g
@@ -4361,7 +4789,11 @@ def long_grad_parity(cfg, params, seed: int):
 
     launches = {}
     with counted(launches):
+        fa.FLASH.reset()
+        fa.FLASH_BWD.reset()
         lk, gk = grad()
+        routes = [dict(f.launches_by_route) for f in (fa.FLASH, fa.FLASH_BWD)]
+        tags = [dict(f.launches_by_tag) for f in (fa.FLASH, fa.FLASH_BWD)]
     kernel = A.flash_attention
     A.flash_attention = chunked
     torch.cuda.reset_peak_memory_stats()
@@ -4373,19 +4805,25 @@ def long_grad_parity(cfg, params, seed: int):
         A.flash_attention = kernel
     plain_peak = torch.cuda.max_memory_allocated() / 2**30
     rel = ((gk - gp).norm() / gp.norm()).item()
-    print(f"[long-train] gradient parity, {cfg.name} at full width, {L} "
-          f"layers, {LONG_S} tokens, bf16: loss {lk.item():.6f} (kernels) / "
-          f"{lp.item():.6f} (chunked_attention); flat LoRA gradient (p_len "
+    route = fa.flash_route(torch.bfloat16, cfg.hd)
+    print(f"{tag} gradient parity, {cfg.name} at full width, {L} layers, "
+          f"{S} tokens, window {window}, bf16: loss {lk.item():.6f} (kernels)"
+          f" / {lp.item():.6f} (chunked_attention); flat LoRA gradient (p_len "
           f"{meta.p_len}) relative L2 error {rel:.3e} (bound "
           f"{GRAD_REL_L2:g}); flash launches {launches['flash_attention']} "
-          f"forward / {launches['flash_attention_bwd']} backward (plain path "
+          f"forward / {launches['flash_attention_bwd']} backward, by route "
+          f"{routes}, windowed {tags} (plain path "
           f"{plain_launches['flash_attention']} / "
           f"{plain_launches['flash_attention_bwd']}, peak device memory "
           f"{plain_peak:.2f} GiB)")
     check(launches["flash_attention"] == 2 * L
-          and launches["flash_attention_bwd"] == L,
-          f"gradient parity: kernel launches {launches}, expected {2 * L} "
-          f"forward and {L} backward")
+          and launches["flash_attention_bwd"] == L
+          and routes == [{route: 2 * L}, {route: L}]
+          and tags == ([{"window": 2 * L}, {"window": L}] if window
+                       else [{}, {}]),
+          f"gradient parity: kernel launches {launches}, by route {routes}, "
+          f"windowed {tags}; expected {2 * L} forward and {L} backward on "
+          f"{route}")
     check(plain_launches["flash_attention"] == 0
           and plain_launches["flash_attention_bwd"] == 0,
           "gradient parity: the plain path launched a flash kernel")
@@ -4395,8 +4833,8 @@ def long_grad_parity(cfg, params, seed: int):
           f" above {GRAD_REL_L2:g}")
     del gk, gp, flat0, lora, p2
     torch.cuda.empty_cache()
-    return {"rel_l2": rel, "p_len": meta.p_len,
-            "loss": [lk.item(), lp.item()]}
+    return {"rel_l2": rel, "p_len": meta.p_len, "S": S, "window": window,
+            "loss": [lk.item(), lp.item()], "plain_peak_gib": plain_peak}
 
 
 def long_token_batches(cfg, seed: int, clients: int, S: int):
@@ -4411,11 +4849,13 @@ def long_token_batches(cfg, seed: int, clients: int, S: int):
     return data
 
 
-def long_train_runs(cfg, params, seed: int):
-    """(c) `Experiment(None)` on full Yi-9B: FLASC (fused, 4-bit up,
+def long_train_runs(cfg, params, seed: int, runs=LONG_TRAIN,
+                    tag: str = "[long-train]"):
+    """(c) `Experiment(None)` on a full arch: FLASC (fused, 4-bit up,
     density 0.25 / 0.25, rank 8) with one local step of one sequence a
-    client, 2 rounds of 2 clients at 8192 tokens, then 1 round of 1 client
-    at 32768; launches asserted."""
+    client, each (tokens, clients, rounds) of `runs` (Yi-9B: 2 rounds of 2
+    clients at 8192 tokens, then 1 round of 1 client at 32768); launches
+    asserted, every flash launch on the route of the arch's head size."""
     import numpy as np
     import torch
     from repro_torch.federated import Experiment
@@ -4423,8 +4863,9 @@ def long_train_runs(cfg, params, seed: int):
     from repro_torch.models.config import FederatedConfig
 
     L = cfg.num_layers
-    runs = {}
-    for S, C, R in LONG_TRAIN:
+    route = fa.flash_route(torch.bfloat16, cfg.hd)
+    out = {}
+    for S, C, R in runs:
         probe = RoundProbe()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4454,11 +4895,11 @@ def long_train_runs(cfg, params, seed: int):
         step_ms = [h["phase_ms"]["local_update"] / C for h in res.history]
         losses = [h["loss"] for h in res.history]
         for r, h in enumerate(res.history):
-            print(f"[long-train] {S} tokens, round {r}: loss {h['loss']:.6f}, "
+            print(f"{tag} {S} tokens, round {r}: loss {h['loss']:.6f}, "
                   f"wall {round_ms[r]:.3f} ms; local update "
                   f"{step_ms[r]:.3f} ms a client step (device events); up_nnz "
                   f"per client {probe.up_nnz[r]}")
-        print(f"[long-train] {cfg.name} {L}L d{cfg.d_model} {cfg.param_dtype}"
+        print(f"{tag} {cfg.name} {L}L d{cfg.d_model} {cfg.param_dtype}"
               f": {R} FLASC round(s) of {C} client(s) x 1 step x 1 x {S} "
               f"tokens (fused, 4-bit up, density 0.25/0.25, rank 8); peak "
               f"device memory {peak:.3f} GiB; launches {json.dumps(launches)}"
@@ -4471,16 +4912,16 @@ def long_train_runs(cfg, params, seed: int):
         for name, n in want.items():
             check(launches[name] == n, f"long-train {S}: {name} launched "
                   f"{launches[name]} times, expected {n}")
-        check(routes == {"flash_attention": {"wgmma": 2 * L * steps},
-                         "flash_attention_bwd": {"wgmma": L * steps}},
+        check(routes == {"flash_attention": {route: 2 * L * steps},
+                         "flash_attention_bwd": {route: L * steps}},
               f"long-train {S}: flash launches by route {routes}")
-        runs[S] = {"clients": C, "rounds": R, "round_ms": round_ms,
-                   "step_ms": step_ms, "losses": losses, "peak_gib": peak,
-                   "launches": launches, "routes": routes}
+        out[S] = {"clients": C, "rounds": R, "round_ms": round_ms,
+                  "step_ms": step_ms, "losses": losses, "peak_gib": peak,
+                  "launches": launches, "routes": routes}
         del exp, res, probe
         gc.collect()
         torch.cuda.empty_cache()
-    return runs
+    return out
 
 
 def profile_long_step(cfg, params, seed: int) -> dict:
@@ -4534,11 +4975,86 @@ def profile_long_step(cfg, params, seed: int) -> dict:
     return out
 
 
+# (e): one sequence of WINDOW_S tokens under the long-context window at full
+# depth, and the 2-layer parity at the longest sequence where
+# chunked_attention's autograd fits the card beside the backbone: 8192
+# tokens under a window of 4096 (a row's window spans 64 key tiles).  The
+# chunked stand-in skips the score chunks outside the window only up to 8
+# query chunks (the reference's branch): at 8192 it keeps 30 of 1024 x 1024
+# (36 without a window: 33.6 GiB at its peak), while at 12288 under 4096 it
+# computes all 144 and ran out of the card's 80 GB
+WINDOW_PARITY = (LONG_S, 4096)
+
+
+def long_window_grad(cfg, params, seed: int):
+    """(e) the LoRA gradient of `loss_fn(window=LONG_CONTEXT_WINDOW)` of one
+    WINDOW_S-token sequence through full Yi-9B: every flash launch windowed
+    on the wgmma route (2 L forward with the recomputation, L backward),
+    the gradient finite and nonzero; its ms and peak memory printed.  Then
+    long_grad_parity on a 2-layer cut under WINDOW_PARITY."""
+    import torch
+    from repro_torch.configs.registry import LONG_CONTEXT_WINDOW as W
+    from repro_torch.core.fedround import FlatMeta
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as mdl
+    from repro_torch.models.config import LoRAConfig
+    from repro_torch.models.lora import init_lora
+
+    L = cfg.num_layers
+    lcfg = LoRAConfig(rank=8)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    lora = init_lora(cfg, lcfg, device="cuda", generator=gen)
+    meta = FlatMeta.of(lora)
+    flat = meta.flatten(lora).requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, WINDOW_S), generator=gen,
+                           device="cuda")
+    launches = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted(launches):
+        fa.FLASH.reset()
+        fa.FLASH_BWD.reset()
+        t0 = time.perf_counter()
+        loss = mdl.loss_fn(params, cfg, {"tokens": tokens},
+                           lora=meta.unflatten(flat), lora_scale=lcfg.scale,
+                           window=W)
+        (g,) = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        routes = [dict(f.launches_by_route) for f in (fa.FLASH, fa.FLASH_BWD)]
+        tags = [dict(f.launches_by_tag) for f in (fa.FLASH, fa.FLASH_BWD)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(g).all()) and g.norm().item() > 0
+    print(f"[long-train] windowed gradient, {cfg.name} {L}L d{cfg.d_model} "
+          f"bf16: one {WINDOW_S}-token sequence, loss_fn(window={W}) "
+          f"{loss.item():.6f} and its LoRA gradient (p_len {meta.p_len}) in "
+          f"{ms:.3f} ms; peak device memory {peak:.3f} GiB; flash launches "
+          f"{launches['flash_attention']} forward / "
+          f"{launches['flash_attention_bwd']} backward, by route {routes}, "
+          f"windowed {tags}; gradient finite and nonzero: {finite}; "
+          f"{card_line()}")
+    check(routes == [{"wgmma": 2 * L}, {"wgmma": L}]
+          and tags == [{"window": 2 * L}, {"window": L}],
+          f"windowed gradient: flash launches by route {routes}, windowed "
+          f"{tags}; expected {2 * L} forward and {L} backward, all windowed "
+          "on wgmma")
+    check(finite, "windowed gradient: not finite or zero")
+    del loss, g, flat, lora, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    S, W2 = WINDOW_PARITY
+    parity = long_grad_parity(cfg, params, seed, S=S, window=W2)
+    return {"ms": ms, "peak_gib": peak, "window": W, "tokens": WINDOW_S,
+            "launches": launches, "routes": routes, "windowed": tags,
+            "parity": parity}
+
+
 def long_train_phase(seed: int, profile: bool = False):
     """Phase 18: (a) the backward kernels against their plain version; (b)
     the model's LoRA gradient through them against chunked_attention's; (c)
     FLASC rounds of full Yi-9B at 8192 and 32768 tokens a sequence through
-    `Experiment(None)`; (d) under --profile, one profiled client step."""
+    `Experiment(None)`; (d) under --profile, one profiled client step; (e)
+    a windowed gradient at 32768 tokens."""
     import torch
     kern = flash_bwd_check(seed)
     t0 = time.perf_counter()
@@ -4548,10 +5064,194 @@ def long_train_phase(seed: int, profile: bool = False):
     parity = long_grad_parity(cfg, params, seed)
     runs = long_train_runs(cfg, params, seed)
     prof = profile_long_step(cfg, params, seed) if profile else None
+    window = long_window_grad(cfg, params, seed)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"kernel": kern, "parity": parity, "runs": runs, "profile": prof}
+    return {"kernel": kern, "parity": parity, "runs": runs, "profile": prof,
+            "window": window}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: gemma-7b trains at 8192 tokens (the hd-256 backward)
+# ---------------------------------------------------------------------------
+
+GEMMA_TRAIN = ((LONG_S, 2, 2),)                 # (tokens, clients, rounds)
+
+
+def gemma_train_phase(seed: int):
+    """Phase 21: gemma-7b at full width and depth in bf16 (hd 256, MHA, tied
+    256,000 vocab): (a) phase 18 (b)'s gradient parity on a 2-layer cut at
+    8192 tokens (hd256 launches); (b) phase 18 (c)'s FLASC rounds through
+    `Experiment(None)`, 2 rounds of 2 clients at 8192 tokens, 56 hd256
+    forward and 28 hd256 backward launches a client step."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import init_params
+
+    tag = "[gemma-train]"
+    t0 = time.perf_counter()
+    cfg = get_config("gemma-7b")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 28)
+    params = init_params(mdl.model_spec(cfg), device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    print(f"{tag} {cfg.name}: {cfg.num_layers}L d{cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads hd {cfg.hd}, "
+          f"{cfg.param_dtype}, {cfg.param_count() / 1e9:.3f} B params, built "
+          f"in {time.perf_counter() - t0:.1f}s")
+    parity = long_grad_parity(cfg, params, seed, tag=tag)
+    runs = long_train_runs(cfg, params, seed, GEMMA_TRAIN, tag=tag)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"parity": parity, "runs": runs, "layers": cfg.num_layers}
+
+
+# ---------------------------------------------------------------------------
+# phase 22: GPT-2 Small serves (learned positions)
+# ---------------------------------------------------------------------------
+
+GPT_SERVE_LEN = 1024           # max_len: GPT-2 Small's learned positions
+GPT_BUCKETS = (16, 1000)
+
+
+def gpt_engine(cfg, seed: int):
+    """`launch/serve.py`'s build at phase 3's settings with GPT-2 Small's
+    config in place of a registry arch (the CLI resolves registry archs
+    only) and max_len GPT_SERVE_LEN; its trace re-drawn with prompts from
+    GPT_BUCKETS."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import synth_trace
+    args = serve.parse_args(SERVE_ARGS + ["--seed", str(seed), "--max-len",
+                                          str(GPT_SERVE_LEN)])
+    eng, trace, _, lcfg = serve.build(args, cfg=cfg)
+    trace = synth_trace(args.requests, args.clients, cfg.vocab_size,
+                        seed=seed, prompt_buckets=GPT_BUCKETS,
+                        gen_range=(4, 12))
+    return eng, trace, lcfg
+
+
+def forward_greedy_vs_engine(eng, trace, rep, cfg, lcfg, tag: str) -> int:
+    """Each request of a serving run against a greedy loop over the port's
+    `forward` on the whole sequence with the request's adapter alone (the
+    reference's decode adds position 0's embedding to every token; its
+    forward each token's own): completions must match, except where the
+    loop's top-2 logit gap is below GAP_TOL (each printed).  Returns the
+    number of near ties."""
+    import torch
+    from repro_torch.checkpoint.io import tree_from_numpy
+    from repro_torch.models import model as mdl
+
+    check(len(rep.completions) == len(trace), f"{tag} engine dropped requests")
+    near_ties = 0
+    with torch.no_grad():
+        for req in trace:
+            lt = tree_from_numpy(eng.cache.store.get(req.client),
+                                 device="cuda")
+            seq, want, gaps = list(req.prompt), [], []
+            while len(want) < req.gen_len:
+                lg = mdl.forward(eng.params, cfg, {"tokens": torch.tensor(
+                    [seq], device="cuda")}, lora=lt,
+                    lora_scale=lcfg.scale)["logits"][0, -1].float()
+                top2 = torch.topk(lg, 2).values
+                gaps.append((top2[0] - top2[1]).item())
+                want.append(int(torch.argmax(lg)))
+                seq.append(want[-1])
+            got = rep.completions[req.rid]
+            if got != want:
+                t = next(i for i, (p, q) in enumerate(zip(got, want)) if p != q)
+                print(f"{tag} request {req.rid} differs at token {t}: engine "
+                      f"{got[t]} vs forward {want[t]}, top-2 gap "
+                      f"{gaps[t]:.3e}")
+                check(gaps[t] < GAP_TOL,
+                      f"request {req.rid}: engine and forward disagree at a "
+                      f"top-2 gap of {gaps[t]:.3e} >= {GAP_TOL}")
+                near_ties += 1
+    return near_ties
+
+
+def gpt_serve_phase(seed: int):
+    """Phase 22: GPT-2 Small (12 layers, d 768, vocab 50,257, tied, 1,024
+    learned positions) at full width and depth in bf16 through
+    `ServingEngine` with phase 3's tenants, pages, lanes and rank: prompts
+    of 16 or 1000 tokens, 4-12 generated, max_len 1024.  The grouped
+    kernel's launches must equal decode steps x 12 x its projections a
+    layer; prints decode ms a step, tok/s and one 1000-token prefill's ms.
+    Then a 2-layer f32 cut against a greedy loop over `forward`
+    (forward_greedy_vs_engine)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_models import GPT2_SMALL
+    from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
+
+    tag = "[gpt-serve]"
+    grouped = resolve_grouped_kernel("grouped_pallas")
+    cfg = GPT2_SMALL                                        # bf16
+    t0 = time.perf_counter()
+    eng, trace, lcfg = gpt_engine(cfg, seed)
+    torch.cuda.synchronize()
+    print(f"{tag} {cfg.name}: {cfg.num_layers}L d{cfg.d_model} "
+          f"{cfg.param_dtype}, {cfg.param_count() / 1e6:.3f} M params, "
+          f"learned positions {cfg.max_seq}, built in "
+          f"{time.perf_counter() - t0:.1f}s; prompts {GPT_BUCKETS}, max_len "
+          f"{eng.max_len}")
+    torch.cuda.reset_peak_memory_stats()
+    grouped.launches = 0
+    rep = eng.run(trace)
+    launches = grouped.launches
+    n_targets = len(eng.cache.pool["g0"]["attn"])
+    decode_ms = 1e3 * rep.decode_s / max(rep.steps, 1)
+    print(f"{tag} {len(rep.completions)}/{rep.requests} requests served: "
+          f"{rep.generated_tokens} tokens in {rep.wall_s:.3f}s "
+          f"({rep.tokens_per_s:.2f} tok/s), {rep.steps} decode steps, "
+          f"{decode_ms:.3f} ms/decode step, occupancy "
+          f"{rep.mean_occupancy:.3f}/{eng.n_lanes} lanes; cache "
+          f"{rep.cache['hits']} hits / {rep.cache['misses']} misses; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; grouped_pallas launches {launches} = {rep.steps} steps x "
+          f"{cfg.num_layers} x {n_targets}")
+    check(len(rep.completions) == len(trace) == rep.requests,
+          f"{tag} not every request was served")
+    for req in trace:
+        toks = rep.completions[req.rid]
+        check(len(toks) == req.gen_len
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{tag} request {req.rid}: bad completion {toks}")
+    check(launches == rep.steps * cfg.num_layers * n_targets > 0,
+          f"{tag} grouped_pallas launched {launches} times, expected "
+          f"{rep.steps} x {cfg.num_layers} x {n_targets}")
+    prompt = np.random.default_rng(seed + 22).integers(
+        0, cfg.vocab_size, GPT_BUCKETS[-1]).tolist()
+    eng._prefill(0, prompt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        tok, _ = eng._prefill(0, prompt)
+    prefill_ms = 1e3 * (time.perf_counter() - t1)
+    print(f"{tag} one {len(prompt)}-token prefill {prefill_ms:.3f} ms "
+          f"(after one unmeasured), first token {tok}; {card_line()}")
+    res = {"grouped": launches, "steps": rep.steps, "layers": cfg.num_layers,
+           "decode_ms": decode_ms, "tok_s": rep.tokens_per_s,
+           "prefill_ms": prefill_ms}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(GPT2_SMALL, num_layers=2,
+                               param_dtype="float32", compute_dtype="float32")
+    eng2, trace2, lcfg2 = gpt_engine(cfg2, seed)
+    rep2 = eng2.run(trace2)
+    near = forward_greedy_vs_engine(eng2, trace2, rep2, cfg2, lcfg2,
+                                    f"{tag} parity")
+    print(f"{tag} parity {cfg2.name} 2L d{cfg2.d_model} f32: "
+          f"{len(trace2) - near}/{len(trace2)} completions identical to a "
+          f"greedy loop over forward, {near} near-tie divergences")
+    res["near_ties"] = near
+    del eng2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -4689,8 +5389,18 @@ def main() -> int:
     t0 = time.perf_counter()
     arch_res = arch_serve_phase(args.seed)
     print(f"[archs] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    gemma_res = gemma_train_phase(args.seed)
+    print(f"[gemma-train] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    gpt_res = gpt_serve_phase(args.seed)
+    print(f"[gpt-serve] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
     lt_runs = lt_res["runs"]
+    gemma_run = gemma_res["runs"][GEMMA_TRAIN[0][0]]
+    lt_win = lt_res["window"]
 
     def later(name: str) -> str:
         """The launches of phases 15-18 for the kernels JSON's paths."""
@@ -4714,7 +5424,9 @@ def main() -> int:
         f"; window (yi-9b, 8 lanes, window 8192): {win_res['grouped']} in "
         f"{win_res['steps']} decode steps; archs: " + ", ".join(
             f"{a} {arch_res[a]['grouped']} in {arch_res[a]['steps']} steps "
-            f"x {arch_res[a]['layers']} x 4" for a in ARCHS))
+            f"x {arch_res[a]['layers']} x 4" for a in ARCHS)
+        + f"; gpt-serve (gpt2-small, d 768): {gpt_res['grouped']} in "
+        f"{gpt_res['steps']} steps x {gpt_res['layers']} x 4")
 
     entries = [entry]
     for name, replaces in TRANSPORT:
@@ -4780,7 +5492,11 @@ def main() -> int:
         + later("flash_attention")
         + f"; window (yi-9b): {win_res['flash']} windowed; archs: "
         + ", ".join(f"{a} {arch_res[a]['flash']} ({arch_res[a]['route']})"
-                    for a in ARCHS),
+                    for a in ARCHS)
+        + f"; long-train (e): {lt_win['launches']['flash_attention']} "
+        f"windowed in one {lt_win['tokens']}-token gradient; gemma-train: "
+        f"{gemma_run['launches']['flash_attention']} (hd256) in "
+        f"{gemma_run['rounds']} rounds of {gemma_run['clients']} clients",
         "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
         "max_abs_err": ops_res["attn_err"],
         "max_row_rel_err_bf16": ops_res["attn_row"],
@@ -4849,7 +5565,10 @@ def main() -> int:
         "launches": first["launches"]["flash_attention_bwd"],
         "launches_by_route": first["routes"]["flash_attention_bwd"],
         "path": (f"long-train (c), {LONG_TRAIN[0][0]} tokens, 48 per client "
-                 "step") + later("flash_attention_bwd"),
+                 "step") + later("flash_attention_bwd")
+        + f"; long-train (e): {lt_win['launches']['flash_attention_bwd']} "
+        f"windowed; gemma-train: "
+        f"{gemma_run['launches']['flash_attention_bwd']} (hd256)",
         "shape": "q (1, 8192, 32, 128), k/v (1, 8192, 4, 128) bf16 causal",
         "max_abs_err": bmain["max_abs_err"],
         "max_row_err_vs_f64": bmain["max_row_err"],
@@ -4864,6 +5583,48 @@ def main() -> int:
                    "enable_gqa=True) less its forward (p rounded to bf16)",
         "route_timed": btime["route"], "wrapper_ms": btime["wrapper_ms"],
         "timing": btime})
+    kres = lt_res["kernel"]
+    for name, timing, keep, launches_, path, shape in (
+            ("flash_attention_bwd_window", kres["window_timing"],
+             lambda c: c.get("window") is not None,
+             lt_win["windowed"][1]["window"],
+             f"long-train (e): one {lt_win['tokens']}-token gradient of "
+             f"full yi-9b under window {lt_win['window']}, 48 windowed wgmma "
+             f"launches; (e) parity: "
+             f"{lt_win['parity']['window']}-key window at "
+             f"{lt_win['parity']['S']} tokens, 2 launches",
+             "q (1, 32768, 32, 128), k/v (1, 32768, 4, 128) bf16 causal, "
+             "window 8192"),
+            ("flash_attention_bwd_hd256", kres["hd256_timing"],
+             lambda c: "hd 256" in c["case"],
+             gemma_run["launches"]["flash_attention_bwd"],
+             f"gemma-train (gemma-7b, 28 layers): "
+             f"{gemma_run['rounds']} rounds of {gemma_run['clients']} "
+             f"clients at {GEMMA_TRAIN[0][0]} tokens, 28 a client step; "
+             "parity 2",
+             "q, k, v (1, 8192, 16, 256) bf16 causal")):
+        cases = [c for c in kres["cases"] if keep(c)]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:102",
+            "replaces_note": "no Pallas kernel: the reference trains through "
+                             "XLA's autodiff of the jnp chunked_attention "
+                             "(its window's chunk skip at :161)",
+            "launches": launches_, "path": path, "shape": shape,
+            "max_abs_err": max([c["max_abs_err"] for c in cases]
+                               + [timing["max_abs_err"]]),
+            "max_row_err_vs_f64": max([c["max_row_err"] for c in cases]
+                                      + [timing["max_row_err"]]),
+            "shape_row_err_vs_f64": timing["max_row_err"],
+            "shape_checked": timing["checked"],
+            "cases": [c["case"] for c in cases],
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "plain": timing["plain"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"], "library": timing["library"],
+            "route_timed": timing["route"],
+            "wrapper_ms": timing["wrapper_ms"], "timing": timing})
     entries.append({
         "name": "lora_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/lora_matmul.cu",

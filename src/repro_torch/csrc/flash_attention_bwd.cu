@@ -1,7 +1,8 @@
 // Flash attention backward for Hopper, sm_90a: the gradient of
 // csrc/flash_attention.cu's forward.
 //
-//   P[s, t]  = exp(scale * q[s] . k[t] - lse[s])   (0 where t > s, causal)
+//   P[s, t]  = exp(scale * q[s] . k[t] - lse[s])   (0 where t > s, causal,
+//              and, under a causal window W, where t <= s - W)
 //   D[s]     = dout[s] . out[s]
 //   dv[t]    = sum_s P[s, t] dout[s]
 //   dS[s, t] = P[s, t] (dout[s] . v[t] - D[s])
@@ -12,9 +13,21 @@
 // the G = H / KV query heads of their group.  q, out, dout, dq (B, S, H,
 // hd); k, v, dk, dv (B, T, KV, hd); lse (B, H, S) f32 in natural-log units
 // as the forward writes it; an f32 scratch for D (see the entry point at
-// the end of this file).  One dtype, bf16 or f32, hd in {32, 64, 128}; any
-// S and T (ragged tiles are masked); causal compares absolute positions,
-// key t against query s, as the forward does.
+// the end of this file).  One dtype, bf16 or f32, hd in {32, 64, 128,
+// 256}; any S and T (ragged tiles are masked); causal compares absolute
+// positions, key t against query s, as the forward does.
+//
+// A sliding window W (the forward's: key t kept for query s iff s - W < t
+// <= s) is taken on every route as the forward takes it: dK / dV blocks
+// skip the query tiles past their last key's window, dQ blocks the key
+// tiles wholly below their first row's window, and only the tiles that
+// cross the window's lower edge (or the diagonal) are masked.  The lse is
+// the windowed forward's, which may lie far below the score of a key
+// outside a row's window: such a P is set to an exact 0 (and so its dS),
+// never computed as exp of its score.  With a window, every key tile past
+// the first W / 64 sees about the same number of query tiles, so route 0's
+// heaviest-first order (tile 0 first) stays right: the light tiles, at the
+// end of the sequence, are issued last.
 //
 // Replaces no TPU kernel: the reference has no Pallas backward.  At
 // chunked_attn_threshold tokens or more it trains through the jnp
@@ -26,13 +39,15 @@
 // function is five products of S T hd H / 2 multiply-adds each (Q K^T to
 // recompute P, P^T dO, dO V^T, dS K, dS^T Q): 1.37e12 flop, 1.39 ms of bf16
 // tensor-core work against some 0.3 GB of inputs and outputs (0.1 ms).  It
-// is bound by operations.  The bf16 kernels keep P and dS in f32 and feed
+// is bound by operations.  Gemma-7b's H 16 at hd 256 is the same work;
+// under a window W the five products run over the kept pairs only (about
+// S W at W << S).  The bf16 kernels keep P and dS in f32 and feed
 // them to the products that consume them as hi + lo pairs of bf16, two
 // products each, and recompute S (and dP) in both gradient kernels: route
 // 0 does ten product-units of work for the bound's five (S^T, dP^T and dV,
 // dK as pairs in (b'); S, dP and dQ as a pair in (c')).
 //
-// Routes (the caller's flash_bwd_route, from dtype and hd alone):
+// Routes (the caller's flash_route, from dtype and hd alone):
 //   route 0, "wgmma" -- bf16, hd 128 (Yi-9B's long-sequence training):
 //     (a') writes each row's lse log2 e and D into a scratch padded to 128
 //     rows (lse +inf, D 0 past S, so that padded rows weigh exactly 0), 64
@@ -79,14 +94,33 @@
 //     fragment, as the forward does for P V: about 16 bits of P and dS.
 //     (b) steps over 32 queries at a time (a 16 x 32 score tile per warp)
 //     and reloads its K and V fragments from shared memory at every step.
-//   route 2, "fma" -- f32, hd 32, 64 and 128: FMA (never TF32), 256 threads
-//     as 16 x 16 over 64 x 64 score tiles, the tiles stored transposed in
-//     shared memory, P and dS passed through shared memory to the products.
-// Routes 1 and 2 launch (a) D = rowsum(dout * out), one warp a row, then
-// (b) dK, dV per (batch, KV head, 64 keys), looping over the G query heads
-// and the query tiles at or below the diagonal, then (c) dQ per (batch,
-// query head, 64 rows).  Every output element of every route is summed by
-// one thread in a fixed order: the gradient is bitwise the same run to run.
+//   route 2, "fma" -- f32, hd 32, 64, 128 and 256: FMA (never TF32), 256
+//     threads as 16 x 16 over 64 x 64 score tiles, the tiles stored
+//     transposed in shared memory, P and dS passed through shared memory to
+//     the products.  S and dP are summed in f64 and rounded once, as is D
+//     (a), so that dP - D cancels to within an ulp (tile_dot).  At hd 256
+//     four transposed 64-row tiles would take 266 KB, so the key tiles are
+//     32 rows ((b) blocks of 32 keys, (c) steps of 32 keys): 221 KB of
+//     shared memory.
+//   route 3, "hd256" -- bf16, hd 256 (gemma-7b): route 1 with room for the
+//     accumulators.  A 16 x 256 f32 accumulator is 128 registers a thread,
+//     so route 1's warp holding dK and dV for its 16 keys would need 256.
+//     (b'') one block of 8 warps per 64 keys: warp w < 4 accumulates dV of
+//     keys 16 w .., warp w + 4 dK of the same keys.  Per 32-query step, dV's
+//     warp computes S^T and P^T, hands P^T to its partner through shared
+//     memory (in register order: both hold the same positions) and adds P^T
+//     dO; dK's warp computes dP^T = V dO^T, then dS^T, and adds dS^T Q.  K
+//     and V (64 x 264 bf16 each), 32-row Q and dO steps double-buffered,
+//     the P^T slots: 143,872 B.  (c) is route 1's kernel at hd 256 with
+//     32-key steps, so that S and dP (16 registers each) fit beside the
+//     128 of dQ: 64-row Q and dO plus 32-key K and V double-buffered,
+//     135,168 B.  A first, right version; not tuned.
+// Routes 1, 2 and 3 launch (a) D = rowsum(dout * out), one warp a row (any
+// hd: a lane sums hd / 32 products), then (b) dK, dV per (batch, KV head,
+// key tile), looping over the G query heads and the query tiles at or
+// below the diagonal, then (c) dQ per (batch, query head, 64 rows).  Every
+// output element of every route is summed by one thread in a fixed order:
+// the gradient is bitwise the same run to run.
 //
 // The contract (bf16): each row of dq, dk and dv within 1e-2 of that row's
 // largest |value| of the same function in f64 on the same inputs (q, k, v,
@@ -97,6 +131,8 @@
 // exact gradient (f64 attention's own out) the first rows of dq, whose
 // dP - D cancels, move by more than that, while each tensor stays within
 // about 2e-3 in relative L2.
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,6 +206,28 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// How far below its query a key may lie and still be seen, as in the
+// forward: under a causal window W a key is masked where key + span <=
+// query; without one the span is 2^30, which no position reaches.
+constexpr int kNoSpan = 1 << 30;
+__device__ __forceinline__ int window_span(int causal, int window) {
+  return causal && window > 0 ? window : kNoSpan;
+}
+
+// dK / dV: one past the last query tile (of `rows` rows, n_qt in all) that
+// sees any of the keys k0 .. k0 + nk - 1; under a window W the last such
+// query is k0 + nk - 1 + W - 1.
+__device__ __forceinline__ int query_tile_end(int k0, int nk, int span,
+                                              int n_qt, int rows) {
+  return span == kNoSpan ? n_qt : min(n_qt, (k0 + nk - 2 + span) / rows + 1);
+}
+
+// dQ: the first key tile (of `keys` keys) that a query tile starting at q0
+// sees: under a window W the key q0 - W + 1, else key 0.
+__device__ __forceinline__ int first_key_tile(int q0, int span, int keys) {
+  return span == kNoSpan ? 0 : max(0, q0 - span + 1) / keys;
+}
+
 // ---------------------------------------------------------------------------
 // (a) D = rowsum(dout * out)
 // ---------------------------------------------------------------------------
@@ -186,8 +244,13 @@ flash_bwd_dot_kernel(const Tin* __restrict__ out, const Tin* __restrict__ dout,
   if (row >= rows) return;
   const Tin* o = out + row * hd;
   const Tin* d = dout + row * hd;
-  float acc = 0.0f;
-  for (int i = lane; i < hd; i += 32) acc += to_f32(o[i]) * to_f32(d[i]);
+  // f32 inputs (route 2) sum in f64, as its dP does (tile_dot); bf16 in f32
+  using Acc = typename std::conditional<std::is_same<Tin, float>::value,
+                                        double, float>::type;
+  Acc acc = 0;
+  for (int i = lane; i < hd; i += 32) {
+    acc += static_cast<Acc>(to_f32(o[i])) * static_cast<Acc>(to_f32(d[i]));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -195,7 +258,7 @@ flash_bwd_dot_kernel(const Tin* __restrict__ out, const Tin* __restrict__ dout,
   if (lane == 0) {
     const long long h = row % H, s = (row / H) % S, b = row / (static_cast<
         long long>(H) * S);
-    dsum[(b * H + h) * S + s] = acc;
+    dsum[(b * H + h) * S + s] = static_cast<float>(acc);
   }
 }
 
@@ -297,17 +360,15 @@ struct DkvSmem {
 };
 
 // (b) dK, dV: block (b * KV + kh, key tile); warp w owns keys k0 + 16 w ..
-template <int HD>
-__global__ void __launch_bounds__(kThreadsMma)
-flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ dsum,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int S, int T,
-                           int H, int KV, float scale, int causal) {
+template <int HD, bool WIN>
+__device__ __forceinline__ void
+dkdv_bf16(const __nv_bfloat16* __restrict__ q,
+          const __nv_bfloat16* __restrict__ k,
+          const __nv_bfloat16* __restrict__ v,
+          const __nv_bfloat16* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ dsum,
+          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+          int S, int T, int H, int KV, float scale, int causal, int window) {
   using SM = DkvSmem<HD>;
   extern __shared__ __align__(16) uint8_t bwd_smem[];
   constexpr int LD = SM::LD;
@@ -341,10 +402,13 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // steps: (query head kh * G + it / per_head, query tile qt0 + it %
   // per_head); under causal masking the tiles before the block's first key
-  // hold no query that sees it
+  // hold no query that sees it, and under a window those past its last
+  // key's window neither
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
   const int n_qt = (S + kQDkv - 1) / kQDkv;
   const int qt0 = causal ? min(k0 / kQDkv, n_qt) : 0;
-  const int per_head = n_qt - qt0;
+  const int per_head =
+      max(query_tile_end(k0, kKeysDkv, span, n_qt, kQDkv) - qt0, 0);
   const int n_it = G * per_head;
 
   auto load_q = [&](int it, int buf) {
@@ -404,7 +468,9 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int key = key_lo + (e & 2) * 4;
         const int qi = nt * 8 + 2 * t + (e & 1);
-        const bool live = q0 + qi < S && key < T && !(causal && key > q0 + qi);
+        const bool live = q0 + qi < S && key < T &&
+                          !(causal && key > q0 + qi) &&
+                          (!WIN || key + span > q0 + qi);
         s[nt][e] = live ? expf(s[nt][e] * scale - ls[qi]) : 0.0f;
       }
     }
@@ -430,35 +496,73 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dsum,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int S, int T, int H,
+                           int KV, float scale, int causal, int window) {
+  dkdv_bf16<HD, false>(q, k, v, dout, lse, dsum, dk, dv, S, T, H, KV, scale,
+                       causal, window);
+}
+
+// the same under a causal window
+template <int HD>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dkdv_bf16_window_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  const __nv_bfloat16* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ dsum,
+                                  __nv_bfloat16* __restrict__ dk,
+                                  __nv_bfloat16* __restrict__ dv, int S, int T,
+                                  int H, int KV, float scale, int causal,
+                                  int window) {
+  dkdv_bf16<HD, true>(q, k, v, dout, lse, dsum, dk, dv, S, T, H, KV, scale,
+                      causal, window);
+}
+
+template <int HD>
 struct DqSmem {
   static constexpr int LD = HD + kPad;
-  static constexpr int kTile = kRowsDq * LD;
-  static_assert(kRowsDq == kKeysDq, "one tile size for Q, dO, K and V");
+  // keys a step: at hd 256 a warp's 16 x 256 dQ takes 128 registers, so
+  // 32-key steps keep S and dP at 16 registers each beside it
+  static constexpr int kKeys = HD == 256 ? 32 : kKeysDq;
+  static constexpr int kQTile = kRowsDq * LD;
+  static constexpr int kKVTile = kKeys * LD;
   // Q, dO; K and V in two stages
-  static constexpr int kBytes = 6 * kTile * 2;
+  static constexpr int kBytes = (2 * kQTile + 4 * kKVTile) * 2;
 };
 
 // (c) dQ: block (b * H + h, query tile); warp w owns rows q0 + 16 w ..
-template <int HD>
-__global__ void __launch_bounds__(kThreadsMma)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dsum,
-                         __nv_bfloat16* __restrict__ dq, int S, int T, int H,
-                         int KV, float scale, int causal) {
+template <int HD, bool WIN>
+__device__ __forceinline__ void
+dq_bf16(const __nv_bfloat16* __restrict__ q,
+        const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v,
+        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+        const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, int S,
+        int T, int H, int KV, float scale, int causal, int window) {
   using SM = DqSmem<HD>;
   extern __shared__ __align__(16) uint8_t bwd_smem[];
   constexpr int LD = SM::LD;
   constexpr int DT = HD / 8;
   constexpr int CH = HD / 8;
-  constexpr int NT = kKeysDq / 8;
+  constexpr int KEYS = SM::kKeys;
+  constexpr int NT = KEYS / 8;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
-  __nv_bfloat16* dos = qs + SM::kTile;
-  auto kbuf = [&](int i) { return qs + (2 + 2 * i) * SM::kTile; };
-  auto vbuf = [&](int i) { return qs + (3 + 2 * i) * SM::kTile; };
+  __nv_bfloat16* dos = qs + SM::kQTile;
+  auto kbuf = [&](int i) {
+    return qs + 2 * SM::kQTile + 2 * i * SM::kKVTile;
+  };
+  auto vbuf = [&](int i) {
+    return qs + 2 * SM::kQTile + (2 * i + 1) * SM::kKVTile;
+  };
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kh = h / (H / KV);
@@ -483,7 +587,7 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_kv = [&](int j0, int buf) {
     __nv_bfloat16* kb = kbuf(buf);
     __nv_bfloat16* vb = vbuf(buf);
-    for (int i = tid; i < kKeysDq * CH; i += kThreadsMma) {
+    for (int i = tid; i < KEYS * CH; i += kThreadsMma) {
       const int r = i / CH, c = (i % CH) * 8;
       const bool in = j0 + r < T;
       const size_t off = kv_off + (in ? (j0 + r) * kv_stride + c : 0);
@@ -493,8 +597,12 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   };
 
-  int n_tiles = (T + kKeysDq - 1) / kKeysDq;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kRowsDq, S) - 1) / kKeysDq + 1);
+  // key tiles lo .. n_tiles - 1: under causal masking none past the block's
+  // last row, under a window none wholly below its first row's window
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
+  int n_tiles = (T + KEYS - 1) / KEYS;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kRowsDq, S) - 1) / KEYS + 1);
+  const int lo = first_key_tile(q0, span, KEYS);
   const int qpos0 = q0 + warp * 16 + g;      // rows g and g + 8
   float row_lse[2], row_d[2];
 #pragma unroll
@@ -510,18 +618,19 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     dq_acc[d][0] = dq_acc[d][1] = dq_acc[d][2] = dq_acc[d][3] = 0.0f;
   }
 
-  load_kv(0, 0);
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int j0 = jt * kKeysDq;
+  load_kv(lo * KEYS, 0);
+  for (int jt = lo; jt < n_tiles; ++jt) {
+    const int j0 = jt * KEYS;
+    const int buf = (jt - lo) & 1;
     if (jt + 1 < n_tiles) {
-      load_kv(j0 + kKeysDq, (jt + 1) & 1);
+      load_kv(j0 + KEYS, buf ^ 1);
       cp_async_wait<1>();               // Q, dO and tile jt have landed
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* ks = kbuf(jt & 1);
-    const __nv_bfloat16* vs = vbuf(jt & 1);
+    const __nv_bfloat16* ks = kbuf(buf);
+    const __nv_bfloat16* vs = vbuf(buf);
 
     // S = Q K^T, then P in place: s[nt][e] is query qpos0 (e < 2) or
     // qpos0 + 8, key j0 + nt * 8 + 2 t + (e & 1)
@@ -533,7 +642,8 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int qpos = qpos0 + (e & 2) * 4;
         const int key = j0 + nt * 8 + 2 * t + (e & 1);
-        const bool live = qpos < S && key < T && !(causal && key > qpos);
+        const bool live = qpos < S && key < T && !(causal && key > qpos) &&
+                          (!WIN || key + span > qpos);
         s[nt][e] = live ? expf(s[nt][e] * scale - row_lse[e >> 1]) : 0.0f;
       }
     }
@@ -549,6 +659,209 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   store_rows<HD>(dq + q_off, q_stride, dq_acc, qpos0, S, scale, t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dsum,
+                         __nv_bfloat16* __restrict__ dq, int S, int T, int H,
+                         int KV, float scale, int causal, int window) {
+  dq_bf16<HD, false>(q, k, v, dout, lse, dsum, dq, S, T, H, KV, scale, causal,
+                     window);
+}
+
+// the same under a causal window
+template <int HD>
+__global__ void __launch_bounds__(kThreadsMma)
+flash_bwd_dq_bf16_window_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ dsum,
+                                __nv_bfloat16* __restrict__ dq, int S, int T,
+                                int H, int KV, float scale, int causal,
+                                int window) {
+  dq_bf16<HD, true>(q, k, v, dout, lse, dsum, dq, S, T, H, KV, scale, causal,
+                    window);
+}
+
+// ---------------------------------------------------------------------------
+// route 3, bf16, hd 256: route 1's mma.sync with a pair of warps per 16 keys
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsHd256 = 256;   // (b''): warps w and w + 4 a pair
+
+struct DkvHd256Smem {
+  static constexpr int LD = 256 + kPad;
+  static constexpr int kKV = kKeysDkv * LD;       // a K or V tile
+  static constexpr int kQ = kQDkv * LD;           // a Q or dO tile
+  static constexpr int kP = 16 * kQDkv;           // one pair's P^T, f32
+  // K, V; Q and dO in two stages; the four pairs' P^T; lse and D of both
+  // stages: 143,872 B
+  static constexpr int kBytes = (2 * kKV + 4 * kQ) * 2 + 4 * kP * 4 +
+                                4 * kQDkv * 4;
+};
+
+// (b'') dK, dV at hd 256: block (b * KV + kh, 64-key tile); warp w < 4
+// accumulates dV and warp w + 4 dK, both for keys k0 + 16 w .. + 15.  A
+// warp's 16 x 256 f32 accumulator is 128 registers a thread, so one warp
+// cannot hold both (route 1's layout at hd 256 would need 256).  Per
+// 32-query step: dV's warp computes S^T = K Q^T and P^T, hands P^T to its
+// partner through shared memory (each thread's 16 values in register
+// order: both warps hold the same (key, query) positions), and adds P^T
+// dO; dK's warp computes dP^T = V dO^T, then dS^T = P^T (dP^T - D), and
+// adds dS^T Q.  Operands, tiles and the hi + lo pairs as route 1.
+__global__ void __launch_bounds__(kThreadsHd256, 1)
+flash_bwd_dkdv_hd256_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ dsum,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int S, int T,
+                            int H, int KV, float scale, int causal,
+                            int window) {
+  using SM = DkvHd256Smem;
+  constexpr int HD = 256;
+  extern __shared__ __align__(16) uint8_t bwd_smem[];
+  constexpr int LD = SM::LD;
+  constexpr int DT = HD / 8;          // n-tiles over hd
+  constexpr int CH = HD / 8;          // 16-byte chunks per row
+  constexpr int NT = kQDkv / 8;       // n-tiles over a step's queries
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* vs = ks + SM::kKV;
+  auto qbuf = [&](int i) { return vs + SM::kKV + 2 * i * SM::kQ; };
+  auto dobuf = [&](int i) { return vs + SM::kKV + (2 * i + 1) * SM::kQ; };
+  float* p_s = reinterpret_cast<float*>(vs + SM::kKV + 4 * SM::kQ);
+  float* lse_s = p_s + 4 * SM::kP;
+  float* dsum_s = lse_s + 2 * kQDkv;  // [2][kQDkv] each
+
+  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
+  const int k0 = blockIdx.y * kKeysDkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pair = warp & 3;          // keys k0 + 16 pair ..
+  const bool grad_k = warp >= 4;      // warps 4-7: dK; 0-3: dV
+  const int g = lane >> 2, t = lane & 3;
+  const size_t q_stride = static_cast<size_t>(H) * HD;    // between tokens
+  const size_t kv_stride = static_cast<size_t>(KV) * HD;
+  const size_t kv_off = static_cast<size_t>(b) * T * kv_stride +
+                        static_cast<size_t>(kh) * HD;
+
+  for (int i = tid; i < kKeysDkv * CH; i += kThreadsHd256) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool in = k0 + r < T;
+    const size_t off = kv_off + (in ? (k0 + r) * kv_stride + c : 0);
+    cp_async16(ks + r * LD + c, k + off, in);
+    cp_async16(vs + r * LD + c, v + off, in);
+  }
+  cp_async_commit();
+
+  // steps as route 1's (b): each of the G heads' query tiles from the
+  // block's first key to its last key's window
+  const int span = window_span(causal, window);
+  const int n_qt = (S + kQDkv - 1) / kQDkv;
+  const int qt0 = causal ? min(k0 / kQDkv, n_qt) : 0;
+  const int per_head =
+      max(query_tile_end(k0, kKeysDkv, span, n_qt, kQDkv) - qt0, 0);
+  const int n_it = G * per_head;
+
+  auto load_q = [&](int it, int buf) {
+    const int hh = kh * G + it / per_head;
+    const int q0 = (qt0 + it % per_head) * kQDkv;
+    const size_t q_off = static_cast<size_t>(b) * S * q_stride +
+                         static_cast<size_t>(hh) * HD;
+    __nv_bfloat16* qsb = qbuf(buf);
+    __nv_bfloat16* dsb = dobuf(buf);
+    for (int i = tid; i < kQDkv * CH; i += kThreadsHd256) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = q0 + r < S;
+      const size_t off = q_off + (in ? (q0 + r) * q_stride + c : 0);
+      cp_async16(qsb + r * LD + c, q + off, in);
+      cp_async16(dsb + r * LD + c, dout + off, in);
+    }
+    if (tid < kQDkv) {
+      const bool in = q0 + tid < S;
+      const size_t off = in ? (static_cast<size_t>(b) * H + hh) * S + q0 + tid
+                            : 0;
+      cp_async4(lse_s + buf * kQDkv + tid, lse + off, in);
+      cp_async4(dsum_s + buf * kQDkv + tid, dsum + off, in);
+    }
+    cp_async_commit();
+  };
+
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.0f;
+  }
+  const int key_lo = k0 + pair * 16 + g;     // acc rows g and g + 8
+  float* my_p = p_s + pair * SM::kP;
+  if (n_it > 0) load_q(0, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_it) {
+      load_q(it + 1, buf ^ 1);
+      cp_async_wait<1>();               // K, V and step it have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                    // and the last step's P^T is read
+    const int q0 = (qt0 + it % per_head) * kQDkv;
+    const __nv_bfloat16* qsb = qbuf(buf);
+    const __nv_bfloat16* dsb = dobuf(buf);
+    const float* ls = lse_s + buf * kQDkv;
+    const float* dd = dsum_s + buf * kQDkv;
+
+    // x[nt][e] is key key_lo (e < 2) or key_lo + 8, query q0 + nt * 8 + 2 t
+    // + (e & 1): S^T, then P^T (dV's warp); dP^T, then dS^T (dK's)
+    float x[NT][4];
+    if (!grad_k) {
+      rows_dot_rows<HD, NT, LD>(x, ks, qsb, pair, lane);    // S^T = K Q^T
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_lo + (e & 2) * 4;
+          const int qi = nt * 8 + 2 * t + (e & 1);
+          const bool live = q0 + qi < S && key < T &&
+                            !(causal && key > q0 + qi) && key + span > q0 + qi;
+          x[nt][e] = live ? expf(x[nt][e] * scale - ls[qi]) : 0.0f;
+          my_p[(nt * 4 + e) * 32 + lane] = x[nt][e];
+        }
+      }
+    } else {
+      rows_dot_rows<HD, NT, LD>(x, vs, dsb, pair, lane);    // dP^T = V dO^T
+    }
+    __syncthreads();                    // P^T is in shared memory
+    if (!grad_k) {
+      frag_dot_tile<HD, NT, LD>(acc, x, dsb, lane);         // dV += P^T dO
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[nt][e] = my_p[(nt * 4 + e) * 32 + lane] *
+                     (x[nt][e] - dd[nt * 8 + 2 * t + (e & 1)]);   // dS^T
+        }
+      }
+      frag_dot_tile<HD, NT, LD>(acc, x, qsb, lane);         // dK += dS^T Q
+    }
+    __syncthreads();                    // buffer `buf` is free for it + 2
+  }
+  cp_async_wait<0>();
+
+  const size_t row_off = static_cast<size_t>(b) * T * kv_stride +
+                         static_cast<size_t>(kh) * HD;
+  store_rows<HD>((grad_k ? dk : dv) + row_off, kv_stride, acc, key_lo, T,
+                 grad_k ? scale : 1.0f, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -677,11 +990,11 @@ struct DkvTiles {
 // of bf16 (queries 16 kk .. + 15 are accumulator chunks 2 kk and 2 kk +
 // 1), B = dO or Q read MN-major through the transpose bit.  Three
 // product-units a step each, six in all.
-template <bool GRAD_K>
+template <bool GRAD_K, bool WIN>
 __device__ __forceinline__ void dkdv_consumer(
     const DkvTiles& tl, int k0, int qt0, int per_head, int n_it, int T, int KV,
-    int b, int kh, float scale_log2, int causal, __nv_bfloat16* out,
-    float mul) {
+    int b, int kh, float scale_log2, int causal, int span,
+    __nv_bfloat16* out, float mul) {
   using namespace hopper;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -717,8 +1030,13 @@ __device__ __forceinline__ void dkdv_consumer(
     wgmma_wait<0>();
     fence_regs(x);
     if constexpr (!GRAD_K) {
-      // rows past S carry lse = +inf (P = 0), keys past T are never stored
+      // rows past S carry lse = +inf (P = 0), keys past T are never
+      // stored; masked on the diagonal tile and, under a window, on a tile
+      // whose last rows lie past its first keys' window.  A masked P is an
+      // exact 0: the windowed forward's lse may lie far below such a
+      // score, whose exp2 would not be small.
       const bool diag = causal && k0 + 63 > q0;
+      const bool wedge = WIN && q0 + 63 >= k0 + span;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(rs_ + 8 * j + 2 * t);
@@ -726,8 +1044,12 @@ __device__ __forceinline__ void dkdv_consumer(
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * j + e;
           float p = ex2_ftz(fmaf(x[i], scale_log2, -((e & 1) ? l2.y : l2.x)));
-          if (diag && key_lo + (e & 2) * 4 > q0 + 8 * j + 2 * t + (e & 1)) {
-            p = 0.0f;
+          if (diag || wedge) {
+            const int key = key_lo + (e & 2) * 4;
+            const int row = q0 + 8 * j + 2 * t + (e & 1);
+            if ((diag && key > row) || (WIN && key + span <= row)) {
+              p = 0.0f;
+            }
           }
           x[i] = p;
         }
@@ -794,16 +1116,13 @@ __device__ __forceinline__ void dkdv_consumer(
 // and of 32 queries, whatever setmaxnreg asked for.  Key tiles in
 // blockIdx.y order: under causal masking tile 0 has the most query tiles,
 // so the heaviest blocks are issued first.
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                            const __grid_constant__ CUtensorMap tm_do,
-                            const __grid_constant__ CUtensorMap tm_k,
-                            const __grid_constant__ CUtensorMap tm_v,
-                            const float* __restrict__ rows,
-                            __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int S, int S_pad,
-                            int T, int H, int KV, float scale,
-                            float scale_log2, int causal) {
+template <bool WIN>
+__device__ __forceinline__ void
+dkdv_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
+           const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+           const float* __restrict__ rows, __nv_bfloat16* __restrict__ dk,
+           __nv_bfloat16* __restrict__ dv, int S, int S_pad, int T, int H,
+           int KV, float scale, float scale_log2, int causal, int window) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -822,12 +1141,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
   const int k0 = blockIdx.y * kRowTile;
-  // query tiles qt0 .. n_qt - 1 of each of the G heads; under causal
+  // query tiles qt0 .. qt1 - 1 of each of the G heads; under causal
   // masking the tiles before the block's first key hold no query that sees
-  // it
+  // it, and under a window those past its last key's window neither
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
   const int n_qt = (S + kRowTile - 1) / kRowTile;
   const int qt0 = causal ? min(k0 / kRowTile, n_qt) : 0;
-  const int per_head = n_qt - qt0;
+  const int qt1 = query_tile_end(k0, kRowTile, span, n_qt, kRowTile);
+  const int per_head = max(qt1 - qt0, 0);
   const int n_it = G * per_head;
 
   if (threadIdx.x == 0) {
@@ -858,7 +1179,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int hh = kh * G + gi;
         const float* head_rows = rows + static_cast<size_t>(b * H + hh) *
                                             (S_pad / kRowTile) * kRowsF32;
-        for (int qt = qt0; qt < n_qt; ++qt, ++it) {
+        for (int qt = qt0; qt < qt1; ++qt, ++it) {
           const int s = it % kWgStages;
           mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
           mbar_arrive_expect_tx(&full[s], kDkvStage + kRowsF32 * 4);
@@ -878,27 +1199,55 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          reinterpret_cast<float4*>(p0), rows_s, kv_full, full,
                          empty, p_full, p_empty};
     if (wg == 1) {
-      dkdv_consumer<true>(tiles, k0, qt0, per_head, n_it, T, KV, b, kh,
-                          scale_log2, causal, dk, scale);
+      dkdv_consumer<true, WIN>(tiles, k0, qt0, per_head, n_it, T, KV, b, kh,
+                          scale_log2, causal, span, dk, scale);
     } else {
-      dkdv_consumer<false>(tiles, k0, qt0, per_head, n_it, T, KV, b, kh,
-                           scale_log2, causal, dv, 1.0f);
+      dkdv_consumer<false, WIN>(tiles, k0, qt0, per_head, n_it, T, KV, b, kh,
+                           scale_log2, causal, span, dv, 1.0f);
     }
   }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const float* __restrict__ rows,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int S, int S_pad,
+                            int T, int H, int KV, float scale,
+                            float scale_log2, int causal, int window) {
+  dkdv_wgmma<false>(tm_q, tm_do, tm_k, tm_v, rows, dk, dv, S, S_pad, T, H, KV,
+                    scale, scale_log2, causal, window);
+}
+
+// the same under a causal window
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma_window_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_do,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const float* __restrict__ rows,
+                                   __nv_bfloat16* __restrict__ dk,
+                                   __nv_bfloat16* __restrict__ dv, int S,
+                                   int S_pad, int T, int H, int KV,
+                                   float scale, float scale_log2, int causal,
+                                   int window) {
+  dkdv_wgmma<true>(tm_q, tm_do, tm_k, tm_v, rows, dk, dv, S, S_pad, T, H, KV,
+                   scale, scale_log2, causal, window);
 }
 
 // (c') dQ: block (b * H + h, tile of 128 query rows); consumer warpgroup w
 // owns rows q0 + 64 w .. + 63.  Query tiles last-first, so that under
 // causal masking the blocks with the most keys are issued first.
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_do,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v,
-                          const float* __restrict__ rows,
-                          __nv_bfloat16* __restrict__ dq, int S, int S_pad,
-                          int T, int H, int KV, float scale, float scale_log2,
-                          int causal) {
+template <bool WIN>
+__device__ __forceinline__ void
+dq_wgmma(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
+         const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+         const float* __restrict__ rows, __nv_bfloat16* __restrict__ dq, int S,
+         int S_pad, int T, int H, int KV, float scale, float scale_log2,
+         int causal, int window) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -914,10 +1263,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBlock;
+  // key tiles lo .. n_tiles - 1: none past the block's last row (causal),
+  // none wholly below its first row's window
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
   int n_tiles = (T + kRowTile - 1) / kRowTile;
   if (causal) {
     n_tiles = min(n_tiles, (min(q0 + kWgBlock, S) - 1) / kRowTile + 1);
   }
+  const int lo = first_key_tile(q0, span, kRowTile);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -938,10 +1291,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_4d(qs + kBox128, &tm_q, q_full, 64, h, q0, b);
       tma_load_4d(dos, &tm_do, q_full, 0, h, q0, b);
       tma_load_4d(dos + kBox128, &tm_do, q_full, 64, h, q0, b);
-      for (int jt = 0; jt < n_tiles; ++jt) {
-        const int s = jt % kWgStages;
+      for (int jt = lo; jt < n_tiles; ++jt) {
+        const int s = (jt - lo) % kWgStages;
         const int j0 = jt * kRowTile;
-        mbar_wait(&empty[s], ((jt / kWgStages) & 1) ^ 1);
+        mbar_wait(&empty[s], (((jt - lo) / kWgStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], kDqStage);
         tma_load_4d(ks(s), &tm_k, &full[s], 0, kh, j0, b);
         tma_load_4d(ks(s) + kBox64, &tm_k, &full[s], 64, kh, j0, b);
@@ -967,13 +1320,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < 64; ++i) dqa[i] = 0.0f;
 
     mbar_wait(q_full, 0);
-    for (int jt = 0; jt < n_tiles; ++jt) {
-      const int s = jt % kWgStages;
+    for (int jt = lo; jt < n_tiles; ++jt) {
+      const int s = (jt - lo) % kWgStages;
       const int j0 = jt * kRowTile;
-      mbar_wait(&full[s], (jt / kWgStages) & 1);
-      // under causal masking a key tile wholly after this warpgroup's last
-      // row adds nothing: only its stage is handed back
-      if (!(causal && j0 > row_w + 63)) {
+      mbar_wait(&full[s], ((jt - lo) / kWgStages) & 1);
+      // a key tile wholly after this warpgroup's last row (causal) or wholly
+      // below its first row's window adds nothing: only its stage is handed
+      // back
+      if (!(causal && j0 > row_w + 63) &&
+          (!WIN || j0 + 63 + span > row_w)) {
         const uint32_t k_addr = smem_addr(ks(s));
         const uint32_t v_addr = smem_addr(vs(s));
         // S = Q K^T and dP = dO V^T: sc[4 j + e] is row r_lo (e < 2) or
@@ -999,17 +1354,23 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<1>();
         fence_regs(sc);
         // P = exp2(S scale log2 e - lse log2 e), while dP runs; masked
-        // where key > row (causal) and past T (zero K rows would still
-        // weigh exp2(-lse))
+        // where key > row (causal), past T (zero K rows would still weigh
+        // exp2(-lse)) and at key <= row - W (a window's lower edge), to an
+        // exact 0
         const bool edge = (causal && j0 + kRowTile - 1 > row_w) ||
-                          j0 + kRowTile > T;
+                          j0 + kRowTile > T ||
+                          (WIN && j0 + span <= row_w + 63);
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int rr = (i >> 1) & 1;
           float p = ex2_ftz(fmaf(sc[i], scale_log2, -lse2[rr]));
           if (edge) {
             const int key = j0 + 8 * (i / 4) + 2 * t + (i & 1);
-            if (key >= T || (causal && key > (rr ? r_hi : r_lo))) p = 0.0f;
+            const int row = rr ? r_hi : r_lo;
+            if (key >= T || (causal && key > row) ||
+                (WIN && key + span <= row)) {
+              p = 0.0f;
+            }
           }
           sc[i] = p;
         }
@@ -1053,109 +1414,155 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const float* __restrict__ rows,
+                          __nv_bfloat16* __restrict__ dq, int S, int S_pad,
+                          int T, int H, int KV, float scale, float scale_log2,
+                          int causal, int window) {
+  dq_wgmma<false>(tm_q, tm_do, tm_k, tm_v, rows, dq, S, S_pad, T, H, KV, scale,
+                  scale_log2, causal, window);
+}
+
+// the same under a causal window
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma_window_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_do,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const float* __restrict__ rows,
+                                 __nv_bfloat16* __restrict__ dq, int S,
+                                 int S_pad, int T, int H, int KV, float scale,
+                                 float scale_log2, int causal, int window) {
+  dq_wgmma<true>(tm_q, tm_do, tm_k, tm_v, rows, dq, S, S_pad, T, H, KV, scale,
+                 scale_log2, causal, window);
+}
+
 // ---------------------------------------------------------------------------
 // route 2, f32: FMA
 // ---------------------------------------------------------------------------
 
 template <int HD>
 struct BwdF32Smem {
-  static constexpr int LDT = kTileF32 + 1;    // tiles stored transposed
+  // keys a (b) block and a (c) step: 64, or 32 at hd 256, where four
+  // transposed 64-row tiles alone would take 266 KB
+  static constexpr int kKeys = HD == 256 ? 32 : kTileF32;
+  static constexpr int LDT = kTileF32 + 1;    // query tiles stored transposed
+  static constexpr int LDK = kKeys + 1;       // key tiles stored transposed
   static constexpr int LDP = kTileF32 + 16;   // P / dS rows: 16 banks apart
   static constexpr int kT = HD * LDT;
-  // (b): K^T, V^T, Q^T, dO^T, P, dS; (c): Q^T, dO^T, K^T, V^T, dS
-  static constexpr int kBytesDkv = (4 * kT + 2 * kTileF32 * LDP) * 4;
-  static constexpr int kBytesDq = (4 * kT + kTileF32 * LDP) * 4;
+  static constexpr int kK = HD * LDK;
+  // (b): K^T, V^T, Q^T, dO^T, P, dS (kKeys rows each); (c): Q^T, dO^T, K^T,
+  // V^T, dS (64 rows); 221,184 B each at hd 256
+  static constexpr int kBytesDkv = (2 * kK + 2 * kT + 2 * kKeys * LDP) * 4;
+  static constexpr int kBytesDq = (2 * kT + 2 * kK + kTileF32 * LDP) * 4;
 };
 
-// rows r0 .. r0 + 63 (zero past n) of a (.., hd) tensor whose rows are
-// `stride` apart, into dst[c * LDT + r] (transposed)
-template <int HD, int LDT>
+// rows r0 .. r0 + ROWS - 1 (zero past n) of a (.., hd) tensor whose rows
+// are `stride` apart, into dst[c * LD + r] (transposed)
+template <int HD, int LD, int ROWS>
 __device__ __forceinline__ void load_t(float* dst, const float* src,
                                        size_t stride, int r0, int n) {
-  for (int i = threadIdx.x; i < kTileF32 * HD; i += kThreadsF32) {
+  for (int i = threadIdx.x; i < ROWS * HD; i += kThreadsF32) {
     const int r = i / HD, c = i % HD;
-    dst[c * LDT + r] = r0 + r < n ? src[(r0 + r) * stride + c] : 0.0f;
+    dst[c * LD + r] = r0 + r < n ? src[(r0 + r) * stride + c] : 0.0f;
   }
 }
 
 // acc[a][j] = sum_d x[d][ty + 16 a] y[d][tx + 16 j] over the transposed
-// tiles x and y
-template <int HD, int LDT>
-__device__ __forceinline__ void tile_dot(float acc[4][4], const float* x,
+// tiles x (LDX apart) and y (LDY apart), summed in f64 and rounded once.
+// dS = P (dP - D) cancels: where a row sees one key, P = 1 and the exact dQ
+// is 0, and an f32 sum of hd products (D's in another order) leaves dP - D
+// several ulps of |dP| from 0, up to 1e-4 of dQ's scale at hd 128
+// (scripts/flash_bwd_f32_rows.py); f64 sums, here and in D, leave one.
+template <int HD, int LDX, int LDY, int A, int J>
+__device__ __forceinline__ void tile_dot(float acc[A][J], const float* x,
                                          const float* y, int tx, int ty) {
+  double sum[A][J];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < A; ++a) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[a][j] = 0.0f;
+    for (int j = 0; j < J; ++j) sum[a][j] = 0.0;
   }
-#pragma unroll 4
+  // unrolled by 2: by 4, ptxas spills 4 bytes of the windowed hd-32 dK / dV
+#pragma unroll 2
   for (int d = 0; d < HD; ++d) {
-    float xv[4], yv[4];
+    double xv[A], yv[J];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) xv[a] = x[d * LDT + ty + 16 * a];
+    for (int a = 0; a < A; ++a) xv[a] = x[d * LDX + ty + 16 * a];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) yv[j] = y[d * LDT + tx + 16 * j];
+    for (int j = 0; j < J; ++j) yv[j] = y[d * LDY + tx + 16 * j];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < A; ++a) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(xv[a], yv[j], acc[a][j]);
+      for (int j = 0; j < J; ++j) sum[a][j] = fma(xv[a], yv[j], sum[a][j]);
     }
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[a][j] = static_cast<float>(sum[a][j]);
   }
 }
 
-// (b) dK, dV: block (b * KV + kh, 64-key tile); thread (ty, tx) owns keys
-// ty + 16 a and, of the 64 x 64 score tiles, queries tx + 16 j; of dK and
-// dV, columns tx + 16 c
-template <int HD>
-__global__ void __launch_bounds__(kThreadsF32)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dsum,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int S, int T, int H, int KV, float scale,
-                          int causal) {
+// (b) dK, dV: block (b * KV + kh, tile of kKeys keys); thread (ty, tx) owns
+// keys ty + 16 a and, of the kKeys x 64 score tiles, queries tx + 16 j; of
+// dK and dV, columns tx + 16 c
+template <int HD, bool WIN>
+__device__ __forceinline__ void
+dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+         const float* __restrict__ v, const float* __restrict__ dout,
+         const float* __restrict__ lse, const float* __restrict__ dsum,
+         float* __restrict__ dk, float* __restrict__ dv, int S, int T, int H,
+         int KV, float scale, int causal, int window) {
   using SM = BwdF32Smem<HD>;
   extern __shared__ __align__(16) uint8_t bwd_smem[];
-  constexpr int LDT = SM::LDT, LDP = SM::LDP;
+  constexpr int LDT = SM::LDT, LDK = SM::LDK, LDP = SM::LDP;
+  constexpr int KEYS = SM::kKeys;
+  constexpr int A = KEYS / 16;                // keys per thread
   constexpr int DC = HD / 16;
   float* kt = reinterpret_cast<float*>(bwd_smem);
-  float* vt = kt + SM::kT;
-  float* qt = vt + SM::kT;
+  float* vt = kt + SM::kK;
+  float* qt = vt + SM::kK;
   float* ot = qt + SM::kT;
-  float* ps = ot + SM::kT;                    // [64][LDP]
-  float* dss = ps + kTileF32 * LDP;           // [64][LDP]
+  float* ps = ot + SM::kT;                    // [KEYS][LDP]
+  float* dss = ps + KEYS * LDP;               // [KEYS][LDP]
 
   const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
-  const int k0 = blockIdx.y * kTileF32;
+  const int k0 = blockIdx.y * KEYS;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const size_t q_stride = static_cast<size_t>(H) * HD;
   const size_t kv_stride = static_cast<size_t>(KV) * HD;
   const size_t kv_off = static_cast<size_t>(b) * T * kv_stride +
                         static_cast<size_t>(kh) * HD;
-  load_t<HD, LDT>(kt, k + kv_off, kv_stride, k0, T);
-  load_t<HD, LDT>(vt, v + kv_off, kv_stride, k0, T);
+  load_t<HD, LDK, KEYS>(kt, k + kv_off, kv_stride, k0, T);
+  load_t<HD, LDK, KEYS>(vt, v + kv_off, kv_stride, k0, T);
 
-  float dk_acc[4][DC], dv_acc[4][DC];
+  float dk_acc[A][DC], dv_acc[A][DC];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < A; ++a) {
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.0f;
   }
+  // query tiles qt0 .. qt1 - 1: from the block's first key (causal) to its
+  // last key's window
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
   const int n_qt = (S + kTileF32 - 1) / kTileF32;
   const int qt0 = causal ? min(k0 / kTileF32, n_qt) : 0;
+  const int qt1 = query_tile_end(k0, KEYS, span, n_qt, kTileF32);
   for (int gi = 0; gi < G; ++gi) {
     const int hh = kh * G + gi;
     const size_t q_off = static_cast<size_t>(b) * S * q_stride +
                          static_cast<size_t>(hh) * HD;
     const size_t row_off = (static_cast<size_t>(b) * H + hh) * S;
-    for (int qt_i = qt0; qt_i < n_qt; ++qt_i) {
+    for (int qt_i = qt0; qt_i < qt1; ++qt_i) {
       const int q0 = qt_i * kTileF32;
       __syncthreads();                  // the last step's tiles are read
-      load_t<HD, LDT>(qt, q + q_off, q_stride, q0, S);
-      load_t<HD, LDT>(ot, dout + q_off, q_stride, q0, S);
+      load_t<HD, LDT, kTileF32>(qt, q + q_off, q_stride, q0, S);
+      load_t<HD, LDT, kTileF32>(ot, dout + q_off, q_stride, q0, S);
       float ls[4], dd[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -1164,16 +1571,18 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
         dd[j] = qpos < S ? dsum[row_off + qpos] : 0.0f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot<HD, LDT>(s, kt, qt, tx, ty);     // S^T = K Q^T
-      tile_dot<HD, LDT>(dp, vt, ot, tx, ty);    // dP^T = V dO^T
+      float s[A][4], dp[A][4];
+      tile_dot<HD, LDK, LDT, A, 4>(s, kt, qt, tx, ty);     // S^T = K Q^T
+      tile_dot<HD, LDK, LDT, A, 4>(dp, vt, ot, tx, ty);    // dP^T = V dO^T
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < A; ++a) {
         const int key = k0 + ty + 16 * a;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int qpos = q0 + tx + 16 * j;
-          const bool live = qpos < S && key < T && !(causal && key > qpos);
+          const bool live = qpos < S && key < T &&
+                            !(causal && key > qpos) &&
+                            (!WIN || key + span > qpos);
           const float p = live ? expf(s[a][j] * scale - ls[j]) : 0.0f;
           ps[(ty + 16 * a) * LDP + tx + 16 * j] = p;
           dss[(ty + 16 * a) * LDP + tx + 16 * j] = p * (dp[a][j] - dd[j]);
@@ -1183,9 +1592,9 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       // dV += P^T dO, dK += dS^T Q, over the tile's 64 queries
 #pragma unroll 4
       for (int j = 0; j < kTileF32; ++j) {
-        float pv[4], sv[4], ov[DC], qv[DC];
+        float pv[A], sv[A], ov[DC], qv[DC];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < A; ++a) {
           pv[a] = ps[(ty + 16 * a) * LDP + j];
           sv[a] = dss[(ty + 16 * a) * LDP + j];
         }
@@ -1195,7 +1604,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
           qv[c] = qt[(tx + 16 * c) * LDT + j];
         }
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < A; ++a) {
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
             dv_acc[a][c] = fmaf(pv[a], ov[c], dv_acc[a][c]);
@@ -1206,7 +1615,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
     }
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < A; ++a) {
     const int key = k0 + ty + 16 * a;
     if (key >= T) continue;
 #pragma unroll
@@ -1218,28 +1627,58 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
   }
 }
 
-// (c) dQ: block (b * H + h, 64-row query tile); thread (ty, tx) owns rows
-// ty + 16 a and, of each 64 x 64 score tile, keys tx + 16 j; of dQ,
-// columns tx + 16 c
 template <int HD>
 __global__ void __launch_bounds__(kThreadsF32)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dsum,
-                        float* __restrict__ dq, int S, int T, int H, int KV,
-                        float scale, int causal) {
+flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int S, int T, int H, int KV, float scale, int causal,
+                          int window) {
+  dkdv_f32<HD, false>(q, k, v, dout, lse, dsum, dk, dv, S, T, H, KV, scale,
+                      causal, window);
+}
+
+// the same under a causal window
+template <int HD>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_bwd_dkdv_f32_window_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ dsum,
+                                 float* __restrict__ dk,
+                                 float* __restrict__ dv, int S, int T, int H,
+                                 int KV, float scale, int causal, int window) {
+  dkdv_f32<HD, true>(q, k, v, dout, lse, dsum, dk, dv, S, T, H, KV, scale,
+                     causal, window);
+}
+
+// (c) dQ: block (b * H + h, 64-row query tile); thread (ty, tx) owns rows
+// ty + 16 a and, of each 64 x kKeys score tile, keys tx + 16 j; of dQ,
+// columns tx + 16 c
+template <int HD, bool WIN>
+__device__ __forceinline__ void
+dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+       const float* __restrict__ v, const float* __restrict__ dout,
+       const float* __restrict__ lse, const float* __restrict__ dsum,
+       float* __restrict__ dq, int S, int T, int H, int KV, float scale,
+       int causal, int window) {
   using SM = BwdF32Smem<HD>;
   extern __shared__ __align__(16) uint8_t bwd_smem[];
-  constexpr int LDT = SM::LDT, LDP = SM::LDP;
+  constexpr int LDT = SM::LDT, LDK = SM::LDK, LDP = SM::LDP;
+  constexpr int KEYS = SM::kKeys;
+  constexpr int J = KEYS / 16;                // keys per thread
   constexpr int DC = HD / 16;
   float* qt = reinterpret_cast<float*>(bwd_smem);
   float* ot = qt + SM::kT;
   float* kt = ot + SM::kT;
-  float* vt = kt + SM::kT;
-  float* dss = vt + SM::kT;                   // [64][LDP]
+  float* vt = kt + SM::kK;
+  float* dss = vt + SM::kK;                   // [64][LDP]
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kh = h / (H / KV);
@@ -1251,8 +1690,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                        static_cast<size_t>(h) * HD;
   const size_t kv_off = static_cast<size_t>(b) * T * kv_stride +
                         static_cast<size_t>(kh) * HD;
-  load_t<HD, LDT>(qt, q + q_off, q_stride, q0, S);
-  load_t<HD, LDT>(ot, dout + q_off, q_stride, q0, S);
+  load_t<HD, LDT, kTileF32>(qt, q + q_off, q_stride, q0, S);
+  load_t<HD, LDT, kTileF32>(ot, dout + q_off, q_stride, q0, S);
   float ls[4], dd[4], dq_acc[4][DC];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -1264,39 +1703,43 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     for (int c = 0; c < DC; ++c) dq_acc[a][c] = 0.0f;
   }
 
-  int n_tiles = (T + kTileF32 - 1) / kTileF32;
+  // key tiles lo .. n_tiles - 1: none past the block's last row (causal),
+  // none wholly below its first row's window
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
+  int n_tiles = (T + KEYS - 1) / KEYS;
   if (causal) {
-    n_tiles = min(n_tiles, (min(q0 + kTileF32, S) - 1) / kTileF32 + 1);
+    n_tiles = min(n_tiles, (min(q0 + kTileF32, S) - 1) / KEYS + 1);
   }
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int j0 = jt * kTileF32;
+  for (int jt = first_key_tile(q0, span, KEYS); jt < n_tiles; ++jt) {
+    const int j0 = jt * KEYS;
     __syncthreads();                    // the last step's tiles are read
-    load_t<HD, LDT>(kt, k + kv_off, kv_stride, j0, T);
-    load_t<HD, LDT>(vt, v + kv_off, kv_stride, j0, T);
+    load_t<HD, LDK, KEYS>(kt, k + kv_off, kv_stride, j0, T);
+    load_t<HD, LDK, KEYS>(vt, v + kv_off, kv_stride, j0, T);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD, LDT>(s, qt, kt, tx, ty);       // S = Q K^T
-    tile_dot<HD, LDT>(dp, ot, vt, tx, ty);      // dP = dO V^T
+    float s[4][J], dp[4][J];
+    tile_dot<HD, LDT, LDK, 4, J>(s, qt, kt, tx, ty);       // S = Q K^T
+    tile_dot<HD, LDT, LDK, 4, J>(dp, ot, vt, tx, ty);      // dP = dO V^T
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int qpos = q0 + ty + 16 * a;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < J; ++j) {
         const int key = j0 + tx + 16 * j;
-        const bool live = qpos < S && key < T && !(causal && key > qpos);
+        const bool live = qpos < S && key < T && !(causal && key > qpos) &&
+                          (!WIN || key + span > qpos);
         const float p = live ? expf(s[a][j] * scale - ls[a]) : 0.0f;
         dss[(ty + 16 * a) * LDP + tx + 16 * j] = p * (dp[a][j] - dd[a]);
       }
     }
     __syncthreads();
-    // dQ += dS K, over the tile's 64 keys
+    // dQ += dS K, over the tile's keys
 #pragma unroll 4
-    for (int j = 0; j < kTileF32; ++j) {
+    for (int j = 0; j < KEYS; ++j) {
       float sv[4], kv[DC];
 #pragma unroll
       for (int a = 0; a < 4; ++a) sv[a] = dss[(ty + 16 * a) * LDP + j];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = kt[(tx + 16 * c) * LDT + j];
+      for (int c = 0; c < DC; ++c) kv[c] = kt[(tx + 16 * c) * LDK + j];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
 #pragma unroll
@@ -1317,6 +1760,35 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   }
 }
 
+template <int HD>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dsum, float* __restrict__ dq,
+                        int S, int T, int H, int KV, float scale, int causal,
+                        int window) {
+  dq_f32<HD, false>(q, k, v, dout, lse, dsum, dq, S, T, H, KV, scale, causal,
+                    window);
+}
+
+// the same under a causal window
+template <int HD>
+__global__ void __launch_bounds__(kThreadsF32)
+flash_bwd_dq_f32_window_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dsum,
+                               float* __restrict__ dq, int S, int T, int H,
+                               int KV, float scale, int causal, int window) {
+  dq_f32<HD, true>(q, k, v, dout, lse, dsum, dq, S, T, H, KV, scale, causal,
+                   window);
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -1332,33 +1804,64 @@ struct Args {
   void *dq, *dk, *dv, *dsum;
   int B, S, T, H, KV, causal;
   float scale;
+  int window;                         // 0 for none
 };
 
+// route 1's (c), also route 3's
+template <int HD>
+int launch_dq_bf16(const Args& a, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const auto kernel = a.window ? flash_bwd_dq_bf16_window_kernel<HD>
+                               : flash_bwd_dq_bf16_kernel<HD>;
+  const int e3 = set_smem(kernel, DqSmem<HD>::kBytes);
+  if (e3 != 0) return e3;
+  kernel<<<dim3(a.B * a.H, (a.S + kRowsDq - 1) / kRowsDq), kThreadsMma,
+         DqSmem<HD>::kBytes, stream>>>(
+          static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+          static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
+          static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+          static_cast<bf*>(a.dq), a.S, a.T, a.H, a.KV, a.scale, a.causal,
+          a.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// route 1: (b), then (c)
 template <int HD>
 int launch_bf16(const Args& a, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const int e1 = set_smem(flash_bwd_dkdv_bf16_kernel<HD>, DkvSmem<HD>::kBytes);
+  const auto kernel = a.window ? flash_bwd_dkdv_bf16_window_kernel<HD>
+                               : flash_bwd_dkdv_bf16_kernel<HD>;
+  const int e1 = set_smem(kernel, DkvSmem<HD>::kBytes);
   if (e1 != 0) return e1;
-  flash_bwd_dkdv_bf16_kernel<HD>
-      <<<dim3(a.B * a.KV, (a.T + kKeysDkv - 1) / kKeysDkv), kThreadsMma,
+  kernel<<<dim3(a.B * a.KV, (a.T + kKeysDkv - 1) / kKeysDkv), kThreadsMma,
          DkvSmem<HD>::kBytes, stream>>>(
           static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
           static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
           static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.S, a.T, a.H, a.KV,
-          a.scale, a.causal);
+          a.scale, a.causal, a.window);
   const int e2 = static_cast<int>(cudaGetLastError());
   if (e2 != 0) return e2;
-  const int e3 = set_smem(flash_bwd_dq_bf16_kernel<HD>, DqSmem<HD>::kBytes);
-  if (e3 != 0) return e3;
-  flash_bwd_dq_bf16_kernel<HD>
-      <<<dim3(a.B * a.H, (a.S + kRowsDq - 1) / kRowsDq), kThreadsMma,
-         DqSmem<HD>::kBytes, stream>>>(
+  return launch_dq_bf16<HD>(a, stream);
+}
+
+// route 3: (b''), then route 1's (c) at hd 256
+int launch_hd256(const Args& a, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  using SM = DkvHd256Smem;
+  const int e1 = set_smem(flash_bwd_dkdv_hd256_kernel, SM::kBytes);
+  if (e1 != 0) return e1;
+  flash_bwd_dkdv_hd256_kernel
+      <<<dim3(a.B * a.KV, (a.T + kKeysDkv - 1) / kKeysDkv), kThreadsHd256,
+         SM::kBytes, stream>>>(
           static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
           static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-          static_cast<bf*>(a.dq), a.S, a.T, a.H, a.KV, a.scale, a.causal);
-  return static_cast<int>(cudaGetLastError());
+          static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.S, a.T, a.H, a.KV,
+          a.scale, a.causal, a.window);
+  const int e2 = static_cast<int>(cudaGetLastError());
+  if (e2 != 0) return e2;
+  return launch_dq_bf16<256>(a, stream);
 }
 
 // route 0: (a'), then (b') and (c') on tensor maps over the real 4-D
@@ -1401,48 +1904,54 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
     if (err != 0) return err;
   }
   const float scale_log2 = a.scale * kLog2e;
-  err = set_smem(flash_bwd_dkdv_wgmma_kernel, kDkvSmem);
+  const auto dkdv = a.window ? flash_bwd_dkdv_wgmma_window_kernel
+                             : flash_bwd_dkdv_wgmma_kernel;
+  err = set_smem(dkdv, kDkvSmem);
   if (err != 0) return err;
-  flash_bwd_dkdv_wgmma_kernel<<<dim3(a.B * a.KV, (a.T + kRowTile - 1) / kRowTile),
-                                kWgThreads, kDkvSmem, stream>>>(
+  dkdv<<<dim3(a.B * a.KV, (a.T + kRowTile - 1) / kRowTile), kWgThreads,
+         kDkvSmem, stream>>>(
       q64, do64, k64, v64, rows, static_cast<bf*>(a.dk),
       static_cast<bf*>(a.dv), a.S, S_pad, a.T, a.H, a.KV, a.scale, scale_log2,
-      a.causal);
+      a.causal, a.window);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  err = set_smem(flash_bwd_dq_wgmma_kernel, kDqSmem);
+  const auto dq = a.window ? flash_bwd_dq_wgmma_window_kernel
+                           : flash_bwd_dq_wgmma_kernel;
+  err = set_smem(dq, kDqSmem);
   if (err != 0) return err;
-  flash_bwd_dq_wgmma_kernel<<<dim3(a.B * a.H, S_pad / kWgBlock), kWgThreads,
-                              kDqSmem, stream>>>(
+  dq<<<dim3(a.B * a.H, S_pad / kWgBlock), kWgThreads, kDqSmem, stream>>>(
       q128, do128, k64, v64, rows, static_cast<bf*>(a.dq), a.S, S_pad, a.T,
-      a.H, a.KV, a.scale, scale_log2, a.causal);
+      a.H, a.KV, a.scale, scale_log2, a.causal, a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_f32(const Args& a, cudaStream_t stream) {
   using SM = BwdF32Smem<HD>;
-  const int e1 = set_smem(flash_bwd_dkdv_f32_kernel<HD>, SM::kBytesDkv);
+  const auto dkdv = a.window ? flash_bwd_dkdv_f32_window_kernel<HD>
+                             : flash_bwd_dkdv_f32_kernel<HD>;
+  const int e1 = set_smem(dkdv, SM::kBytesDkv);
   if (e1 != 0) return e1;
-  flash_bwd_dkdv_f32_kernel<HD>
-      <<<dim3(a.B * a.KV, (a.T + kTileF32 - 1) / kTileF32), kThreadsF32,
+  dkdv<<<dim3(a.B * a.KV, (a.T + SM::kKeys - 1) / SM::kKeys), kThreadsF32,
          SM::kBytesDkv, stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
           static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S, a.T, a.H,
-          a.KV, a.scale, a.causal);
+          a.KV, a.scale, a.causal, a.window);
   const int e2 = static_cast<int>(cudaGetLastError());
   if (e2 != 0) return e2;
-  const int e3 = set_smem(flash_bwd_dq_f32_kernel<HD>, SM::kBytesDq);
+  const auto dq = a.window ? flash_bwd_dq_f32_window_kernel<HD>
+                           : flash_bwd_dq_f32_kernel<HD>;
+  const int e3 = set_smem(dq, SM::kBytesDq);
   if (e3 != 0) return e3;
-  flash_bwd_dq_f32_kernel<HD>
-      <<<dim3(a.B * a.H, (a.S + kTileF32 - 1) / kTileF32), kThreadsF32,
+  dq<<<dim3(a.B * a.H, (a.S + kTileF32 - 1) / kTileF32), kThreadsF32,
          SM::kBytesDq, stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-          static_cast<float*>(a.dq), a.S, a.T, a.H, a.KV, a.scale, a.causal);
+          static_cast<float*>(a.dq), a.S, a.T, a.H, a.KV, a.scale, a.causal,
+          a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1465,31 +1974,41 @@ int launch_dot(const Args& a, int hd, cudaStream_t stream) {
 // and contiguity, and that the pointers are 16-byte aligned; B, S, T, H >= 1
 // and H % KV == 0.  lse (B, H, S) f32 from the forward.  dtype 0 = bf16, 1
 // = f32.  route 0 = wgmma (bf16, hd 128), 1 = mma_sync (bf16, hd 32 or
-// 64), 2 = fma (f32, hd 32, 64 or 128); a route that the dtype and hd do
-// not select is refused.  dsum is f32 scratch of 2 B H S_pad floats (S_pad
-// = S rounded up to a multiple of 128; kernels/flash_attention.py::
-// flash_bwd_scratch allocates it): route 0's (a') fills it with lse log2 e
-// and D, 64 rows at a time; routes 1 and 2's (a) fill its first B H S
-// floats with D (B, H, S).
+// 64), 2 = fma (f32, hd 32, 64, 128 or 256), 3 = hd256 (bf16, hd 256); a
+// route that the dtype and hd do not select is refused.  dsum is f32
+// scratch of 2 B H S_pad floats (S_pad = S rounded up to a multiple of
+// 128; kernels/flash_attention.py::flash_bwd_scratch allocates it): route
+// 0's (a') fills it with lse log2 e and D, 64 rows at a time; routes 1, 2
+// and 3's (a) fill its first B H S floats with D (B, H, S).  window: 0 for
+// none, else the forward's causal window W >= 1, with every query row
+// seeing a key (S <= T + W - 1); lse must be the windowed forward's.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* lse,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* dsum, int B, int S, int T,
                                    int H, int KV, int hd, int dtype,
                                    int causal, float scale, int route,
-                                   void* stream) {
+                                   int window, void* stream) {
   const bool fits =
       (route == 0 && dtype == 0 && hd == 128) ||
       (route == 1 && dtype == 0 && (hd == 32 || hd == 64)) ||
-      (route == 2 && dtype == 1 && (hd == 32 || hd == 64 || hd == 128));
+      (route == 2 && dtype == 1 &&
+       (hd == 32 || hd == 64 || hd == 128 || hd == 256)) ||
+      (route == 3 && dtype == 0 && hd == 256);
+  const bool window_ok =
+      window == 0 || (window > 0 && causal &&
+                      static_cast<long long>(S) <=
+                          static_cast<long long>(T) + window - 1);
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      !fits || (S + 63) / 64 > 65535 || (T + 63) / 64 > 65535 ||
+      !fits || !window_ok || (S + 63) / 64 > 65535 ||
+      (T + 63) / 64 > 65535 ||
+      (route == 2 && hd == 256 && (T + 31) / 32 > 65535) ||
       static_cast<long long>(B) * H > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, out, lse, dout, dq, dk, dv, dsum,
-               B, S, T, H, KV, causal, scale};
+               B, S, T, H, KV, causal, scale, window};
   if (route == 0) return launch_wgmma(a, s);
   const int e = dtype == 0 ? launch_dot<__nv_bfloat16>(a, hd, s)
                            : launch_dot<float>(a, hd, s);
@@ -1497,10 +2016,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (route == 1) {
     return hd == 32 ? launch_bf16<32>(a, s) : launch_bf16<64>(a, s);
   }
+  if (route == 3) return launch_hd256(a, s);
   switch (hd) {
     case 32: return launch_f32<32>(a, s);
     case 64: return launch_f32<64>(a, s);
-    default: return launch_f32<128>(a, s);
+    case 128: return launch_f32<128>(a, s);
+    default: return launch_f32<256>(a, s);
   }
 }
 

@@ -46,17 +46,19 @@ dQ per (batch, query head, query tile), each recomputing P = exp(scale
 q k^T - lse).  No atomics: the gradient is bitwise the same run to run.
 The reference has no Pallas backward; this is the port's counterpart of
 XLA's autodiff of `chunked_attention`, the reference's path at these
-lengths.  `flash_bwd_route` picks the backward's kernels as
-`flash_route` picks the forward's:
+lengths.  The backward takes the forward's route (`flash_route`):
   - "wgmma": bf16, hd 128 (Yi-9B's long-sequence training) -- TMA loads
     into an mbarrier ring fed by a producer warpgroup, wgmma for all five
     products, P and dS entering theirs from registers;
   - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
     kernels;
-  - "fma": f32 -- FMA, never TF32.
-Neither a window nor hd 256 has backward kernels yet (ROADMAP queue 1
-item 11): on CUDA tensors a call that autograd records with either
-raises before it launches, and `flash_bwd_route` raises at hd 256.
+  - "hd256": bf16, hd 256 (gemma-7b) -- route 1's `mma.sync` with a pair
+    of warps per 16 keys in dK / dV (one accumulates dV, its partner dK)
+    and 32-key steps in dQ, so that the 16 x 256 f32 accumulators fit;
+  - "fma": f32 -- FMA, never TF32 (32-key tiles at hd 256).
+Every route takes the forward's window: it skips the tiles wholly outside
+it and masks P (and dS) to an exact 0 on the tiles at its lower edge.
+`FLASH_BWD.launches_by_tag["window"]` counts the windowed launches.
 `flash_bwd_scratch` allocates the f32 scratch, sized for the largest
 route's need.
 `flash_attention_bwd_plain` is the backward's function in plain PyTorch.
@@ -91,8 +93,6 @@ HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the C entry points' `route`
 ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2, "hd256": 3}
-NO_BACKWARD = ("no flash backward kernel for a sliding window or hd 256 yet "
-               "(ROADMAP queue 1 item 11)")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (q, k, v, out, lse or None, B, S, T, H, KV, hd, dtype, causal, scale, route,
@@ -100,15 +100,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FLASH = CudaFunction("flash_attention", "flash_attention_fwd",
                      [_P] * 5 + [_I] * 8 + [_F, _I, _I])
 # (q, k, v, out, lse, dout, dq, dk, dv, dsum scratch, B, S, T, H, KV, hd,
-#  dtype, causal, scale, route)
+#  dtype, causal, scale, route, window: 0 for none)
 FLASH_BWD = CudaFunction("flash_attention_bwd", "flash_attention_bwd",
-                         [_P] * 10 + [_I] * 8 + [_F, _I])
+                         [_P] * 10 + [_I] * 8 + [_F, _I, _I])
 
 
 def flash_route(dtype: torch.dtype, hd: int) -> str:
-    """The forward kernel that serves (dtype, hd): "wgmma" for bf16 at hd
-    128, "mma_sync" for bf16 at hd 32 or 64, "hd256" for bf16 at hd 256,
-    "fma" for f32."""
+    """The forward's and the backward's kernels that serve (dtype, hd):
+    "wgmma" for bf16 at hd 128, "mma_sync" for bf16 at hd 32 or 64, "hd256"
+    for bf16 at hd 256, "fma" for f32."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: the CUDA kernel takes bf16 or f32, "
                         f"got {dtype}")
@@ -120,21 +120,12 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
     return {128: "wgmma", 256: "hd256"}.get(hd, "mma_sync")
 
 
-def flash_bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The backward kernels that serve (dtype, hd): the forward's route,
-    "wgmma" for bf16 at hd 128, "mma_sync" for bf16 at hd 32 or 64, "fma"
-    for f32.  hd 256 raises: it has no backward kernels yet."""
-    route = flash_route(dtype, hd)
-    if hd == 256:
-        raise NotImplementedError(f"flash_attention_bwd: {NO_BACKWARD}")
-    return route
-
-
 def flash_bwd_scratch(B: int, H: int, S: int, device) -> torch.Tensor:
     """The backward entry point's f32 scratch, 2 B H S_pad floats with
     S_pad = S rounded up to a multiple of 128: the "wgmma" route writes lse
     * log2 e and D there, 64 rows of each in turn (rows past S padded); the
-    "mma_sync" and "fma" routes write D (B, H, S) into its first B H S."""
+    "mma_sync", "hd256" and "fma" routes write D (B, H, S) into its first
+    B H S."""
     rows = -(-S // 128) * 128 * 2
     return torch.empty(B, H, rows, dtype=torch.float32, device=device)
 
@@ -202,19 +193,21 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float,
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool,
-                              scale: float):
+                              scale: float, window=None):
     """The backward kernels' function in plain PyTorch: with P = exp(scale
-    q k^T - lse) (0 above the diagonal under `causal`) and D = rowsum(dout
-    * out), dV = P^T dout, dS = P * (dout v^T - D), dQ = scale dS k and
-    dK = scale dS^T q, the GQA sum over each KV head's G query heads taken
-    per group.  f32 arithmetic (f64 for f64 inputs); returns (dq, dk, dv)
-    in q's dtype.  lse (B, H, S) as `flash_attention_plain(...,
+    q k^T - lse) (0 above the diagonal under `causal` and, given a causal
+    window W, at keys t <= s - W) and D = rowsum(dout * out), dV = P^T
+    dout, dS = P * (dout v^T - D), dQ = scale dS k and dK = scale dS^T q,
+    the GQA sum over each KV head's G query heads taken per group.  f32
+    arithmetic (f64 for f64 inputs); returns (dq, dk, dv) in q's dtype.
+    lse (B, H, S) as `flash_attention_plain(..., window=window,
     return_lse=True)` or the forward kernel gives it."""
     S, H = q.shape[1], q.shape[2]
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     wt = _work_dtype(q.dtype)
-    keep = _keep(S, T, q.device) if causal else None
+    _check_window(window, causal, S, T)
+    keep = _keep(S, T, q.device, window) if causal else None
     dsum = torch.einsum("bshd,bshd->bhs", dout.to(wt), out.to(wt))
     dqs, dks, dvs = [], [], []
     for h in range(KV):
@@ -291,11 +284,12 @@ def _forward(q, k, v, causal: bool, scale: float, want_lse: bool,
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
-                        scale: float):
+                        scale: float, window=None):
     """(dq, dk, dv) of `flash_attention` at (q, k, v) for the output
-    gradient `dout`, given the forward's `out` and `lse` (B, H, S) f32.  On
-    CUDA tensors one launch of the backward entry point (three kernels);
-    on CPU tensors `flash_attention_bwd_plain`."""
+    gradient `dout`, given the forward's `out` and `lse` (B, H, S) f32 (the
+    forward's under the same `window`).  On CUDA tensors one launch of the
+    backward entry point (three kernels); on CPU tensors
+    `flash_attention_bwd_plain`."""
     _check_shapes(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
@@ -306,14 +300,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     if lse.shape != (B, H, S):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} must "
                          f"be (B, H, S) = {(B, H, S)}")
+    w = _check_window(window, causal, S, T)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         causal=causal, scale=scale)
+                                         causal=causal, scale=scale,
+                                         window=window)
     _check_cuda(q, ("k", k), ("v", v), ("out", out), ("dout", dout))
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise TypeError(f"flash_attention_bwd: lse must be f32 on "
                         f"{q.device}, got {lse.dtype} on {lse.device}")
-    route = flash_bwd_route(q.dtype, hd)
+    route = flash_route(q.dtype, hd)
     q, k, v, out, dout, lse = (aligned(t) for t in (q, k, v, out, dout, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or T == 0:
@@ -322,21 +318,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     FLASH_BWD(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
               out.data_ptr(), lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
               dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, S, T, H, KV,
-              hd, DTYPES[q.dtype], int(causal), float(scale), ROUTES[route],
-              route=route)
+              hd, DTYPES[q.dtype], int(causal), float(scale), ROUTES[route], w,
+              route=route, tag="window" if w else None)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """The kernels with their gradient: the forward saves q, k, v, out and
-    lse; the backward launches `flash_attention_bwd` once."""
+    lse (and the window); the backward launches `flash_attention_bwd`
+    once."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
+    def forward(ctx, q, k, v, causal: bool, scale: float, window: int):
         q, k, v = aligned(q), aligned(k), aligned(v)
-        out, lse = _forward(q, k, v, causal, scale, want_lse=True)
+        out, lse = _forward(q, k, v, causal, scale, want_lse=True,
+                            window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return out
 
     @staticmethod
@@ -344,8 +342,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         window=ctx.window or None)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float,
@@ -353,8 +352,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float,
     """softmax(q k^T * scale, causal) v per query head, GQA layout, with an
     optional causal sliding window of `window` keys; returns (B, S, H, hd)
     in q.dtype.  On CUDA tensors, differentiable through the backward
-    kernels whenever autograd records, except with a window or at hd 256,
-    which raise there (no backward kernels yet)."""
+    kernels whenever autograd records."""
     _check_shapes(q, k, v)
     w = _check_window(window, causal, q.shape[1], k.shape[1])
     if not q.is_cuda:
@@ -362,10 +360,6 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float,
                                      window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         _check_cuda(q, ("k", k), ("v", v))
-        if w or q.shape[3] == 256:
-            raise NotImplementedError(
-                f"flash_attention under autograd: {NO_BACKWARD}; run the "
-                "forward under torch.no_grad()")
-        return _FlashAttention.apply(q, k, v, causal, float(scale))
+        return _FlashAttention.apply(q, k, v, causal, float(scale), w)
     q, k, v = aligned(q), aligned(k), aligned(v)
     return _forward(q, k, v, causal, scale, want_lse=False, window=w)[0]

@@ -205,10 +205,10 @@ def gqa_forward(params, x, cfg: ModelConfig, *, lora=None, lora_scale=1.0,
     classifiers' encoder) full with no mask; RoPE is applied either way, as
     in the reference.  A causal prompt of `cfg.chunked_attn_threshold`
     tokens or more takes the flash-style path: the CUDA flash kernel on
-    CUDA tensors (forward and, when autograd records, backward; a window or
-    hd 256 there has no backward kernels yet, and raises under autograd),
-    `chunked_attention` on the CPU, both held to the reference's chunk
-    contract (`attn_chunk_q`/`_kv` must divide S)."""
+    CUDA tensors (forward and, when autograd records, backward, under a
+    window and at every head size), `chunked_attention` on the CPU, both
+    held to the reference's chunk contract (`attn_chunk_q`/`_kv` must
+    divide S)."""
     B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     lget = (lora or {}).get

@@ -48,14 +48,13 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_servable(cfg: ModelConfig) -> None:
-    """`prefill` and `decode_step` serve causal token LMs only: the task
-    models' embedding inputs, classifier heads and learned positions are
-    not served (see ROADMAP queue 3 on the reference's decode of learned
-    positions)."""
+    """`prefill` and `decode_step` serve causal token LMs only, as the
+    reference's engine does: the task models' embedding inputs and
+    classifier heads are not served.  Learned positions are (GPT-2 Small):
+    `decode_step` adds each row's own position's embedding."""
     check_supported(cfg)
     _refuse(cfg, (("embedding inputs", cfg.embed_inputs),
-                  ("classifier head", cfg.num_classes > 0),
-                  ("learned positions", cfg.use_learned_pos)), "serve")
+                  ("classifier head", cfg.num_classes > 0)), "serve")
 
 
 def _refuse(cfg: ModelConfig, features, verb: str) -> None:
@@ -212,13 +211,15 @@ def _lm_head(params, cfg: ModelConfig):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 pos_offset: int = 0):
-    """Token embeddings, plus the learned positions pos_offset.. when the
-    model has them."""
+                 positions=None):
+    """Token embeddings (B, S, D), plus, when the model has learned
+    positions, those of `positions` (indices broadcast against tokens; by
+    default 0..S-1)."""
     x = params["embed"][tokens]
     if cfg.use_learned_pos:
-        S = tokens.shape[-1]
-        x = x + params["pos_embed"][pos_offset:pos_offset + S]
+        table = params["pos_embed"]
+        x = x + (table[:tokens.shape[-1]] if positions is None
+                 else table[positions])
     return x
 
 
@@ -319,10 +320,14 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache, *, lora=None,
     tree (leaf dicts carrying `gidx`, see `serving/cache.py::paged_lora`)
     serves a different adapter per row through the same call.  Under a
     sliding window the cache is the rolling one of `cache_spec(...,
-    window)` or `prefill(..., window=)`.  Returns (logits (B,1,V),
-    cache)."""
+    window)` or `prefill(..., window=)`.  A model with learned positions
+    adds `pos_embed[pos]` to each row, its own position's (the reference's
+    decode adds position 0's to every token; its `forward` is what the
+    port is held to), so every pos must be below `cfg.max_seq`.  Returns
+    (logits (B,1,V), cache)."""
     check_servable(cfg)
-    x1 = embed_tokens(params, cfg, token[:, None])
+    x1 = embed_tokens(params, cfg, token[:, None],
+                      torch.as_tensor(pos, device=token.device).reshape(-1, 1))
     gp = params["groups"]["g0"]
     gl = (lora or {}).get("g0") or {}
     gc = cache["g0"]

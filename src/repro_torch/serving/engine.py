@@ -15,6 +15,9 @@ longer than its caches) each lane holds a rolling cache of min(W,
 max_len) slots, written at pos % W, and prefill and decode attend over the
 last W positions: the batch cache's size no longer grows with max_len.
 
+A model with learned positions (GPT-2 Small) adds each lane's own
+position's embedding in decode; its max_len may not pass `cfg.max_seq`.
+
 Idle lanes keep decoding against page 0 with their stale position; their
 outputs are discarded and their cache slots overwritten at the next
 admission, so the decode computation stays a single fixed shape.
@@ -79,6 +82,11 @@ class ServingEngine:
                              f"None or >= 1, got {n_lanes}, {max_len}, "
                              f"{window}")
         mdl.check_servable(cfg)
+        # learned positions stop at max_seq; a window does not cap them (the
+        # positions of a windowed lane still grow to max_len - 1)
+        if cfg.use_learned_pos and max_len > cfg.max_seq:
+            raise ValueError(f"{cfg.name}: max_len {max_len} exceeds the "
+                             f"{cfg.max_seq} learned positions (max_seq)")
         for what, dev in (("params", next(tree_leaves(params)).device),
                           ("adapter pool", cache.device)):
             if dev.type != self.device.type:

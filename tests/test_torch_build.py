@@ -77,28 +77,10 @@ def test_the_flags_rename_every_library(csrc, monkeypatch):
     (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
     (torch.bfloat16, 256, "hd256"), (torch.float32, 256, "fma")])
 def test_flash_route(dtype, hd, route):
+    # the forward's kernels and the backward's: bf16 at gemma-7b's hd 256
+    # takes the hd256 route both ways, f32 the FMA one at every head size
     assert fa.flash_route(dtype, hd) == route
     assert fa.ROUTES[route] in (0, 1, 2, 3)
-
-
-# the backward's kernels: the forward's routes, wgmma for bf16 at hd 128,
-# mma.sync at hd 32 and 64
-@pytest.mark.parametrize("dtype,hd,route", [
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "mma_sync"),
-    (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fma"),
-    (torch.float32, 32, "fma")])
-def test_flash_bwd_route(dtype, hd, route):
-    assert fa.flash_bwd_route(dtype, hd) == route
-    with pytest.raises(ValueError, match="head size"):
-        fa.flash_bwd_route(dtype, 48)
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_bwd_route_refuses_hd_256(dtype):
-    # gemma-7b's head size has a forward kernel and no backward yet: the
-    # route raises by name, before any launch
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        fa.flash_bwd_route(dtype, 256)
 
 
 @pytest.mark.parametrize("S,rows", [(1, 256), (128, 256), (129, 512),
@@ -214,3 +196,21 @@ def test_build_report_names_the_hd_256_forward_kernel():
     assert "flash_bf16_kernel<256>" not in chip_smoke.FLASH_FWD_KERNELS
     assert "flash_f32_kernel<256>" in chip_smoke.FLASH_FWD_KERNELS
     assert "flash_wgmma_kernel" in chip_smoke.GATED_KERNELS
+
+
+def test_build_report_names_the_hd_256_backward_kernels():
+    # phase 1 reports the backward's hd-256 kernels (route hd256: the pair
+    # kernel for dK / dV and route 1's dQ at hd 256; route fma's f32 pair)
+    # with their registers, shared memory and spills
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    new = ("flash_bwd_dkdv_hd256_kernel", "flash_bwd_dq_bf16_kernel<256>",
+           "flash_bwd_dkdv_f32_kernel<256>", "flash_bwd_dq_f32_kernel<256>")
+    reported = chip_smoke.GATED_KERNELS + chip_smoke.FLASH_BWD_REPORTED
+    for name in new:
+        assert name in reported, name
+    assert chip_smoke.short_name("<unnamed>::flash_bwd_dkdv_hd256_kernel"
+                                 ) == "flash_bwd_dkdv_hd256_kernel"

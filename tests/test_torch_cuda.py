@@ -747,21 +747,38 @@ def test_flash_kernel_window_matches_plain(B, S, T, W, dtype, hd, H, KV):
 @pytest.mark.parametrize("dtype,hd,window", [
     (torch.bfloat16, 128, 64), (torch.bfloat16, 64, 5),
     (torch.float32, 32, 7), (torch.bfloat16, 256, None),
-    (torch.float32, 256, 64)])
-def test_flash_under_autograd_refuses_a_window_and_hd_256(dtype, hd, window):
-    # no backward kernels for either yet: the forward refuses by name before
-    # it launches, and runs under no_grad
+    (torch.float32, 256, 64), (torch.bfloat16, 256, 37)])
+def test_flash_under_autograd_takes_a_window_and_hd_256(dtype, hd, window):
+    # the gradient through the kernels under a window and at hd 256: one
+    # forward launch with lse, one backward launch on the route (tagged
+    # windowed with a window), the gradient bitwise that of
+    # flash_attention_bwd on the forward's out and lse, within the
+    # contract of the f64 plain backward; under no_grad no gradient
     _need_card()
-    q, k, v = _attn(8, 1, 100, 100, 2, 2, hd, dtype)
-    n = fa.FLASH.launches
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        fa.flash_attention(q.clone().requires_grad_(), k, v, scale=0.1,
-                           window=window)
-    assert fa.FLASH.launches == n
+    q, k, v = _attn(8, 1, 100, 100, 4, 2, hd, dtype)
+    dout = _attn(9, 1, 100, 100, 4, 4, hd, dtype)[0]
+    route = fa.flash_route(dtype, hd)
+    n, nr = _route_launches(fa.FLASH_BWD, route)
+    nw = fa.FLASH_BWD.launches_by_tag.get("window", 0)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, scale=0.1,
+                                                 window=window), leaves, dout)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH_BWD, route) == (n + 1, nr + 1)
+    assert fa.FLASH_BWD.launches_by_tag.get("window", 0) == \
+        nw + (1 if window else 0)
+    out, lse = fa._forward(q, k, v, True, 0.1, want_lse=True,
+                           window=window or 0)
+    want = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                  scale=0.1, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _grad_rows_ok(got, fa.flash_attention_bwd_plain(
+        *(t.double() for t in (q, k, v, out, lse, dout)), causal=True,
+        scale=0.1, window=window), dtype)
     with torch.no_grad():
         out = fa.flash_attention(q.clone().requires_grad_(), k, v, scale=0.1,
                                  window=window)
-    assert fa.FLASH.launches == n + 1 and not out.requires_grad
+    assert not out.requires_grad
 
 
 @pytest.mark.cuda
@@ -808,15 +825,16 @@ BWD_ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 BWD_ROW_FLOOR = 1e-2
 
 
-def _bwd_case(seed, B, S, T, H, KV, hd, dtype, causal):
+def _bwd_case(seed, B, S, T, H, KV, hd, dtype, causal, window=None):
     """q, k, v, dout on the card; the kernel's out and lse (forward with
-    lse); the plain backward in f64 on those inputs."""
+    lse, under `window`); the plain backward in f64 on those inputs."""
     q, k, v = _attn(seed, B, S, T, H, KV, hd, dtype)
     dout = _attn(seed + 1, B, S, S, H, H, hd, dtype)[0]
-    out, lse = fa._forward(q, k, v, causal, hd ** -0.5, want_lse=True)
+    out, lse = fa._forward(q, k, v, causal, hd ** -0.5, want_lse=True,
+                           window=window or 0)
     want = fa.flash_attention_bwd_plain(
         *(t.double() for t in (q, k, v, out, lse, dout)), causal=causal,
-        scale=hd ** -0.5)
+        scale=hd ** -0.5, window=window)
     return (q, k, v, dout, out, lse), want
 
 
@@ -846,7 +864,7 @@ def test_flash_backward_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     _need_card()
     (q, k, v, dout, out, lse), want = _bwd_case(S + T + hd, B, S, T, H, KV,
                                                 hd, dtype, causal)
-    route = fa.flash_bwd_route(dtype, hd)
+    route = fa.flash_route(dtype, hd)
     n, nr = _route_launches(fa.FLASH_BWD, route)
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                  scale=hd ** -0.5)
@@ -909,6 +927,66 @@ def test_flash_backward_is_deterministic_and_lse_leaves_out_unchanged(dtype,
         assert none is None and torch.equal(with_lse, without)
         assert torch.equal(without, fa.flash_attention(q, k, v, causal=causal,
                                                         scale=hd ** -0.5))
+
+
+# the widened backward at small sizes: a causal window on every route (W 5,
+# 63, 64 and 65 around the 64-key tiles, ragged S < T, GQA and H == KV; a
+# window of W >= S gives the bits of the call without one) and hd 256 (the
+# hd256 route in bf16 and FMA in f32, ragged, causal and full), each held to
+# the f64 plain backward under the same window and bitwise on repeat
+BWD_WINDOW_ROUTES = [(torch.bfloat16, 128, 8, 2), (torch.bfloat16, 64, 8, 2),
+                     (torch.bfloat16, 32, 4, 4), (torch.float32, 128, 4, 2),
+                     (torch.bfloat16, 256, 4, 4), (torch.float32, 256, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,H,KV", BWD_WINDOW_ROUTES)
+@pytest.mark.parametrize("B,S,T,W", [
+    (2, 150, 200, 5), (1, 200, 200, 63), (2, 129, 191, 64),
+    (1, 191, 191, 65), (1, 100, 130, 300)])
+def test_flash_backward_window_matches_plain(B, S, T, W, dtype, hd, H, KV):
+    _need_card()
+    (q, k, v, dout, out, lse), want = _bwd_case(B + S + W, B, S, T, H, KV, hd,
+                                                dtype, True, W)
+    route = fa.flash_route(dtype, hd)
+    n, nr = _route_launches(fa.FLASH_BWD, route)
+    nw = fa.FLASH_BWD.launches_by_tag.get("window", 0)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                 scale=hd ** -0.5, window=W)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                   scale=hd ** -0.5, window=W)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH_BWD, route) == (n + 2, nr + 2)
+    assert fa.FLASH_BWD.launches_by_tag["window"] == nw + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grad_rows_ok(got, want, dtype)
+    if W >= S:
+        plain = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                       scale=hd ** -0.5)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,T,H,KV,causal", [
+    (1, 1, 63, 4, 4, False), (1, 63, 65, 8, 2, True),
+    (2, 64, 64, 4, 4, True), (1, 129, 127, 4, 2, True),
+    (2, 127, 128, 4, 1, False), (1, 200, 260, 8, 8, True)])
+def test_flash_backward_hd_256_matches_plain(B, S, T, H, KV, causal, dtype):
+    _need_card()
+    (q, k, v, dout, out, lse), want = _bwd_case(B + S + T, B, S, T, H, KV,
+                                                256, dtype, causal)
+    route = fa.flash_route(dtype, 256)
+    assert route == ("hd256" if dtype == torch.bfloat16 else "fma")
+    n, nr = _route_launches(fa.FLASH_BWD, route)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 scale=256 ** -0.5)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   scale=256 ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH_BWD, route) == (n + 2, nr + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grad_rows_ok(got, want, dtype)
 
 
 @pytest.mark.cuda

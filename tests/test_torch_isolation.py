@@ -71,6 +71,7 @@ def test_no_port_file_imports_jax_or_repro():
              os.path.join(ROOT, "scripts", "flash_ab.py"),
              os.path.join(ROOT, "scripts", "pack_ab.py"),
              os.path.join(ROOT, "scripts", "flash_bwd_ab.py"),
+             os.path.join(ROOT, "scripts", "flash_bwd_f32_rows.py"),
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
              os.path.join(ROOT, "examples", "federated_finetune_torch.py"),
              os.path.join(ROOT, "examples", "serve_lora_torch.py")]

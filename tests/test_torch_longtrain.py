@@ -8,9 +8,19 @@ gradient and the per-layer recomputation, on the CPU at small sizes.
     (the two packages' CPU einsums and exponentials round in other places).
   - `flash_attention_bwd_plain`, the backward kernels' function, against
     autograd of `flash_attention_plain` in f64 (causal and full, GQA,
-    ragged S and T): rtol 1e-10, atol 1e-12, both exact up to f64
-    rounding; and in f64 against the reference's f32 gradient of (1) at
-    (1)'s tolerance.
+    ragged S and T, under a causal window of 1, 5 and 37 keys, at hd 8, 16
+    and 256): rtol 1e-10, atol 1e-12, both exact up to f64 rounding; and
+    in f64 against the reference's f32 gradient of (1) at (1)'s tolerance,
+    and against `jax.vjp` of the reference's `chunked_attention(window=)`
+    and `full_attention` under `causal_mask(..., window)`, at hd 256 and
+    under a window, at the same tolerance in units of the gradient's
+    largest magnitude (at hd 256 the reference's f32 sums run over 256
+    terms).
+  - the model's flat LoRA gradient of `loss_fn(window=W)` on a long-prompt
+    cut at hd 256 (sequences of 32 tokens or more take
+    `chunked_attention`) against the reference's `jax.grad` of its
+    `loss_fn`: rtol 1e-5, atol 1e-6 in units of the gradient's largest
+    magnitude.
   - `models/model.py::forward` recomputes each block in the backward pass
     (the reference's `jax.checkpoint` of its layer scan): the LoRA gradient
     of `loss_fn` equals bit for bit that of the same layer loop run without
@@ -27,7 +37,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import fedround as JF
 from repro.models import attention as JA
+from repro.models import layers as JL
+from repro.models import lora as JLoRA
+from repro.models import model as JM
+from repro.models.config import LoRAConfig as JLoRAConfig
+from repro.models.config import ModelConfig as JModelConfig
+from repro_torch.checkpoint.io import tree_from_numpy
 from repro_torch.core.fedround import FlatMeta
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as TA
@@ -91,25 +108,44 @@ def test_chunked_attention_gradient_matches_reference(S):
     (1, 48, 48, 4, 2, 16), (2, 37, 50, 6, 3, 8), (1, 50, 37, 4, 4, 8),
     (2, 33, 33, 8, 1, 16)])
 def test_flash_bwd_plain_matches_autograd_f64(B, S, T, H, KV, hd, causal):
+    _bwd_plain_against_autograd(S + T, B, S, T, H, KV, hd, causal, None)
+
+
+# under a causal window: W 1 (each row sees its own key alone), 5 and 37
+# (across the ragged edges), S == T and S < T, GQA and H == KV; hd 256
+# with and without one
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window", [
+    (1, 48, 48, 4, 2, 16, True, 1), (2, 37, 50, 6, 3, 8, True, 5),
+    (1, 48, 48, 4, 2, 16, True, 37), (2, 33, 50, 4, 2, 8, True, 37),
+    (2, 40, 40, 4, 4, 16, True, 5), (1, 40, 40, 2, 2, 256, True, None),
+    (1, 33, 50, 4, 2, 256, False, None), (2, 33, 50, 4, 2, 256, True, 37)])
+def test_flash_bwd_plain_matches_autograd_f64_under_a_window(
+        B, S, T, H, KV, hd, causal, window):
+    _bwd_plain_against_autograd(S + T + hd, B, S, T, H, KV, hd, causal,
+                                window)
+
+
+def _bwd_plain_against_autograd(seed, B, S, T, H, KV, hd, causal, window):
     q, k, v, dout = (torch.from_numpy(a).double()
-                     for a in _qkv(S + T, B, S, T, H, KV, hd))
+                     for a in _qkv(seed, B, S, T, H, KV, hd))
     scale = hd ** -0.5
     out, lse = fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                        return_lse=True)
+                                        window=window, return_lse=True)
     assert out.dtype == lse.dtype == torch.float64 and lse.shape == (B, H, S)
     got = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                       causal=causal, scale=scale)
+                                       causal=causal, scale=scale,
+                                       window=window)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     want = torch.autograd.grad(
-        fa.flash_attention_plain(*leaves, causal=causal, scale=scale),
-        leaves, dout)
+        fa.flash_attention_plain(*leaves, causal=causal, scale=scale,
+                                 window=window), leaves, dout)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == torch.float64 and g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), w.numpy(), **F64_TOL,
                                    err_msg=name)
     # the CPU path of the wrapper is the plain backward
     again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
-                                   scale=scale)
+                                   scale=scale, window=window)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
@@ -154,6 +190,87 @@ def test_flash_bwd_plain_matches_reference_gradient():
                                        causal=True, scale=0.25)
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL, err_msg=name)
+
+
+def _close_scaled(got, want, err_msg=""):
+    """GRAD_TOL with atol in units of the larger of 1 and want's largest
+    magnitude."""
+    want = np.asarray(want)
+    atol = GRAD_TOL["atol"] * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=GRAD_TOL["rtol"],
+                               atol=atol, err_msg=err_msg)
+
+
+# the reference's own gradient of both of its attention paths, by jax.vjp:
+# chunked_attention (chunks of 16; W 37 also skips kv chunks below the
+# window) and full_attention under causal_mask(..., window); S = T = 64,
+# GQA 4 / 2, at hd 256 and under a window
+@pytest.mark.parametrize("path", ["chunked", "full"])
+@pytest.mark.parametrize("hd,window", [(256, None), (16, 5), (16, 37),
+                                       (256, 37)])
+def test_flash_bwd_plain_matches_reference_vjp(path, hd, window):
+    S, H, KV = 64, 4, 2
+    q, k, v, dout = _qkv(hd + (window or 0), 1, S, S, H, KV, hd)
+    scale = hd ** -0.5
+    mask = JA.causal_mask(jnp.arange(S), jnp.arange(S), window)
+
+    def f(q, k, v):
+        if path == "chunked":
+            return JA.chunked_attention(q, k, v, scale, causal=True,
+                                        window=window, cq=16, ckv=16)
+        return JA.full_attention(q, k, v, mask, scale)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv, tdo = (torch.from_numpy(a).double() for a in (q, k, v, dout))
+    out, lse = fa.flash_attention_plain(tq, tk, tv, causal=True, scale=scale,
+                                        window=window, return_lse=True)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, causal=True,
+                                       scale=scale, window=window)
+    for name, g, w in zip("qkv", got, want):
+        _close_scaled(g.numpy(), w, err_msg=name)
+
+
+# gemma's head size on a 2-layer narrow cut whose 64-token sequences take
+# the long-prompt path (chunked_attention, the flash kernel's place on the
+# card), trained under a sliding window as the reference's loss_fn(window=)
+HD256_LONG = JModelConfig(
+    name="hd256-long", family="dense", num_layers=2, d_model=64, num_heads=2,
+    num_kv_heads=1, head_dim=256, d_ff=128, vocab_size=128,
+    param_dtype="float32", compute_dtype="float32", chunked_attn_threshold=32,
+    attn_chunk_q=16, attn_chunk_kv=16)
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_windowed_lora_gradient_at_hd_256_matches_reference(window):
+    cfg = HD256_LONG
+    assert cfg.hd == 256
+    params = jax.tree.map(np.asarray, jax.jit(lambda key: JL.init_params(
+        JM.model_spec(cfg), key))(jax.random.key(7)))
+    lcfg = JLoRAConfig(rank=4, alpha=8.0, dtype="float32")
+    rng = np.random.default_rng(8)
+    lora = jax.tree.map(
+        lambda p: rng.standard_normal(p.shape, dtype=np.float32)
+        * np.float32(0.05), JLoRA.lora_spec(cfg, lcfg),
+        is_leaf=lambda x: isinstance(x, JL.P))
+    batch = _batch(cfg, 2, 64, seed=9)
+    jmeta = JF.FlatMeta.of(lora)
+    jflat = jmeta.flatten(lora)
+    want_l, want_g = jax.value_and_grad(lambda f: JM.loss_fn(
+        params, cfg, {k: jnp.asarray(v.numpy()) for k, v in batch.items()},
+        lora=jmeta.unflatten(f), lora_scale=lcfg.scale, window=window))(jflat)
+    tcfg = ModelConfig(**dataclasses.asdict(cfg))
+    tlora = tree_from_numpy(lora, device="cpu")
+    meta = FlatMeta.of(tlora)
+    flat = meta.flatten(tlora).requires_grad_(True)
+    np.testing.assert_array_equal(flat.detach().numpy(), np.asarray(jflat))
+    loss = TM.loss_fn(tree_from_numpy(params, device="cpu"), tcfg, batch,
+                      lora=meta.unflatten(flat), lora_scale=lcfg.scale,
+                      window=window)
+    (g,) = torch.autograd.grad(loss, flat)
+    np.testing.assert_allclose(loss.item(), float(want_l), rtol=1e-5)
+    _close_scaled(g.numpy(), want_g)
+    assert float(np.abs(np.asarray(want_g)).max()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -287,12 +287,17 @@ def test_classifiers_attend_both_ways(tasks, kind):
 
 
 def test_serving_still_refuses_the_task_models(tasks):
+    # the reference's engine refuses classifier heads and embedding inputs,
+    # not learned positions: the GPT LM prefills (its last logits the
+    # reference forward's), the ViT is refused by name
     m = _models("synth_reddit")
-    toks = _t(_batch(tasks["synth_reddit"][0], 1)["tokens"])
-    with pytest.raises(NotImplementedError, match="learned positions"):
-        TM.prefill(m["tparams"], m["tcfg"], {"tokens": toks})
+    toks = _batch(tasks["synth_reddit"][0], 1)["tokens"]
+    with torch.no_grad():
+        logits, _ = TM.prefill(m["tparams"], m["tcfg"], {"tokens": _t(toks)})
+    want = JM.forward(m["params"], m["cfg"], {"tokens": toks})["logits"]
+    _close(logits.numpy(), np.asarray(want)[:, -1:])
     with pytest.raises(NotImplementedError, match="classifier head"):
-        TM.decode_step({}, tpm.VIT_TINY, toks[:, 0], torch.tensor(0), {})
+        TM.decode_step({}, tpm.VIT_TINY, _t(toks)[:, 0], torch.tensor(0), {})
 
 
 @pytest.mark.parametrize("kind", sorted(KIND_TASK))
