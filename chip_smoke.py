@@ -263,12 +263,14 @@ Phases, each fatal on failure:
                  (8192 >= S: bitwise the call without one) at B 2, S 1000,
                  T 1100 on every route (bf16 wgmma 32/4 at hd 128,
                  mma_sync 8/2 at hd 64, hd256 16/16, f32 fma 8/2 at hd
-                 128); the hd256 route at S / T of 1 / 63, 63, 64, 65 /
-                 129, 127 / 128, 128, 129 / 127 and 1000 / 1100, heads
-                 16/16 and 8/2, causal and full, and f32 at hd 256 ragged
-                 and under a window (where every row sees one key, W 1,
-                 the exact dq and dk are 0 and are held by their size,
-                 grad_worst); then times the hd256 backward at (1, 8192,
+                 128); the hd256 route around its 32-, 64- and 128-row
+                 tiles, at S / T of 1, 31, 32, 33, 63, 64, 65, 127, 128,
+                 129 and 1000 / 1100, heads 16/16 and 8/2, causal and
+                 full, and under windows of 1, 31, 32, 33, 63, 64 and 65;
+                 f32 at hd 256 ragged and under a window (where every row
+                 sees one key, W 1, the exact dq and dk are 0 and are
+                 held by their size, grad_worst); then times the hd256
+                 backward (lse and D, dK / dV, dQ) at (1, 8192,
                  16/16, 256) and the windowed wgmma backward at (1, 32768,
                  32/4, 128), W 8192, each first held to the f64 plain
                  backward at that shape (every row at hd 256; sampled
@@ -432,10 +434,14 @@ HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel",
                   "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                   "flash_wgmma_hd256_kernel",
                   "flash_bwd_dkdv_wgmma_window_kernel",
-                  "flash_bwd_dq_wgmma_window_kernel")
+                  "flash_bwd_dq_wgmma_window_kernel",
+                  "flash_bwd_dkdv_wgmma_hd256_kernel",
+                  "flash_bwd_dq_wgmma_hd256_kernel",
+                  "flash_bwd_dkdv_wgmma_hd256_window_kernel",
+                  "flash_bwd_dq_wgmma_hd256_window_kernel")
 WGMMA_LIBS = ("flash_attention", "flash_attention_bwd", "lora_matmul")
 # what the backward's wgmma route launches, in order: lse and D, dK / dV, dQ
-FLASH_BWD_WGMMA = ("flash_bwd_rows_kernel", "flash_bwd_dkdv_wgmma_kernel",
+FLASH_BWD_WGMMA = ("flash_bwd_rows_kernel<128>", "flash_bwd_dkdv_wgmma_kernel",
                    "flash_bwd_dq_wgmma_kernel")
 # the grouped LoRA kernel (thread-block clusters): one per rank bucket, with
 # 16-byte loads (1) or element loads (0)
@@ -451,18 +457,17 @@ PACK_SCAN_KERNELS = tuple(
         "MaskQuantizeRows<1, 1>"))
 TRANSPORT_KERNELS = ("bin_partial_kernel<12>", "bin_sum_kernel",
                      *PACK_SCAN_KERNELS, "pack_fill_kernel")
-# the flash backward (csrc/flash_attention_bwd.cu): lse and D, then dK / dV
-# and dQ on the wgmma route (bf16, hd 128); D, then dK / dV and dQ on the
-# mma.sync (bf16, hd 32 and 64), hd256 (bf16: the warp-pair dK / dV kernel
-# and mma.sync's dQ at hd 256) and FMA (f32, every head size) routes; each
-# dK / dV and dQ kernel with its twin under a window (`_window_kernel`)
-FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel",
+# the flash backward (csrc/flash_attention_bwd.cu): lse and D at hd 128 and
+# 256 for the wgmma and hd256 routes (bf16; their dK / dV and dQ kernels are
+# in HOPPER_KERNELS); D, then dK / dV and dQ on the mma.sync (bf16, hd 32
+# and 64) and FMA (f32, every head size) routes; each dK / dV and dQ kernel
+# with its twin under a window (`_window_kernel`)
+FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel<128>",
+                     "flash_bwd_rows_kernel<256>",
                      "flash_bwd_dot_kernel<__nv_bfloat16>",
-                     "flash_bwd_dot_kernel<float>",
-                     "flash_bwd_dkdv_hd256_kernel") + tuple(
+                     "flash_bwd_dot_kernel<float>") + tuple(
     f"flash_bwd_{part}_bf16{win}_kernel<{hd}>"
-    for part, hds in (("dkdv", (32, 64)), ("dq", (32, 64, 256)))
-    for win in ("", "_window") for hd in hds
+    for part in ("dkdv", "dq") for win in ("", "_window") for hd in (32, 64)
     if (part, win, hd) != ("dq", "_window", 64)) + tuple(
     f"flash_bwd_{part}_f32{win}_kernel<{hd}>" for part in ("dkdv", "dq")
     for win in ("", "_window") for hd in (32, 64, 128, 256))
@@ -578,6 +583,13 @@ def build_report(libs) -> None:
     print(f"[build] flash_attention: {HOPPER_KERNELS[4]}: {vals[0].value} "
           f"bytes dynamic shared memory, {vals[1].value} threads, no "
           "setmaxnreg (every thread may take 255 registers)")
+    vals = [ctypes.c_int() for _ in range(3)]
+    _build.load("flash_attention_bwd").flash_attention_bwd_hd256_config(
+        *(ctypes.byref(v) for v in vals))
+    print(f"[build] flash_attention_bwd: {HOPPER_KERNELS[7]} / "
+          f"{HOPPER_KERNELS[8]} (and their window twins): {vals[0].value} / "
+          f"{vals[1].value} bytes dynamic shared memory, {vals[2].value} "
+          "threads, no setmaxnreg (every thread may take 255 registers)")
     print(f"[build] {', '.join(GATED_KERNELS)}: no stack frame, no spills; "
           "no wgmma serialisation, no ignored setmaxnreg")
     print(f"[build] reported, not gated: "
@@ -4273,26 +4285,39 @@ def grad_worst(got, want, one_key: bool) -> float:
 BWD_WINDOW_ROUTES = ((32, 4, 128, "bfloat16"), (8, 2, 64, "bfloat16"),
                      (8, 2, 128, "float32"), (16, 16, 256, "bfloat16"))
 BWD_WINDOWS = (1, 63, 64, 65, 8192)
-# its hd-256 cases: (B, S, T, H, KV, dtype, causal, window)
-BWD_HD256_CASES = (
-    (1, 1, 63, 16, 16, "bfloat16", False, None),
-    (1, 63, 63, 8, 2, "bfloat16", True, None),
-    (1, 64, 64, 16, 16, "bfloat16", True, None),
-    (1, 65, 129, 8, 2, "bfloat16", True, None),
-    (1, 127, 128, 16, 16, "bfloat16", False, None),
-    (1, 128, 128, 8, 2, "bfloat16", True, None),
-    (1, 129, 127, 16, 16, "bfloat16", True, None),
+# its hd-256 cases: (B, S, T, H, KV, dtype, causal, window).  The hd256
+# route's tiles: 64 keys and 64-row query steps in dK / dV, 128 rows and
+# 32-key steps in dQ; S and T one short of, at and one past each, heads
+# 16/16 and 8/2, causal and full (S 1 only full: a causal row that sees
+# one key has an exact dq of 0), and windows around the 32- and 64-key
+# tiles (W 1: every row sees its own key alone, grad_worst)
+BWD_HD256_CASES = tuple(
+    (1, S, T, *heads, "bfloat16", causal, None)
+    for S, T, heads, causal in (
+        (1, 31, (16, 16), False), (1, 63, (16, 16), False),
+        (31, 31, (8, 2), True), (32, 33, (16, 16), True),
+        (33, 32, (8, 2), False), (63, 63, (8, 2), True),
+        (63, 64, (16, 16), False), (64, 64, (16, 16), True),
+        (64, 65, (8, 2), True), (65, 63, (16, 16), True),
+        (65, 129, (8, 2), True), (127, 128, (16, 16), False),
+        (127, 129, (8, 2), False), (128, 127, (16, 16), True),
+        (128, 128, (8, 2), True), (129, 128, (8, 2), True),
+        (129, 127, (16, 16), True))) + tuple(
+    (1, 200, 200, *heads, "bfloat16", True, W)
+    for W, heads in ((1, (16, 16)), (31, (8, 2)), (32, (16, 16)),
+                     (33, (8, 2)), (63, (16, 16)), (64, (8, 2)),
+                     (65, (16, 16)))) + (
     (2, 1000, 1100, 16, 16, "bfloat16", True, None),
     (2, 1000, 1100, 8, 2, "bfloat16", False, None),
     (2, 100, 129, 4, 2, "float32", True, None),
     (2, 129, 100, 4, 2, "float32", False, None),
     (2, 300, 310, 4, 2, "float32", True, 65))
-# what the hd256 route launches, in order: D, dK / dV, dQ
-FLASH_BWD_HD256 = ("flash_bwd_dot_kernel<__nv_bfloat16>",
-                   "flash_bwd_dkdv_hd256_kernel",
-                   "flash_bwd_dq_bf16_kernel<256>")
+# what the hd256 route launches, in order: lse and D, dK / dV, dQ
+FLASH_BWD_HD256 = ("flash_bwd_rows_kernel<256>",
+                   "flash_bwd_dkdv_wgmma_hd256_kernel",
+                   "flash_bwd_dq_wgmma_hd256_kernel")
 # ... and the wgmma route under a window
-FLASH_BWD_WGMMA_WINDOW = ("flash_bwd_rows_kernel",
+FLASH_BWD_WGMMA_WINDOW = ("flash_bwd_rows_kernel<128>",
                           "flash_bwd_dkdv_wgmma_window_kernel",
                           "flash_bwd_dq_wgmma_window_kernel")
 
@@ -5584,8 +5609,9 @@ def main() -> int:
         "route_timed": btime["route"], "wrapper_ms": btime["wrapper_ms"],
         "timing": btime})
     kres = lt_res["kernel"]
-    for name, timing, keep, launches_, path, shape in (
+    for name, timing, kernels, keep, launches_, path, shape in (
             ("flash_attention_bwd_window", kres["window_timing"],
+             FLASH_BWD_WGMMA_WINDOW,
              lambda c: c.get("window") is not None,
              lt_win["windowed"][1]["window"],
              f"long-train (e): one {lt_win['tokens']}-token gradient of "
@@ -5596,7 +5622,7 @@ def main() -> int:
              "q (1, 32768, 32, 128), k/v (1, 32768, 4, 128) bf16 causal, "
              "window 8192"),
             ("flash_attention_bwd_hd256", kres["hd256_timing"],
-             lambda c: "hd 256" in c["case"],
+             FLASH_BWD_HD256, lambda c: "hd 256" in c["case"],
              gemma_run["launches"]["flash_attention_bwd"],
              f"gemma-train (gemma-7b, 28 layers): "
              f"{gemma_run['rounds']} rounds of {gemma_run['clients']} "
@@ -5611,7 +5637,8 @@ def main() -> int:
             "replaces_note": "no Pallas kernel: the reference trains through "
                              "XLA's autodiff of the jnp chunked_attention "
                              "(its window's chunk skip at :161)",
-            "launches": launches_, "path": path, "shape": shape,
+            "kernel_names": kernels, "launches": launches_, "path": path,
+            "shape": shape,
             "max_abs_err": max([c["max_abs_err"] for c in cases]
                                + [timing["max_abs_err"]]),
             "max_row_err_vs_f64": max([c["max_row_err"] for c in cases]

@@ -32,8 +32,9 @@ same order give the same bits; others need not).  The script exits 1 if a
 check fails or a tree does not build (the others still run).
 
 Cases that only some trees have -- a causal window on route 0 (W 63, 65
-and 8192 over S 1000, T 1100) and the hd-256 route ("hd256": 16 / 16 and
-8 / 2 heads, causal and full, a window of 65) -- run on the trees whose
+and 8192 over S 1000, T 1100) and the hd-256 route ("hd256", in either
+design: the first version's warp pairs or the TMA + wgmma kernels; 16 / 16
+and 8 / 2 heads, causal and full, a window of 65) -- run on the trees whose
 source has them, held the same way; each other tree prints a note that it
 lacks them.
 
@@ -43,9 +44,9 @@ the order given and then reversed (A B B A), twice, five launches a turn;
 each tree's kernels split by torch.profiler; beside the bound and the
 backward of F.scaled_dot_product_attention (its forward and backward less
 its forward) on the same inputs.  Then, on the trees that have them,
-gemma-7b's (1, 8192, 16/16, 256) causal and Yi-9B's (1, 32768, 32/4, 128)
-causal under a window of 8192, in turns the same way, beside their
-bounds.  One JSON object per line; the card's name and power limit first.
+gemma-7b's (1, 8192, 16/16, 256) causal and full and Yi-9B's (1, 32768,
+32/4, 128) causal under a window of 8192, in turns the same way, beside
+their bounds.  One JSON object per line; the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -67,8 +68,10 @@ NEW_CASES = [(2, 1000, 1100, H, KV, HD, True, 63),
              (2, 1000, 1100, 16, 16, 256, True, None),
              (2, 1025, 1100, 8, 2, 256, False, None),
              (2, 1000, 1100, 16, 16, 256, True, 65)]
-# (B, S, H, KV, hd, window), causal, timed on the trees that take them
-NEW_TIMING = [(1, 8192, 16, 16, 256, None), (1, 32768, H, KV, HD, 8192)]
+# (B, S, H, KV, hd, window, causal), timed on the trees that take them
+NEW_TIMING = [(1, 8192, 16, 16, 256, None, True),
+              (1, 8192, 16, 16, 256, None, False),
+              (1, 32768, H, KV, HD, 8192, True)]
 ITERS = 5                      # launches a timed turn
 TURNS = 2
 SEED = 25
@@ -89,9 +92,17 @@ def takes_window(csrc) -> bool:
     return m is not None and "window" in m.group(1)
 
 
+# the bf16 hd-256 backward's (route 3's) dK / dV kernel in each design:
+# the first version's warp pairs, then its TMA + wgmma redesign
+HD256_DKDV_KERNELS = ("flash_bwd_dkdv_hd256_kernel",
+                      "flash_bwd_dkdv_wgmma_hd256_kernel")
+
+
 def has_hd256(csrc) -> bool:
-    """Whether the tree has the bf16 hd-256 backward (route 3)."""
-    return "flash_bwd_dkdv_hd256_kernel" in _text(csrc)
+    """Whether the tree has the bf16 hd-256 backward (route 3), in either
+    design."""
+    text = _text(csrc)
+    return any(name in text for name in HD256_DKDV_KERNELS)
 
 
 def main() -> int:
@@ -227,30 +238,30 @@ def main() -> int:
     del q, k, v, out, lse, dout, scratch, grads, qh, kh, vh, doh
     torch.cuda.empty_cache()
 
-    for B, S, Hq, KVq, hd, window in NEW_TIMING:
+    for B, S, Hq, KVq, hd, window, causal in NEW_TIMING:
         have = [lb for lb in labels if eligible(lb, hd, window)]
         case = {"B": B, "S": S, "T": S, "H": Hq, "KV": KVq, "hd": hd,
-                "causal": True, "window": window}
+                "causal": causal, "window": window}
         if not have:
             print(json.dumps({"timing": case, "note": "no tree has it"}))
             continue
         q, k, v = cs.attn_inputs(gen, B, S, S, Hq, KVq, hd, "bfloat16")
         dout = torch.randn(q.shape, generator=gen,
                            device="cuda").to(torch.bfloat16)
-        out, lse = fa._forward(q, k, v, True, hd ** -0.5, want_lse=True,
+        out, lse = fa._forward(q, k, v, causal, hd ** -0.5, want_lse=True,
                                window=window or 0)
         scratch = fa.flash_bwd_scratch(B, Hq, S, q.device)
         grads = [torch.empty_like(t) for t in (q, k, v)]
         ms = ab_trees.abba(have, lambda label, i: launch(
-            label, q, k, v, out, lse, dout, grads, scratch, True, window),
+            label, q, k, v, out, lse, dout, grads, scratch, causal, window),
             ITERS, TURNS)
         split = {label: cs.kernel_split_ms(lambda i, label=label: launch(
-            label, q, k, v, out, lse, dout, grads, scratch, True, window),
+            label, q, k, v, out, lse, dout, grads, scratch, causal, window),
             ITERS) for label in have}
         bound, by = (cs.attn_window_bwd_bound(B, S, Hq, KVq, hd, "bfloat16",
                                               window) if window else
                      cs.attn_bwd_bound(B, S, S, Hq, KVq, hd, "bfloat16",
-                                       True))
+                                       causal))
         print(json.dumps({"timing": case, "ms": ms, "kernel_ms": split,
                           "bound_ms": bound, "bound_by": by,
                           "without": [lb for lb in labels if lb not in have],

@@ -45,7 +45,7 @@
 // them to the products that consume them as hi + lo pairs of bf16, two
 // products each, and recompute S (and dP) in both gradient kernels: route
 // 0 does ten product-units of work for the bound's five (S^T, dP^T and dV,
-// dK as pairs in (b'); S, dP and dQ as a pair in (c')).
+// dK as pairs in (b'); S, dP and dQ as a pair in (c')), as route 3 does.
 //
 // Routes (the caller's flash_route, from dtype and hd alone):
 //   route 0, "wgmma" -- bf16, hd 128 (Yi-9B's long-sequence training):
@@ -102,20 +102,37 @@
 //     four transposed 64-row tiles would take 266 KB, so the key tiles are
 //     32 rows ((b) blocks of 32 keys, (c) steps of 32 keys): 221 KB of
 //     shared memory.
-//   route 3, "hd256" -- bf16, hd 256 (gemma-7b): route 1 with room for the
-//     accumulators.  A 16 x 256 f32 accumulator is 128 registers a thread,
-//     so route 1's warp holding dK and dV for its 16 keys would need 256.
-//     (b'') one block of 8 warps per 64 keys: warp w < 4 accumulates dV of
-//     keys 16 w .., warp w + 4 dK of the same keys.  Per 32-query step, dV's
-//     warp computes S^T and P^T, hands P^T to its partner through shared
-//     memory (in register order: both hold the same positions) and adds P^T
-//     dO; dK's warp computes dP^T = V dO^T, then dS^T, and adds dS^T Q.  K
-//     and V (64 x 264 bf16 each), 32-row Q and dO steps double-buffered,
-//     the P^T slots: 143,872 B.  (c) is route 1's kernel at hd 256 with
-//     32-key steps, so that S and dP (16 registers each) fit beside the
-//     128 of dQ: 64-row Q and dO plus 32-key K and V double-buffered,
-//     135,168 B.  A first, right version; not tuned.
-// Routes 1, 2 and 3 launch (a) D = rowsum(dout * out), one warp a row (any
+//   route 3, "hd256" -- bf16, hd 256 (gemma-7b): route 0's design at hd
+//     256.  (a') at hd 256 into the same scratch.  A 64 x 256 f32
+//     accumulator is 128 registers a thread, and a producer warpgroup's
+//     warps would cap every thread at 168 (setmaxnreg never raised the
+//     hd-256 forward's consumers past it), so each kernel runs two
+//     consumer warpgroups alone, 256 threads that may take 255 registers,
+//     one thread of them issuing the TMA loads (64 hd, 128 bytes, swizzled,
+//     a box: four boxes a 256-wide row), as the hd-256 forward does.
+//     (b'') one block per (batch, KV head, 64 keys): K and V loaded once
+//     (64 KB), 64-row Q and dO tiles with their lse and D rows through a
+//     two-stage ring (128 KB), P^T through two 16 KB slots: 231,496 B.
+//     Warpgroup 0 computes S^T = K Q^T (m64n64k16, 16 k16 steps), P^T,
+//     hands P^T to warpgroup 1 in register order and adds dV += P^T dO
+//     (m64n256k16, P^T hi + lo from registers, dO MN-major); warpgroup 1
+//     computes dP^T = V dO^T and dS^T and adds dK += dS^T Q.  Thread 0 of
+//     dK's warpgroup, the one that runs behind, issues the loads.  Key
+//     tiles heaviest first.  dK / dV a launch at gemma-7b's 8192 tokens on
+//     an H100, by scripts/flash_bwd_ab.py (PERF.md, section 6):
+//     the loads issued from dV's warpgroup, 2.9 ms; the next step's first
+//     product queued behind the last, serialised by ptxas (C7515), 2.7 ms;
+//     this design 2.3-2.4 ms.
+//     (c'') one block per (batch, query head, 128 rows), each warpgroup
+//     owning 64: Q and dO loaded once (128 KB); 64-key K and V stages (64
+//     KB each) would fit beside them only once, so 32-key tiles stream
+//     through a three-stage ring (96 KB): 230,456 B.  S = Q K^T and dP =
+//     dO V^T are m64n32k16 (16 registers each), dQ += dS K m64n256k16 over
+//     two k16 steps (dS hi + lo, K MN-major).  Query tiles last-first.  dQ
+//     a launch, the same way: 64-key tiles with K and V loaded apart into
+//     a three-slot ring, 1.97 ms; the next tile's S and dP queued behind
+//     dQ, serialised (C7518), 2.27 ms; this design 1.90-2.00 ms.
+// Routes 1 and 2 launch (a) D = rowsum(dout * out), one warp a row (any
 // hd: a lane sums hd / 32 products), then (b) dK, dV per (batch, KV head,
 // key tile), looping over the G query heads and the query tiles at or
 // below the diagonal, then (c) dQ per (batch, query head, 64 rows).  Every
@@ -530,11 +547,8 @@ flash_bwd_dkdv_bf16_window_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 struct DqSmem {
   static constexpr int LD = HD + kPad;
-  // keys a step: at hd 256 a warp's 16 x 256 dQ takes 128 registers, so
-  // 32-key steps keep S and dP at 16 registers each beside it
-  static constexpr int kKeys = HD == 256 ? 32 : kKeysDq;
   static constexpr int kQTile = kRowsDq * LD;
-  static constexpr int kKVTile = kKeys * LD;
+  static constexpr int kKVTile = kKeysDq * LD;
   // Q, dO; K and V in two stages
   static constexpr int kBytes = (2 * kQTile + 4 * kKVTile) * 2;
 };
@@ -553,7 +567,7 @@ dq_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int LD = SM::LD;
   constexpr int DT = HD / 8;
   constexpr int CH = HD / 8;
-  constexpr int KEYS = SM::kKeys;
+  constexpr int KEYS = kKeysDq;
   constexpr int NT = KEYS / 8;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
   __nv_bfloat16* dos = qs + SM::kQTile;
@@ -692,179 +706,6 @@ flash_bwd_dq_bf16_window_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// route 3, bf16, hd 256: route 1's mma.sync with a pair of warps per 16 keys
-// ---------------------------------------------------------------------------
-
-constexpr int kThreadsHd256 = 256;   // (b''): warps w and w + 4 a pair
-
-struct DkvHd256Smem {
-  static constexpr int LD = 256 + kPad;
-  static constexpr int kKV = kKeysDkv * LD;       // a K or V tile
-  static constexpr int kQ = kQDkv * LD;           // a Q or dO tile
-  static constexpr int kP = 16 * kQDkv;           // one pair's P^T, f32
-  // K, V; Q and dO in two stages; the four pairs' P^T; lse and D of both
-  // stages: 143,872 B
-  static constexpr int kBytes = (2 * kKV + 4 * kQ) * 2 + 4 * kP * 4 +
-                                4 * kQDkv * 4;
-};
-
-// (b'') dK, dV at hd 256: block (b * KV + kh, 64-key tile); warp w < 4
-// accumulates dV and warp w + 4 dK, both for keys k0 + 16 w .. + 15.  A
-// warp's 16 x 256 f32 accumulator is 128 registers a thread, so one warp
-// cannot hold both (route 1's layout at hd 256 would need 256).  Per
-// 32-query step: dV's warp computes S^T = K Q^T and P^T, hands P^T to its
-// partner through shared memory (each thread's 16 values in register
-// order: both warps hold the same (key, query) positions), and adds P^T
-// dO; dK's warp computes dP^T = V dO^T, then dS^T = P^T (dP^T - D), and
-// adds dS^T Q.  Operands, tiles and the hi + lo pairs as route 1.
-__global__ void __launch_bounds__(kThreadsHd256, 1)
-flash_bwd_dkdv_hd256_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ dsum,
-                            __nv_bfloat16* __restrict__ dk,
-                            __nv_bfloat16* __restrict__ dv, int S, int T,
-                            int H, int KV, float scale, int causal,
-                            int window) {
-  using SM = DkvHd256Smem;
-  constexpr int HD = 256;
-  extern __shared__ __align__(16) uint8_t bwd_smem[];
-  constexpr int LD = SM::LD;
-  constexpr int DT = HD / 8;          // n-tiles over hd
-  constexpr int CH = HD / 8;          // 16-byte chunks per row
-  constexpr int NT = kQDkv / 8;       // n-tiles over a step's queries
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
-  __nv_bfloat16* vs = ks + SM::kKV;
-  auto qbuf = [&](int i) { return vs + SM::kKV + 2 * i * SM::kQ; };
-  auto dobuf = [&](int i) { return vs + SM::kKV + (2 * i + 1) * SM::kQ; };
-  float* p_s = reinterpret_cast<float*>(vs + SM::kKV + 4 * SM::kQ);
-  float* lse_s = p_s + 4 * SM::kP;
-  float* dsum_s = lse_s + 2 * kQDkv;  // [2][kQDkv] each
-
-  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
-  const int k0 = blockIdx.y * kKeysDkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int pair = warp & 3;          // keys k0 + 16 pair ..
-  const bool grad_k = warp >= 4;      // warps 4-7: dK; 0-3: dV
-  const int g = lane >> 2, t = lane & 3;
-  const size_t q_stride = static_cast<size_t>(H) * HD;    // between tokens
-  const size_t kv_stride = static_cast<size_t>(KV) * HD;
-  const size_t kv_off = static_cast<size_t>(b) * T * kv_stride +
-                        static_cast<size_t>(kh) * HD;
-
-  for (int i = tid; i < kKeysDkv * CH; i += kThreadsHd256) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool in = k0 + r < T;
-    const size_t off = kv_off + (in ? (k0 + r) * kv_stride + c : 0);
-    cp_async16(ks + r * LD + c, k + off, in);
-    cp_async16(vs + r * LD + c, v + off, in);
-  }
-  cp_async_commit();
-
-  // steps as route 1's (b): each of the G heads' query tiles from the
-  // block's first key to its last key's window
-  const int span = window_span(causal, window);
-  const int n_qt = (S + kQDkv - 1) / kQDkv;
-  const int qt0 = causal ? min(k0 / kQDkv, n_qt) : 0;
-  const int per_head =
-      max(query_tile_end(k0, kKeysDkv, span, n_qt, kQDkv) - qt0, 0);
-  const int n_it = G * per_head;
-
-  auto load_q = [&](int it, int buf) {
-    const int hh = kh * G + it / per_head;
-    const int q0 = (qt0 + it % per_head) * kQDkv;
-    const size_t q_off = static_cast<size_t>(b) * S * q_stride +
-                         static_cast<size_t>(hh) * HD;
-    __nv_bfloat16* qsb = qbuf(buf);
-    __nv_bfloat16* dsb = dobuf(buf);
-    for (int i = tid; i < kQDkv * CH; i += kThreadsHd256) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool in = q0 + r < S;
-      const size_t off = q_off + (in ? (q0 + r) * q_stride + c : 0);
-      cp_async16(qsb + r * LD + c, q + off, in);
-      cp_async16(dsb + r * LD + c, dout + off, in);
-    }
-    if (tid < kQDkv) {
-      const bool in = q0 + tid < S;
-      const size_t off = in ? (static_cast<size_t>(b) * H + hh) * S + q0 + tid
-                            : 0;
-      cp_async4(lse_s + buf * kQDkv + tid, lse + off, in);
-      cp_async4(dsum_s + buf * kQDkv + tid, dsum + off, in);
-    }
-    cp_async_commit();
-  };
-
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.0f;
-  }
-  const int key_lo = k0 + pair * 16 + g;     // acc rows g and g + 8
-  float* my_p = p_s + pair * SM::kP;
-  if (n_it > 0) load_q(0, 0);
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      load_q(it + 1, buf ^ 1);
-      cp_async_wait<1>();               // K, V and step it have landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();                    // and the last step's P^T is read
-    const int q0 = (qt0 + it % per_head) * kQDkv;
-    const __nv_bfloat16* qsb = qbuf(buf);
-    const __nv_bfloat16* dsb = dobuf(buf);
-    const float* ls = lse_s + buf * kQDkv;
-    const float* dd = dsum_s + buf * kQDkv;
-
-    // x[nt][e] is key key_lo (e < 2) or key_lo + 8, query q0 + nt * 8 + 2 t
-    // + (e & 1): S^T, then P^T (dV's warp); dP^T, then dS^T (dK's)
-    float x[NT][4];
-    if (!grad_k) {
-      rows_dot_rows<HD, NT, LD>(x, ks, qsb, pair, lane);    // S^T = K Q^T
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key_lo + (e & 2) * 4;
-          const int qi = nt * 8 + 2 * t + (e & 1);
-          const bool live = q0 + qi < S && key < T &&
-                            !(causal && key > q0 + qi) && key + span > q0 + qi;
-          x[nt][e] = live ? expf(x[nt][e] * scale - ls[qi]) : 0.0f;
-          my_p[(nt * 4 + e) * 32 + lane] = x[nt][e];
-        }
-      }
-    } else {
-      rows_dot_rows<HD, NT, LD>(x, vs, dsb, pair, lane);    // dP^T = V dO^T
-    }
-    __syncthreads();                    // P^T is in shared memory
-    if (!grad_k) {
-      frag_dot_tile<HD, NT, LD>(acc, x, dsb, lane);         // dV += P^T dO
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          x[nt][e] = my_p[(nt * 4 + e) * 32 + lane] *
-                     (x[nt][e] - dd[nt * 8 + 2 * t + (e & 1)]);   // dS^T
-        }
-      }
-      frag_dot_tile<HD, NT, LD>(acc, x, qsb, lane);         // dK += dS^T Q
-    }
-    __syncthreads();                    // buffer `buf` is free for it + 2
-  }
-  cp_async_wait<0>();
-
-  const size_t row_off = static_cast<size_t>(b) * T * kv_stride +
-                         static_cast<size_t>(kh) * HD;
-  store_rows<HD>((grad_k ? dk : dv) + row_off, kv_stride, acc, key_lo, T,
-                 grad_k ? scale : 1.0f, t);
-}
-
-// ---------------------------------------------------------------------------
 // route 0, bf16, hd 128: TMA, an mbarrier ring, wgmma, a producer warpgroup
 // ---------------------------------------------------------------------------
 
@@ -932,12 +773,19 @@ __device__ __forceinline__ void make_pairs(const float (&x)[M],
 // (a') For every (b, h) and row s < S_pad: lse * log2 e and D = rowsum(dout
 // * out) in f32 into the scratch, 64 rows of lse then their 64 D; rows
 // past S get lse = +inf and D = 0.  One warp a row, rows in (b, s, h) order
-// so that a warp's neighbours read the next 256 bytes.
+// so that a warp's neighbours read the next HD * 2 bytes; a lane reads HD /
+// 32 values of each (8 or 16 bytes) and sums their products in order
+// before the warp's shuffles (at hd 128 the expression of the first
+// version, so its bits).
+template <int HD>
 __global__ void __launch_bounds__(32 * kDotRows)
 flash_bwd_rows_kernel(const __nv_bfloat16* __restrict__ out,
                       const __nv_bfloat16* __restrict__ dout,
                       const float* __restrict__ lse, float* __restrict__ rows,
                       int S, int S_pad, int H, long long n_rows) {
+  constexpr int kPairs = HD / 64;              // bf16 pairs a lane
+  using Vec = typename std::conditional<kPairs == 2, uint2, uint4>::type;
+  static_assert(sizeof(Vec) == 4 * kPairs, "a lane's HD / 32 values");
   const long long row = static_cast<long long>(blockIdx.x) * kDotRows +
                         threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -947,14 +795,19 @@ flash_bwd_rows_kernel(const __nv_bfloat16* __restrict__ out,
   const long long b = row / (static_cast<long long>(H) * S_pad);
   float acc = 0.0f;
   if (s < S) {
-    const size_t off = ((b * S + s) * H + h) * 128 + 4 * lane;
-    const uint2 o = *reinterpret_cast<const uint2*>(out + off);
-    const uint2 d = *reinterpret_cast<const uint2*>(dout + off);
-    const float2 o0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&o.x));
-    const float2 o1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&o.y));
-    const float2 d0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d.x));
-    const float2 d1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&d.y));
-    acc = o0.x * d0.x + o0.y * d0.y + o1.x * d1.x + o1.y * d1.y;
+    const size_t off = ((b * S + s) * H + h) * HD + 2 * kPairs * lane;
+    const Vec o = *reinterpret_cast<const Vec*>(out + off);
+    const Vec d = *reinterpret_cast<const Vec*>(dout + off);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+    float2 of = __bfloat1622float2(o2[0]), df = __bfloat1622float2(d2[0]);
+    acc = of.x * df.x + of.y * df.y;
+#pragma unroll
+    for (int i = 1; i < kPairs; ++i) {
+      of = __bfloat1622float2(o2[i]);
+      df = __bfloat1622float2(d2[i]);
+      acc = acc + of.x * df.x + of.y * df.y;
+    }
 #pragma unroll
     for (int off2 = 16; off2 > 0; off2 >>= 1) {
       acc += __shfl_xor_sync(0xffffffffu, acc, off2);
@@ -970,7 +823,8 @@ flash_bwd_rows_kernel(const __nv_bfloat16* __restrict__ out,
 
 // (b')'s shared memory, as the consumers address it: K and V (64 keys),
 // stage s's Q at q0_addr + s kDkvStage and dO 2 kBox64 after it, the P^T
-// ring, the stages' lse and D rows, the barriers.
+// ring, the stages' lse and D rows, the barriers ((b'') at hd 256: stages
+// kH2DkvStage apart, dO kH2Tile after Q).
 struct DkvTiles {
   uint32_t k_addr, v_addr, q0_addr;
   float4* p0;
@@ -1442,6 +1296,507 @@ flash_bwd_dq_wgmma_window_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
+// route 3, bf16, hd 256: route 0's design at hd 256, two warpgroups with
+// one thread issuing the loads
+// ---------------------------------------------------------------------------
+
+// Two consumer warpgroups and no producer warpgroup: each SM sub-partition
+// then holds two warps, which may take 255 registers a thread; a producer
+// warpgroup's warps there cap every thread at 168 (setmaxnreg never raised
+// the hd-256 forward's consumers past it, csrc/flash_attention.cu).  A
+// 64 x 256 f32 accumulator is 128 registers a thread.
+constexpr int kH2Threads = 256;
+constexpr int kH2Tile = 4 * kBox64;     // 64 rows x 256 bf16: four boxes (32 KB)
+// (b''): K and V (64 keys), then per stage Q and dO (64 rows), then the P^T
+// ring, then the stages' lse and D rows; barriers after; 1 KB of slack to
+// align the base: 231,496 B of the 232,448 a block may take
+constexpr int kH2DkvStages = 2;
+constexpr int kH2DkvStage = 2 * kH2Tile;
+constexpr int kH2DkvBars = 1 + 2 * kH2DkvStages + 2 * kPSlots;
+constexpr int kH2DkvSmem = 1024 + 2 * kH2Tile + kH2DkvStages * kH2DkvStage +
+                           kPSlots * kPSlot + kH2DkvStages * kRowsF32 * 4 +
+                           8 * kH2DkvBars;
+// (c''): Q and dO (128 rows, 64 KB each), then per stage K and V of 32 keys
+// (16 KB each): 230,456 B
+constexpr int kBox32 = 32 * 128;        // a TMA box of 32 rows x 64 bf16
+constexpr int kH2DqKeys = 32;
+constexpr int kH2DqStages = 3;
+constexpr int kH2DqStage = 2 * 4 * kBox32;
+constexpr int kH2DqBars = 1 + 2 * kH2DqStages;
+constexpr int kH2DqSmem = 1024 + 8 * kBox128 + kH2DqStages * kH2DqStage +
+                          8 * kH2DqBars;
+static_assert(kH2DkvSmem <= 232448 && kH2DqSmem <= 232448,
+              "a block takes at most 227 KB of shared memory");
+
+// (b'')'s consumer warpgroups, keys k0 .. k0 + 63: dkdv_consumer's roles at
+// hd 256.  dV's (GRAD_K false): S^T = K Q^T (m64n64k16, 16 k16 steps over
+// the four 64-wide boxes), P^T, handed to dK's warpgroup in register order
+// through the P^T ring, then dV += P^T dO (m64n256k16, P^T as hi + lo pairs
+// from registers, dO MN-major, its four boxes LBO apart).  dK's: dP^T = V
+// dO^T, dS^T = P^T (dP^T - D), dK += dS^T Q.  Each holds one 64 x 256
+// accumulator (128 registers) beside one 64 x 64 score tile (32).  The
+// loads are issued by thread 0 of dK's warpgroup (`load_step(it)` loads
+// step it into stage it % 2): at the end of step it, once both warpgroups
+// have read the stage, it loads step it + 2 there.  dK's warpgroup runs
+// behind dV's (it waits for P^T), so that wait rarely blocks; a thread of
+// dV's would hold its warpgroup until dK's had finished the step.
+template <bool GRAD_K, bool WIN, typename Load>
+__device__ __forceinline__ void dkdv_hd256_consumer(
+    const DkvTiles& tl, const Load& load_step, int k0, int qt0, int per_head,
+    int n_it, int T, int KV, int b, int kh, float scale_log2, int causal,
+    int span, __nv_bfloat16* out, float mul) {
+  using namespace hopper;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key_lo = k0 + warp * 16 + g;            // accumulator rows g, g + 8
+  const int me = threadIdx.x % 128;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+
+  if (n_it > 0) mbar_wait(tl.kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kH2DkvStages, slot = it % kPSlots;
+    const uint32_t ph = (it / kH2DkvStages) & 1;
+    const uint32_t pph = (it / kPSlots) & 1;
+    const int q0 = (qt0 + it % per_head) * kRowTile;
+    mbar_wait(&tl.full[s], ph);
+    const uint32_t q_addr = tl.q0_addr + s * kH2DkvStage;
+    const uint32_t do_addr = q_addr + kH2Tile;
+    const float* rs_ = tl.rows_s + s * kRowsF32;
+    float4* ring = tl.p0 + slot * (kPSlot / 16);
+    // x[4 j + e] is key key_lo (e < 2) or key_lo + 8, query q0 + 8 j + 2 t +
+    // (e & 1): S^T, then P^T (dV's) or dP^T, then dS^T (dK's)
+    float x[32];
+    const uint32_t a_addr = GRAD_K ? tl.v_addr : tl.k_addr;
+    const uint32_t b_addr = GRAD_K ? do_addr : q_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox64 + (kk % 4) * 32;
+      wgmma_m64n64k16_ss(x, desc_sw128(a_addr + off, 16, 1024),
+                         desc_sw128(b_addr + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if constexpr (!GRAD_K) {
+      // as route 0: rows past S carry lse = +inf (P = 0), keys past T are
+      // never stored; P is masked to an exact 0 on the diagonal tile and at
+      // a window's lower edge
+      const bool diag = causal && k0 + 63 > q0;
+      const bool wedge = WIN && q0 + 63 >= k0 + span;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(rs_ + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float p = ex2_ftz(fmaf(x[i], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if (diag || wedge) {
+            const int key = key_lo + (e & 2) * 4;
+            const int row = q0 + 8 * j + 2 * t + (e & 1);
+            if ((diag && key > row) || (WIN && key + span <= row)) {
+              p = 0.0f;
+            }
+          }
+          x[i] = p;
+        }
+      }
+      mbar_wait(&tl.p_empty[slot], pph ^ 1);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        ring[c * 128 + me] = make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2],
+                                         x[4 * c + 3]);
+      }
+      mbar_arrive(&tl.p_full[slot]);
+    } else {
+      mbar_wait(&tl.p_full[slot], pph);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 p = ring[j * 128 + me];
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(rs_ + kRowTile + 8 * j + 2 * t);
+        x[4 * j] = p.x * (x[4 * j] - d2.x);
+        x[4 * j + 1] = p.y * (x[4 * j + 1] - d2.y);
+        x[4 * j + 2] = p.z * (x[4 * j + 2] - d2.x);
+        x[4 * j + 3] = p.w * (x[4 * j + 3] - d2.y);
+      }
+      mbar_arrive(&tl.p_empty[slot]);
+    }
+    uint32_t ah[4][4], al[4][4];
+    make_pairs(x, ah, al);
+    const uint32_t c_addr = GRAD_K ? q_addr : do_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = desc_sw128(c_addr + kk * 2048, kBox64, 1024);
+      wgmma_m64n256k16_rs(acc, ah[kk], d, 1);
+      wgmma_m64n256k16_rs(acc, al[kk], d, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&tl.empty[s]);
+    if constexpr (GRAD_K) {
+      if (me == 0 && it + kH2DkvStages < n_it) {
+        mbar_wait(&tl.empty[s], ph);
+        load_step(it + kH2DkvStages);
+      }
+      __syncwarp();
+    }
+  }
+  fence_regs(acc);
+
+  const size_t kv_stride = static_cast<size_t>(KV) * 256;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = key_lo + 8 * rr;
+    if (key >= T) continue;
+    __nv_bfloat16* row = out + (static_cast<size_t>(b) * T + key) * kv_stride +
+                         static_cast<size_t>(kh) * 256;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int i = 4 * j + 2 * rr;
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(mul * acc[i], mul * acc[i + 1]);
+    }
+  }
+}
+
+// (b'') dK, dV at hd 256: block (b * KV + kh, tile of 64 keys); warpgroup 0
+// accumulates dV, warpgroup 1 dK (dkdv_hd256_consumer).  K and V (64 x
+// 256) are loaded once; 64-row Q and dO tiles with their 64 lse and D rows
+// stream through a two-stage ring for each of the G query heads in turn.
+// Key tiles in blockIdx.y order, the heaviest first (as route 0).
+template <bool WIN>
+__device__ __forceinline__ void
+dkdv_hd256(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
+           const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+           const float* __restrict__ rows, __nv_bfloat16* __restrict__ dk,
+           __nv_bfloat16* __restrict__ dv, int S, int S_pad, int T, int H,
+           int KV, float scale, float scale_log2, int causal, int window) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = base;                                   // box c: hd 64 c ..
+  uint8_t* vs = base + kH2Tile;
+  auto qs = [&](int s) { return base + 2 * kH2Tile + s * kH2DkvStage; };
+  auto dos = [&](int s) { return qs(s) + kH2Tile; };
+  uint8_t* p0 = base + 2 * kH2Tile + kH2DkvStages * kH2DkvStage;  // P^T ring
+  float* rows_s = reinterpret_cast<float*>(p0 + kPSlots * kPSlot);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s +
+                                                  kH2DkvStages * kRowsF32);
+  uint64_t* full = kv_full + 1;                         // [kH2DkvStages] each
+  uint64_t* empty = full + kH2DkvStages;
+  uint64_t* p_full = empty + kH2DkvStages;              // [kPSlots] each
+  uint64_t* p_empty = p_full + kPSlots;
+
+  const int b = blockIdx.x / KV, kh = blockIdx.x % KV, G = H / KV;
+  const int k0 = blockIdx.y * kRowTile;
+  // query tiles qt0 .. qt1 - 1 of each of the G heads, as route 0
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
+  const int n_qt = (S + kRowTile - 1) / kRowTile;
+  const int qt0 = causal ? min(k0 / kRowTile, n_qt) : 0;
+  const int qt1 = query_tile_end(k0, kRowTile, span, n_qt, kRowTile);
+  const int per_head = max(qt1 - qt0, 0);
+  const int n_it = G * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kH2DkvStages; ++s) {
+      mbar_init(&full[s], 1);               // the loading thread's expect_tx
+      mbar_init(&empty[s], 8);              // one arrival per warp
+    }
+    for (int i = 0; i < kPSlots; ++i) {
+      mbar_init(&p_full[i], 128);           // every thread of dV's warpgroup
+      mbar_init(&p_empty[i], 128);          // every thread of dK's
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // step it: query head kh G + it / per_head, query tile qt0 + it % per_head
+  auto load_step = [&](int it) {
+    const int s = it % kH2DkvStages;
+    const int hh = kh * G + it / per_head;
+    const int qt = qt0 + it % per_head;
+    mbar_arrive_expect_tx(&full[s], kH2DkvStage + kRowsF32 * 4);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(qs(s) + c * kBox64, &tm_q, &full[s], 64 * c, hh,
+                  qt * kRowTile, b);
+      tma_load_4d(dos(s) + c * kBox64, &tm_do, &full[s], 64 * c, hh,
+                  qt * kRowTile, b);
+    }
+    bulk_load(rows_s + s * kRowsF32,
+              rows + (static_cast<size_t>(b * H + hh) * (S_pad / kRowTile) +
+                      qt) * kRowsF32,
+              kRowsF32 * 4, &full[s]);
+  };
+  if (threadIdx.x == 128 && n_it > 0) {
+    mbar_arrive_expect_tx(kv_full, 2 * kH2Tile);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(ks + c * kBox64, &tm_k, kv_full, 64 * c, kh, k0, b);
+      tma_load_4d(vs + c * kBox64, &tm_v, kv_full, 64 * c, kh, k0, b);
+    }
+    for (int it = 0; it < min(kH2DkvStages, n_it); ++it) load_step(it);
+  }
+  __syncwarp();
+
+  const DkvTiles tiles{smem_addr(ks), smem_addr(vs), smem_addr(qs(0)),
+                       reinterpret_cast<float4*>(p0), rows_s, kv_full, full,
+                       empty, p_full, p_empty};
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 1) {
+    dkdv_hd256_consumer<true, WIN>(tiles, load_step, k0, qt0, per_head, n_it,
+                                   T, KV, b, kh, scale_log2, causal, span, dk,
+                                   scale);
+  } else {
+    dkdv_hd256_consumer<false, WIN>(tiles, load_step, k0, qt0, per_head, n_it,
+                                    T, KV, b, kh, scale_log2, causal, span, dv,
+                                    1.0f);
+  }
+}
+
+__global__ void __launch_bounds__(kH2Threads, 1)
+flash_bwd_dkdv_wgmma_hd256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                  const __grid_constant__ CUtensorMap tm_do,
+                                  const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  const float* __restrict__ rows,
+                                  __nv_bfloat16* __restrict__ dk,
+                                  __nv_bfloat16* __restrict__ dv, int S,
+                                  int S_pad, int T, int H, int KV, float scale,
+                                  float scale_log2, int causal, int window) {
+  dkdv_hd256<false>(tm_q, tm_do, tm_k, tm_v, rows, dk, dv, S, S_pad, T, H, KV,
+                    scale, scale_log2, causal, window);
+}
+
+// the same under a causal window
+__global__ void __launch_bounds__(kH2Threads, 1)
+flash_bwd_dkdv_wgmma_hd256_window_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ rows,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
+    int S_pad, int T, int H, int KV, float scale, float scale_log2,
+    int causal, int window) {
+  dkdv_hd256<true>(tm_q, tm_do, tm_k, tm_v, rows, dk, dv, S, S_pad, T, H, KV,
+                   scale, scale_log2, causal, window);
+}
+
+// (c'') dQ at hd 256: block (b * H + h, tile of 128 query rows); warpgroup w
+// owns rows q0 + 64 w .. + 63, Q and dO loaded once.  32-key tiles of K and
+// V stream through a three-stage ring, loaded by thread 0: at the end of
+// tile jt, once both warpgroups have read its stage, tile jt + 3.  S = Q
+// K^T and dP = dO V^T (m64n32k16, 16 registers each), P, dS = P (dP - D),
+// dQ += dS K (m64n256k16 over two k16 steps, dS as hi + lo pairs, K
+// MN-major): 128 accumulator registers beside the two score tiles.  Query
+// tiles last-first, so that under causal masking the blocks with the most
+// keys are issued first; a key tile wholly after a warpgroup's rows
+// (causal) or below its first row's window is only handed back.
+template <bool WIN>
+__device__ __forceinline__ void
+dq_hd256(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
+         const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+         const float* __restrict__ rows, __nv_bfloat16* __restrict__ dq, int S,
+         int S_pad, int T, int H, int KV, float scale, float scale_log2,
+         int causal, int window) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = base;                                   // box c: hd 64 c ..
+  uint8_t* dos = base + 4 * kBox128;
+  auto ks = [&](int s) { return base + 8 * kBox128 + s * kH2DqStage; };
+  auto vs = [&](int s) { return ks(s) + 4 * kBox32; };
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + 8 * kBox128 +
+                                                 kH2DqStages * kH2DqStage);
+  uint64_t* full = q_full + 1;                          // [kH2DqStages] each
+  uint64_t* empty = full + kH2DqStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBlock;
+  // key tiles lo .. n_tiles - 1: none past the block's last row (causal),
+  // none wholly below its first row's window
+  const int span = WIN ? window_span(causal, window) : kNoSpan;
+  int n_tiles = (T + kH2DqKeys - 1) / kH2DqKeys;
+  if (causal) {
+    n_tiles = min(n_tiles, (min(q0 + kWgBlock, S) - 1) / kH2DqKeys + 1);
+  }
+  const int lo = first_key_tile(q0, span, kH2DqKeys);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kH2DqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int jt) {
+    const int s = (jt - lo) % kH2DqStages;
+    mbar_arrive_expect_tx(&full[s], kH2DqStage);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(ks(s) + c * kBox32, &tm_k, &full[s], 64 * c, kh,
+                  jt * kH2DqKeys, b);
+      tma_load_4d(vs(s) + c * kBox32, &tm_v, &full[s], 64 * c, kh,
+                  jt * kH2DqKeys, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(q_full, 8 * kBox128);
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(qs + c * kBox128, &tm_q, q_full, 64 * c, h, q0, b);
+      tma_load_4d(dos + c * kBox128, &tm_do, q_full, 64 * c, h, q0, b);
+    }
+    for (int jt = lo; jt < min(lo + kH2DqStages, n_tiles); ++jt) load_kv(jt);
+  }
+  __syncwarp();
+
+  // warp-uniform to the compiler (a broadcast from lane 0), so that the
+  // wgmma descriptors derived from it are computed in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_w = q0 + wg * 64;                   // this warpgroup's rows
+  const int r_lo = row_w + warp * 16 + g, r_hi = r_lo + 8;
+  const uint32_t q_addr = smem_addr(qs) + wg * 64 * 128;
+  const uint32_t do_addr = smem_addr(dos) + wg * 64 * 128;
+  // the scratch is padded to a multiple of 128 rows: r_lo, r_hi < S_pad
+  const float* lo_rows = scratch_rows(rows, bh, S_pad, r_lo);
+  const float* hi_rows = scratch_rows(rows, bh, S_pad, r_hi);
+  const float lse2[2] = {lo_rows[0], hi_rows[0]};
+  const float dsum[2] = {lo_rows[kRowTile], hi_rows[kRowTile]};
+  float dqa[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dqa[i] = 0.0f;
+
+  mbar_wait(q_full, 0);
+  for (int jt = lo; jt < n_tiles; ++jt) {
+    const int s = (jt - lo) % kH2DqStages;
+    const uint32_t ph = ((jt - lo) / kH2DqStages) & 1;
+    const int j0 = jt * kH2DqKeys;
+    mbar_wait(&full[s], ph);
+    if (!(causal && j0 > row_w + 63) &&
+        (!WIN || j0 + kH2DqKeys - 1 + span > row_w)) {
+      const uint32_t k_addr = smem_addr(ks(s));
+      const uint32_t v_addr = smem_addr(vs(s));
+      // S = Q K^T and dP = dO V^T: sc[4 j + e] is row r_lo (e < 2) or
+      // r_hi, key j0 + 8 j + 2 t + (e & 1)
+      float sc[16], dp[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const uint32_t k32 = (kk % 4) * 32;
+        wgmma_m64n32k16_ss(
+            sc, desc_sw128(q_addr + (kk / 4) * kBox128 + k32, 16, 1024),
+            desc_sw128(k_addr + (kk / 4) * kBox32 + k32, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const uint32_t k32 = (kk % 4) * 32;
+        wgmma_m64n32k16_ss(
+            dp, desc_sw128(do_addr + (kk / 4) * kBox128 + k32, 16, 1024),
+            desc_sw128(v_addr + (kk / 4) * kBox32 + k32, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      // P = exp2(S scale log2 e - lse log2 e), while dP runs; masked to an
+      // exact 0 where key > row (causal), past T and at key <= row - W
+      const bool edge = (causal && j0 + kH2DqKeys - 1 > row_w) ||
+                        j0 + kH2DqKeys > T ||
+                        (WIN && j0 + span <= row_w + 63);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int rr = (i >> 1) & 1;
+        float p = ex2_ftz(fmaf(sc[i], scale_log2, -lse2[rr]));
+        if (edge) {
+          const int key = j0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int row = rr ? r_hi : r_lo;
+          if (key >= T || (causal && key > row) ||
+              (WIN && key + span <= row)) {
+            p = 0.0f;
+          }
+        }
+        sc[i] = p;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // dS = P (dP - D) as hi + lo pairs of bf16 A operands; dQ += dS K,
+      // K read MN-major (32 keys a box, its four hd boxes LBO apart)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sc[i] *= dp[i] - dsum[(i >> 1) & 1];
+      uint32_t sh[2][4], sl[2][4];
+      make_pairs(sc, sh, sl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t d = desc_sw128(k_addr + kk * 2048, kBox32, 1024);
+        wgmma_m64n256k16_rs(dqa, sh[kk], d, 1);
+        wgmma_m64n256k16_rs(dqa, sl[kk], d, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && jt + kH2DqStages < n_tiles) {
+      mbar_wait(&empty[s], ph);
+      load_kv(jt + kH2DqStages);
+    }
+    __syncwarp();
+  }
+  fence_regs(dqa);
+
+  const size_t q_stride = static_cast<size_t>(H) * 256;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = rr ? r_hi : r_lo;
+    if (r >= S) continue;
+    __nv_bfloat16* row = dq + (static_cast<size_t>(b) * S + r) * q_stride +
+                         static_cast<size_t>(h) * 256;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int i = 4 * j + 2 * rr;
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(scale * dqa[i], scale * dqa[i + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kH2Threads, 1)
+flash_bwd_dq_wgmma_hd256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const float* __restrict__ rows,
+                                __nv_bfloat16* __restrict__ dq, int S,
+                                int S_pad, int T, int H, int KV, float scale,
+                                float scale_log2, int causal, int window) {
+  dq_hd256<false>(tm_q, tm_do, tm_k, tm_v, rows, dq, S, S_pad, T, H, KV,
+                  scale, scale_log2, causal, window);
+}
+
+// the same under a causal window
+__global__ void __launch_bounds__(kH2Threads, 1)
+flash_bwd_dq_wgmma_hd256_window_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ rows,
+    __nv_bfloat16* __restrict__ dq, int S, int S_pad, int T, int H, int KV,
+    float scale, float scale_log2, int causal, int window) {
+  dq_hd256<true>(tm_q, tm_do, tm_k, tm_v, rows, dq, S, S_pad, T, H, KV, scale,
+                 scale_log2, causal, window);
+}
+
+// ---------------------------------------------------------------------------
 // route 2, f32: FMA
 // ---------------------------------------------------------------------------
 
@@ -1807,33 +2162,15 @@ struct Args {
   int window;                         // 0 for none
 };
 
-// route 1's (c), also route 3's
-template <int HD>
-int launch_dq_bf16(const Args& a, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  const auto kernel = a.window ? flash_bwd_dq_bf16_window_kernel<HD>
-                               : flash_bwd_dq_bf16_kernel<HD>;
-  const int e3 = set_smem(kernel, DqSmem<HD>::kBytes);
-  if (e3 != 0) return e3;
-  kernel<<<dim3(a.B * a.H, (a.S + kRowsDq - 1) / kRowsDq), kThreadsMma,
-         DqSmem<HD>::kBytes, stream>>>(
-          static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
-          static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
-          static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-          static_cast<bf*>(a.dq), a.S, a.T, a.H, a.KV, a.scale, a.causal,
-          a.window);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // route 1: (b), then (c)
 template <int HD>
 int launch_bf16(const Args& a, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const auto kernel = a.window ? flash_bwd_dkdv_bf16_window_kernel<HD>
-                               : flash_bwd_dkdv_bf16_kernel<HD>;
-  const int e1 = set_smem(kernel, DkvSmem<HD>::kBytes);
+  const auto dkdv = a.window ? flash_bwd_dkdv_bf16_window_kernel<HD>
+                             : flash_bwd_dkdv_bf16_kernel<HD>;
+  const int e1 = set_smem(dkdv, DkvSmem<HD>::kBytes);
   if (e1 != 0) return e1;
-  kernel<<<dim3(a.B * a.KV, (a.T + kKeysDkv - 1) / kKeysDkv), kThreadsMma,
+  dkdv<<<dim3(a.B * a.KV, (a.T + kKeysDkv - 1) / kKeysDkv), kThreadsMma,
          DkvSmem<HD>::kBytes, stream>>>(
           static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
           static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
@@ -1842,85 +2179,93 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
           a.scale, a.causal, a.window);
   const int e2 = static_cast<int>(cudaGetLastError());
   if (e2 != 0) return e2;
-  return launch_dq_bf16<HD>(a, stream);
-}
-
-// route 3: (b''), then route 1's (c) at hd 256
-int launch_hd256(const Args& a, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  using SM = DkvHd256Smem;
-  const int e1 = set_smem(flash_bwd_dkdv_hd256_kernel, SM::kBytes);
-  if (e1 != 0) return e1;
-  flash_bwd_dkdv_hd256_kernel
-      <<<dim3(a.B * a.KV, (a.T + kKeysDkv - 1) / kKeysDkv), kThreadsHd256,
-         SM::kBytes, stream>>>(
+  const auto dq = a.window ? flash_bwd_dq_bf16_window_kernel<HD>
+                           : flash_bwd_dq_bf16_kernel<HD>;
+  const int e3 = set_smem(dq, DqSmem<HD>::kBytes);
+  if (e3 != 0) return e3;
+  dq<<<dim3(a.B * a.H, (a.S + kRowsDq - 1) / kRowsDq), kThreadsMma,
+       DqSmem<HD>::kBytes, stream>>>(
           static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
           static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout),
           static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-          static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.S, a.T, a.H, a.KV,
-          a.scale, a.causal, a.window);
-  const int e2 = static_cast<int>(cudaGetLastError());
-  if (e2 != 0) return e2;
-  return launch_dq_bf16<256>(a, stream);
+          static_cast<bf*>(a.dq), a.S, a.T, a.H, a.KV, a.scale, a.causal,
+          a.window);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// route 0: (a'), then (b') and (c') on tensor maps over the real 4-D
-// layouts (hd, heads, seq, batch)
+// A bf16 tensor map over the real 4-D layout (hd, heads, seq, batch) of q,
+// dout (heads H, seq S) or k, v (KV, T), in boxes of 64 hd x `rows` rows.
+int bwd_map(CUtensorMap* map, const void* base, int hd, int heads, int seq,
+            int B, int rows) {
+  const uint64_t dim[4] = {static_cast<uint64_t>(hd),
+                           static_cast<uint64_t>(heads),
+                           static_cast<uint64_t>(seq),
+                           static_cast<uint64_t>(B)};
+  const uint64_t str[3] = {2ull * hd, 2ull * hd * heads,
+                           2ull * hd * heads * seq};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return hopper::make_tensor_map_bf16(map, base, 4, dim, str, box);
+}
+
+// routes 0 (hd 128) and 3 (hd 256): (a'), then dK / dV ((b') or (b'')) and
+// dQ ((c') or (c'')) on tensor maps: 64-row Q and dO tiles past 64 keys,
+// K and V tiles (64 keys, or 32 at hd 256) past 128 query rows
+template <int HD>
 int launch_wgmma(const Args& a, cudaStream_t stream) {
   using bf = __nv_bfloat16;
+  constexpr bool kHd256 = HD == 256;
   const int S_pad = (a.S + kWgBlock - 1) / kWgBlock * kWgBlock;
   float* rows = static_cast<float*>(a.dsum);
   const long long n_rows = static_cast<long long>(a.B) * S_pad * a.H;
   const long long blocks = (n_rows + kDotRows - 1) / kDotRows;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_rows_kernel<<<static_cast<unsigned>(blocks), 32 * kDotRows, 0,
-                          stream>>>(
+  flash_bwd_rows_kernel<HD><<<static_cast<unsigned>(blocks), 32 * kDotRows, 0,
+                              stream>>>(
       static_cast<const bf*>(a.out), static_cast<const bf*>(a.dout),
       static_cast<const float*>(a.lse), rows, a.S, S_pad, a.H, n_rows);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
 
-  const uint64_t qdim[4] = {128, static_cast<uint64_t>(a.H),
-                            static_cast<uint64_t>(a.S),
-                            static_cast<uint64_t>(a.B)};
-  const uint64_t qstr[3] = {256, 256ull * a.H, 256ull * a.H * a.S};
-  const uint64_t kdim[4] = {128, static_cast<uint64_t>(a.KV),
-                            static_cast<uint64_t>(a.T),
-                            static_cast<uint64_t>(a.B)};
-  const uint64_t kstr[3] = {256, 256ull * a.KV, 256ull * a.KV * a.T};
-  const uint32_t box64[4] = {64, 1, kRowTile, 1};
-  const uint32_t box128[4] = {64, 1, kWgBlock, 1};
-  // (b') streams 64-row Q and dO tiles past 64 keys; (c') 64-key K and V
-  // tiles past 128 query rows
-  CUtensorMap q64, do64, q128, do128, k64, v64;
-  const struct { CUtensorMap* map; const void* base; bool q; bool wide; } maps[6] = {
-      {&q64, a.q, true, false},   {&do64, a.dout, true, false},
-      {&q128, a.q, true, true},   {&do128, a.dout, true, true},
-      {&k64, a.k, false, false},  {&v64, a.v, false, false}};
+  // dQ's K and V tiles: 64 keys at hd 128, 32 at hd 256
+  constexpr int kDqKeys = kHd256 ? kH2DqKeys : kRowTile;
+  CUtensorMap q64, do64, q128, do128, k64, v64, kdq, vdq;
+  const struct { CUtensorMap* map; const void* base; bool q; int rows; } maps[8] = {
+      {&q64, a.q, true, kRowTile},     {&do64, a.dout, true, kRowTile},
+      {&q128, a.q, true, kWgBlock},    {&do128, a.dout, true, kWgBlock},
+      {&k64, a.k, false, kRowTile},    {&v64, a.v, false, kRowTile},
+      {&kdq, a.k, false, kDqKeys},     {&vdq, a.v, false, kDqKeys}};
   for (const auto& m : maps) {
-    err = hopper::make_tensor_map_bf16(m.map, m.base, 4, m.q ? qdim : kdim,
-                                       m.q ? qstr : kstr,
-                                       m.wide ? box128 : box64);
+    err = bwd_map(m.map, m.base, HD, m.q ? a.H : a.KV, m.q ? a.S : a.T, a.B,
+                  m.rows);
     if (err != 0) return err;
   }
   const float scale_log2 = a.scale * kLog2e;
-  const auto dkdv = a.window ? flash_bwd_dkdv_wgmma_window_kernel
-                             : flash_bwd_dkdv_wgmma_kernel;
-  err = set_smem(dkdv, kDkvSmem);
+  const auto dkdv =
+      kHd256 ? (a.window ? flash_bwd_dkdv_wgmma_hd256_window_kernel
+                         : flash_bwd_dkdv_wgmma_hd256_kernel)
+             : (a.window ? flash_bwd_dkdv_wgmma_window_kernel
+                         : flash_bwd_dkdv_wgmma_kernel);
+  const int threads = kHd256 ? kH2Threads : kWgThreads;
+  const int dkdv_smem = kHd256 ? kH2DkvSmem : kDkvSmem;
+  err = set_smem(dkdv, dkdv_smem);
   if (err != 0) return err;
-  dkdv<<<dim3(a.B * a.KV, (a.T + kRowTile - 1) / kRowTile), kWgThreads,
-         kDkvSmem, stream>>>(
+  dkdv<<<dim3(a.B * a.KV, (a.T + kRowTile - 1) / kRowTile), threads,
+         dkdv_smem, stream>>>(
       q64, do64, k64, v64, rows, static_cast<bf*>(a.dk),
       static_cast<bf*>(a.dv), a.S, S_pad, a.T, a.H, a.KV, a.scale, scale_log2,
       a.causal, a.window);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const auto dq = a.window ? flash_bwd_dq_wgmma_window_kernel
-                           : flash_bwd_dq_wgmma_kernel;
-  err = set_smem(dq, kDqSmem);
+  const auto dq =
+      kHd256 ? (a.window ? flash_bwd_dq_wgmma_hd256_window_kernel
+                         : flash_bwd_dq_wgmma_hd256_kernel)
+             : (a.window ? flash_bwd_dq_wgmma_window_kernel
+                         : flash_bwd_dq_wgmma_kernel);
+  const int dq_smem = kHd256 ? kH2DqSmem : kDqSmem;
+  err = set_smem(dq, dq_smem);
   if (err != 0) return err;
-  dq<<<dim3(a.B * a.H, S_pad / kWgBlock), kWgThreads, kDqSmem, stream>>>(
-      q128, do128, k64, v64, rows, static_cast<bf*>(a.dq), a.S, S_pad, a.T,
+  dq<<<dim3(a.B * a.H, S_pad / kWgBlock), threads, dq_smem, stream>>>(
+      q128, do128, kdq, vdq, rows, static_cast<bf*>(a.dq), a.S, S_pad, a.T,
       a.H, a.KV, a.scale, scale_log2, a.causal, a.window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1977,9 +2322,9 @@ int launch_dot(const Args& a, int hd, cudaStream_t stream) {
 // 64), 2 = fma (f32, hd 32, 64, 128 or 256), 3 = hd256 (bf16, hd 256); a
 // route that the dtype and hd do not select is refused.  dsum is f32
 // scratch of 2 B H S_pad floats (S_pad = S rounded up to a multiple of
-// 128; kernels/flash_attention.py::flash_bwd_scratch allocates it): route
-// 0's (a') fills it with lse log2 e and D, 64 rows at a time; routes 1, 2
-// and 3's (a) fill its first B H S floats with D (B, H, S).  window: 0 for
+// 128; kernels/flash_attention.py::flash_bwd_scratch allocates it): routes
+// 0 and 3's (a') fill it with lse log2 e and D, 64 rows at a time; routes
+// 1 and 2's (a) fill its first B H S floats with D (B, H, S).  window: 0 for
 // none, else the forward's causal window W >= 1, with every query row
 // seeing a key (S <= T + W - 1); lse must be the windowed forward's.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -2009,14 +2354,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, out, lse, dout, dq, dk, dv, dsum,
                B, S, T, H, KV, causal, scale, window};
-  if (route == 0) return launch_wgmma(a, s);
+  if (route == 0) return launch_wgmma<128>(a, s);
+  if (route == 3) return launch_wgmma<256>(a, s);
   const int e = dtype == 0 ? launch_dot<__nv_bfloat16>(a, hd, s)
                            : launch_dot<float>(a, hd, s);
   if (e != 0) return e;
   if (route == 1) {
     return hd == 32 ? launch_bf16<32>(a, s) : launch_bf16<64>(a, s);
   }
-  if (route == 3) return launch_hd256(a, s);
   switch (hd) {
     case 32: return launch_f32<32>(a, s);
     case 64: return launch_f32<64>(a, s);
@@ -2035,4 +2380,14 @@ extern "C" void flash_attention_bwd_wgmma_config(int* dkdv_smem_bytes,
   *dq_smem_bytes = kDqSmem;
   *producer_regs = kWgProducerRegs;
   *consumer_regs = kWgConsumerRegs;
+}
+
+// Route 3's wgmma kernels' dynamic shared memory and threads a block (no
+// setmaxnreg: every thread may take 255 registers).
+extern "C" void flash_attention_bwd_hd256_config(int* dkdv_smem_bytes,
+                                                 int* dq_smem_bytes,
+                                                 int* threads) {
+  *dkdv_smem_bytes = kH2DkvSmem;
+  *dq_smem_bytes = kH2DqSmem;
+  *threads = kH2Threads;
 }

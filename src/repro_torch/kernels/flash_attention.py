@@ -52,9 +52,10 @@ lengths.  The backward takes the forward's route (`flash_route`):
     products, P and dS entering theirs from registers;
   - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
     kernels;
-  - "hd256": bf16, hd 256 (gemma-7b) -- route 1's `mma.sync` with a pair
-    of warps per 16 keys in dK / dV (one accumulates dV, its partner dK)
-    and 32-key steps in dQ, so that the 16 x 256 f32 accumulators fit;
+  - "hd256": bf16, hd 256 (gemma-7b) -- the "wgmma" route's design with
+    two warpgroups alone (one 64 x 256 f32 accumulator each, 128 registers
+    a thread) and one thread of them issuing the TMA loads: dK / dV per 64
+    keys with 64-row query steps, dQ per 128 rows with 32-key steps;
   - "fma": f32 -- FMA, never TF32 (32-key tiles at hd 256).
 Every route takes the forward's window: it skips the tiles wholly outside
 it and masks P (and dS) to an exact 0 on the tiles at its lower edge.
@@ -122,10 +123,10 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
 
 def flash_bwd_scratch(B: int, H: int, S: int, device) -> torch.Tensor:
     """The backward entry point's f32 scratch, 2 B H S_pad floats with
-    S_pad = S rounded up to a multiple of 128: the "wgmma" route writes lse
-    * log2 e and D there, 64 rows of each in turn (rows past S padded); the
-    "mma_sync", "hd256" and "fma" routes write D (B, H, S) into its first
-    B H S."""
+    S_pad = S rounded up to a multiple of 128: the "wgmma" and "hd256"
+    routes write lse * log2 e and D there, 64 rows of each in turn (rows
+    past S padded); the "mma_sync" and "fma" routes write D (B, H, S) into
+    its first B H S."""
     rows = -(-S // 128) * 128 * 2
     return torch.empty(B, H, rows, dtype=torch.float32, device=device)
 

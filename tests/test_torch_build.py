@@ -199,18 +199,77 @@ def test_build_report_names_the_hd_256_forward_kernel():
 
 
 def test_build_report_names_the_hd_256_backward_kernels():
-    # phase 1 reports the backward's hd-256 kernels (route hd256: the pair
-    # kernel for dK / dV and route 1's dQ at hd 256; route fma's f32 pair)
-    # with their registers, shared memory and spills
+    # phase 1 reports the backward's hd-256 kernels (route hd256: lse and D,
+    # then the TMA + wgmma dK / dV and dQ kernels and their window twins;
+    # route fma's f32 pair) with their registers, shared memory and spills;
+    # the route's wgmma kernels are gated Hopper kernels (no stack, no
+    # spill, no serialised wgmma), and the first version's kernels it
+    # replaced (the warp-pair dK / dV, mma.sync's dQ at hd 256) are no
+    # longer looked for
     sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     try:
         import chip_smoke
     finally:
         sys.path.pop(0)
-    new = ("flash_bwd_dkdv_hd256_kernel", "flash_bwd_dq_bf16_kernel<256>",
-           "flash_bwd_dkdv_f32_kernel<256>", "flash_bwd_dq_f32_kernel<256>")
-    reported = chip_smoke.GATED_KERNELS + chip_smoke.FLASH_BWD_REPORTED
-    for name in new:
-        assert name in reported, name
-    assert chip_smoke.short_name("<unnamed>::flash_bwd_dkdv_hd256_kernel"
-                                 ) == "flash_bwd_dkdv_hd256_kernel"
+    wgmma = ("flash_bwd_dkdv_wgmma_hd256_kernel",
+             "flash_bwd_dq_wgmma_hd256_kernel",
+             "flash_bwd_dkdv_wgmma_hd256_window_kernel",
+             "flash_bwd_dq_wgmma_hd256_window_kernel")
+    for name in wgmma:
+        assert name in chip_smoke.HOPPER_KERNELS, name
+        assert name in chip_smoke.GATED_KERNELS, name
+        assert chip_smoke.short_name(f"<unnamed>::{name}") == name
+    for name in ("flash_bwd_rows_kernel<128>", "flash_bwd_rows_kernel<256>",
+                 "flash_bwd_dkdv_f32_kernel<256>",
+                 "flash_bwd_dq_f32_kernel<256>"):
+        assert name in chip_smoke.GATED_KERNELS, name
+    assert chip_smoke.short_name(
+        "void <unnamed>::flash_bwd_rows_kernel<(int)256>"
+    ) == "flash_bwd_rows_kernel<256>"
+    assert chip_smoke.FLASH_BWD_HD256 == (
+        "flash_bwd_rows_kernel<256>", "flash_bwd_dkdv_wgmma_hd256_kernel",
+        "flash_bwd_dq_wgmma_hd256_kernel")
+    reported = (chip_smoke.GATED_KERNELS + chip_smoke.FLASH_BWD_REPORTED
+                + chip_smoke.FLASH_FWD_KERNELS)
+    for gone in ("flash_bwd_dkdv_hd256_kernel", "flash_bwd_dq_bf16_kernel<256>",
+                 "flash_bwd_dq_bf16_window_kernel<256>",
+                 "flash_bwd_rows_kernel"):
+        assert gone not in reported, gone
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for gone in ("flash_bwd_dkdv_hd256_kernel", "DkvHd256Smem",
+                 "kThreadsHd256"):
+        assert gone not in src, gone
+
+
+# the first version's hd-256 dK / dV kernel as the parent tree declared it
+# (route 3 before its TMA + wgmma redesign)
+PARENT_HD256_DECL = """__global__ void __launch_bounds__(kThreadsHd256, 1)
+flash_bwd_dkdv_hd256_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+"""
+
+
+@pytest.mark.parametrize("tree,has", [("parent", True), ("this", True),
+                                      ("neither", False)])
+def test_flash_bwd_ab_finds_the_hd_256_backward_of_either_design(
+        tmp_path, tree, has):
+    # scripts/flash_bwd_ab.py runs the hd-256 cases and timings on every
+    # tree with the bf16 hd-256 backward: the parent's first version and
+    # this tree's redesign (so it times parent against child), and on no
+    # tree without one
+    scripts = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           "scripts")
+    sys.path.insert(0, scripts)
+    try:
+        import flash_bwd_ab
+    finally:
+        sys.path.remove(scripts)
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    text = {"parent": PARENT_HD256_DECL, "this": src,
+            "neither": "\n".join(ln for ln in src.splitlines()
+                                 if "hd256_kernel" not in ln)}[tree]
+    (tmp_path / "flash_attention_bwd.cu").write_text(text)
+    assert flash_bwd_ab.has_hd256(tmp_path) is has
+    if tree == "this":
+        assert flash_bwd_ab.has_hd256(_build.CSRC)
+        assert flash_bwd_ab.route_of(_build.CSRC) == 0

@@ -838,8 +838,8 @@ def _bwd_case(seed, B, S, T, H, KV, hd, dtype, causal, window=None):
     return (q, k, v, dout, out, lse), want
 
 
-def _grad_rows_ok(got, want, dtype):
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+def _grad_rows_ok(got, want, dtype, names=("dq", "dk", "dv")):
+    for name, g, w in zip(names, got, want):
         assert g.dtype == dtype and g.shape == w.shape, name
         assert bool(torch.isfinite(g).all()), name
         d = (g.double() - w).abs().amax(-1)
@@ -987,6 +987,54 @@ def test_flash_backward_hd_256_matches_plain(B, S, T, H, KV, causal, dtype):
     assert _route_launches(fa.FLASH_BWD, route) == (n + 2, nr + 2)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _grad_rows_ok(got, want, dtype)
+
+
+# the hd256 route (bf16) around its tiles: 64 keys and 64-row query steps
+# in dK / dV, 128 rows and 32-key steps in dQ, so S and T one short of, at
+# and one past 32, 64 and 128, and 1000 / 1100; 16/16 and 8/2 heads, causal
+# and full (S 1 only full: a causal row that sees one key has an exact dq
+# of 0); then causal windows of 1 to 65 keys around the 32- and 64-key
+# tiles.  Under a window of 1 every row sees its own key alone: dq and dk
+# are exactly 0, so they are held by their largest |value| against
+# BWD_ROW_FLOOR of dv's largest (chip_smoke.grad_worst).
+HD256_TILE_EDGES = [
+    (1, 1, 31, 16, 16, False, None), (1, 1, 63, 16, 16, False, None),
+    (1, 31, 31, 8, 2, True, None), (1, 32, 33, 16, 16, True, None),
+    (1, 33, 32, 8, 2, False, None), (1, 63, 64, 16, 16, False, None),
+    (1, 64, 65, 8, 2, True, None), (1, 65, 63, 16, 16, True, None),
+    (1, 127, 129, 8, 2, False, None), (1, 128, 127, 16, 16, True, None),
+    (1, 129, 128, 8, 2, True, None), (2, 1000, 1100, 16, 16, True, None),
+    (2, 1000, 1100, 8, 2, False, None)] + [
+    (1, 200, 200, H, KV, True, W)
+    for W, (H, KV) in ((1, (16, 16)), (31, (8, 2)), (32, (16, 16)),
+                       (33, (8, 2)), (63, (16, 16)), (64, (8, 2)),
+                       (65, (16, 16)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,causal,W", HD256_TILE_EDGES)
+def test_flash_backward_hd_256_route_on_tile_edges(B, S, T, H, KV, causal, W):
+    _need_card()
+    (q, k, v, dout, out, lse), want = _bwd_case(B + S + T + (W or 0), B, S, T,
+                                                H, KV, 256, torch.bfloat16,
+                                                causal, W)
+    n, nr = _route_launches(fa.FLASH_BWD, "hd256")
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                 scale=256 ** -0.5, window=W)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   scale=256 ** -0.5, window=W)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH_BWD, "hd256") == (n + 2, nr + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if W != 1:
+        _grad_rows_ok(got, want, torch.bfloat16)
+        return
+    _grad_rows_ok(got[2:], want[2:], torch.bfloat16, names=("dv",))
+    floor = BWD_ROW_FLOOR * want[2].abs().max().item()
+    for name, g in zip(("dq", "dk"), got[:2]):
+        assert bool(torch.isfinite(g).all()), name
+        err = g.double().abs().max().item() / floor
+        assert err <= BWD_ROW_TOL[torch.bfloat16], (name, err)
 
 
 @pytest.mark.cuda
