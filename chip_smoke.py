@@ -323,6 +323,29 @@ Phases, each fatal on failure:
                  4's near-tie rule: the reference's decode adds position
                  0's embedding to every token, its forward each token's
                  own).
+  23. recurrent -- (a) the selective scan (csrc/selective_scan.cu) against
+                 its plain version on the card at hymba-1.5b's 8192-token
+                 prefill (bf16 and f32), its decode (S 1, nonzero h0), S 300
+                 and 1, B 4 and a ragged width at N 8 (y and h_last within
+                 1e-4 of max|plain|, two launches bitwise equal), timed
+                 beside its bound at the card's clock and the plain loop;
+                 the windowed flash forward at hymba's (1, 8192, 25/5, 64)
+                 under W 1024 held to chunked_attention and f64 rows, and
+                 timed.  (b) hymba-1.5b at full width and depth in bf16
+                 through `launch/serve.py` with phase 3's settings: grouped
+                 launches steps x 32 x 6, scan launches (prefills + steps)
+                 x 32; prompts of 8192 and 32768 tokens through the
+                 engine's prefill (32 windowed mma_sync flash launches and
+                 32 scan launches each; ms, peak memory, the lane's 1024 KV
+                 slots and Mamba state against an unwindowed cache).  (c)
+                 xlstm-1.3b the same way (grouped launches steps x 54), then
+                 one 1024-token prompt (ms, device kernels, the lane's
+                 state bytes).  (d) 2-layer f32 hymba and one-period f32
+                 xLSTM at full width against the single-adapter reference
+                 (phase 4's near-tie rule), hymba's 8192-token prompt
+                 through the kernel against chunked_attention, and its
+                 300-token prefill through the scan kernel against the
+                 plain scan.
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6, over one 8192-token
 prefill of phase 11's engine and over one 8192-token client step of
@@ -475,9 +498,13 @@ FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel<128>",
 # their registers and spills, not gated (the windowed mma.sync dQ at hd 64:
 # 12 bytes of spill stores)
 FLASH_BWD_REPORTED = ("flash_bwd_dq_bf16_window_kernel<64>",)
+# the selective scan (csrc/selective_scan.cu): state sizes 8 and 16, u in
+# bf16 or f32
+SCAN_KERNELS = tuple(f"selective_scan_kernel<{n}, {t}>" for n in (8, 16)
+                     for t in ("__nv_bfloat16", "float"))
 # kernels that must build with no stack frame and no spills
 GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
-                 + FLASH_BWD_KERNELS)
+                 + FLASH_BWD_KERNELS + SCAN_KERNELS)
 # the flash forward's other kernels (csrc/flash_attention.cu): mma.sync at hd
 # 32 and 64, FMA at every head size; each must be in its library's log, and
 # its registers and spills are printed
@@ -626,6 +653,31 @@ def grouped_bound(x, a, b, g):
                                        else "operations")
 
 
+def grouped_held(kern, ref, gen, M, K, R, N, G, scale,
+                 tag: str = "[kernels]") -> float:
+    """grouped_pallas against grouped_ref on one input set of this shape:
+    within RTOL / ATOL, finite, and a second launch bitwise equal to the
+    first.  Returns max|err|."""
+    import torch
+    x, a, b, g = grouped_case(gen, M, K, R, N, G)
+    got = kern.delta(x, a, b, g, scale)
+    again = kern.delta(x, a, b, g, scale)
+    want = ref.delta(x, a, b, g, scale)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    print(f"{tag} grouped_pallas M={M} K={K} R={R} N={N} G={G}: "
+          f"max|err| {err:.3e} {'ok' if ok else 'MISMATCH'}; a second "
+          f"launch bitwise equal: {same}")
+    check(ok and bool(torch.isfinite(got).all()),
+          f"grouped_pallas disagrees with grouped_ref at M={M} K={K} "
+          f"R={R} N={N}")
+    check(same, f"grouped_pallas is not deterministic at M={M} K={K} "
+          f"R={R} N={N}")
+    return err
+
+
 def kernel_phase(seed: int):
     import torch
     from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
@@ -639,23 +691,8 @@ def kernel_phase(seed: int):
              for N in (4096, 512, 50)] + [(8, 4097, 16, 4096),
                                           (130, 4097, 5, 257)]
     for M, K_, R_, N in cases:
-        x, a, b, g = grouped_case(gen, M, K_, R_, N, G)
-        got = kern.delta(x, a, b, g, scale)
-        again = kern.delta(x, a, b, g, scale)
-        want = ref.delta(x, a, b, g, scale)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
-        same = torch.equal(got.view(torch.int32), again.view(torch.int32))
-        print(f"[kernels] grouped_pallas M={M} K={K_} R={R_} N={N} G={G}: "
-              f"max|err| {err:.3e} {'ok' if ok else 'MISMATCH'}; a second "
-              f"launch bitwise equal: {same}")
-        check(ok and bool(torch.isfinite(got).all()),
-              f"grouped_pallas disagrees with grouped_ref at M={M} K={K_} "
-              f"R={R_} N={N}")
-        check(same, f"grouped_pallas is not deterministic at M={M} K={K_} "
-              f"R={R_} N={N}")
-        max_err = max(max_err, err)
+        max_err = max(max_err, grouped_held(kern, ref, gen, M, K_, R_, N, G,
+                                            scale))
 
     # timings at the decode shapes of the serving phase (8 lanes; wq/wo give
     # N = 4096, wk/wv N = 512).  40 input sets (88 MB, more than the 50 MB
@@ -5279,6 +5316,560 @@ def gpt_serve_phase(seed: int):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the recurrent families, hymba-1.5b and xlstm-1.3b
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = 1e-4                # |kernel - plain| / max|plain|, y and h_last
+# (B, S, di, N, dtype of u, nonzero h0): hymba-1.5b's prefill of 8192
+# tokens (one layer), its decode of 8 lanes (u is f32 there), a ragged
+# length, one step from zeros, four rows, and a width and state size off
+# the 8-channel tiles (the smoke configs' N = 8)
+SCAN_CASES = ((1, LONG_S, 3200, 16, "bfloat16", False),
+              (1, LONG_S, 3200, 16, "float32", False),
+              (8, 1, 3200, 16, "float32", True),
+              (8, 1, 3200, 16, "bfloat16", True),
+              (1, 300, 3200, 16, "bfloat16", True),
+              (1, 1, 3200, 16, "bfloat16", False),
+              (4, 1000, 3200, 16, "bfloat16", True),
+              (3, 77, 100, 8, "float32", True))
+SFU_EX2_PER_CLOCK = 16         # ex2 results an SM's special function units
+#                                give a clock (Hopper)
+FMA_PER_CLOCK = 128            # f32 results an SM's FMA pipes give a clock
+SCAN_FMA_OPS = 4               # FMA-pipe ops a scan element needs besides
+#                                its exp: dt*A, (dt*u)*B, h's multiply-add
+#                                and h*C's
+EX2_POLY_OPS = 4               # FMA-pipe ops of an exp2 computed there
+#                                (range reduction and a cubic, as FA3 does;
+#                                the exponent goes in on the integer pipe)
+HYMBA_BUCKETS = (LONG_S, 32768)
+HYMBA_WINDOW_SHAPE = (1, LONG_S, 25, 5, 64, 1024)   # B, S, H, KV, hd, W
+XLSTM_PROMPT = 1024
+SCAN_MODEL_S = 300             # phase 23 (d): a prefill through the scan
+#                                kernel and through the plain scan
+
+
+def sm_clocks():
+    """(max SM clock, current SM clock) in Hz, by nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    mx, cur = (float(v) * 1e6 for v in out.split(","))
+    return mx, cur
+
+
+def scan_clocks_per_element() -> float:
+    """An SM's least clocks for one (b, t, d, n) element of the scan: one
+    exp2 and SCAN_FMA_OPS FMA-pipe ops, with a share f of the exps
+    computed on the FMA pipes (EX2_POLY_OPS each) so that both pipes
+    finish together: (1 - f) / SFU = (c + f p) / FMA, i.e. (c + p) /
+    (FMA + p SFU) = 1/24 on Hopper (f = 1/3), against 1/16 for the
+    special function units alone."""
+    sfu, fma, c, p = (SFU_EX2_PER_CLOCK, FMA_PER_CLOCK, SCAN_FMA_OPS,
+                      EX2_POLY_OPS)
+    return max(c / fma, min(1 / sfu, (c + p) / (fma + p * sfu)))
+
+
+def scan_bound(B, S, di, N, dtype, h0: bool, clock_hz: float, sms: int):
+    """(bound_ms, bound_by) of one selective scan: u read and y written
+    once, Bc, Cc, the five parameter vectors and h0 read, h_last written,
+    against B S di N elements, each an exp and its multiply-adds, on the
+    special function units and the FMA pipes together
+    (`scan_clocks_per_element`) at the card's clock."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (elt * B * S * di + 4 * B * S * di + 4 * 2 * B * S * N
+              + 4 * di * (N + 4) + 4 * B * di * N * (2 if h0 else 1))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = B * S * di * N * scan_clocks_per_element() / (sms * clock_hz)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def grouped_decode_shapes(arch: str) -> list:
+    """The distinct (K, N) of `arch`'s 2-D LoRA targets at phase 3's rank:
+    the shapes its decode steps give the grouped kernel (a headwise (H, hd,
+    r) target takes the per-lane gather instead)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import LoRAConfig
+    from repro_torch.models.lora import lora_spec
+    rank = int(SERVE_ARGS[SERVE_ARGS.index("--rank") + 1])
+    shapes = set()
+
+    def walk(t):
+        if set(t) == {"a", "b"}:
+            if len(t["a"].shape) == 3:             # (layers, K, r)
+                shapes.add((t["a"].shape[1], t["b"].shape[2]))
+            return
+        for v in t.values():
+            walk(v)
+    walk(lora_spec(get_config(arch), LoRAConfig(rank=rank, alpha=2 * rank)))
+    return sorted(shapes)
+
+
+def grouped_recurrent_phase(seed: int) -> dict:
+    """Row 1 at the recurrent archs' decode shapes, before they are served:
+    grouped_pallas against grouped_ref at M of 1 and phase 3's 8 lanes and
+    every (K, N) of `grouped_decode_shapes`, phase 3's rank and pages, at
+    phase 2's RTOL / ATOL, a second launch bitwise equal."""
+    import torch
+    from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
+    kern = resolve_grouped_kernel("grouped_pallas")
+    ref = resolve_grouped_kernel("grouped_ref")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+    arg = dict(zip(SERVE_ARGS[::2], SERVE_ARGS[1::2]))
+    R, G, lanes = int(arg["--rank"]), int(arg["--pages"]), int(arg["--lanes"])
+    res = {"M": [1, lanes], "R": R, "G": G, "shapes": {}, "max_abs_err": 0.0}
+    for arch in ("hymba-1.5b", "xlstm-1.3b"):
+        res["shapes"][arch] = shapes = grouped_decode_shapes(arch)
+        for K, N in shapes:
+            for M in res["M"]:
+                res["max_abs_err"] = max(res["max_abs_err"], grouped_held(
+                    kern, ref, gen, M, K, R, N, G, 2.0, tag="[recurrent]"))
+    print(f"[recurrent] grouped_pallas at the decode shapes of hymba-1.5b "
+          f"and xlstm-1.3b: max|err| {res['max_abs_err']:.3e} (rtol {RTOL:g}, "
+          f"atol {ATOL:g})")
+    return res
+
+
+def scan_inputs(gen, B, S, di, N, dtype, h0: bool):
+    """u in `dtype`, the rest f32, at the scales of a trained model's
+    state: A_log in [-4, 1] (decays over tens to hundreds of steps), dt's
+    bias about -1."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    u = rnd(B, S, di).to(getattr(torch, dtype))
+    w_dt = rnd(di, 1) / di ** 0.5
+    dt_bias = rnd(di) * 0.5 - 1.0
+    A_log = torch.rand((di, N), generator=gen, device="cuda") * 5 - 4
+    D_skip = 1 + 0.1 * rnd(di)
+    Bc, Cc = rnd(B, S, N), rnd(B, S, N)
+    return (u, w_dt, dt_bias, A_log, D_skip, Bc, Cc,
+            rnd(B, di, N) if h0 else None)
+
+
+def scan_phase(seed: int) -> dict:
+    """(a) Row 11, the selective scan, against its plain version on the
+    card at SCAN_CASES (two launches bitwise equal; y and h_last within
+    SCAN_TOL of max|plain|), then timed at hymba-1.5b's prefill shape in
+    bf16 and f32 beside its bound, the plain version and (no PyTorch call
+    computes a selective scan) no library call."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    clock, cur = sm_clocks()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[recurrent] SM clock max {clock / 1e6:.0f} MHz, now "
+          f"{cur / 1e6:.0f} MHz, {sms} SMs")
+    worst = 0.0
+    res = {"cases": [], "timings": {}}
+    for B, S, di, N, dtype, h0 in SCAN_CASES:
+        args = scan_inputs(gen, B, S, di, N, dtype, h0)
+        y, h = ss.selective_scan(*args)
+        y2, h2 = ss.selective_scan(*args)
+        yp, hp = ss.selective_scan_plain(*args)
+        torch.cuda.synchronize()
+        abs_err = max((y - yp).abs().max().item(),
+                      (h - hp).abs().max().item())
+        ey = ((y - yp).abs().max() / yp.abs().max()).item()
+        eh = ((h - hp).abs().max() / hp.abs().max()).item()
+        same = torch.equal(y, y2) and torch.equal(h, h2)
+        ok = (ey <= SCAN_TOL and eh <= SCAN_TOL and same
+              and bool(torch.isfinite(y).all() and torch.isfinite(h).all()))
+        what = (f"B {B}, S {S}, di {di}, N {N}, u {dtype}, h0 "
+                f"{'nonzero' if h0 else 'none'}")
+        print(f"[recurrent] selective_scan {what}: y max|err| / max|plain| "
+              f"{ey:.3e}, h_last {eh:.3e} (tol {SCAN_TOL:g}), max|y| "
+              f"{yp.abs().max().item():.3e}; a second launch bitwise equal: "
+              f"{same} {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"selective_scan disagrees with its plain version at {what}")
+        worst = max(worst, ey, eh)
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), abs_err)
+        res["cases"].append({"case": what, "y_err": ey, "h_err": eh,
+                             "max_abs_err": abs_err})
+        del args, y, h, y2, h2, yp, hp
+    for dtype in ("bfloat16", "float32"):
+        B, S, di, N = 1, LONG_S, 3200, 16
+        args = scan_inputs(gen, B, S, di, N, dtype, False)
+        u, w_dt, dt_bias, A_log, D_skip, Bc, Cc, _ = args
+        y = torch.empty(B, S, di, device="cuda")
+        hl = torch.empty(B, di, N, device="cuda")
+
+        def kernel(i):
+            ss.SCAN(u.device, u.data_ptr(), w_dt.data_ptr(),
+                    dt_bias.data_ptr(), A_log.data_ptr(), D_skip.data_ptr(),
+                    Bc.data_ptr(), Cc.data_ptr(), None, y.data_ptr(),
+                    hl.data_ptr(), B, S, di, N, ss.DTYPES[u.dtype])
+
+        bound, by = scan_bound(B, S, di, N, dtype, False, clock, sms)
+        row = {"B": B, "S": S, "di": di, "N": N, "dtype": dtype,
+               "ms": device_ms(kernel, 10),
+               "wrapper_ms": device_ms(lambda i: ss.selective_scan(*args), 10),
+               "plain_ms": cuda_ms(lambda i: ss.selective_scan_plain(*args),
+                                   1, warmup=1),
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "library": "none: no PyTorch call computes a selective scan",
+               "clock_mhz": clock / 1e6}
+        print(f"[recurrent] timing {json.dumps(row)}")
+        print(f"[recurrent] selective_scan (1, {LONG_S}, 3200, 16) u "
+              f"{dtype}: {1e3 * row['ms']:.1f} us a launch against a bound "
+              f"of {1e3 * bound:.1f} us ({by}, {100 * bound / row['ms']:.1f}%"
+              f"); the plain loop {row['plain_ms']:.1f} ms")
+        res["timings"][dtype] = row
+        del args, u, Bc, Cc, y, hl
+    torch.cuda.empty_cache()
+    res["max_rel_err"] = worst
+    return res
+
+
+def hymba_window_attention(seed: int) -> dict:
+    """Row 10w at hymba-1.5b's attention shape (1, 8192, 25/5, 64) bf16
+    causal under its window of 1024 (route mma_sync, a GQA group of 5):
+    held to chunked_attention(window=) elementwise and row by row and, on
+    F64_ROWS sampled query rows of every head, to an f64 windowed
+    attention; then timed beside its bound, the plain version and SDPA's
+    memory-efficient kernel (the band as a bool mask, K and V repeated)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as A
+
+    B, S, H, KV, hd, W = HYMBA_WINDOW_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+    q, k, v = attn_inputs(gen, B, S, S, H, KV, hd, "bfloat16")
+    scale = hd ** -0.5
+    route = fa.flash_route(q.dtype, hd)
+    what = (f"B {B}, S {S}, T {S}, H {H}, KV {KV}, hd {hd}, bfloat16, "
+            f"causal, window {W}, route {route}")
+    got = fa.flash_attention(q, k, v, causal=True, scale=scale, window=W)
+    plain = A.chunked_attention(q, k, v, scale, causal=True, window=W,
+                                cq=1024, ckv=1024)
+    err, _ = attn_held(got, plain, what + " against chunked_attention")
+    rows = torch.randperm(S, generator=gen, device="cuda")[:F64_ROWS]
+    rows = rows.sort().values
+    row64 = attn_row_err(got[:, rows], attn_f64(q, k, v, scale, True, rows, W))
+    print(f"[recurrent] flash_attention {what} against f64 attention "
+          f"({F64_ROWS} query rows of every head): row max|err| / max|want| "
+          f"{row64:.3e} (tol {F64_ROW_TOL:g})")
+    check(row64 <= F64_ROW_TOL, f"flash_attention at {what} is {row64:.3e} "
+          f"from f64 attention")
+    out = torch.empty_like(q)
+    bound, by = attn_window_bound(B, S, H, KV, hd, "bfloat16", W)
+    row = {"B": B, "S": S, "H": H, "KV": KV, "hd": hd, "window": W,
+           "dtype": "bfloat16", "route": route,
+           "ms": device_ms(lambda i: fa.FLASH(
+               q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), None, B, S, S, H, KV, hd,
+               fa.DTYPES[q.dtype], 1, scale, fa.ROUTES[route], W), 10),
+           "wrapper_ms": device_ms(lambda i: fa.flash_attention(
+               q, k, v, causal=True, scale=scale, window=W), 10),
+           "plain": "chunked_attention(window=1024, cq = ckv = 1024)",
+           "plain_ms": cuda_ms(lambda i: A.chunked_attention(
+               q, k, v, scale, causal=True, window=W, cq=1024, ckv=1024), 2,
+               warmup=1),
+           "bound_ms": bound, "bound_by": by,
+           "library": "F.scaled_dot_product_attention, memory-efficient "
+                      "kernel, the band as a bool mask, K and V repeated "
+                      "per query head", "max_abs_err": err,
+           "row_err_vs_f64": row64}
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    pos = torch.arange(S, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        row["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=band), 5)
+    same = torch.equal(out, got)
+    print(f"[recurrent] timing {json.dumps(row)}")
+    print(f"[recurrent] flash_attention {what}: the timed launches' output "
+          f"equals the checked call's bit for bit: {same}")
+    check(same, f"flash_attention at {what}: two calls differ")
+    del q, k, v, got, plain, out, qh, kh, vh, band
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernels_in(fn) -> int | None:
+    """Device kernels that one call of fn() runs, by torch.profiler (CUDA
+    activity only); a window that records none (PERF.md §7: after profiled
+    phases the profiler records every other window) is opened once more.
+    None if neither records a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        if n:
+            return n
+    return None
+
+
+def recurrent_serve(arch: str, seed: int, per_step: int, scan_layers: int):
+    """`launch/serve.py` at phase 3's settings for `arch` at full width and
+    depth in bf16: the grouped kernel's launches must be decode steps x
+    `per_step`, the scan's (prefills + decode steps) x `scan_layers`, the
+    flash kernel's none (prompts of 8 or 16 tokens)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import tree_leaves
+
+    grouped = resolve_grouped_kernel("grouped_pallas")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng, trace, cfg, _ = serve.build(serve.parse_args(
+        arch_args(arch) + ["--seed", str(seed)]))
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in tree_leaves(eng.params))
+    print(f"[recurrent] {cfg.name}: {cfg.num_layers} blocks d{cfg.d_model} "
+          f"{cfg.param_dtype}, {cfg.param_count() / 1e9:.3f} B params "
+          f"({wbytes / 1e9:.2f} GB), built in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    grouped.launches = 0
+    ss.SCAN.reset()
+    fa.FLASH.reset()
+    rep = eng.run(trace)
+    g, sc, fl = grouped.launches, ss.SCAN.launches, fa.FLASH.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[recurrent] {cfg.name}: {len(rep.completions)}/{rep.requests} "
+          f"requests served, {rep.generated_tokens} tokens in "
+          f"{rep.wall_s:.3f}s ({rep.tokens_per_s:.2f} tok/s), {rep.prefills} "
+          f"prefills, {rep.steps} decode steps, "
+          f"{1e3 * rep.decode_s / max(rep.steps, 1):.3f} ms/decode step; "
+          f"peak device memory {peak:.2f} GiB; grouped_pallas launches {g} = "
+          f"{rep.steps} steps x {per_step}, selective_scan launches {sc} = "
+          f"({rep.prefills} prefills + {rep.steps} steps) x {scan_layers}, "
+          f"flash_attention {fl}")
+    check(len(rep.completions) == len(trace) == rep.requests,
+          f"{arch}: not every request was served")
+    for req in trace:
+        toks = rep.completions[req.rid]
+        check(len(toks) == req.gen_len
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{arch} request {req.rid}: bad completion {toks}")
+    check(g == rep.steps * per_step > 0,
+          f"{arch}: grouped_pallas launched {g} times, expected "
+          f"{rep.steps} x {per_step}")
+    check(sc == (rep.prefills + rep.steps) * scan_layers,
+          f"{arch}: selective_scan launched {sc} times, expected "
+          f"({rep.prefills} + {rep.steps}) x {scan_layers}")
+    check(fl == 0, f"{arch}: short prompts launched flash_attention {fl} times")
+    return eng, cfg, {"grouped": g, "scan": sc, "steps": rep.steps,
+                      "prefills": rep.prefills, "peak_gib": peak,
+                      "weight_gb": wbytes / 1e9,
+                      "decode_ms": 1e3 * rep.decode_s / max(rep.steps, 1),
+                      "tok_s": rep.tokens_per_s}
+
+
+def timed_prefill(eng, prompt):
+    """(first token, row cache, ms, peak GiB) of one prefill through the
+    engine (page 0's adapter)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        tok, row = eng._prefill(0, prompt)     # syncs: pulls the argmax
+    return (tok, row, 1e3 * (time.perf_counter() - t1),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def scan_in_model(cfg2, eng2, lcfg, seed: int) -> float:
+    """The 2-layer f32 hymba's prefill logits of one SCAN_MODEL_S-token
+    prompt through the scan kernel and through its plain version put in its
+    place: the largest difference over max|logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.io import tree_from_numpy
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models import model as mdl
+    from repro_torch.models import ssm
+
+    prompt = torch.as_tensor(np.random.default_rng(seed + 17).integers(
+        0, cfg2.vocab_size, (1, SCAN_MODEL_S)), device="cuda")
+    lt = tree_from_numpy(eng2.cache.store.get(0), device="cuda")
+
+    def logits():
+        with torch.no_grad():
+            return mdl.forward(eng2.params, cfg2, {"tokens": prompt}, lora=lt,
+                               lora_scale=lcfg.scale)["logits"]
+
+    ss.SCAN.reset()
+    got = logits()
+    launches = ss.SCAN.launches
+    kernel = ssm.selective_scan
+
+    def plain(*args, out_state=None):
+        return ss.selective_scan_plain(*args)
+
+    ssm.selective_scan = plain
+    try:
+        want = logits()
+    finally:
+        ssm.selective_scan = kernel
+    diff = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[recurrent] parity {cfg2.name} 2L f32, one {SCAN_MODEL_S}-token "
+          f"prompt: logits through the scan kernel ({launches} launches) "
+          f"against its plain version in its place, max|diff| / max|logit| "
+          f"{diff:.3e} (tol {SCAN_TOL:g})")
+    check(launches == cfg2.num_layers and diff <= SCAN_TOL,
+          f"{cfg2.name}: the model's scan kernel ({launches} launches) is "
+          f"{diff:.3e} from its plain version")
+    return diff
+
+
+def recurrent_phase(seed: int) -> dict:
+    """Phase 23: (a) the grouped kernel at both archs' decode shapes
+    (`grouped_recurrent_phase`), the selective scan (`scan_phase`) and row
+    10w at hymba's attention shape; (b) hymba-1.5b served at full width and depth
+    (grouped launches steps x 32 x 6, scan launches (prefills + steps) x
+    32), then prompts of 8192 and 32768 tokens through the engine's prefill
+    (32 windowed mma_sync flash launches and 32 scan launches each, a cache
+    of 1024 KV slots and the Mamba state); (c) xlstm-1.3b served the same
+    way (grouped launches steps x 54: 42 mLSTM downs and 6 sLSTM wx and
+    down), then one 1024-token prompt; (d) 2-layer f32 hymba and a
+    one-period f32 xLSTM at full width against the single-adapter
+    reference (phase 4's near-tie rule), hymba's 8192-token prompt through
+    the flash kernel against chunked_attention, and its prefill through
+    the scan kernel against the plain scan."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.lora_matmul import resolve_grouped_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models.ssm import mamba_inner_dim
+
+    t0 = time.perf_counter()
+    res = {"grouped": grouped_recurrent_phase(seed), "scan": scan_phase(seed),
+           "window": hymba_window_attention(seed)}
+    grouped = resolve_grouped_kernel("grouped_pallas")
+    print(f"[recurrent] (a) done in {time.perf_counter() - t0:.1f}s")
+
+    # (b) hymba-1.5b
+    t0 = time.perf_counter()
+    eng, cfg, served = recurrent_serve("hymba-1.5b", seed, 32 * 6, 32)
+    check(len(eng.cache.pool["g0"]["attn"]) + len(eng.cache.pool["g0"]["mamba"])
+          == 6, "hymba's adapters do not take 6 targets a layer")
+    long = {}
+    for S in HYMBA_BUCKETS:
+        prompt = np.random.default_rng(seed + S).integers(
+            0, cfg.vocab_size, S).tolist()
+        fa.FLASH.reset()
+        ss.SCAN.reset()
+        grouped.launches = 0
+        tok, row, ms, peak = timed_prefill(eng, prompt)
+        fl, sc = fa.FLASH.launches, ss.SCAN.launches
+        routes = dict(fa.FLASH.launches_by_route)
+        windowed = fa.FLASH.launches_by_tag.get("window", 0)
+        # the same prompt again: the first call of a shape also pays the
+        # library's first-use costs (GEMM heuristics, allocator growth)
+        again = timed_prefill(eng, prompt)[2]
+        kv = tuple(row["g0"]["self"][0].shape)
+        lane = cache_bytes(cfg, 1, S + 16)
+        mamba = 4 * cfg.num_layers * mamba_inner_dim(cfg) * (
+            cfg.ssm_conv_width - 1 + cfg.ssm_state_size)
+        unwindowed = cache_bytes(dataclasses.replace(cfg, sliding_window=None),
+                                 1, S + 16)
+        print(f"[recurrent] {cfg.name}: one {S}-token prefill {ms:.3f} ms "
+              f"({again:.3f} ms again), first token {tok}, peak device "
+              f"memory {peak:.2f} GiB; "
+              f"flash_attention {fl} ({windowed} windowed, by route "
+              f"{json.dumps(routes)}), selective_scan {sc}; the lane's cache "
+              f"{lane / 1e6:.3f} MB ({kv[2]} KV slots a layer; Mamba state "
+              f"{mamba / 1e6:.3f} MB) against {unwindowed / 1e9:.3f} GB "
+              f"unwindowed at {S + 16} slots")
+        check(fl == windowed == cfg.num_layers and
+              routes == {"mma_sync": fl} and sc == cfg.num_layers,
+              f"hymba {S}-token prefill: flash {routes} ({windowed} "
+              f"windowed), scan {sc}; expected {cfg.num_layers} each")
+        check(kv == (cfg.num_layers, 1, cfg.sliding_window, cfg.num_kv_heads,
+                     cfg.hd) and 0 <= tok < cfg.vocab_size and
+              grouped.launches == 0,
+              f"hymba {S}-token prefill: cache {kv}, token {tok}")
+        long[S] = {"ms": ms, "again_ms": again, "peak_gib": peak,
+                   "flash": fl, "scan": sc,
+                   "lane_bytes": lane, "mamba_bytes": mamba,
+                   "unwindowed_bytes": unwindowed}
+        del row
+    served["long"] = long
+    res["hymba"] = served
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[recurrent] (b) done in {time.perf_counter() - t0:.1f}s")
+
+    # (c) xlstm-1.3b
+    t0 = time.perf_counter()
+    eng, cfg, served = recurrent_serve("xlstm-1.3b", seed, 54, 0)
+    prompt = np.random.default_rng(seed + 19).integers(
+        0, cfg.vocab_size, XLSTM_PROMPT).tolist()
+    grouped.launches = 0
+    tok, row, ms, peak = timed_prefill(eng, prompt)
+    again = timed_prefill(eng, prompt)[2]
+    kernels = kernels_in(lambda: eng._prefill(0, prompt))
+    state = cache_bytes(cfg, 1, XLSTM_PROMPT)
+    print(f"[recurrent] {cfg.name}: one {XLSTM_PROMPT}-token prefill "
+          f"{ms:.3f} ms ({again:.3f} ms again), first token {tok}, peak "
+          f"device memory {peak:.2f} GiB, {kernels} device kernels "
+          f"(torch.profiler, a third prefill); the lane's recurrent state "
+          f"{state / 1e6:.3f} MB at any context length")
+    check(0 <= tok < cfg.vocab_size and grouped.launches == 0,
+          f"xlstm prefill: token {tok}, {grouped.launches} grouped launches")
+    served.update(prefill_ms=ms, prefill_again_ms=again,
+                  prefill_peak_gib=peak, prefill_kernels=kernels,
+                  state_bytes=state)
+    res["xlstm"] = served
+    del eng, row
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[recurrent] (c) done in {time.perf_counter() - t0:.1f}s")
+
+    # (d) f32 parity at full width
+    t0 = time.perf_counter()
+    tag = "[recurrent] parity"
+    cfg2 = parity_cfg("hymba-1.5b")
+    eng2, trace2, _, lcfg = serve.build(serve.parse_args(
+        arch_args("hymba-1.5b") + ["--seed", str(seed)]), cfg=cfg2)
+    rep = eng2.run(trace2)
+    near = engine_vs_reference(eng2, trace2, rep, cfg2, lcfg, tag)
+    print(f"{tag} {cfg2.name} 2L d{cfg2.d_model} f32: "
+          f"{len(trace2) - near}/{len(trace2)} completions identical to the "
+          f"single-adapter reference, {near} near-tie divergences")
+    res["hymba_parity_logit_diff"] = long_prompt_parity(
+        eng2, cfg2, lcfg, seed, window=cfg2.sliding_window, tag=tag)
+    res["scan_in_model"] = scan_in_model(cfg2, eng2, lcfg, seed)
+    del eng2
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs.registry import get_config
+    cfg3 = dataclasses.replace(get_config("xlstm-1.3b"), num_layers=8,
+                               param_dtype="float32", compute_dtype="float32")
+    eng3, trace3, _, lcfg = serve.build(serve.parse_args(
+        arch_args("xlstm-1.3b") + ["--seed", str(seed)]), cfg=cfg3)
+    rep = eng3.run(trace3)
+    near = engine_vs_reference(eng3, trace3, rep, cfg3, lcfg, tag)
+    print(f"{tag} {cfg3.name} one period (8 blocks) d{cfg3.d_model} f32: "
+          f"{len(trace3) - near}/{len(trace3)} completions identical to the "
+          f"single-adapter reference, {near} near-tie divergences")
+    del eng3
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[recurrent] (d) done in {time.perf_counter() - t0:.1f}s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5422,7 +6013,12 @@ def main() -> int:
     t0 = time.perf_counter()
     gpt_res = gpt_serve_phase(args.seed)
     print(f"[gpt-serve] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    rec = recurrent_phase(args.seed)
+    print(f"[recurrent] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
+    hym, xl = rec["hymba"], rec["xlstm"]
     lt_runs = lt_res["runs"]
     gemma_run = gemma_res["runs"][GEMMA_TRAIN[0][0]]
     lt_win = lt_res["window"]
@@ -5451,7 +6047,13 @@ def main() -> int:
             f"{a} {arch_res[a]['grouped']} in {arch_res[a]['steps']} steps "
             f"x {arch_res[a]['layers']} x 4" for a in ARCHS)
         + f"; gpt-serve (gpt2-small, d 768): {gpt_res['grouped']} in "
-        f"{gpt_res['steps']} steps x {gpt_res['layers']} x 4")
+        f"{gpt_res['steps']} steps x {gpt_res['layers']} x 4"
+        + f"; recurrent: hymba-1.5b {hym['grouped']} in {hym['steps']} steps "
+        f"x 32 x 6, xlstm-1.3b {xl['grouped']} in {xl['steps']} steps x 54")
+    # the recurrent archs' decode shapes, held before they were served
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               rec["grouped"]["max_abs_err"])
+    entry["recurrent_shapes"] = rec["grouped"]
 
     entries = [entry]
     for name, replaces in TRANSPORT:
@@ -5546,7 +6148,11 @@ def main() -> int:
         "launches": win_res["windowed"],
         "launches_by_route": win_res["flash_routes"],
         "path": ("window (yi-9b, window 8192): 48 per prompt of 32768 "
-                 "tokens, every one windowed"),
+                 "tokens, every one windowed; recurrent (hymba-1.5b, window "
+                 "1024, hd 64, 25/5 heads, mma_sync): "
+                 + ", ".join(f"{r['flash']} in its {S}-token prefill"
+                             for S, r in hym["long"].items())),
+        "hymba_timing": rec["window"],
         "shape": "q (1, 32768, 32, 128), k/v (1, 32768, 4, 128) bf16 "
                  "causal, window 8192",
         "max_abs_err": ops_res["win_err"],
@@ -5666,6 +6272,28 @@ def main() -> int:
         "library": "torch.matmul(x, w) + scale * torch.matmul(xa, b)",
         "route_timed": lmain["route"],
         "wrapper_ms": lmain["wrapper_ms"], "timings": ops_res["lora_rows"]})
+    sc, st = rec["scan"], rec["scan"]["timings"]["bfloat16"]
+    entries.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/ssm.py:75",
+        "replaces_note": "no Pallas kernel: XLA's fusion of _ssm_coeffs "
+                         "(:62), _chunk_scan's associative_scan (:75) and "
+                         "mamba_forward_state's readout (:115)",
+        "launches": hym["scan"],
+        "path": (f"recurrent (hymba-1.5b, 32 layers): serve {hym['scan']} = "
+                 f"({hym['prefills']} prefills + {hym['steps']} decode steps)"
+                 f" x 32; " + ", ".join(f"{r['scan']} in its {S}-token "
+                                        f"prefill"
+                                        for S, r in hym["long"].items())),
+        "shape": "(B, S, di, N) = (1, 8192, 3200, 16), u bf16",
+        "max_abs_err": sc["max_abs_err"],
+        "max_err_over_max_plain": sc["max_rel_err"], "cases": sc["cases"],
+        "model_logits_vs_plain_scan": rec["scan_in_model"],
+        "ms": st["ms"], "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": None, "library": st["library"],
+        "wrapper_ms": st["wrapper_ms"], "timings": sc["timings"]})
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,13 @@ the architecture's full width and depth:
       --clients 8 --pages 4 --lanes 4 --requests 16
 
 --arch takes every id of `configs/registry.py` (yi-9b, minitron-8b,
-gemma-7b, qwen3-32b).  --window W serves through a sliding window of W
-keys with a rolling cache of min(W, --max-len) slots a lane (the
-reference serves long contexts on dense archs at
-`registry.LONG_CONTEXT_WINDOW`).  --smoke serves the reduced config;
---device cpu runs the plain PyTorch versions on the host.
+gemma-7b, qwen3-32b, hymba-1.5b, xlstm-1.3b); hymba-1.5b serves its
+attention under its own sliding window of 1024 keys, with a Mamba state a
+lane beside the rolling KV cache, and xlstm-1.3b its mLSTM / sLSTM states.
+--window W serves through a sliding window of W keys with a rolling cache
+of min(W, --max-len) slots a lane (the reference serves long contexts on
+dense archs at `registry.LONG_CONTEXT_WINDOW`).  --smoke serves the
+reduced config; --device cpu runs the plain PyTorch versions on the host.
 """
 from __future__ import annotations
 

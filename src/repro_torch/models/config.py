@@ -2,9 +2,10 @@
 
 Field for field the same as `src/repro/models/config.py`, so a reference
 config converts with `ModelConfig(**dataclasses.asdict(cfg))`.  The port
-builds only the dense `attn_mlp` block so far (`models/model.py` raises
-for the other kinds); the fields of the other families stay so that every
-config in the reference zoo still constructs.  `FederatedConfig` is the
+builds the `attn_mlp`, `hybrid`, `mlstm` and `slstm` blocks
+(`models/model.py` raises for MoE, MLA, encoder-decoder, image tokens
+and multi-token prediction); the fields of those families stay so that
+every config in the reference zoo still constructs.  `FederatedConfig` is the
 reference's too (one FLASC round's geometry and optimizer settings).
 """
 from __future__ import annotations

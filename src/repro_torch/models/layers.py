@@ -166,15 +166,19 @@ def linear(x: torch.Tensor, w: torch.Tensor, lora=None, scale: float = 1.0):
     """
     y = torch.matmul(x, w.to(x.dtype))
     if lora is not None:
-        if "gidx" in lora:
-            from repro_torch.kernels.lora_matmul import grouped_lora_delta
-            delta = grouped_lora_delta(x, lora["a"], lora["b"], lora["gidx"],
-                                       scale)
-            y = y + delta.to(y.dtype)
-        else:
-            xa = torch.matmul(x.to(lora["a"].dtype), lora["a"])
-            y = y + (scale * torch.matmul(xa, lora["b"])).to(y.dtype)
+        y = y + lora_delta(x, lora, scale).to(y.dtype)
     return y
+
+
+def lora_delta(x: torch.Tensor, lora, scale: float = 1.0) -> torch.Tensor:
+    """`linear`'s LoRA term scale * (x @ a) @ b in the adapter's dtype: one
+    adapter, or a paged one (a `gidx` leaf) through the grouped-kernel
+    registry (`kernels/lora_matmul.py::grouped_lora_delta`)."""
+    if "gidx" in lora:
+        from repro_torch.kernels.lora_matmul import grouped_lora_delta
+        return grouped_lora_delta(x, lora["a"], lora["b"], lora["gidx"], scale)
+    xa = torch.matmul(x.to(lora["a"].dtype), lora["a"])
+    return scale * torch.matmul(xa, lora["b"])
 
 
 def gelu(x):

@@ -3,12 +3,17 @@
 The LoRA tree holds only targeted linear leaves, each replaced by
 {'a': (.., d_in, r), 'b': (.., r, d_out)} with the stacked layer axis
 kept; `b` inits to zero (dW = 0 at start).  Same keys and shapes as
-`src/repro/models/lora.py` for the attention and MLP targets of the
-dense block.  `merge_lora` folds an adapter into the backbone for
-serving one tenant without the adapter path.
+`src/repro/models/lora.py` for the attention and MLP targets and for the
+recurrent cores: the generic q / k / v / o targets map onto mLSTM's
+headwise wq / wk / wv (pairs (.., H, hd, r) / (.., H, r, hd)) and `down`,
+sLSTM's `wx` and `down`, and Mamba's `in_proj` and `out_proj`
+(`_CORE_TARGET_MAP`), so FLASC adapts the attention-free archs too.
+`merge_lora` folds an adapter into the backbone for serving one tenant
+without the adapter path.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional
 
 import torch
@@ -31,16 +36,43 @@ def _lora_pair(w: P, rank: int, dtype: str):
     }
 
 
-def lora_spec(cfg: ModelConfig, lcfg: LoRAConfig):
-    """Mirrored spec tree with LoRA pairs for every targeted weight."""
-    block = mdl.model_spec(cfg)["groups"]["g0"]
+# recurrent cores (xLSTM / Mamba): the generic q/k/v/o targets on the
+# block's input/gate/output projections, as in the reference
+_CORE_TARGET_MAP = {"wq": ("wq", "wx", "in_proj"), "wk": ("wk",),
+                    "wv": ("wv",), "wo": ("down", "out_proj")}
+
+
+def _block_lora_spec(bspec, lcfg: LoRAConfig):
     out: Dict[str, Any] = {}
     for section in ("attn", "mlp"):
-        sec = {k: _lora_pair(block[section][k], lcfg.rank, lcfg.dtype)
-               for k in lcfg.targets if k in block[section]}
+        if section in bspec:
+            sec = {k: _lora_pair(bspec[section][k], lcfg.rank, lcfg.dtype)
+                   for k in lcfg.targets if k in bspec[section]}
+            if sec:
+                out[section] = sec
+    for section in ("core", "mamba"):
+        if section in bspec:
+            sec = {k: _lora_pair(bspec[section][k], lcfg.rank, lcfg.dtype)
+                   for t in lcfg.targets for k in _CORE_TARGET_MAP.get(t, ())
+                   if k in bspec[section]}
+            if sec:
+                out[section] = sec
+    return out
+
+
+def lora_spec(cfg: ModelConfig, lcfg: LoRAConfig):
+    """Mirrored spec tree with LoRA pairs for every targeted weight, per
+    group (a periodic group per sub-block b0, b1, ...)."""
+    out: Dict[str, Any] = {}
+    for g, gspec in mdl.model_spec(cfg)["groups"].items():
+        if all(re.fullmatch(r"b\d+", k) for k in gspec):
+            sub = {b: _block_lora_spec(bs, lcfg) for b, bs in gspec.items()}
+            sec = {b: v for b, v in sub.items() if v}
+        else:
+            sec = _block_lora_spec(gspec, lcfg)
         if sec:
-            out[section] = sec
-    return {"g0": out} if out else {}
+            out[g] = sec
+    return out
 
 
 def init_lora(cfg: ModelConfig, lcfg: LoRAConfig, seed: int = 0, *,

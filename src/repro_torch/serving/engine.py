@@ -7,8 +7,12 @@ slot of the persistent batch cache.  Decode then runs all lanes as one
 batch: per-lane positions go in as a `(B,)` pos tensor and per-lane
 adapters as a paged lora tree (`cache.paged_lora`), which
 `models/layers.py::linear` routes through the grouped-kernel registry in
-`kernels/lora_matmul.py` -- on the card, the CUDA kernel, four launches
-per layer (wq, wk, wv, wo) per decode step.
+`kernels/lora_matmul.py` -- on the card, the CUDA kernel, one launch per
+adapted 2-D weight per layer per decode step (wq, wk, wv, wo: four on a
+dense layer; six on a hybrid one with Mamba's in_proj and out_proj).  The
+batch cache carries the recurrent blocks' states beside the KV slots
+(hymba's Mamba heads, xLSTM's mLSTM and sLSTM), each lane's written from
+its prefill and advanced in place by decode.
 
 Under a sliding window W (`window=W`, how the reference serves contexts
 longer than its caches) each lane holds a rolling cache of min(W,
@@ -113,8 +117,11 @@ class ServingEngine:
 
     @staticmethod
     def _write_lane(batch_cache, row_cache, lane: int) -> None:
-        # every cache leaf is (layers, B, ...): copy row 0 into the lane slot.
-        for bc, rc in zip(batch_cache["g0"]["self"], row_cache["g0"]["self"]):
+        # every cache leaf is (layers, B, ...): copy row 0 into the lane slot
+        # (the KV slots and the recurrent states alike); trees that differ
+        # in their leaves raise rather than leave a lane's state stale.
+        for bc, rc in zip(tree_leaves(batch_cache), tree_leaves(row_cache),
+                          strict=True):
             bc[:, lane].copy_(rc[:, 0])
 
     def _decode(self, batch_cache, tokens, pos, gidx) -> np.ndarray:

@@ -51,22 +51,26 @@ def _init(spec, seed):
 
 
 def test_registry_matches_reference():
-    assert set(TR.ARCH_IDS) == {"yi-9b", *NEW_ARCHS}
+    # the dense archs and, since the recurrent slice, hymba-1.5b and
+    # xlstm-1.3b (tests/test_torch_recurrent.py), which serve 500k natively
+    assert set(TR.ARCH_IDS) == {"yi-9b", *NEW_ARCHS, "hymba-1.5b",
+                                "xlstm-1.3b"}
     assert set(TR.ARCH_IDS) <= set(JR.ARCH_IDS)
     assert TR.LONG_CONTEXT_WINDOW == JR.LONG_CONTEXT_WINDOW == 8192
     for arch in TR.ARCH_IDS:
         for smoke in (False, True):
             assert dataclasses.asdict(TR.get_config(arch, smoke)) == \
                 dataclasses.asdict(JR.get_config(arch, smoke)), (arch, smoke)
-        assert TR.long_500k_mode(arch) == JR.long_500k_mode(arch) \
-            == "sliding_window"
+        assert TR.long_500k_mode(arch) == JR.long_500k_mode(arch) == (
+            "native" if TR.get_config(arch).family in ("ssm", "hybrid")
+            else "sliding_window")
     for smoke in (False, True):
         got = TR.all_configs(smoke)
         assert list(got) == list(TR.ARCH_IDS)
         want = JR.all_configs(smoke)
         for arch, cfg in got.items():
             assert dataclasses.asdict(cfg) == dataclasses.asdict(want[arch])
-    for arch in ("hymba-1.5b", "deepseek-v2-236b", "whisper-large-v3", "x"):
+    for arch in ("deepseek-v2-236b", "whisper-large-v3", "x"):
         with pytest.raises(KeyError, match="the port builds"):
             TR.get_config(arch)
 

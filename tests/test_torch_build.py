@@ -34,7 +34,8 @@ def _names(csrc):
 
 def test_sources_are_the_cu_files_and_headers_are_shared():
     assert _build.sources() == ["flash_attention", "flash_attention_bwd",
-                                "grouped_lora", "lora_matmul", "transport"]
+                                "grouped_lora", "lora_matmul",
+                                "selective_scan", "transport"]
     assert (_build.CSRC / "hopper.cuh").is_file()
     for name in ("flash_attention", "flash_attention_bwd", "lora_matmul"):
         assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
@@ -127,7 +128,7 @@ def test_yi_9b_takes_the_wgmma_kernels():
 
 @pytest.mark.parametrize("arch,route", [
     ("yi-9b", "wgmma"), ("minitron-8b", "wgmma"), ("qwen3-32b", "wgmma"),
-    ("gemma-7b", "hd256")])
+    ("gemma-7b", "hd256"), ("hymba-1.5b", "mma_sync")])
 def test_every_arch_has_a_flash_forward_route(arch, route):
     # every long prompt of the registry's archs reaches a forward kernel
     assert fa.flash_route(torch.bfloat16, get_config(arch).hd) == route
@@ -167,6 +168,10 @@ def test_tag_counts_start_empty_and_reset():
     ("<unnamed>::flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel"),
     ("void <unnamed>::flash_bwd_dot_kernel<__nv_bfloat16>",
      "flash_bwd_dot_kernel<__nv_bfloat16>"),
+    ("void <unnamed>::selective_scan_kernel<(int)16, __nv_bfloat16>",
+     "selective_scan_kernel<16, __nv_bfloat16>"),
+    ("void <unnamed>::selective_scan_kernel<(int)8, float>",
+     "selective_scan_kernel<8, float>"),
 ])
 def test_build_report_names_kernels_with_their_template_arguments(demangled,
                                                                   name):
@@ -273,3 +278,49 @@ def test_flash_bwd_ab_finds_the_hd_256_backward_of_either_design(
     if tree == "this":
         assert flash_bwd_ab.has_hd256(_build.CSRC)
         assert flash_bwd_ab.route_of(_build.CSRC) == 0
+
+
+def test_the_selective_scan_builds_from_its_source_without_a_header():
+    # csrc/selective_scan.cu is in the build list, with a plain C entry
+    # point; it includes no shared header, but an edited one still renames
+    # its library (the hash covers every header)
+    from repro_torch.kernels import selective_scan as ss
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    assert "selective_scan" in _build.sources()
+    assert 'extern "C" int selective_scan_fwd(' in src
+    assert '#include "hopper.cuh"' not in src
+    assert (ss.SCAN.source, ss.SCAN.symbol) == ("selective_scan",
+                                                "selective_scan_fwd")
+    assert len(ss.SCAN.argtypes) == 16 and ss.SCAN.launches == 0
+    assert ss.STATE_SIZES == (8, 16)
+
+
+def _chip_smoke():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke
+
+
+@pytest.mark.parametrize("arch,shapes", [
+    ("hymba-1.5b", [(1600, 320), (1600, 1600), (1600, 6400), (3200, 1600)]),
+    ("xlstm-1.3b", [(2048, 8192), (2752, 2048), (4096, 2048)])])
+def test_phase_23_holds_the_grouped_kernel_at_each_decode_shape(arch, shapes):
+    # chip_smoke.py's phase 23 holds grouped_pallas to grouped_ref at every
+    # (K, N) that the arch's 2-D LoRA targets give its decode steps: hymba's
+    # attention and Mamba projections, xLSTM's mLSTM down and sLSTM wx and
+    # down (the headwise mLSTM wq / wk / wv take the per-lane gather)
+    assert _chip_smoke().grouped_decode_shapes(arch) == shapes
+
+
+def test_scan_bound_counts_the_sfu_and_fma_pipes_together():
+    # an element of the scan is one exp2 and 4 FMA-pipe ops; a third of the
+    # exps computed on the FMA pipes (4 ops each) balances the two pipes at
+    # 1/24 clock an element an SM (the SFUs alone: 1/16)
+    cs = _chip_smoke()
+    assert cs.scan_clocks_per_element() == pytest.approx(1 / 24)
+    ms, by = cs.scan_bound(1, 8192, 3200, 16, "bfloat16", False, 1.98e9, 132)
+    assert by == "operations"
+    assert ms == pytest.approx(8192 * 3200 * 16 / 24 / (132 * 1.98e9) * 1e3)

@@ -122,6 +122,27 @@ def test_grouped_cluster_kernel_page_layouts(layout):
                                rtol=1e-4, atol=1e-5)
 
 
+# the decode shapes of the recurrent archs' 2-D LoRA targets at rank 16 on
+# 4 pages: hymba-1.5b's attention (1600 -> 1600, 320) and Mamba in / out
+# projections (1600 -> 6400, 3200 -> 1600), xlstm-1.3b's mLSTM down (4096
+# -> 2048) and sLSTM wx and down (2048 -> 8192, 2752 -> 2048); two launches
+# bitwise equal
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(1600, 320), (1600, 1600), (1600, 6400),
+                                 (3200, 1600), (2048, 8192), (2752, 2048),
+                                 (4096, 2048)])
+@pytest.mark.parametrize("M", [1, 8])
+def test_grouped_cluster_kernel_at_recurrent_decode_shapes(M, K, N):
+    _need_card()
+    x, a, b, gidx = _case(K + N + M, M, K, 16, N, 4)
+    got = _port("grouped_pallas", x, a, b, gidx, 2.0, device="cuda")
+    again = _port("grouped_pallas", x, a, b, gidx, 2.0, device="cuda")
+    want = _port("grouped_ref", x, a, b, gidx, 2.0, device="cuda")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,R,N", [(8, 4096, 16, 4096), (130, 4097, 33, 50)])
 def test_grouped_cluster_kernel_is_deterministic(M, K, R, N):
@@ -1478,3 +1499,74 @@ def test_population_prefetch_on_equals_off_on_the_card():
     assert flats[True].is_cuda
     assert torch.equal(flats[True].view(torch.int32),
                        flats[False].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the selective scan (csrc/selective_scan.cu): y and h_last within 1e-4 of
+# max|plain| (f32 arithmetic; exp2 of a pre-scaled A against torch.exp,
+# softplus in jax.nn.softplus's form against torch's: a few ulps a step,
+# damped by the decay)
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(seed, B, S, di, N, dtype, h0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32)).cuda()
+    u = t(B, S, di).to(dtype)
+    A_log = torch.from_numpy(rng.uniform(-4, 1, (di, N)).astype(np.float32))
+    return (u, t(di, 1, scale=di ** -0.5), t(di, scale=0.5, shift=-1.0),
+            A_log.cuda(), t(di, scale=0.1, shift=1.0), t(B, S, N),
+            t(B, S, N), t(B, di, N) if h0 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,dtype,h0", [
+    (1, 1, 3200, 16, torch.bfloat16, True), (1, 2, 3200, 16, torch.float32,
+                                             False),
+    (1, 300, 3200, 16, torch.bfloat16, True), (4, 300, 100, 16,
+                                               torch.float32, True),
+    (1, 8192, 3200, 16, torch.bfloat16, False), (4, 65, 24, 8,
+                                                 torch.float32, True),
+    (8, 1, 3200, 16, torch.float32, True), (2, 64, 17, 8, torch.bfloat16,
+                                            False)])
+def test_selective_scan_matches_plain(B, S, di, N, dtype, h0):
+    _need_card()
+    from repro_torch.kernels import selective_scan as ss
+    args = _scan_inputs(B + S + di, B, S, di, N, dtype, h0)
+    before = ss.SCAN.launches
+    y, h = ss.selective_scan(*args)
+    y2, h2 = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.SCAN.launches == before + 2
+    yp, hp = ss.selective_scan_plain(*args)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+    assert (h - hp).abs().max() <= 1e-4 * hp.abs().max()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    # in place: the decode state as h0 and out_state
+    if h0:
+        state = args[-1].clone()
+        y3, back = ss.selective_scan(*args[:-1], state, out_state=state)
+        torch.cuda.synchronize()
+        assert back is state and torch.equal(state, h) and torch.equal(y3, y)
+
+
+@pytest.mark.cuda
+def test_selective_scan_on_cuda_never_falls_back_and_has_no_backward(
+        monkeypatch):
+    _need_card()
+    from repro_torch.kernels import selective_scan as ss
+    args = _scan_inputs(3, 1, 9, 32, 16, torch.float32, True)
+    called = []
+    monkeypatch.setattr(ss, "selective_scan_plain",
+                        lambda *a, **k: called.append(1))
+    before = ss.SCAN.launches
+    ss.selective_scan(*args)
+    assert ss.SCAN.launches == before + 1 and not called
+    u = args[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ss.selective_scan(u, *args[1:])
+    with pytest.raises(ValueError, match="state size"):
+        ss.selective_scan(*_scan_inputs(4, 1, 3, 32, 4, torch.float32, False))
+    assert not called

@@ -42,7 +42,9 @@ def test_import_leaves_jax_out():
             "benchmarks_torch.pretrain_sweep, "
             "repro_torch.configs.registry, repro_torch.configs.gemma_7b, "
             "repro_torch.configs.minitron_8b, repro_torch.configs.qwen3_32b, "
-            "repro_torch.models.lora, benchmarks_torch.serving_bench; "
+            "repro_torch.models.lora, benchmarks_torch.serving_bench, "
+            "repro_torch.models.ssm, repro_torch.kernels.selective_scan, "
+            "repro_torch.configs.hymba_1_5b, repro_torch.configs.xlstm_1_3b; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'repro.', 'benchmarks.')) "
             "or m in ('repro', 'benchmarks')); "
@@ -74,7 +76,8 @@ def test_no_port_file_imports_jax_or_repro():
              os.path.join(ROOT, "scripts", "flash_bwd_f32_rows.py"),
              os.path.join(ROOT, "examples", "quickstart_torch.py"),
              os.path.join(ROOT, "examples", "federated_finetune_torch.py"),
-             os.path.join(ROOT, "examples", "serve_lora_torch.py")]
+             os.path.join(ROOT, "examples", "serve_lora_torch.py"),
+             os.path.join(ROOT, "examples", "private_flasc_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     # the port's figure harnesses: neither the reference package nor the
@@ -92,6 +95,8 @@ def test_no_port_file_imports_jax_or_repro():
     assert os.path.join(PORT, "core", "dp.py") in files
     assert os.path.join(PORT, "federated", "population.py") in files
     assert os.path.join(PORT, "launch", "train.py") in files
+    assert os.path.join(PORT, "models", "ssm.py") in files
+    assert os.path.join(PORT, "kernels", "selective_scan.py") in files
     assert os.path.join(HARNESS, "population_bench.py") in files
     for name in ("datasets.py", "partition.py", "pipeline.py"):
         assert os.path.join(PORT, "data", name) in files
@@ -134,6 +139,9 @@ def test_entry_points_default_to_the_card():
         train.main(["--arch", "yi-9b", "--smoke", "--rounds", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "gemma-7b", "--smoke", "--window", "8"])
+    for arch in ("hymba-1.5b", "xlstm-1.3b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--smoke"])
     from benchmarks_torch import serving_bench
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serving_bench.main([])
@@ -145,6 +153,13 @@ def test_entry_points_default_to_the_card():
     spec.loader.exec_module(example)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         example.main([])
+    spec = importlib.util.spec_from_file_location(
+        "private_flasc_torch", os.path.join(ROOT, "examples",
+                                            "private_flasc_torch.py"))
+    private = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(private)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        private.main(1, (0.0,))
     from repro_torch.data import make_synth_image
     from repro_torch.federated import Experiment
     with pytest.raises(RuntimeError, match="device='cpu'"):
