@@ -1,7 +1,7 @@
-"""Run every ported paper-figure harness and print CSV
-(figure,setting,metric,value).  The port of `benchmarks/run.py`, without
-its kernel, serving and sharded benchmarks (not ported yet: ROADMAP
-queue 1, items 6, 8 and 9; the kernels are timed by chip_smoke.py).
+"""Run every ported paper-figure harness and the serving sweep and print
+CSV (figure,setting,metric,value).  The port of `benchmarks/run.py`, in its
+order, without its kernel and sharded benchmarks (not ported yet: ROADMAP
+queue 1, items 8 and 9; the kernels are timed by chip_smoke.py).
 
   PYTHONPATH=src python -m benchmarks_torch.run                   # quick, on the card
   BENCH_MODEL=paper PYTHONPATH=src python -m benchmarks_torch.run # the paper's backbones
@@ -16,10 +16,11 @@ def main(device=None) -> None:
     from benchmarks_torch import (fig2_comm_efficiency, fig3_async_bandwidth,
                                   fig4_freezing, fig5_heterogeneity,
                                   fig6_system_het, fig7_privacy,
-                                  table1_partitions)
+                                  serving_bench, table1_partitions)
     t0 = time.time()
     print("figure,setting,metric,value")
     table1_partitions.main()
+    serving_bench.main(device=device)
     fig2_comm_efficiency.main(device=device)
     fig3_async_bandwidth.main(device=device)
     fig4_freezing.main(device=device)

@@ -108,20 +108,22 @@ Phases, each fatal on failure:
                  bf16 (wgmma) and f32 (fma), causal and not, and at B 2,
                  S 1000 and 1025, T 1100 in bf16 with hd 128 (wgmma, H 32,
                  KV 4; the last block's second consumer warpgroup holds 40
-                 rows or none) and S 1000 at hd 64 (mma_sync, H 8, KV 2),
-                 against its plain version
+                 rows or none), S 1000 and 1025 at hd 64 (hd64, H 8, KV 2)
+                 and S 1000 at hd 32 (mma_sync), against its plain version
                  (p in f32, v promoted), every bf16 case against an f64
                  attention of its inputs row by row (4e-3 of each row's
                  largest value; at 8192 tokens on 256 sampled query rows of
                  every head); a causal sliding window on every route
-                 (bf16 wgmma, mma_sync at hd 64, hd256; f32 fma at hd 128
-                 and 256) at B 2, S 1000, T 1100 with W 1, 37, 100 and
-                 1100 (bitwise the call without a window) and at 9000
+                 (bf16 wgmma, hd64, mma_sync at hd 32, hd256; f32 fma at hd
+                 128 and 256) at B 2, S 1000, T 1100 with W 1, 37, 100 and
+                 1100 (bitwise the call without a window), S 1025 with W
+                 65, and at 9000
                  tokens with W 4096 and 8192, and hd 256 (the hd256 route
                  in bf16, fma in f32) at 8192 tokens and ragged, every one
                  bitwise on repeat, bf16 rows against an f64 attention
-                 under the same window, the hd256 route's lse within 1e-4
-                 of the plain version's in f64; at 8192 in bf16 also against
+                 under the same window, the hd256 and hd64 routes' lse
+                 within 1e-4 of the plain version's in f64; at 8192 in bf16
+                 also against
                  `chunked_attention`, and the pre-broadcast
                  `ops.flash_attention` bitwise equal to the GQA call; each
                  call's route is counted.  `ops.topk_mask` and `ops.histogram_threshold`
@@ -262,8 +264,8 @@ Phases, each fatal on failure:
                  on repeat: a causal window of 1, 63, 64, 65 and 8192 keys
                  (8192 >= S: bitwise the call without one) at B 2, S 1000,
                  T 1100 on every route (bf16 wgmma 32/4 at hd 128,
-                 mma_sync 8/2 at hd 64, hd256 16/16, f32 fma 8/2 at hd
-                 128); the hd256 route around its 32-, 64- and 128-row
+                 mma_sync 8/2 at hd 64 after the hd64 forward, hd256
+                 16/16, f32 fma 8/2 at hd 128); the hd256 route around its 32-, 64- and 128-row
                  tiles, at S / T of 1, 31, 32, 33, 63, 64, 65, 127, 128,
                  129 and 1000 / 1100, heads 16/16 and 8/2, causal and
                  full, and under windows of 1, 31, 32, 33, 63, 64 and 65;
@@ -326,18 +328,29 @@ Phases, each fatal on failure:
   23. recurrent -- (a) the selective scan (csrc/selective_scan.cu) against
                  its plain version on the card at hymba-1.5b's 8192-token
                  prefill (bf16 and f32), its decode (S 1, nonzero h0), S 300
-                 and 1, B 4 and a ragged width at N 8 (y and h_last within
-                 1e-4 of max|plain|, two launches bitwise equal), timed
-                 beside its bound at the card's clock and the plain loop;
+                 and 1, B 4 and a ragged width at N 8, and at the chunk
+                 edges (L - 1, L, L + 1, 2 L + 3 for the kernels' L =
+                 CHUNK; B 4 ragged from h0 and N 8 over three chunks) (y
+                 and h_last within 1e-4 of max|plain|, two launches
+                 bitwise equal), in place over h0 as decode calls it,
+                 timed beside its bound at the card's clock and the plain
+                 loop, its three kernels split by torch.profiler (each
+                 recorded once a call, the parts within 5% of the call);
                  the windowed flash forward at hymba's (1, 8192, 25/5, 64)
-                 under W 1024 held to chunked_attention and f64 rows, and
-                 timed.  (b) hymba-1.5b at full width and depth in bf16
+                 under W 1024 (route hd64) held to chunked_attention and
+                 f64 rows, and timed, its timed output the checked call's
+                 bits; also unwindowed beside SDPA, held to a wrapper call
+                 and f64 rows.  (b)
+                 hymba-1.5b at full width and depth in bf16
                  through `launch/serve.py` with phase 3's settings: grouped
                  launches steps x 32 x 6, scan launches (prefills + steps)
                  x 32; prompts of 8192 and 32768 tokens through the
-                 engine's prefill (32 windowed mma_sync flash launches and
+                 engine's prefill (32 windowed hd64 flash launches and
                  32 scan launches each; ms, peak memory, the lane's 1024 KV
-                 slots and Mamba state against an unwindowed cache).  (c)
+                 slots and Mamba state against an unwindowed cache), the
+                 8192-token prefill split by kernel (scan, flash, GEMMs,
+                 elementwise and casts with the causal conv timed apart,
+                 the rest) beside its wall ms.  (c)
                  xlstm-1.3b the same way (grouped launches steps x 54), then
                  one 1024-token prompt (ms, device kernels, the lane's
                  state bytes).  (d) 2-layer f32 hymba and one-period f32
@@ -453,7 +466,7 @@ def device_ms(fn, n_iter: int) -> float:
 
 # the kernels built on csrc/hopper.cuh (TMA, mbarriers, wgmma, setmaxnreg)
 # and the libraries that hold them
-HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel",
+HOPPER_KERNELS = ("flash_wgmma_kernel<128>", "lora_matmul_wgmma_kernel",
                   "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                   "flash_wgmma_hd256_kernel",
                   "flash_bwd_dkdv_wgmma_window_kernel",
@@ -461,7 +474,8 @@ HOPPER_KERNELS = ("flash_wgmma_kernel", "lora_matmul_wgmma_kernel",
                   "flash_bwd_dkdv_wgmma_hd256_kernel",
                   "flash_bwd_dq_wgmma_hd256_kernel",
                   "flash_bwd_dkdv_wgmma_hd256_window_kernel",
-                  "flash_bwd_dq_wgmma_hd256_window_kernel")
+                  "flash_bwd_dq_wgmma_hd256_window_kernel",
+                  "flash_wgmma_kernel<64>")
 WGMMA_LIBS = ("flash_attention", "flash_attention_bwd", "lora_matmul")
 # what the backward's wgmma route launches, in order: lse and D, dK / dV, dQ
 FLASH_BWD_WGMMA = ("flash_bwd_rows_kernel<128>", "flash_bwd_dkdv_wgmma_kernel",
@@ -499,16 +513,19 @@ FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel<128>",
 # 12 bytes of spill stores)
 FLASH_BWD_REPORTED = ("flash_bwd_dq_bf16_window_kernel<64>",)
 # the selective scan (csrc/selective_scan.cu): state sizes 8 and 16, u in
-# bf16 or f32
-SCAN_KERNELS = tuple(f"selective_scan_kernel<{n}, {t}>" for n in (8, 16)
-                     for t in ("__nv_bfloat16", "float"))
+# bf16 or f32; a chunk's end state from zero, the chunks' carry, the
+# rescan with the readout
+SCAN_KERNELS = tuple(f"selective_scan_{part}<{n}, {t}>"
+                     for part in ("chunk_kernel", "kernel") for n in (8, 16)
+                     for t in ("__nv_bfloat16", "float")) + tuple(
+    f"selective_scan_carry_kernel<{n}>" for n in (8, 16))
 # kernels that must build with no stack frame and no spills
 GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
                  + FLASH_BWD_KERNELS + SCAN_KERNELS)
 # the flash forward's other kernels (csrc/flash_attention.cu): mma.sync at hd
-# 32 and 64, FMA at every head size; each must be in its library's log, and
-# its registers and spills are printed
-FLASH_FWD_KERNELS = tuple(f"flash_bf16_kernel<{hd}>" for hd in (32, 64)) \
+# 32, FMA at every head size; each must be in its library's log, and its
+# registers and spills are printed
+FLASH_FWD_KERNELS = ("flash_bf16_kernel<32>",) \
     + tuple(f"flash_f32_kernel<{hd}>" for hd in (32, 64, 128, 256))
 
 
@@ -610,6 +627,12 @@ def build_report(libs) -> None:
     print(f"[build] flash_attention: {HOPPER_KERNELS[4]}: {vals[0].value} "
           f"bytes dynamic shared memory, {vals[1].value} threads, no "
           "setmaxnreg (every thread may take 255 registers)")
+    vals = [ctypes.c_int() for _ in range(3)]
+    _build.load("flash_attention").flash_attention_hd64_config(
+        *(ctypes.byref(v) for v in vals))
+    print(f"[build] flash_attention: {HOPPER_KERNELS[-1]}: {vals[0].value} "
+          f"bytes dynamic shared memory, setmaxnreg {vals[1].value} "
+          f"registers (producer) / {vals[2].value} (consumers)")
     vals = [ctypes.c_int() for _ in range(3)]
     _build.load("flash_attention_bwd").flash_attention_bwd_hd256_config(
         *(ctypes.byref(v) for v in vals))
@@ -890,36 +913,66 @@ def summarize_trace(prof, fname: str, label: str, steps: int,
     return {"busy_ms": busy / 1e3, "by_name": by_name}
 
 
-def kernel_split_ms(fn, n_iter: int, names=(), windows: int = 4) -> dict:
-    """{kernel name: device ms per call of fn(i)}, by torch.profiler's
-    key_averages over n_iter calls after one unprofiled call: the parts of
-    an entry point that launches several kernels.  After the profiled
-    phases of a `--profile` run, the profiler's windows record the card's
-    kernels only every other time (eight windows in a row: none, all,
-    none, all, ...; the same with TEARDOWN_CUPTI=0), so a window that
-    records no kernel, or lacks one of `names`, is opened again, up to
-    `windows` times."""
+SPLIT_RTOL = 0.05              # kernel_split_ms: |sum of the parts - ms| / ms
+
+
+def profiled_kernels(fn, n_iter: int) -> tuple:
+    """({kernel name: device ms per call}, {kernel name: launches}, device
+    ms per call from the first kernel's start to the last one's end) of
+    n_iter calls of fn(i) in one torch.profiler window (CPU and CUDA
+    activities, as every other window here)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n_iter):
+            fn(i)
+        torch.cuda.synchronize()
+    ms: dict = {}
+    counts: dict = {}
+    first, last = float("inf"), float("-inf")
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0]
+        ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / n_iter
+        counts[name] = counts.get(name, 0) + 1
+        first, last = min(first, e.time_range.start), max(last,
+                                                          e.time_range.end)
+    span = (last - first) / 1e3 / n_iter if counts else 0.0
+    return ms, counts, span
+
+
+def kernel_split_ms(fn, n_iter: int, names=(), windows: int = 8,
+                    ms=None) -> dict:
+    """{kernel name: device ms per call of fn(i)} over n_iter calls after
+    one unprofiled call (profiled_kernels): the parts of an entry point that
+    launches several kernels.  A window is whole when it recorded a
+    kernel, each of `names` a multiple of n_iter times, and, given `ms`
+    (the call's device ms, timed apart), parts that sum to within
+    SPLIT_RTOL of it.  A window may record none of the card's kernels
+    (after the profiled phases of a `--profile` run every other window:
+    none, all, none, all, ...; the same with TEARDOWN_CUPTI=0) or only 7
+    or 8 calls' of 10 (the first windows of phase 23 (a) on an H100), so
+    a window that is not whole is printed and opened again, up to
+    `windows` times; the phase fails if none is."""
+    import torch
     fn(0)
     torch.cuda.synchronize()
-    for _ in range(windows):
-        # CPU and CUDA activities, as every other window here
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(n_iter):
-                fn(i)
-            torch.cuda.synchronize()
-        ms: dict = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.key.replace("(anonymous namespace)::", "")
-                name = name.removeprefix("void ").split("(")[0]
-                ms[name] = (ms.get(name, 0.0)
-                            + e.device_time_total / 1e3 / n_iter)
-        if ms and all(n in ms for n in names):
-            break
-    return ms
+    for w in range(windows):
+        split, counts, span = profiled_kernels(fn, n_iter)
+        total = sum(split.values())
+        if (split and all(counts.get(n, 0) > 0 and counts[n] % n_iter == 0
+                          for n in names)
+                and (ms is None or abs(total - ms) <= SPLIT_RTOL * ms)):
+            return split
+        print(f"[profile] split window {w}: parts {total:.4f} ms of "
+              f"{'-' if ms is None else f'{ms:.4f}'} ms a call, kernels "
+              f"{span:.4f} ms first to last, launches {json.dumps(counts)} "
+              f"over {n_iter} calls; not whole")
+    check(False, f"no profiler window of {windows} split {list(names)} "
+                 f"whole")
 
 
 def profile_round(state, data) -> None:
@@ -2346,7 +2399,8 @@ def ops_phase(seed: int):
         del x, got
 
     # flash attention, GQA, at the long prompt's shapes and ragged ones (B 2,
-    # T past S; hd 64 keeps the first, mma.sync kernel, f32 the FMA one); at
+    # T past S; hd 64 on the hd64 route, hd 32 on the first, mma.sync
+    # kernel, f32 on the FMA one); at
     # 8192 tokens in bf16 also against chunked_attention.  Every bf16 case
     # is also held row by row to an f64 attention of its inputs (at 8192
     # tokens on F64_ROWS sampled query rows of every head): p must keep
@@ -2369,7 +2423,11 @@ def ops_phase(seed: int):
             (2, 1025, 1100, 32, 4, hd, "bfloat16", True),
             (2, 1025, 1100, 32, 4, hd, "bfloat16", False),
             (2, 1000, 1100, 8, 2, 64, "bfloat16", True),
-            (2, 1000, 1100, 8, 2, 64, "bfloat16", False)):
+            (2, 1000, 1100, 8, 2, 64, "bfloat16", False),
+            (2, 1025, 1100, 8, 2, 64, "bfloat16", True),
+            (2, 1025, 1100, 8, 2, 64, "bfloat16", False),
+            (2, 1000, 1100, 8, 2, 32, "bfloat16", True),
+            (2, 1000, 1100, 8, 2, 32, "bfloat16", False)):
         q, k, v = attn_inputs(gen, B, S, T, H, KV, hd_, dt)
         route = fa.flash_route(getattr(torch, dt), hd_)
         n_route = fa.FLASH.launches_by_route.get(route, 0)
@@ -2505,19 +2563,21 @@ def ops_phase(seed: int):
             "lora_rows": rows, "attn_rows": attn_rows, **win}
 
 
-# the sliding window on every route (bf16 wgmma at hd 128, mma_sync at hd
-# 64, hd256; f32 fma at hd 128 and 256): ragged S and T with W of 1 (each
-# row its own key), 37 and 100 (not multiples of a tile: the lowest visited
-# tile holds no key of some rows' windows, and comes first for them), and W
+# the sliding window on every route (bf16 wgmma at hd 128, hd64, mma_sync at
+# hd 32, hd256; f32 fma at hd 128 and 256): ragged S and T with W of 1 (each
+# row its own key), 37, 65 (S past a 128-row tile) and 100 (not multiples
+# of a tile: the lowest visited tile holds no key of some rows' windows,
+# and comes first for them), and W
 # >= S (no effect: bitwise the call without a window); W 4096 and 8192 over
 # 9000 tokens.  Then hd 256 without a window, bf16 and f32, at 8192 tokens
 # and ragged.  All causal but one full hd-256 case a dtype.
 WINDOW_ROUTES = ((32, 4, 128, "bfloat16"), (8, 2, 64, "bfloat16"),
-                 (16, 16, 256, "bfloat16"), (32, 4, 128, "float32"),
-                 (16, 16, 256, "float32"))
+                 (8, 2, 32, "bfloat16"), (16, 16, 256, "bfloat16"),
+                 (32, 4, 128, "float32"), (16, 16, 256, "float32"))
 WINDOW_SHAPES = ((2, 1000, 1100, 1), (2, 1000, 1100, 37),
-                 (2, 1000, 1100, 100), (2, 1000, 1100, 1100),
-                 (1, 9000, 9000, 4096), (1, 9000, 9000, 8192))
+                 (2, 1025, 1100, 65), (2, 1000, 1100, 100),
+                 (2, 1000, 1100, 1100), (1, 9000, 9000, 4096),
+                 (1, 9000, 9000, 8192))
 HD256_SHAPES = ((1, LONG_S, LONG_S, True), (2, 1000, 1100, True),
                 (2, 1025, 1100, True), (2, 1000, 1100, False))
 WINDOW_S = 32768               # a long context: four windows of 8192
@@ -2530,8 +2590,9 @@ def window_cases(gen) -> dict:
     of its inputs under the same window (F64_ROW_TOL; F64_ROWS sampled
     query rows at 8192 tokens or more), two calls bitwise equal, each
     launch on its route and, with a window, tagged windowed.  On the hd256
-    route the lse a third launch writes is held to the plain version's in
-    f64 (LSE_TOL), and that launch's output to the first's bit for bit."""
+    and hd64 routes the lse a third launch writes is held to the plain
+    version's in f64 (LSE_TOL), and that launch's output to the first's
+    bit for bit."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     cases = [(B, S, T, H, KV, hd, dt, True, W)
@@ -2541,7 +2602,7 @@ def window_cases(gen) -> dict:
               for dt in ("bfloat16", "float32")
               for B, S, T, causal in HD256_SHAPES]
     res = {"win_err": 0.0, "win_f64": {}, "hd256_err": 0.0, "hd256_f64": {},
-           "hd256_lse_err": 0.0}
+           "hd256_lse_err": 0.0, "hd64_lse_err": 0.0}
     for B, S, T, H, KV, hd, dt, causal, W in cases:
         q, k, v = attn_inputs(gen, B, S, T, H, KV, hd, dt)
         route = fa.flash_route(getattr(torch, dt), hd)
@@ -2584,7 +2645,7 @@ def window_cases(gen) -> dict:
                   f"attention, above {F64_ROW_TOL:g}")
             res[f"{key}_f64"][what] = row64
             del exact
-        if route == "hd256":
+        if route in ("hd256", "hd64"):
             out, lse = fa._forward(q, k, v, causal, hd ** -0.5, want_lse=True,
                                    window=W or 0)
             _, l64 = fa.flash_attention_plain(
@@ -2598,7 +2659,7 @@ def window_cases(gen) -> dict:
             check(lerr <= LSE_TOL and same,
                   f"flash_attention at {what}: lse {lerr:.3e} from the plain "
                   f"version's, or out changed with lse ({same})")
-            res["hd256_lse_err"] = max(res["hd256_lse_err"], lerr)
+            res[f"{route}_lse_err"] = max(res[f"{route}_lse_err"], lerr)
             del out, lse, l64
         if W is not None and W >= S:
             same = torch.equal(got, fa.flash_attention(q, k, v, causal=True,
@@ -4372,7 +4433,7 @@ def bwd_case(gen, B, S, T, H, KV, hd, dt, causal, window=None):
     scale = hd ** -0.5
     out, lse = fa._forward(q, k, v, causal, scale, want_lse=True,
                            window=window or 0)
-    route = fa.flash_route(q.dtype, hd)
+    route = fa.flash_route(q.dtype, hd, backward=True)
     n = fa.FLASH_BWD.launches_by_route.get(route, 0)
     nw = fa.FLASH_BWD.launches_by_tag.get("window", 0)
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
@@ -4538,7 +4599,7 @@ def bwd_timing(gen, B, S, H, KV, hd, window, names):
     scale = hd ** -0.5
     out, lse = fa._forward(q, k, v, True, scale, want_lse=True,
                            window=window or 0)
-    route = fa.flash_route(q.dtype, hd)
+    route = fa.flash_route(q.dtype, hd, backward=True)
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
                                  scale=scale, window=window)
     what = (f"B {B}, S {S}, T {S}, H {H}, KV {KV}, hd {hd}, bfloat16, "
@@ -4659,7 +4720,8 @@ def flash_bwd_check(seed: int):
     """(a) The backward kernels on the card against
     `flash_attention_bwd_plain` in f64 on the same inputs (the contract),
     at the Yi-9B shape of an 8192-token sequence (bf16, causal: the wgmma
-    route), a ragged bf16 one at hd 64 with G = 4 (mma_sync) and ragged
+    route), a ragged bf16 one at hd 64 with G = 4 (mma_sync, after the
+    hd64 forward whose out and lse it reads) and ragged
     f32 ones at hd 64 with H == KV (fma); the error against the exact
     gradient (f64 attention's own out and lse) printed beside it; two calls
     bitwise equal; the forward's out bitwise the same with and without lse;
@@ -4686,7 +4748,7 @@ def flash_bwd_check(seed: int):
         out, lse = fa._forward(q, k, v, causal, scale, want_lse=True)
         same_out = torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
                                                        scale=scale))
-        route = fa.flash_route(q.dtype, hd)
+        route = fa.flash_route(q.dtype, hd, backward=True)
         n = fa.FLASH_BWD.launches_by_route.get(route, 0)
         got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                      scale=scale)
@@ -4715,7 +4777,8 @@ def flash_bwd_check(seed: int):
         worst = max(e["row"] for e in errs.values())
         ok = (finite and same and same_out and lse_err <= LSE_TOL
               and worst <= tol)
-        print(f"[long-train] flash_attention_bwd {what}, route {route}: "
+        print(f"[long-train] flash_attention_bwd {what}, route {route} "
+              f"(the forward's {fa.flash_route(q.dtype, hd)}): "
               f"against the plain backward in f64 on the same inputs "
               f"{json.dumps(errs)} (row tol {tol:g}), max|err| "
               f"{abs_err:.3e}; against the exact gradient (f64 attention's "
@@ -5333,6 +5396,23 @@ SCAN_CASES = ((1, LONG_S, 3200, 16, "bfloat16", False),
               (1, 1, 3200, 16, "bfloat16", False),
               (4, 1000, 3200, 16, "bfloat16", True),
               (3, 77, 100, 8, "float32", True))
+
+
+def scan_edge_cases() -> tuple:
+    """The chunked scan's edges, as SCAN_CASES, at the kernels' chunk
+    length L (`selective_scan.CHUNK`): a step short of one chunk, one
+    chunk, a step past it (from h0) and two chunks and three steps; four
+    rows of a ragged length over three chunks from h0; N = 8 over three
+    chunks off the 128-channel blocks."""
+    from repro_torch.kernels.selective_scan import CHUNK as L
+    return ((1, L - 1, 3200, 16, "bfloat16", False),
+            (1, L, 3200, 16, "bfloat16", False),
+            (1, L + 1, 3200, 16, "bfloat16", True),
+            (1, 2 * L + 3, 3200, 16, "bfloat16", False),
+            (4, 2 * L + 37, 3200, 16, "bfloat16", True),
+            (3, 2 * L + 5, 100, 8, "float32", True))
+
+
 SFU_EX2_PER_CLOCK = 16         # ex2 results an SM's special function units
 #                                give a clock (Hopper)
 FMA_PER_CLOCK = 128            # f32 results an SM's FMA pipes give a clock
@@ -5450,12 +5530,82 @@ def scan_inputs(gen, B, S, di, N, dtype, h0: bool):
             rnd(B, di, N) if h0 else None)
 
 
+def scan_launch(args, y, h_last, scratch) -> None:
+    """One launch of the scan's C entry point on preallocated outputs: args
+    as scan_inputs gives them and the scratch `scan_scratch` sizes (None
+    when S <= CHUNK)."""
+    from repro_torch.kernels import selective_scan as ss
+    u, w_dt, dt_bias, A_log, D_skip, Bc, Cc, h0 = args
+    B, S, di = u.shape
+    ss.SCAN(u.device, u.data_ptr(), w_dt.data_ptr(), dt_bias.data_ptr(),
+            A_log.data_ptr(), D_skip.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, S, di, A_log.shape[-1], ss.DTYPES[u.dtype])
+
+
+def scan_kernels(dtype: str, N: int = 16) -> tuple:
+    """The chunked scan's three kernels, in launch order, as the profiler
+    names them, at u's dtype and the state size N."""
+    t = "__nv_bfloat16" if dtype == "bfloat16" else "float"
+    return (f"selective_scan_chunk_kernel<{N}, {t}>",
+            f"selective_scan_carry_kernel<{N}>",
+            f"selective_scan_kernel<{N}, {t}>")
+
+
+def scan_held(gen, B, S, di, N, dtype, h0: bool) -> dict:
+    """One case of the scan against its plain version on the same inputs:
+    y and h_last within SCAN_TOL of max|plain|, finite, and a second
+    call bitwise equal."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+    args = scan_inputs(gen, B, S, di, N, dtype, h0)
+    (y, h), (y2, h2) = ss.selective_scan(*args), ss.selective_scan(*args)
+    yp, hp = ss.selective_scan_plain(*args)
+    torch.cuda.synchronize()
+    abs_err = max((y - yp).abs().max().item(), (h - hp).abs().max().item())
+    ey = ((y - yp).abs().max() / yp.abs().max()).item()
+    eh = ((h - hp).abs().max() / hp.abs().max()).item()
+    same = torch.equal(y, y2) and torch.equal(h, h2)
+    ok = (ey <= SCAN_TOL and eh <= SCAN_TOL and same
+          and bool(torch.isfinite(y).all() and torch.isfinite(h).all()))
+    what = (f"B {B}, S {S}, di {di}, N {N}, u {dtype}, h0 "
+            f"{'nonzero' if h0 else 'none'}, chunk {ss.CHUNK}")
+    print(f"[recurrent] selective_scan {what}: y max|err| / max|plain| "
+          f"{ey:.3e}, h_last {eh:.3e} (tol {SCAN_TOL:g}), max|y| "
+          f"{yp.abs().max().item():.3e}; a second launch bitwise equal: "
+          f"{same} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"selective_scan disagrees with its plain version at {what}")
+    return {"case": what, "y_err": ey, "h_err": eh, "max_abs_err": abs_err}
+
+
+def scan_in_place(gen) -> None:
+    """Decode's call: h_last written over h0 (out_state=h0), against the
+    plain version from a copy of h0, at hymba's 8 lanes in f32."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+    args = scan_inputs(gen, 8, 1, 3200, 16, "float32", True)
+    h0 = args[-1]
+    yp, hp = ss.selective_scan_plain(*args[:-1], h0.clone())
+    y, h = ss.selective_scan(*args, out_state=h0)
+    torch.cuda.synchronize()
+    ok = (h.data_ptr() == h0.data_ptr()
+          and (y - yp).abs().max().item() <= SCAN_TOL * yp.abs().max().item()
+          and (h - hp).abs().max().item() <= SCAN_TOL * hp.abs().max().item())
+    print(f"[recurrent] selective_scan (8, 1, 3200, 16) f32, h_last written "
+          f"over h0 (decode): {'ok' if ok else 'MISMATCH'}")
+    check(ok, "selective_scan in place over h0 disagrees with its plain "
+              "version")
+
+
 def scan_phase(seed: int) -> dict:
     """(a) Row 11, the selective scan, against its plain version on the
-    card at SCAN_CASES (two launches bitwise equal; y and h_last within
-    SCAN_TOL of max|plain|), then timed at hymba-1.5b's prefill shape in
-    bf16 and f32 beside its bound, the plain version and (no PyTorch call
-    computes a selective scan) no library call."""
+    card at SCAN_CASES and scan_edge_cases (two calls bitwise equal; y and
+    h_last within SCAN_TOL of max|plain|) and in place over h0, then timed
+    at hymba-1.5b's
+    prefill shape in bf16 and f32 beside its bound, the plain version and
+    (no PyTorch call computes a selective scan) no library call, with its
+    three kernels' parts by torch.profiler."""
     import torch
     from repro_torch.kernels import selective_scan as ss
 
@@ -5464,50 +5614,32 @@ def scan_phase(seed: int) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[recurrent] SM clock max {clock / 1e6:.0f} MHz, now "
           f"{cur / 1e6:.0f} MHz, {sms} SMs")
-    worst = 0.0
     res = {"cases": [], "timings": {}}
-    for B, S, di, N, dtype, h0 in SCAN_CASES:
-        args = scan_inputs(gen, B, S, di, N, dtype, h0)
-        y, h = ss.selective_scan(*args)
-        y2, h2 = ss.selective_scan(*args)
-        yp, hp = ss.selective_scan_plain(*args)
-        torch.cuda.synchronize()
-        abs_err = max((y - yp).abs().max().item(),
-                      (h - hp).abs().max().item())
-        ey = ((y - yp).abs().max() / yp.abs().max()).item()
-        eh = ((h - hp).abs().max() / hp.abs().max()).item()
-        same = torch.equal(y, y2) and torch.equal(h, h2)
-        ok = (ey <= SCAN_TOL and eh <= SCAN_TOL and same
-              and bool(torch.isfinite(y).all() and torch.isfinite(h).all()))
-        what = (f"B {B}, S {S}, di {di}, N {N}, u {dtype}, h0 "
-                f"{'nonzero' if h0 else 'none'}")
-        print(f"[recurrent] selective_scan {what}: y max|err| / max|plain| "
-              f"{ey:.3e}, h_last {eh:.3e} (tol {SCAN_TOL:g}), max|y| "
-              f"{yp.abs().max().item():.3e}; a second launch bitwise equal: "
-              f"{same} {'ok' if ok else 'MISMATCH'}")
-        check(ok, f"selective_scan disagrees with its plain version at {what}")
-        worst = max(worst, ey, eh)
-        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), abs_err)
-        res["cases"].append({"case": what, "y_err": ey, "h_err": eh,
-                             "max_abs_err": abs_err})
-        del args, y, h, y2, h2, yp, hp
+    for case in SCAN_CASES:
+        res["cases"].append(scan_held(gen, *case))
+    for case in scan_edge_cases():
+        res["cases"].append(scan_held(gen, *case))
+    scan_in_place(gen)
+    res["max_abs_err"] = max(c["max_abs_err"] for c in res["cases"])
+    res["max_rel_err"] = max(max(c["y_err"], c["h_err"])
+                             for c in res["cases"])
     for dtype in ("bfloat16", "float32"):
         B, S, di, N = 1, LONG_S, 3200, 16
         args = scan_inputs(gen, B, S, di, N, dtype, False)
-        u, w_dt, dt_bias, A_log, D_skip, Bc, Cc, _ = args
         y = torch.empty(B, S, di, device="cuda")
         hl = torch.empty(B, di, N, device="cuda")
+        scratch = ss.scan_scratch(B, S, di, N, "cuda")
 
         def kernel(i):
-            ss.SCAN(u.device, u.data_ptr(), w_dt.data_ptr(),
-                    dt_bias.data_ptr(), A_log.data_ptr(), D_skip.data_ptr(),
-                    Bc.data_ptr(), Cc.data_ptr(), None, y.data_ptr(),
-                    hl.data_ptr(), B, S, di, N, ss.DTYPES[u.dtype])
+            scan_launch(args, y, hl, scratch)
 
         bound, by = scan_bound(B, S, di, N, dtype, False, clock, sms)
+        ms = device_ms(kernel, 10)
         row = {"B": B, "S": S, "di": di, "N": N, "dtype": dtype,
-               "ms": device_ms(kernel, 10),
+               "chunk": ss.CHUNK, "ms": ms,
                "wrapper_ms": device_ms(lambda i: ss.selective_scan(*args), 10),
+               "split_ms": kernel_split_ms(kernel, 10, scan_kernels(dtype),
+                                           ms=ms),
                "plain_ms": cuda_ms(lambda i: ss.selective_scan_plain(*args),
                                    1, warmup=1),
                "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -5519,19 +5651,23 @@ def scan_phase(seed: int) -> dict:
               f"of {1e3 * bound:.1f} us ({by}, {100 * bound / row['ms']:.1f}%"
               f"); the plain loop {row['plain_ms']:.1f} ms")
         res["timings"][dtype] = row
-        del args, u, Bc, Cc, y, hl
+        del args, y, hl, scratch
     torch.cuda.empty_cache()
-    res["max_rel_err"] = worst
     return res
 
 
 def hymba_window_attention(seed: int) -> dict:
     """Row 10w at hymba-1.5b's attention shape (1, 8192, 25/5, 64) bf16
-    causal under its window of 1024 (route mma_sync, a GQA group of 5):
+    causal under its window of 1024 (route hd64, a GQA group of 5):
     held to chunked_attention(window=) elementwise and row by row and, on
     F64_ROWS sampled query rows of every head, to an f64 windowed
     attention; then timed beside its bound, the plain version and SDPA's
-    memory-efficient kernel (the band as a bool mask, K and V repeated)."""
+    memory-efficient kernel (the band as a bool mask, K and V repeated),
+    the timed launches' output equal to the checked call's bit for bit.
+    The same shape unwindowed (causal) is timed beside its bound and
+    F.scaled_dot_product_attention(is_causal=True, enable_gqa=True), its
+    timed launches' output equal to a wrapper call's bit for bit and
+    within F64_ROW_TOL of an f64 causal attention on the same rows."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -5576,6 +5712,11 @@ def hymba_window_attention(seed: int) -> dict:
                       "kernel, the band as a bool mask, K and V repeated "
                       "per query head", "max_abs_err": err,
            "row_err_vs_f64": row64}
+    same = torch.equal(out, got)
+    print(f"[recurrent] flash_attention {what}: the timed launches' output "
+          f"equals the checked call's bit for bit: {same}")
+    check(same, f"flash_attention at {what}: the timed launches differ from "
+          f"the checked call")
     qh = q.transpose(1, 2).contiguous()
     kh, vh = (t.repeat_interleave(H // KV, 2).transpose(1, 2).contiguous()
               for t in (k, v))
@@ -5584,12 +5725,35 @@ def hymba_window_attention(seed: int) -> dict:
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         row["library_ms"] = device_ms(lambda i: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=band), 5)
-    same = torch.equal(out, got)
+    bound, by = attn_bound(B, S, S, H, KV, hd, "bfloat16", True)
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    causal = torch.empty_like(q)
+    row["causal"] = {
+        "window": None, "route": route,
+        "ms": device_ms(lambda i: fa.FLASH(
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            causal.data_ptr(), None, B, S, S, H, KV, hd, fa.DTYPES[q.dtype],
+            1, scale, fa.ROUTES[route], 0), 10),
+        "bound_ms": bound, "bound_by": by,
+        "library": "F.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+        "library_ms": device_ms(lambda i: F.scaled_dot_product_attention(
+            qh, kt, vt, is_causal=True, enable_gqa=True), 5)}
+    what_c = what.replace(f"window {W}", "no window")
+    same = torch.equal(causal, fa.flash_attention(q, k, v, causal=True,
+                                                  scale=scale))
+    row64 = attn_row_err(causal[:, rows], attn_f64(q, k, v, scale, True,
+                                                   rows, None))
+    row["causal"]["row_err_vs_f64"] = row64
     print(f"[recurrent] timing {json.dumps(row)}")
-    print(f"[recurrent] flash_attention {what}: the timed launches' output "
-          f"equals the checked call's bit for bit: {same}")
-    check(same, f"flash_attention at {what}: two calls differ")
-    del q, k, v, got, plain, out, qh, kh, vh, band
+    print(f"[recurrent] flash_attention {what_c}: the timed launches' output "
+          f"equals a wrapper call's bit for bit: {same}; against f64 "
+          f"attention ({F64_ROWS} query rows of every head): row max|err| / "
+          f"max|want| {row64:.3e} (tol {F64_ROW_TOL:g})")
+    check(same and row64 <= F64_ROW_TOL,
+          f"flash_attention at {what_c}: the timed launches differ from a "
+          f"wrapper call or are {row64:.3e} from f64 attention")
+    del q, k, v, got, plain, out, causal, qh, kh, vh, kt, vt, band
     torch.cuda.empty_cache()
     return row
 
@@ -5729,13 +5893,91 @@ def scan_in_model(cfg2, eng2, lcfg, seed: int) -> float:
     return diff
 
 
+# kernel name -> part of a prefill, the first test that matches (lower case)
+PREFILL_PARTS = (("scan", ("selective_scan",)), ("flash", ("flash_",)),
+                 ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "s16816",
+                            "tensorop")),
+                 ("elementwise and casts", ("elementwise", "vectorized",
+                                            "unrolled", "copy", "cast",
+                                            "fill", "cat")))
+
+
+def prefill_split(eng, cfg, prompt, wall_ms: float,
+                  windows: int = 6) -> dict:
+    """One prefill of `prompt` through the engine split by kernel
+    (profiled_kernels): device ms by PREFILL_PARTS and the rest (its five
+    largest kernels named), beside the prefill's wall ms; the depthwise
+    causal conv of the Mamba heads, eager elementwise kernels inside the
+    elementwise part, timed apart at the prefill's shape times the layers.
+    Windows are opened until two in a row record as many kernels and
+    device totals within SPLIT_RTOL of each other, the later of which is
+    kept, with the scan's three kernels and the windowed flash forward's
+    each once a layer (up to `windows`; the phase fails if none agree)."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models.ssm import mamba_inner_dim
+
+    def run(i):
+        with torch.no_grad():
+            eng._prefill(0, prompt)
+
+    layers = cfg.num_layers
+    names = scan_kernels(cfg.compute_dtype, cfg.ssm_state_size) + (
+        HOPPER_KERNELS[-1],)
+    run(0)
+    torch.cuda.synchronize()
+    prev = None
+    for w in range(windows):
+        ms, counts, _ = profiled_kernels(run, 1)
+        n, total = sum(counts.values()), sum(ms.values())
+        if (prev is not None and n == prev[0]
+                and abs(total - prev[1]) <= SPLIT_RTOL * total
+                and all(counts.get(k) == layers for k in names)):
+            break
+        print(f"[recurrent] prefill split window {w}: {n} kernels, "
+              f"{total:.3f} device ms, {json.dumps({k: counts.get(k, 0) for k in names})}"
+              f" (want {layers} each); the previous window "
+              f"{prev}")
+        prev = (n, total)
+    else:
+        check(False, f"{cfg.name}: no two profiler windows of a prefill "
+                     f"agree")
+    parts = {name: 0.0 for name, _ in PREFILL_PARTS}
+    rest = {}
+    for kname, t in ms.items():
+        low = kname.lower()
+        for name, keys in PREFILL_PARTS:
+            if any(k in low for k in keys):
+                parts[name] += t
+                break
+        else:
+            rest[kname] = t
+    parts["rest"] = sum(rest.values())
+    di, W, S = mamba_inner_dim(cfg), cfg.ssm_conv_width, len(prompt)
+    dt = getattr(torch, cfg.compute_dtype)
+    x = torch.randn(1, S, di, device="cuda").to(dt)
+    w = torch.randn(W, di, device="cuda").to(getattr(torch, cfg.param_dtype))
+    b = torch.randn(di, device="cuda").to(w.dtype)
+    conv = cfg.num_layers * device_ms(
+        lambda i: ssm._causal_conv(x, w, b), 5)
+    out = {"wall_ms": wall_ms, "device_ms": sum(ms.values()),
+           "kernels": len(ms), "launches": sum(counts.values()),
+           "parts_ms": parts,
+           "causal_conv_ms": conv,
+           "rest_top": dict(sorted(rest.items(), key=lambda kv: -kv[1])[:5])}
+    print(f"[recurrent] {cfg.name}: one {S}-token prefill by kernel "
+          f"(torch.profiler): {json.dumps(out)}")
+    del x, w, b
+    return out
+
+
 def recurrent_phase(seed: int) -> dict:
     """Phase 23: (a) the grouped kernel at both archs' decode shapes
     (`grouped_recurrent_phase`), the selective scan (`scan_phase`) and row
     10w at hymba's attention shape; (b) hymba-1.5b served at full width and depth
     (grouped launches steps x 32 x 6, scan launches (prefills + steps) x
     32), then prompts of 8192 and 32768 tokens through the engine's prefill
-    (32 windowed mma_sync flash launches and 32 scan launches each, a cache
+    (32 windowed hd64 flash launches and 32 scan launches each, a cache
     of 1024 KV slots and the Mamba state); (c) xlstm-1.3b served the same
     way (grouped launches steps x 54: 42 mLSTM downs and 6 sLSTM wx and
     down), then one 1024-token prompt; (d) 2-layer f32 hymba and a
@@ -5771,6 +6013,7 @@ def recurrent_phase(seed: int) -> dict:
         grouped.launches = 0
         tok, row, ms, peak = timed_prefill(eng, prompt)
         fl, sc = fa.FLASH.launches, ss.SCAN.launches
+        chunked = ss.SCAN.launches_by_tag.get("chunked", 0)
         routes = dict(fa.FLASH.launches_by_route)
         windowed = fa.FLASH.launches_by_tag.get("window", 0)
         # the same prompt again: the first call of a shape also pays the
@@ -5786,23 +6029,27 @@ def recurrent_phase(seed: int) -> dict:
               f"({again:.3f} ms again), first token {tok}, peak device "
               f"memory {peak:.2f} GiB; "
               f"flash_attention {fl} ({windowed} windowed, by route "
-              f"{json.dumps(routes)}), selective_scan {sc}; the lane's cache "
+              f"{json.dumps(routes)}), selective_scan {sc} ({chunked} "
+              f"chunked); the lane's cache "
               f"{lane / 1e6:.3f} MB ({kv[2]} KV slots a layer; Mamba state "
               f"{mamba / 1e6:.3f} MB) against {unwindowed / 1e9:.3f} GB "
               f"unwindowed at {S + 16} slots")
         check(fl == windowed == cfg.num_layers and
-              routes == {"mma_sync": fl} and sc == cfg.num_layers,
+              routes == {"hd64": fl} and sc == chunked == cfg.num_layers,
               f"hymba {S}-token prefill: flash {routes} ({windowed} "
-              f"windowed), scan {sc}; expected {cfg.num_layers} each")
+              f"windowed), scan {sc} ({chunked} chunked); expected "
+              f"{cfg.num_layers} each")
         check(kv == (cfg.num_layers, 1, cfg.sliding_window, cfg.num_kv_heads,
                      cfg.hd) and 0 <= tok < cfg.vocab_size and
               grouped.launches == 0,
               f"hymba {S}-token prefill: cache {kv}, token {tok}")
         long[S] = {"ms": ms, "again_ms": again, "peak_gib": peak,
-                   "flash": fl, "scan": sc,
+                   "flash": fl, "scan": sc, "scan_chunked": chunked,
                    "lane_bytes": lane, "mamba_bytes": mamba,
                    "unwindowed_bytes": unwindowed}
         del row
+        if S == LONG_S:
+            long[S]["split"] = prefill_split(eng, cfg, prompt, again)
     served["long"] = long
     res["hymba"] = served
     del eng
@@ -6149,7 +6396,7 @@ def main() -> int:
         "launches_by_route": win_res["flash_routes"],
         "path": ("window (yi-9b, window 8192): 48 per prompt of 32768 "
                  "tokens, every one windowed; recurrent (hymba-1.5b, window "
-                 "1024, hd 64, 25/5 heads, mma_sync): "
+                 "1024, hd 64, 25/5 heads, hd64): "
                  + ", ".join(f"{r['flash']} in its {S}-token prefill"
                              for S, r in hym["long"].items())),
         "hymba_timing": rec["window"],
@@ -6164,6 +6411,28 @@ def main() -> int:
         "library_ms": wt["library_ms"], "library": wt["library"],
         "route_timed": wt["route"], "wrapper_ms": wt["wrapper_ms"],
         "timing": wt})
+    hw = rec["window"]
+    entries.append({
+        "name": "flash_attention_hd64", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:58",
+        "kernel": "flash_wgmma_kernel<64> (route hd64)",
+        "launches": sum(r["flash"] for r in hym["long"].values()),
+        "launches_by_route": {"hd64": sum(r["flash"]
+                                          for r in hym["long"].values())},
+        "path": "recurrent (hymba-1.5b, 32 layers, window 1024): "
+                + ", ".join(f"{r['flash']} in its {S}-token prefill"
+                            for S, r in hym["long"].items()),
+        "shape": "q (1, 8192, 25, 64), k/v (1, 8192, 5, 64) bf16 causal, "
+                 "window 1024",
+        "max_abs_err": hw["max_abs_err"],
+        "max_row_err_vs_f64": hw["row_err_vs_f64"],
+        "max_lse_err_vs_plain_f64": ops_res["hd64_lse_err"],
+        "ms": hw["ms"], "plain_ms": hw["plain_ms"], "plain": hw["plain"],
+        "bound_ms": hw["bound_ms"], "bound_by": hw["bound_by"],
+        "library_ms": hw["library_ms"], "library": hw["library"],
+        "causal": hw["causal"], "route_timed": hw["route"],
+        "wrapper_ms": hw["wrapper_ms"]})
     entries.append({
         "name": "flash_attention_hd256", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -6283,8 +6552,9 @@ def main() -> int:
         "launches": hym["scan"],
         "path": (f"recurrent (hymba-1.5b, 32 layers): serve {hym['scan']} = "
                  f"({hym['prefills']} prefills + {hym['steps']} decode steps)"
-                 f" x 32; " + ", ".join(f"{r['scan']} in its {S}-token "
-                                        f"prefill"
+                 f" x 32; " + ", ".join(f"{r['scan']} ({r['scan_chunked']} "
+                                        f"chunked: three kernels each) in "
+                                        f"its {S}-token prefill"
                                         for S, r in hym["long"].items())),
         "shape": "(B, S, di, N) = (1, 8192, 3200, 16), u bf16",
         "max_abs_err": sc["max_abs_err"],
@@ -6293,7 +6563,9 @@ def main() -> int:
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": None, "library": st["library"],
-        "wrapper_ms": st["wrapper_ms"], "timings": sc["timings"]})
+        "chunk": st["chunk"], "split_ms": st["split_ms"],
+        "wrapper_ms": st["wrapper_ms"], "timings": sc["timings"],
+        "prefill_split": hym["long"][LONG_S]["split"]})
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,12 @@ CSRC is a directory holding flash_attention.cu and the headers it includes,
 such as a checkout's src/repro_torch/csrc (an older commit unpacked with
 `git archive` into a directory that .gitignore lists).  Each is compiled
 with the port's nvcc flags into build/flash_attention_ab/, all at once
-(scripts/ab_trees.py); the ptxas report of its flash_wgmma_kernel
-and of the kernel behind its hd256 route (flash_wgmma_hd256_kernel, or
-an older tree's flash_bf16_kernel<256>) (registers, stack frame, spills)
-is printed, with any compiler warning or note that a wgmma was
-serialised.  The entry point's arguments are read
+(scripts/ab_trees.py); the ptxas report (registers, stack frame,
+spills) of its route-0 kernel (flash_wgmma_kernel, a template on hd since
+the hd64 route), of the kernel behind its hd-64 route and of the kernel
+behind its hd256 route (flash_wgmma_hd256_kernel, or an older tree's
+flash_bf16_kernel<256>) is printed, with any compiler warning or note that
+a wgmma was serialised.  The entry point's arguments are read
 from each tree's source: trees before the backward take no lse pointer,
 and trees with the sliding window take a trailing window, passed as 0
 (none), so that a tree of either kind times against this one.
@@ -41,8 +42,15 @@ of an f64 attention of its inputs (chip_smoke.F64_ROW_TOL; F64_ROWS sampled
 query rows of every head at 8192 tokens) and equal to its own second
 launch bit for bit; the largest difference from the first label is
 printed.  Timing at (1, 8192, 16/16, 256), causal and full, A B B A beside
-the bound and SDPA.  One JSON object per line; the card's name and power
-limit first.
+the bound and SDPA.
+
+hd 64 (hymba-1.5b's attention, (1, 8192, 25/5, 64) bf16 causal, under its
+window of 1024 and without one), on the trees with the sliding window: each
+tree's route for it, hd64 (4) where the tree has one, else mma_sync (1);
+each label held to an f64 attention on F64_ROWS sampled query rows of every
+head within F64_ROW_TOL and to its own repeat, then timed A B B A beside
+the bound (and, unwindowed, SDPA with is_causal and enable_gqa).  One JSON
+object per line; the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -60,6 +68,7 @@ H, KV, HD = 32, 4, 128
 HD256_CASES = [(1, 8192, 8192, 16, 16), (2, 1000, 1100, 8, 2),
                (2, 1025, 1100, 8, 2)]
 HD256_KERNELS = ("flash_wgmma_hd256_kernel", "flash_bf16_kernel<256>")
+HD64_KERNELS = ("flash_wgmma_kernel<64>", "flash_bf16_kernel<64>")
 ITERS = 10                     # launches a timed turn
 SEED = 18
 
@@ -88,14 +97,23 @@ def has_hd256(csrc) -> bool:
     return "route == 3" in (csrc / "flash_attention.cu").read_text()
 
 
-def launch(fn, q, k, v, out, causal: bool, route: int = 0) -> None:
-    """One launch of the tree's entry point on route 0 (wgmma) or 3
-    (hd256), shapes and head size read from q and k."""
+def hd64_route(csrc) -> int:
+    """The route that serves bf16 at hd 64 in the tree's entry point: 4
+    (hd64) where it has one, else 1 (mma_sync)."""
+    return 4 if "route == 4" in (csrc / "flash_attention.cu").read_text() \
+        else 1
+
+
+def launch(fn, q, k, v, out, causal: bool, route: int = 0,
+           window: int = 0) -> None:
+    """One launch of the tree's entry point on route 0 (wgmma), 3 (hd256)
+    or hd 64's, shapes and head size read from q and k; a causal window of
+    `window` keys on the trees that take one (0: none)."""
     import torch
     B, S, Hq, hd = q.shape
     T, KVh = k.shape[1], k.shape[2]
     lse = (None,) if fn.takes_lse else ()
-    window = (0,) if fn.takes_window else ()
+    window = (window,) if fn.takes_window else ()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse,
             B, S, T, Hq, KVh, hd, 0, int(causal), hd ** -0.5, route, *window,
             torch.cuda.current_stream().cuda_stream)
@@ -168,6 +186,68 @@ def hd256_cases(libs: dict, srcs: dict, gen) -> bool:
     return ok
 
 
+def hd64_cases(libs: dict, srcs: dict, gen) -> bool:
+    """Hymba-1.5b's attention, chip_smoke.HYMBA_WINDOW_SHAPE (bf16, hd 64,
+    25 / 5 heads), causal under its window and without one, on each tree's
+    hd-64 route (`hd64_route`; trees without the window are skipped): each
+    label held to an f64 attention on F64_ROWS sampled query rows of every
+    head and to its own repeat, then timed A B B A beside the bound (and,
+    unwindowed, one F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True) call); True if all held."""
+    import torch
+    import torch.nn.functional as F
+    B, S, Hq, KVh, hd, W = cs.HYMBA_WINDOW_SHAPE
+    labels = [lb for lb in libs if libs[lb].takes_window]
+    for lb in libs:
+        if lb not in labels:
+            print(json.dumps({"label": lb, "hd64": "skipped: the tree has "
+                              "no sliding window"}))
+    ok = True
+    for window in (W, 0):
+        q, k, v = cs.attn_inputs(gen, B, S, S, Hq, KVh, hd, "bfloat16")
+        rows = torch.randperm(S, generator=gen, device="cuda")
+        rows = rows[:cs.F64_ROWS].sort().values
+        exact = cs.attn_f64(q, k, v, hd ** -0.5, True, rows, window or None)
+        res = {}
+        for label in labels:
+            route = hd64_route(srcs[label])
+            out, again = torch.empty_like(q), torch.empty_like(q)
+            launch(libs[label], q, k, v, out, True, route, window)
+            launch(libs[label], q, k, v, again, True, route, window)
+            torch.cuda.synchronize()
+            row = cs.attn_row_err(out[:, rows], exact)
+            same = torch.equal(out.view(torch.int16), again.view(torch.int16))
+            held = (bool(torch.isfinite(out.float()).all()) and same
+                    and row <= cs.F64_ROW_TOL)
+            ok = ok and held
+            res[label] = {"route": route, "row_err_vs_f64": row,
+                          "bitwise_on_repeat": same, "held": held}
+            del out, again
+        shape = {"route": "hd 64", "B": B, "S": S, "T": S, "H": Hq, "KV": KVh,
+                 "hd": hd, "causal": True, "window": window}
+        print(json.dumps(dict(shape, f64_rows=len(rows), tol=cs.F64_ROW_TOL,
+                              labels=res)))
+        out = torch.empty_like(q)
+        ms = ab_trees.abba(labels, lambda label, i: launch(
+            libs[label], q, k, v, out, True, hd64_route(srcs[label]),
+            window), ITERS, 1)
+        line = {"timing": shape, "ms": ms}
+        if window:
+            line["bound_ms"], line["bound_by"] = cs.attn_window_bound(
+                B, S, Hq, KVh, hd, "bfloat16", window)
+        else:
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            line["sdpa_ms"] = cs.device_ms(
+                lambda i: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True), ITERS)
+            line["bound_ms"], line["bound_by"] = cs.attn_bound(
+                B, S, S, Hq, KVh, hd, "bfloat16", True)
+            del qh, kh, vh
+        print(json.dumps(line))
+        del q, k, v, exact, out
+    return ok
+
+
 def main() -> int:
     srcs = ab_trees.trees(__doc__, "flash_attention.cu")
     if srcs is None:
@@ -178,8 +258,9 @@ def main() -> int:
     libs = {}
     for label, so in ab_trees.build(
             srcs, "flash_attention.cu",
-            lambda name: name == "flash_wgmma_kernel"
-            or name in HD256_KERNELS).items():
+            lambda name: name in ("flash_wgmma_kernel",
+                                  "flash_wgmma_kernel<128>")
+            or name in HD256_KERNELS or name in HD64_KERNELS).items():
         fn = so.flash_attention_fwd
         lse, window = takes_lse(srcs[label]), takes_window(srcs[label])
         fn.argtypes = [ctypes.c_void_p] * (5 if lse else 4) + [
@@ -235,6 +316,7 @@ def main() -> int:
                           "bound_by": by}))
         del q, k, v, qh, kh, vh, out
     ok = hd256_cases(libs, srcs, gen) and ok
+    ok = hd64_cases(libs, srcs, gen) and ok
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

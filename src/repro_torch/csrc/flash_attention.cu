@@ -62,7 +62,7 @@
 // issue 1.5 times that tensor work (Q K^T once, P V twice); the bound
 // counts the function's operations, not the split's.
 //
-// Four routes on four kernels; the caller (kernels/flash_attention.py::
+// Five routes on four kernel templates; the caller (kernels/flash_attention.py::
 // flash_route) picks one from dtype and hd alone, before the launch, and
 // passes it as `route`:
 //
@@ -136,8 +136,27 @@
 //     start, then, at the end of tile j, K and V of tile j + 2 once both
 //     warpgroups have read tile j's (the other warpgroup, running in
 //     step, has passed that point or nearly so).
-//   route 1, "mma_sync" -- the first version, for bf16 with hd 32
-//     and 64: grid (B*H, ceil(S/64)), 4 warps; each warp owns 16 query rows.
+//   route 4, "hd64" -- bf16, hd 64 (hymba-1.5b): route 0's kernel
+//     template (flash_wgmma_kernel<HD>) at hd 64.  Q, K and V tiles are one
+//     box each, (64, 1, 128, 1) of the 4-D maps (16 KB); 128-key K and V
+//     tiles stream through a ring of three stages (115,816 B of shared
+//     memory).  S = Q K^T takes 4 wgmma m64n128k16 steps over hd; P V is
+//     wgmma m64n64k16 (a 32-register accumulator, within the launch's 168
+//     registers whatever setmaxnreg asks); a warp whose rows all kept their
+//     max skips the rescale of acc (a multiply by exactly 1), as route 3
+//     does.  Everything else is route 0's, whose hd-128 instantiation keeps
+//     its code and bits.  The backward at hd 64 stays on route
+//     1's kernels (kernels/flash_attention.py::flash_route), reading the
+//     lse this route writes.  Lost on an H100 (scripts/flash_ab.py, PERF.md
+//     §6, row 10w): three consumer warpgroups of 192 rows (the same time, an
+//     8-byte spill); two or four stages (the same); the next tile's Q K^T
+//     in a second score buffer, issued before the softmax or behind the
+//     last P V (the consumers spill within 168 registers: 1.5x slower); the
+//     two warpgroups alone with one thread issuing the loads and the next
+//     tile's Q K^T queued behind the last P V, route 3's way (235
+//     registers, no spill, 10% slower).
+//   route 1, "mma_sync" -- the first version, for bf16 at hd 32 (it served
+//     hd 64 too until route 4): grid (B*H, ceil(S/64)), 4 warps; each warp owns 16 query rows.
 //     The q tile is staged through shared memory into mma.sync A fragments
 //     held in registers for the whole kernel.  64-key tiles of K and V rows
 //     stream into two shared-memory buffers by cp.async (zero-filled past
@@ -461,20 +480,25 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// route 0, bf16, hd 128: TMA, an mbarrier ring, wgmma, a producer warpgroup
+// routes 0 (bf16, hd 128) and 4 (bf16, hd 64): TMA, an mbarrier ring,
+// wgmma, a producer warpgroup; one template on HD
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 128;            // query rows per block, 64 a consumer
 constexpr int kWgKeys = 128;            // keys per K / V tile
-constexpr int kWgStages = 2;            // K / V ring
 constexpr int kWgThreads = 384;         // consumers: warpgroups 0, 1; producer: 2
 constexpr int kWgProducerRegs = 24;   // setmaxnreg, per thread
 constexpr int kWgConsumerRegs = 240;   // (24 + 2 x 240) x 128 = 168 x 384
 constexpr int kWgBox = 128 * 64 * 2;    // one TMA box: 128 rows x 64 bf16
-constexpr int kWgTile = 2 * kWgBox;     // a 128 x 128 bf16 tile (two boxes)
-constexpr int kWgBars = 1 + 4 * kWgStages;
+// a 128-row Q, K or V tile: HD / 64 boxes
+template <int HD> constexpr int kWgTile = HD / 64 * kWgBox;
+// the K / V ring: two stages at hd 128, three at hd 64
+template <int HD> constexpr int kWgStages = HD == 64 ? 3 : 2;
+template <int HD> constexpr int kWgBars = 1 + 4 * kWgStages<HD>;
 // Q, then per stage K and V; barriers after; 1 KB of slack to align the base
-constexpr int kWgSmem = 1024 + kWgTile * (1 + 2 * kWgStages) + 8 * kWgBars;
+template <int HD>
+constexpr int kWgSmem =
+    1024 + kWgTile<HD> * (1 + 2 * kWgStages<HD>) + 8 * kWgBars<HD>;
 
 // 2^x by the special-function unit, a result below 2^-126 flushed to 0:
 // the instruction exp2f issues, without the three that exp2f adds to
@@ -485,6 +509,7 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -493,17 +518,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int S, int T, int H, int KV, float scale_log2, int causal,
                    int window) {
   using namespace hopper;
+  constexpr int kTile = kWgTile<HD>, kStages = kWgStages<HD>;
+  constexpr int kBoxes = HD / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = base;                                     // box c: hd 64c..
-  auto ks = [&](int s) { return base + kWgTile * (1 + 2 * s); };
-  auto vs = [&](int s) { return base + kWgTile * (2 + 2 * s); };
+  auto ks = [&](int s) { return base + kTile * (1 + 2 * s); };
+  auto vs = [&](int s) { return base + kTile * (2 + 2 * s); };
   uint64_t* q_full = reinterpret_cast<uint64_t*>(
-      base + kWgTile * (1 + 2 * kWgStages));
-  uint64_t* k_full = q_full + 1;                          // [kWgStages] each
-  uint64_t* v_full = k_full + kWgStages;
-  uint64_t* k_empty = v_full + kWgStages;
-  uint64_t* v_empty = k_empty + kWgStages;
+      base + kTile * (1 + 2 * kStages));
+  uint64_t* k_full = q_full + 1;                          // [kStages] each
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, kh = h / (H / KV);
@@ -518,7 +545,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&k_full[s], 1);             // the producer's expect_tx
       mbar_init(&v_full[s], 1);
       mbar_init(&k_empty[s], 8);            // one arrival per consumer warp
@@ -536,21 +563,29 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // only hands back its registers
     setmaxnreg_dec<kWgProducerRegs>();
     if (threadIdx.x == 256) {
-      mbar_arrive_expect_tx(q_full, kWgTile);
-      tma_load_4d(qs, &tm_q, q_full, 0, h, q0, b);
-      tma_load_4d(qs + kWgBox, &tm_q, q_full, 64, h, q0, b);
+      mbar_arrive_expect_tx(q_full, kTile);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c) {
+        tma_load_4d(qs + c * kWgBox, &tm_q, q_full, 64 * c, h, q0, b);
+      }
       for (int jt = lo; jt < n_tiles; ++jt) {
-        const int s = (jt - lo) % kWgStages;
-        const uint32_t ph = ((jt - lo) / kWgStages) & 1;
+        const int s = (jt - lo) % kStages;
+        const uint32_t ph = ((jt - lo) / kStages) & 1;
         const int j0 = jt * kWgKeys;
         mbar_wait(&k_empty[s], ph ^ 1);
-        mbar_arrive_expect_tx(&k_full[s], kWgTile);
-        tma_load_4d(ks(s), &tm_k, &k_full[s], 0, kh, j0, b);
-        tma_load_4d(ks(s) + kWgBox, &tm_k, &k_full[s], 64, kh, j0, b);
+        mbar_arrive_expect_tx(&k_full[s], kTile);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_4d(ks(s) + c * kWgBox, &tm_k, &k_full[s], 64 * c, kh, j0,
+                      b);
+        }
         mbar_wait(&v_empty[s], ph ^ 1);
-        mbar_arrive_expect_tx(&v_full[s], kWgTile);
-        tma_load_4d(vs(s), &tm_v, &v_full[s], 0, kh, j0, b);
-        tma_load_4d(vs(s) + kWgBox, &tm_v, &v_full[s], 64, kh, j0, b);
+        mbar_arrive_expect_tx(&v_full[s], kTile);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c) {
+          tma_load_4d(vs(s) + c * kWgBox, &tm_v, &v_full[s], 64 * c, kh, j0,
+                      b);
+        }
       }
     }
   } else {
@@ -561,26 +596,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row0 = q0 + wg * 64;
     const int r_lo = row0 + warp * 16 + g, r_hi = r_lo + 8;
     const uint32_t q_addr = smem_addr(qs) + wg * 64 * 128;
-    float o[64];
+    float o[HD / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.0f, 0.0f};            // this thread's part of each row sum
 
     mbar_wait(q_full, 0);
     for (int jt = lo; jt < n_tiles; ++jt) {
-      const int s = (jt - lo) % kWgStages;
-      const uint32_t ph = ((jt - lo) / kWgStages) & 1;
+      const int s = (jt - lo) % kStages;
+      const uint32_t ph = ((jt - lo) / kStages) & 1;
       const int j0 = jt * kWgKeys;
 
       // scores: sc[4 j + e] is row r_lo (e < 2) or r_hi, key j0 + 8 j + 2 t
-      // + (e & 1)
+      // + (e & 1); HD / 16 k16 steps, 32 bytes apart in a box
       float sc[64];
       mbar_wait(&k_full[s], ph);
       const uint32_t k_addr = smem_addr(ks(s));
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t off = (kk / 4) * kWgBox + (kk % 4) * 32;
         wgmma_m64n128k16_ss(sc, desc_sw128(q_addr + off, 16, 1024),
                                desc_sw128(k_addr + off, 16, 1024), kk > 0);
@@ -625,14 +660,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         m[rr] = mx[rr];
         l[rr] *= corr[rr];
       }
+      // at hd 64 a warp whose rows all kept their max (corr 1) skips the
+      // rescale, which would multiply by exactly 1; hd 128 rescales always
+      if (HD == 128 ||
+          __any_sync(0xffffffffu, corr[0] != 1.0f || corr[1] != 1.0f)) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
       // p = exp2(s - m) and its hi + lo pairs of bf16 A operands, a quarter
       // tile (32 keys, accumulator chunks 8 q .. 8 q + 7) at a time: keys
       // 16 kk .. 16 kk + 15 are the chunks 2 kk and 2 kk + 1.  Quarter qt's
       // exp2 and pairs are computed while the P V of quarter qt - 1 runs;
       // two buffers of pairs, each free again once the quarter two back
-      // has been waited for.  l sums p in the order of i, as before.
+      // has been waited for.  l sums p in the order of i, as before.  P V
+      // is wgmma m64nHDk16 with V read MN-major through the transpose bit,
+      // a k16 step 16 key rows (2 KB) apart.
       const uint32_t v_addr = smem_addr(vs(s));
       uint32_t p_hi[2][2][4], p_lo[2][2][4];
 #pragma unroll
@@ -659,8 +701,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kk = 0; kk < 2; ++kk) {
           const uint64_t v_desc =
               desc_sw128(v_addr + (2 * qt + kk) * 2048, kWgBox, 1024);
-          wgmma_m64n128k16_rs(o, p_hi[qt & 1][kk], v_desc, 1);
-          wgmma_m64n128k16_rs(o, p_lo[qt & 1][kk], v_desc, 1);
+          if constexpr (HD == 128) {
+            wgmma_m64n128k16_rs(o, p_hi[qt & 1][kk], v_desc, 1);
+            wgmma_m64n128k16_rs(o, p_lo[qt & 1][kk], v_desc, 1);
+          } else {
+            wgmma_m64n64k16_rs(o, p_hi[qt & 1][kk], v_desc, 1);
+            wgmma_m64n64k16_rs(o, p_lo[qt & 1][kk], v_desc, 1);
+          }
         }
         wgmma_commit();
         // the next quarter's exp2 reads sc after this issue, not before it
@@ -687,10 +734,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         lse[static_cast<size_t>(bh) * S + qpos] =
             (m[rr] + log2f(den)) * 0.69314718055994531f;
       }
-      __nv_bfloat16* orow = out + (static_cast<size_t>(b) * S + qpos) * H * 128 +
-                            static_cast<size_t>(h) * 128;
+      __nv_bfloat16* orow = out + (static_cast<size_t>(b) * S + qpos) * H * HD +
+                            static_cast<size_t>(h) * HD;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < HD / 8; ++j) {
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
             __floats2bfloat162_rn(o[4 * j + 2 * rr] / den,
                                   o[4 * j + 2 * rr + 1] / den);
@@ -699,27 +746,30 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int S, int T, int H, int KV, int causal,
                  float scale, int window, cudaStream_t stream) {
-  // 4-D maps over (hd, heads, seq, batch), 128 hd of 2 bytes
+  // 4-D maps over (hd, heads, seq, batch), HD of 2 bytes
   CUtensorMap tq, tk, tv;
-  const uint64_t qdim[4] = {128, static_cast<uint64_t>(H),
+  constexpr uint64_t kRow = 2 * HD;       // bytes of one head's row
+  const uint64_t qdim[4] = {HD, static_cast<uint64_t>(H),
                             static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
-  const uint64_t qstr[3] = {256, 256ull * H, 256ull * H * S};
-  const uint64_t kdim[4] = {128, static_cast<uint64_t>(KV),
+  const uint64_t qstr[3] = {kRow, kRow * H, kRow * H * S};
+  const uint64_t kdim[4] = {HD, static_cast<uint64_t>(KV),
                             static_cast<uint64_t>(T), static_cast<uint64_t>(B)};
-  const uint64_t kstr[3] = {256, 256ull * KV, 256ull * KV * T};
+  const uint64_t kstr[3] = {kRow, kRow * KV, kRow * KV * T};
   const uint32_t box[4] = {64, 1, kWgRows, 1};
   int err = hopper::make_tensor_map_bf16(&tq, q, 4, qdim, qstr, box);
   if (err == 0) err = hopper::make_tensor_map_bf16(&tk, k, 4, kdim, kstr, box);
   if (err == 0) err = hopper::make_tensor_map_bf16(&tv, v, 4, kdim, kstr, box);
   if (err != 0) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWgSmem<HD>);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (S + kWgRows - 1) / kWgRows);
-  flash_wgmma_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
+  flash_wgmma_kernel<HD><<<grid, kWgThreads, kWgSmem<HD>, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, T, H, KV,
       scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -1174,7 +1224,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// route 1: bf16, hd 32 or 64
+// route 1: bf16, hd 32
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int S, int T, int H, int KV, int causal,
@@ -1217,8 +1267,9 @@ int launch_fma(const void* q, const void* k, const void* v, void* out,
 // Launches on `stream` and returns cudaGetLastError() (0 on success).  The
 // caller checks devices, dtypes and contiguity, and that the pointers are
 // 16-byte aligned; B, S, T, H >= 1 and H % KV == 0.  dtype 0 = bf16, 1 =
-// f32.  route 0 = wgmma (bf16, hd 128), 1 = mma_sync (bf16, hd 32 or 64),
-// 2 = fma (f32, hd 32, 64, 128 or 256), 3 = hd256 (bf16, hd 256); a route
+// f32.  route 0 = wgmma (bf16, hd 128), 1 = mma_sync (bf16, hd 32),
+// 2 = fma (f32, hd 32, 64, 128 or 256), 3 = hd256 (bf16, hd 256), 4 = hd64
+// (bf16, hd 64); a route
 // that the dtype and hd do not select is refused.  lse: null, or f32 (B, H,
 // S) to receive each row's log-sum-exp.  window: 0 for none, else W >= 1
 // keys including the query's own under causal masking (key > query - W),
@@ -1231,10 +1282,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   float* lse = static_cast<float*>(lse_);
   const bool fits =
       (route == 0 && dtype == 0 && hd == 128) ||
-      (route == 1 && dtype == 0 && (hd == 32 || hd == 64)) ||
+      (route == 1 && dtype == 0 && hd == 32) ||
       (route == 2 && dtype == 1 &&
        (hd == 32 || hd == 64 || hd == 128 || hd == 256)) ||
-      (route == 3 && dtype == 0 && hd == 256);
+      (route == 3 && dtype == 0 && hd == 256) ||
+      (route == 4 && dtype == 0 && hd == 64);
   const bool window_ok =
       window == 0 || (window > 0 && causal &&
                       static_cast<long long>(S) <=
@@ -1245,20 +1297,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 0) {
-    return launch_wgmma(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
-                        window, s);
+  if (route == 0 || route == 4) {
+    return (route == 0 ? launch_wgmma<128> : launch_wgmma<64>)(
+        q, k, v, out, lse, B, S, T, H, KV, causal, scale, window, s);
   }
   if (route == 3) {
     return launch_hd256(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
                         window, s);
   }
   if (route == 1) {
-    if (hd == 32) {
-      return launch_mma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
-                            window, s);
-    }
-    return launch_mma<64>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
+    return launch_mma<32>(q, k, v, out, lse, B, S, T, H, KV, causal, scale,
                           window, s);
   }
   switch (hd) {
@@ -1277,11 +1325,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// The wgmma kernel's dynamic shared memory and its setmaxnreg counts (the
-// build report prints them beside ptxas's).
+// The wgmma kernel's (route 0) dynamic shared memory and its setmaxnreg
+// counts (the build report prints them beside ptxas's).
 extern "C" void flash_attention_wgmma_config(int* smem_bytes, int* producer_regs,
                                     int* consumer_regs) {
-  *smem_bytes = kWgSmem;
+  *smem_bytes = kWgSmem<128>;
   *producer_regs = kWgProducerRegs;
   *consumer_regs = kWgConsumerRegs;
 }
@@ -1291,4 +1339,14 @@ extern "C" void flash_attention_wgmma_config(int* smem_bytes, int* producer_regs
 extern "C" void flash_attention_hd256_config(int* smem_bytes, int* threads) {
   *smem_bytes = kH2Smem;
   *threads = kH2Threads;
+}
+
+// The hd-64 wgmma kernel's (route 4) dynamic shared memory and its
+// setmaxnreg counts (the build report prints them beside ptxas's).
+extern "C" void flash_attention_hd64_config(int* smem_bytes,
+                                            int* producer_regs,
+                                            int* consumer_regs) {
+  *smem_bytes = kWgSmem<64>;
+  *producer_regs = kWgProducerRegs;
+  *consumer_regs = kWgConsumerRegs;
 }

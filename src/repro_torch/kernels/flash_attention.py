@@ -20,13 +20,14 @@ s - W < t <= s, as the reference's `causal_mask(..., window)`: W keys
 including the query's own.  The kernels skip the key tiles wholly below
 every row's window.  Every row must see a key, so S <= T + W - 1.
 
-Four forward routes on four kernels behind one C entry point;
+Five forward routes on five kernels behind one C entry point;
 `flash_route` picks one from the dtype and hd alone, before the launch
 (never as a retry):
   - "wgmma": bf16, hd 128 (Yi-9B, every long prompt) -- TMA loads into an
     mbarrier ring fed by a producer warpgroup, wgmma for both products;
-  - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
-    kernel;
+  - "hd64": bf16, hd 64 (hymba-1.5b) -- the same design at hd 64: one
+    64-wide box a row, a three-stage K / V ring, P V as wgmma m64n64k16;
+  - "mma_sync": bf16, hd 32 -- the first version's `mma.sync` kernel;
   - "hd256": bf16, hd 256 (gemma-7b) -- the same design with 64-key tiles
     and P V as wgmma m64n256k16, its loads issued by one thread of the
     two warpgroups (producer warps would cap every thread at 168
@@ -46,12 +47,14 @@ dQ per (batch, query head, query tile), each recomputing P = exp(scale
 q k^T - lse).  No atomics: the gradient is bitwise the same run to run.
 The reference has no Pallas backward; this is the port's counterpart of
 XLA's autodiff of `chunked_attention`, the reference's path at these
-lengths.  The backward takes the forward's route (`flash_route`):
+lengths.  The backward's route is `flash_route(..., backward=True)`: the
+forward's, except at bf16 hd 64, whose forward takes "hd64" and whose
+backward the `mma_sync` kernels (both read and write one lse format):
   - "wgmma": bf16, hd 128 (Yi-9B's long-sequence training) -- TMA loads
     into an mbarrier ring fed by a producer warpgroup, wgmma for all five
     products, P and dS entering theirs from registers;
   - "mma_sync": bf16, hd 32 and 64 -- the first version's `mma.sync`
-    kernels;
+    kernels (at hd 64 behind the "hd64" forward);
   - "hd256": bf16, hd 256 (gemma-7b) -- the "wgmma" route's design with
     two warpgroups alone (one 64 x 256 f32 accumulator each, 128 registers
     a thread) and one thread of them issuing the TMA loads: dK / dV per 64
@@ -93,7 +96,7 @@ from repro_torch.kernels.ref import NEG_INF
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the C entry points' `route`
-ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2, "hd256": 3}
+ROUTES = {"wgmma": 0, "mma_sync": 1, "fma": 2, "hd256": 3, "hd64": 4}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (q, k, v, out, lse or None, B, S, T, H, KV, hd, dtype, causal, scale, route,
@@ -106,10 +109,11 @@ FLASH_BWD = CudaFunction("flash_attention_bwd", "flash_attention_bwd",
                          [_P] * 10 + [_I] * 8 + [_F, _I, _I])
 
 
-def flash_route(dtype: torch.dtype, hd: int) -> str:
-    """The forward's and the backward's kernels that serve (dtype, hd):
-    "wgmma" for bf16 at hd 128, "mma_sync" for bf16 at hd 32 or 64, "hd256"
-    for bf16 at hd 256, "fma" for f32."""
+def flash_route(dtype: torch.dtype, hd: int, *, backward: bool = False
+                ) -> str:
+    """The kernels that serve (dtype, hd): "wgmma" for bf16 at hd 128,
+    "hd256" for bf16 at hd 256, "mma_sync" for bf16 at hd 32, "fma" for
+    f32; bf16 at hd 64 takes "hd64" forward and "mma_sync" backward."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: the CUDA kernel takes bf16 or f32, "
                         f"got {dtype}")
@@ -118,6 +122,8 @@ def flash_route(dtype: torch.dtype, hd: int) -> str:
                          f"{HEAD_DIMS}, got {hd}")
     if dtype == torch.float32:
         return "fma"
+    if hd == 64 and not backward:
+        return "hd64"
     return {128: "wgmma", 256: "hd256"}.get(hd, "mma_sync")
 
 
@@ -310,7 +316,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise TypeError(f"flash_attention_bwd: lse must be f32 on "
                         f"{q.device}, got {lse.dtype} on {lse.device}")
-    route = flash_route(q.dtype, hd)
+    route = flash_route(q.dtype, hd, backward=True)
     q, k, v, out, dout, lse = (aligned(t) for t in (q, k, v, out, dout, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0 or T == 0:

@@ -17,11 +17,15 @@ the port's own kernel, as the flash backward is, because eager PyTorch has
 no associative scan and a loop over t launches about six kernels a token a
 layer.
 
-On CUDA tensors it launches the hand-written kernel of
-`csrc/selective_scan.cu` (one thread per (b, d, n), h in a register for
-the whole sequence, the (B, S, di, N) tensors never written; N = 8 or 16)
-or raises; `SCAN.launches` counts the launches.  Decode is the same call
-at S = 1 with h0 the lane's state.  The kernel has no backward yet:
+On CUDA tensors it launches the hand-written kernels of
+`csrc/selective_scan.cu` or raises; `SCAN.launches` counts the launches of
+its entry point, and `SCAN.launches_by_tag["chunked"]` those at S > `CHUNK`.
+A chunked scan: chunks of `CHUNK` steps, each chunk's end state from zero,
+the chunks' start states carried in order from h0, then every chunk
+rescanned from its start with the readout (three kernels, one thread per
+channel holding its N = 8 or 16 states in registers; the (B, S, di, N)
+tensors are never written).  At S <= `CHUNK` (decode is the same call at
+S = 1) only the last kernel runs, from h0, the lane's state.  The kernels have no backward yet:
 training the recurrent families is ROADMAP queue 1 item 12, so a CUDA
 call that autograd records raises `NotImplementedError`.  On CPU tensors
 it runs `selective_scan_plain`, the same coefficients in a Python loop
@@ -35,16 +39,30 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import CudaFunction
+from repro_torch.kernels._build import CudaFunction, aligned
 
 STATE_SIZES = (8, 16)
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# steps a chunk of the kernels' scan: csrc/selective_scan.cu's kChunk
+CHUNK = 192
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (u, w_dt, dt_bias, A_log, D_skip, Bc, Cc, h0 or None, y, h_last, B, S,
-#  di, N, dtype)
+# (u, w_dt, dt_bias, A_log, D_skip, Bc, Cc, h0 or None, y, h_last, scratch
+#  or None, B, S, di, N, dtype)
 SCAN = CudaFunction("selective_scan", "selective_scan_fwd",
-                    [_P] * 10 + [_I] * 5)
+                    [_P] * 11 + [_I] * 5)
+
+
+def scan_scratch(B: int, S: int, di: int, N: int,
+                 device) -> Optional[torch.Tensor]:
+    """The entry point's f32 scratch: None when S fits one chunk, else
+    B * nc * di * (N + 1) floats for nc = ceil(S / CHUNK) chunks (each
+    chunk's state, then its sum of dt)."""
+    nc = -(-S // CHUNK)
+    if nc == 1:
+        return None
+    return torch.empty(B * nc * di * (N + 1), dtype=torch.float32,
+                       device=device)
 
 
 def scan_coeffs(u, w_dt, dt_bias, A_log):
@@ -133,12 +151,16 @@ def selective_scan(u, w_dt, dt_bias, A_log, D_skip, Bc, Cc,
           or out_state.device != u.device):
         raise ValueError("selective_scan: out_state must be a contiguous f32 "
                          f"(B, di, N) = {(B, di, N)} on {u.device}")
-    u, w_dt, dt_bias, A_log, D_skip, Bc, Cc = (
-        t.contiguous() for t in (u, w_dt, dt_bias, A_log, D_skip, Bc, Cc))
+    u, w_dt, dt_bias, A_log, D_skip = (
+        t.contiguous() for t in (u, w_dt, dt_bias, A_log, D_skip))
+    Bc, Cc = aligned(Bc), aligned(Cc)          # staged 16 bytes at a time
     h0 = None if h0 is None else h0.contiguous()
     y = torch.empty(B, S, di, dtype=torch.float32, device=u.device)
+    scratch = scan_scratch(B, S, di, N, u.device)
     SCAN(u.device, u.data_ptr(), w_dt.data_ptr(), dt_bias.data_ptr(),
          A_log.data_ptr(), D_skip.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
          None if h0 is None else h0.data_ptr(), y.data_ptr(),
-         out_state.data_ptr(), B, S, di, N, DTYPES[u.dtype])
+         out_state.data_ptr(), None if scratch is None else scratch.data_ptr(),
+         B, S, di, N, DTYPES[u.dtype],
+         tag="chunked" if scratch is not None else None)
     return y, out_state

@@ -73,15 +73,33 @@ def test_the_flags_rename_every_library(csrc, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,hd,route", [
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "mma_sync"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "hd64"),
     (torch.bfloat16, 32, "mma_sync"), (torch.float32, 128, "fma"),
     (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
     (torch.bfloat16, 256, "hd256"), (torch.float32, 256, "fma")])
 def test_flash_route(dtype, hd, route):
-    # the forward's kernels and the backward's: bf16 at gemma-7b's hd 256
-    # takes the hd256 route both ways, f32 the FMA one at every head size
+    # the forward's kernels: bf16 at gemma-7b's hd 256 takes the hd256
+    # route, at hymba-1.5b's hd 64 the hd64 route, f32 the FMA one at every
+    # head size
     assert fa.flash_route(dtype, hd) == route
-    assert fa.ROUTES[route] in (0, 1, 2, 3)
+    assert fa.ROUTES[route] in (0, 1, 2, 3, 4)
+
+
+@pytest.mark.parametrize("dtype,hd,forward,backward", [
+    (torch.bfloat16, 64, "hd64", "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync", "mma_sync"),
+    (torch.bfloat16, 128, "wgmma", "wgmma"),
+    (torch.bfloat16, 256, "hd256", "hd256"),
+    (torch.float32, 64, "fma", "fma")])
+def test_flash_route_names_the_forward_and_the_backward_apart(
+        dtype, hd, forward, backward):
+    # bf16 at hd 64: the forward on the hd64 kernel, its backward on the
+    # mma_sync kernels (which read the lse the forward writes); every
+    # other (dtype, hd) takes one route both ways
+    assert fa.flash_route(dtype, hd) == forward
+    assert fa.flash_route(dtype, hd, backward=False) == forward
+    assert fa.flash_route(dtype, hd, backward=True) == backward
+    assert fa.ROUTES["hd64"] == 4 and fa.ROUTES["mma_sync"] == 1
 
 
 @pytest.mark.parametrize("S,rows", [(1, 256), (128, 256), (129, 512),
@@ -128,7 +146,7 @@ def test_yi_9b_takes_the_wgmma_kernels():
 
 @pytest.mark.parametrize("arch,route", [
     ("yi-9b", "wgmma"), ("minitron-8b", "wgmma"), ("qwen3-32b", "wgmma"),
-    ("gemma-7b", "hd256"), ("hymba-1.5b", "mma_sync")])
+    ("gemma-7b", "hd256"), ("hymba-1.5b", "hd64")])
 def test_every_arch_has_a_flash_forward_route(arch, route):
     # every long prompt of the registry's archs reaches a forward kernel
     assert fa.flash_route(torch.bfloat16, get_config(arch).hd) == route
@@ -172,6 +190,12 @@ def test_tag_counts_start_empty_and_reset():
      "selective_scan_kernel<16, __nv_bfloat16>"),
     ("void <unnamed>::selective_scan_kernel<(int)8, float>",
      "selective_scan_kernel<8, float>"),
+    ("void <unnamed>::selective_scan_chunk_kernel<(int)16, __nv_bfloat16>",
+     "selective_scan_chunk_kernel<16, __nv_bfloat16>"),
+    ("void <unnamed>::selective_scan_carry_kernel<(int)8>",
+     "selective_scan_carry_kernel<8>"),
+    ("void <unnamed>::flash_wgmma_kernel<(int)128>", "flash_wgmma_kernel<128>"),
+    ("void <unnamed>::flash_wgmma_kernel<(int)64>", "flash_wgmma_kernel<64>"),
 ])
 def test_build_report_names_kernels_with_their_template_arguments(demangled,
                                                                   name):
@@ -200,7 +224,7 @@ def test_build_report_names_the_hd_256_forward_kernel():
     assert "flash_wgmma_hd256_kernel" in chip_smoke.HOPPER_KERNELS
     assert "flash_bf16_kernel<256>" not in chip_smoke.FLASH_FWD_KERNELS
     assert "flash_f32_kernel<256>" in chip_smoke.FLASH_FWD_KERNELS
-    assert "flash_wgmma_kernel" in chip_smoke.GATED_KERNELS
+    assert "flash_wgmma_kernel<128>" in chip_smoke.GATED_KERNELS
 
 
 def test_build_report_names_the_hd_256_backward_kernels():
@@ -291,7 +315,7 @@ def test_the_selective_scan_builds_from_its_source_without_a_header():
     assert '#include "hopper.cuh"' not in src
     assert (ss.SCAN.source, ss.SCAN.symbol) == ("selective_scan",
                                                 "selective_scan_fwd")
-    assert len(ss.SCAN.argtypes) == 16 and ss.SCAN.launches == 0
+    assert len(ss.SCAN.argtypes) == 17 and ss.SCAN.launches == 0
     assert ss.STATE_SIZES == (8, 16)
 
 
@@ -324,3 +348,88 @@ def test_scan_bound_counts_the_sfu_and_fma_pipes_together():
     ms, by = cs.scan_bound(1, 8192, 3200, 16, "bfloat16", False, 1.98e9, 132)
     assert by == "operations"
     assert ms == pytest.approx(8192 * 3200 * 16 / 24 / (132 * 1.98e9) * 1e3)
+
+
+def test_build_report_names_the_hd_64_forward_and_the_chunked_scan():
+    # phase 1 gates the hd64 route's wgmma kernel, route 0's template at hd
+    # 64 (no stack, no spill, no serialised wgmma), and the scan's three
+    # kernels at both state sizes; the forward's mma.sync kernel is built
+    # at hd 32 alone
+    cs = _chip_smoke()
+    assert cs.HOPPER_KERNELS[0] == "flash_wgmma_kernel<128>"
+    assert cs.HOPPER_KERNELS[-1] == "flash_wgmma_kernel<64>"
+    for name in ("flash_wgmma_kernel<64>",
+                 "selective_scan_chunk_kernel<16, float>",
+                 "selective_scan_kernel<8, __nv_bfloat16>",
+                 "selective_scan_carry_kernel<16>"):
+        assert name in cs.GATED_KERNELS, name
+    assert "flash_bf16_kernel<32>" in cs.FLASH_FWD_KERNELS
+    assert "flash_bf16_kernel<64>" not in cs.FLASH_FWD_KERNELS
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "route == 4 && dtype == 0 && hd == 64" in src
+    assert "route == 1 && dtype == 0 && hd == 32)" in src
+    assert 'extern "C" void flash_attention_hd64_config(' in src
+    # one kernel template serves routes 0 and 4
+    assert "launch_wgmma<128>" in src and "launch_wgmma<64>" in src
+    assert "flash_wgmma_hd64_kernel" not in src
+
+
+@pytest.mark.parametrize("S,scratch", [(1, False), (191, False), (192, False),
+                                       (193, True), (8192, True)])
+def test_scan_scratch_holds_each_chunks_state_and_dt_sum(S, scratch):
+    # one chunk: no scratch (decode reads h0 itself); more: B nc di (N + 1)
+    # floats, the chunks' states and their sums of dt
+    from repro_torch.kernels import selective_scan as ss
+    got = ss.scan_scratch(3, S, 100, 16, "cpu")
+    if not scratch:
+        assert got is None
+    else:
+        nc = -(-S // ss.CHUNK)
+        assert got.dtype == torch.float32
+        assert got.numel() == 3 * nc * 100 * 17
+
+
+def test_scan_chunk_is_the_kernels_compile_time_length():
+    # the wrapper sizes the scratch and tags chunked launches by CHUNK; the
+    # kernels' chunk length is csrc/selective_scan.cu's kChunk, which the
+    # entry point does not take
+    from repro_torch.kernels import selective_scan as ss
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    assert f"constexpr int kChunk = {ss.CHUNK};" in src
+    entry = src[src.index('extern "C" int selective_scan_fwd('):]
+    assert "chunk" not in entry[:entry.index("{")]
+
+
+def test_scan_edge_cases_straddle_the_chunk_length():
+    # phase 23 (a)'s chunk edges at the kernels' L: a step short of a chunk,
+    # one chunk, a step past it, two chunks and three steps, and three
+    # chunks at B 4 from h0 and at N 8
+    from repro_torch.kernels.selective_scan import CHUNK as L
+    cases = _chip_smoke().scan_edge_cases()
+    assert {S - L for B, S, *_ in cases if B == 1} == {-1, 0, 1, L + 3}
+    assert all(len(c) == 6 and c[3] in (8, 16) for c in cases)
+    assert {(B, N, -(-S // L)) for B, S, di, N, *_ in cases if B > 1} == {
+        (4, 16, 3), (3, 8, 3)}
+
+
+def test_the_ab_scripts_read_each_trees_entry_point(tmp_path):
+    # scripts/scan_ab.py binds the first version's scan (no scratch) and
+    # the chunked one; scripts/flash_ab.py runs hd 64 on the
+    # hd64 route where a tree has it and on mma_sync where it does not
+    scripts = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           "scripts")
+    sys.path.insert(0, scripts)
+    try:
+        import flash_ab
+        import scan_ab
+    finally:
+        sys.path.remove(scripts)
+    assert scan_ab.chunked(_build.CSRC)
+    (tmp_path / "selective_scan.cu").write_text(
+        'extern "C" int selective_scan_fwd(const void* u, void* h_last, '
+        'int B, int dtype, void* stream) {}')
+    assert not scan_ab.chunked(tmp_path)
+    assert flash_ab.hd64_route(_build.CSRC) == 4
+    (tmp_path / "flash_attention.cu").write_text(
+        "(route == 1 && dtype == 0 && (hd == 32 || hd == 64))")
+    assert flash_ab.hd64_route(tmp_path) == 1

@@ -628,8 +628,8 @@ def _assert_lse_and_repeat(q, k, v, causal, scale, out, window=None):
 # hd 128 in bf16 takes the wgmma kernel (ragged S and T, B = 2, H / KV in
 # {1, 2, 4, 8}, a last query tile of one row past a 128-row tile, keys one
 # past a 128-key tile; at S 1000 the last block's second consumer
-# warpgroup holds 40 rows, at S 1025 none); hd 32 and 64 in bf16 the
-# mma.sync kernel; hd 256 in bf16 the hd-256 wgmma kernel (64-key tiles,
+# warpgroup holds 40 rows, at S 1025 none); hd 64 in bf16 the hd-64 wgmma
+# kernel, hd 32 the mma.sync kernel; hd 256 in bf16 the hd-256 wgmma kernel (64-key tiles,
 # 128-row blocks: S and T of 1, 63, 64, 65, 127, 128, 129, 1000 / 1100 and
 # 1025 / 1100, 16 / 16 and 8 / 2 heads); f32 the FMA kernel.  Each call is
 # also bitwise equal to a second launch that writes lse, and that lse is
@@ -778,7 +778,7 @@ def test_flash_under_autograd_takes_a_window_and_hd_256(dtype, hd, window):
     _need_card()
     q, k, v = _attn(8, 1, 100, 100, 4, 2, hd, dtype)
     dout = _attn(9, 1, 100, 100, 4, 4, hd, dtype)[0]
-    route = fa.flash_route(dtype, hd)
+    route = fa.flash_route(dtype, hd, backward=True)
     n, nr = _route_launches(fa.FLASH_BWD, route)
     nw = fa.FLASH_BWD.launches_by_tag.get("window", 0)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -885,7 +885,7 @@ def test_flash_backward_matches_plain(B, S, T, H, KV, hd, causal, dtype):
     _need_card()
     (q, k, v, dout, out, lse), want = _bwd_case(S + T + hd, B, S, T, H, KV,
                                                 hd, dtype, causal)
-    route = fa.flash_route(dtype, hd)
+    route = fa.flash_route(dtype, hd, backward=True)
     n, nr = _route_launches(fa.FLASH_BWD, route)
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                  scale=hd ** -0.5)
@@ -969,7 +969,7 @@ def test_flash_backward_window_matches_plain(B, S, T, W, dtype, hd, H, KV):
     _need_card()
     (q, k, v, dout, out, lse), want = _bwd_case(B + S + W, B, S, T, H, KV, hd,
                                                 dtype, True, W)
-    route = fa.flash_route(dtype, hd)
+    route = fa.flash_route(dtype, hd, backward=True)
     n, nr = _route_launches(fa.FLASH_BWD, route)
     nw = fa.FLASH_BWD.launches_by_tag.get("window", 0)
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
@@ -1146,7 +1146,9 @@ def test_lora_matmul_kernel_validates_inputs():
     (torch.bfloat16, 128, "fma"), (torch.float32, 128, "wgmma"),
     (torch.float32, 64, "mma_sync"), (torch.bfloat16, 256, "mma_sync"),
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 128, "hd256"),
-    (torch.float32, 256, "hd256")])
+    (torch.float32, 256, "hd256"), (torch.bfloat16, 128, "hd64"),
+    (torch.bfloat16, 32, "hd64"), (torch.bfloat16, 256, "hd64"),
+    (torch.float32, 64, "hd64"), (torch.bfloat16, 64, "mma_sync")])
 def test_flash_entry_point_refuses_a_route_the_shape_does_not_select(
         dtype, hd, route):
     # the route is a function of dtype and hd: the C entry point launches
@@ -1570,3 +1572,79 @@ def test_selective_scan_on_cuda_never_falls_back_and_has_no_backward(
     with pytest.raises(ValueError, match="state size"):
         ss.selective_scan(*_scan_inputs(4, 1, 3, 32, 4, torch.float32, False))
     assert not called
+
+
+# the chunked scan at the kernels' chunk length L (CHUNK, 192): a step
+# short of a chunk, one chunk, a step past it, two chunks and three steps,
+# three chunks at B 4 from h0 and at N 8 off the 128-channel blocks; the
+# launches at S > L counted as chunked
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,dtype,h0", [
+    (1, 191, 3200, 16, torch.bfloat16, False),
+    (1, 192, 3200, 16, torch.bfloat16, True),
+    (1, 193, 3200, 16, torch.bfloat16, True),
+    (1, 387, 3200, 16, torch.float32, False),
+    (4, 421, 3200, 16, torch.bfloat16, True),
+    (3, 389, 100, 8, torch.float32, True)])
+def test_selective_scan_chunk_edges_match_plain(B, S, di, N, dtype, h0):
+    _need_card()
+    from repro_torch.kernels import selective_scan as ss
+    assert ss.CHUNK == 192
+    args = _scan_inputs(B + S, B, S, di, N, dtype, h0)
+    chunked = ss.SCAN.launches_by_tag.get("chunked", 0)
+    (y, hl), (y2, hl2) = ss.selective_scan(*args), ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.SCAN.launches_by_tag.get("chunked", 0) == chunked + 2 * (
+        S > ss.CHUNK)
+    yp, hp = ss.selective_scan_plain(*args)
+    assert (y - yp).abs().max() <= 1e-4 * yp.abs().max()
+    assert (hl - hp).abs().max() <= 1e-4 * hp.abs().max()
+    assert torch.equal(y, y2) and torch.equal(hl, hl2)
+
+
+# bf16 at hd 64 takes the hd64 route (TMA, wgmma): ragged S and T around its
+# 128-row and 128-key tiles, causal and full, windows of 1 to 65 and hymba's
+# GQA group of 5, each held to the plain version, to f64 rows, its lse and
+# its repeat
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,causal,W", [
+    (2, 1000, 1100, 8, 2, True, None), (2, 1025, 1100, 8, 2, False, None),
+    (1, 129, 127, 4, 4, False, None), (2, 1000, 1100, 8, 2, True, 1),
+    (1, 300, 300, 25, 5, True, 64), (2, 1025, 1100, 8, 2, True, 65)])
+def test_flash_hd64_route_matches_plain(B, S, T, H, KV, causal, W):
+    _need_card()
+    q, k, v = _attn(B + S + T, B, S, T, H, KV, 64, torch.bfloat16)
+    assert fa.flash_route(torch.bfloat16, 64) == "hd64"
+    n, nr = _route_launches(fa.FLASH, "hd64")
+    got = fa.flash_attention(q, k, v, causal=causal, scale=0.125, window=W)
+    again = fa.flash_attention(q, k, v, causal=causal, scale=0.125, window=W)
+    torch.cuda.synchronize()
+    assert _route_launches(fa.FLASH, "hd64") == (n + 2, nr + 2)
+    assert torch.equal(got, again)
+    _assert_attn_close(got, fa.flash_attention_plain(
+        q, k, v, causal=causal, scale=0.125, window=W), torch.bfloat16)
+    assert _row_err(got, _attn_f64(q, k, v, 0.125, causal, W)) <= 4e-3
+    _assert_lse_and_repeat(q, k, v, causal, 0.125, got, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [None, 65])
+def test_flash_hd64_forward_feeds_the_mma_sync_backward(W):
+    # under autograd the forward runs on hd64 and saves its lse; the
+    # backward runs the mma_sync kernels on it, within the contract of the
+    # f64 plain backward
+    _need_card()
+    q, k, v = _attn(64, 2, 300, 300, 8, 2, 64, torch.bfloat16)
+    dout = _attn(65, 2, 300, 300, 8, 8, 64, torch.bfloat16)[0]
+    nf = fa.FLASH.launches_by_route.get("hd64", 0)
+    nb = fa.FLASH_BWD.launches_by_route.get("mma_sync", 0)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, scale=0.125,
+                                                 window=W), leaves, dout)
+    torch.cuda.synchronize()
+    assert fa.FLASH.launches_by_route["hd64"] == nf + 1
+    assert fa.FLASH_BWD.launches_by_route["mma_sync"] == nb + 1
+    out, lse = fa._forward(q, k, v, True, 0.125, want_lse=True, window=W or 0)
+    _grad_rows_ok(got, fa.flash_attention_bwd_plain(
+        *(t.double() for t in (q, k, v, out, lse, dout)), causal=True,
+        scale=0.125, window=W), torch.bfloat16)

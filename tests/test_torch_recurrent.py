@@ -581,6 +581,7 @@ def test_on_cuda_the_scan_never_falls_back(monkeypatch):
     y, h = sscan.selective_scan(u, *args)
     assert len(launched) == 1 and not called
     assert launched[0][-5:] == (1, 2, 16, 8, sscan.DTYPES[torch.float32])
+    assert launched[0][-6] is None          # one chunk: no scratch
     assert tuple(y.shape) == (1, 2, 16) and tuple(h.shape) == (1, 16, 8)
     u.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="item 12"):
