@@ -11,9 +11,10 @@ Phases, each fatal on failure:
                  bin_counts kernel or an instantiation of the packs' scan
                  (pack_scan_kernel<Rows>: pack_batch's and
                  mask_quantize_pack's at bits 0, nearest and stochastic)
-                 or their fill, or a kernel of the flash backward, has a
-                 stack frame or spills, or ptxas serialised a wgmma or
-                 ignored a setmaxnreg.
+                 or their fill, a kernel of the flash backward or of the
+                 selective scan and its backward, has a stack frame or
+                 spills, or ptxas serialised a wgmma or ignored a
+                 setmaxnreg.
   2. kernels  -- the grouped LoRA kernel against its plain PyTorch version
                  on the card at the serving decode shapes and ragged ones
                  (M in {1, 8, 130}, N in {4096, 512, 50}, R in {1, 16, 64},
@@ -359,6 +360,33 @@ Phases, each fatal on failure:
                  through the kernel against chunked_attention, and its
                  300-token prefill through the scan kernel against the
                  plain scan.
+  24. recurrent-train -- (a) the scan's backward (csrc/selective_scan.cu)
+                 against its plain version in f64 at phase 23's cases with
+                 S > 1 and its chunk edges (every gradient within 1e-4 of
+                 max|plain|, du in bf16 less its own rounding; two launches
+                 bitwise equal), then timed at (1, 8192, 3200, 16) in bf16
+                 and f32 as the LoRA path calls it, beside the forward, its
+                 bound at the card's clock and the plain loop, split into
+                 its kernels by torch.profiler; (b) the windowed mma_sync
+                 flash backward at hymba-1.5b's (1, 8192, 25/5, 64) under W
+                 1024 (after the hd64 forward), sampled rows held to the
+                 f64 plain backward, timed beside its bound, the plain
+                 backward a head at a time and SDPA's backward on the band
+                 and without the window, split into its kernels; (c) the
+                 flat LoRA gradient of a 2-layer full-width hymba-1.5b
+                 through the kernels against the plain scan's and
+                 chunked_attention's autograd in their place, in f32 on
+                 4096 tokens (relative L2 within 1e-4) and in bf16 on
+                 8192 (within 3.5e-2), launches asserted; (d)
+                 `Experiment(None)` on full hymba-1.5b in bf16: FLASC
+                 (fused, 4-bit up, density 0.25/0.25, rank 8), 2 rounds of
+                 2 clients at 8192 tokens: flash forward 64 a client step
+                 (hd64, windowed), backward 32 (mma_sync, windowed), scan
+                 forward 64 (chunked) and backward 32, the transport
+                 kernels phase 6's a round, losses finite; ms a client
+                 step, peak memory and one profiled step split by kernel;
+                 (e) the same on full xlstm-1.3b, 1 round of 2 clients at
+                 128 tokens (its sLSTM steps run token by token).
 --profile adds torch.profiler windows over a few decode steps of phase
 3's engine, over one more round of phase 6, over one 8192-token
 prefill of phase 11's engine and over one 8192-token client step of
@@ -504,21 +532,22 @@ FLASH_BWD_KERNELS = ("flash_bwd_rows_kernel<128>",
                      "flash_bwd_dot_kernel<__nv_bfloat16>",
                      "flash_bwd_dot_kernel<float>") + tuple(
     f"flash_bwd_{part}_bf16{win}_kernel<{hd}>"
-    for part in ("dkdv", "dq") for win in ("", "_window") for hd in (32, 64)
-    if (part, win, hd) != ("dq", "_window", 64)) + tuple(
+    for part in ("dkdv", "dq") for win in ("", "_window")
+    for hd in (32, 64)) + tuple(
     f"flash_bwd_{part}_f32{win}_kernel<{hd}>" for part in ("dkdv", "dq")
     for win in ("", "_window") for hd in (32, 64, 128, 256))
-# flash backward kernels that ptxas builds with a spill: reported with
-# their registers and spills, not gated (the windowed mma.sync dQ at hd 64:
-# 12 bytes of spill stores)
-FLASH_BWD_REPORTED = ("flash_bwd_dq_bf16_window_kernel<64>",)
 # the selective scan (csrc/selective_scan.cu): state sizes 8 and 16, u in
 # bf16 or f32; a chunk's end state from zero, the chunks' carry, the
-# rescan with the readout
+# rescan with the readout; the backward's chunk adjoints from zero, their
+# carry, the rescan that forms the gradients and its two sums
 SCAN_KERNELS = tuple(f"selective_scan_{part}<{n}, {t}>"
-                     for part in ("chunk_kernel", "kernel") for n in (8, 16)
+                     for part in ("chunk_kernel", "kernel", "bwd_chunk_kernel",
+                                  "bwd_kernel") for n in (8, 16)
                      for t in ("__nv_bfloat16", "float")) + tuple(
-    f"selective_scan_carry_kernel<{n}>" for n in (8, 16))
+    f"selective_scan_{part}<{n}>" for part in ("carry_kernel",
+                                               "bwd_carry_kernel",
+                                               "bwd_param_kernel")
+    for n in (8, 16)) + ("selective_scan_bwd_sum_kernel",)
 # kernels that must build with no stack frame and no spills
 GATED_KERNELS = (HOPPER_KERNELS + GROUPED_KERNELS + TRANSPORT_KERNELS
                  + FLASH_BWD_KERNELS + SCAN_KERNELS)
@@ -582,7 +611,7 @@ def build_report(libs) -> None:
         log = log_path.read_text()
         for name, report in ptxas_kernels(log):
             print(f"[build] {lib}: {name}: {report}")
-            if name in FLASH_FWD_KERNELS + FLASH_BWD_REPORTED:
+            if name in FLASH_FWD_KERNELS:
                 checked[name] = report
             if name in GATED_KERNELS:
                 m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -602,7 +631,7 @@ def build_report(libs) -> None:
                           for ln in warnings),
                   f"ptxas serialised the wgmma or ignored setmaxnreg in {lib}")
     missing = [k for k in GATED_KERNELS + FLASH_FWD_KERNELS
-               + FLASH_BWD_REPORTED if k not in checked]
+               if k not in checked]
     check(not missing, f"the compiler logs report no {missing}")
     import ctypes
     from repro_torch.kernels import _build
@@ -643,8 +672,7 @@ def build_report(libs) -> None:
     print(f"[build] {', '.join(GATED_KERNELS)}: no stack frame, no spills; "
           "no wgmma serialisation, no ignored setmaxnreg")
     print(f"[build] reported, not gated: "
-          + "; ".join(f"{k}: {checked[k]}"
-                      for k in FLASH_FWD_KERNELS + FLASH_BWD_REPORTED))
+          + "; ".join(f"{k}: {checked[k]}" for k in FLASH_FWD_KERNELS))
 
 
 # ---------------------------------------------------------------------------
@@ -914,17 +942,30 @@ def summarize_trace(prof, fname: str, label: str, steps: int,
 
 
 SPLIT_RTOL = 0.05              # kernel_split_ms: |sum of the parts - ms| / ms
+# the spins that open every profiler window (profiled_kernels): 16 of about
+# 126 us each at the H100's 1,980 MHz
+PROFILE_LEAD = (16, 250_000)
 
 
 def profiled_kernels(fn, n_iter: int) -> tuple:
     """({kernel name: device ms per call}, {kernel name: launches}, device
     ms per call from the first kernel's start to the last one's end) of
     n_iter calls of fn(i) in one torch.profiler window (CPU and CUDA
-    activities, as every other window here)."""
+    activities, as every other window here).  Each window opens with 16
+    spin kernels (torch.cuda._sleep, PROFILE_LEAD: about 2 ms) and a
+    synchronize, which are left out.  On an H100 the profiler lost
+    launches only in a window's first calls: without the spins every
+    window of the f32 scan backward lost its first call's first kernel (8
+    of 8 windows); with them its first window lost the first call's first
+    three kernels and the second was whole.  Why is not known;
+    kernel_split_ms opens windows until one is whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD[0]):
+            torch.cuda._sleep(PROFILE_LEAD[1])
+        torch.cuda.synchronize()
         for i in range(n_iter):
             fn(i)
         torch.cuda.synchronize()
@@ -936,6 +977,8 @@ def profiled_kernels(fn, n_iter: int) -> tuple:
             continue
         name = e.name.replace("(anonymous namespace)::", "")
         name = name.removeprefix("void ").split("(")[0]
+        if name.endswith("spin_kernel"):
+            continue
         ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / n_iter
         counts[name] = counts.get(name, 0) + 1
         first, last = min(first, e.time_range.start), max(last,
@@ -953,10 +996,9 @@ def kernel_split_ms(fn, n_iter: int, names=(), windows: int = 8,
     (the call's device ms, timed apart), parts that sum to within
     SPLIT_RTOL of it.  A window may record none of the card's kernels
     (after the profiled phases of a `--profile` run every other window:
-    none, all, none, all, ...; the same with TEARDOWN_CUPTI=0) or only 7
-    or 8 calls' of 10 (the first windows of phase 23 (a) on an H100), so
-    a window that is not whole is printed and opened again, up to
-    `windows` times; the phase fails if none is."""
+    none, all, none, all, ...; the same with TEARDOWN_CUPTI=0), so a
+    window that is not whole is printed and opened again, up to `windows`
+    times; the phase fails if none is."""
     import torch
     fn(0)
     torch.cuda.synchronize()
@@ -4574,7 +4616,7 @@ def edge_rows(gen, S: int, window, n: int):
     return torch.unique(rows)
 
 
-def bwd_timing(gen, B, S, H, KV, hd, window, names):
+def bwd_timing(gen, B, S, H, KV, hd, window, names, tag="[long-train]"):
     """The backward at (B, S, S, H, KV, hd) bf16 causal under `window`,
     the shape a main path gives it: first held to the plain backward in f64
     on the same inputs (grad_worst against BWD_ROW_TOL) -- all of it
@@ -4589,7 +4631,9 @@ def bwd_timing(gen, B, S, H, KV, hd, window, names):
     under a window the band as a bool mask with K and V repeated per query
     head, the memory-efficient kernel; where the card does not take the
     call the line says so), the bound, and the kernels' split by
-    torch.profiler (which must name `names`)."""
+    torch.profiler (which must name `names`).  Under a window SDPA's
+    backward without one (is_causal, enable_gqa) at the same shape is
+    timed too."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -4625,7 +4669,7 @@ def bwd_timing(gen, B, S, H, KV, hd, window, names):
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     del want, held
     tol = BWD_ROW_TOL["bfloat16"]
-    print(f"[long-train] flash_attention_bwd {what}: against the plain "
+    print(f"{tag} flash_attention_bwd {what}: against the plain "
           f"backward in f64 on the same inputs, {checked}: "
           f"{json.dumps(errs)}, worst {worst:.3e} (row tol {tol:g}), "
           f"max|err| {abs_err:.3e} "
@@ -4670,7 +4714,7 @@ def bwd_timing(gen, B, S, H, KV, hd, window, names):
           f"kernel of {names}")
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(outs, got))
-    print(f"[long-train] flash_attention_bwd {what}: the timed launches' "
+    print(f"{tag} flash_attention_bwd {what}: the timed launches' "
           f"output equals the checked call's bit for bit: {same}")
     check(same, f"flash_attention_bwd at {what}: two calls differ")
     row["timed_bits_as_checked"] = same
@@ -4710,7 +4754,27 @@ def bwd_timing(gen, B, S, H, KV, hd, window, names):
     except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
         row["library_ms"] = None
         row["library_note"] = f"did not run: {str(e).splitlines()[0][:200]}"
-    print(f"[long-train] timing {json.dumps(row)}")
+    if window:
+        del kh, vh
+        kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (k, v))
+
+        def sdpa_causal(i):
+            o = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                               enable_gqa=True)
+            torch.autograd.grad(o, (qh, kh, vh), doh)
+
+        def sdpa_causal_fwd(i):
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                               enable_gqa=True)
+
+        fb, fwd = device_ms(sdpa_causal, 3), device_ms(sdpa_causal_fwd, 3)
+        row.update(library_causal_ms=fb - fwd,
+                   library_causal="autograd.grad of F.scaled_dot_product_"
+                                  "attention(is_causal=True, enable_gqa=True) "
+                                  "without the window, less its forward")
+    print(f"{tag} timing {json.dumps(row)}")
     del q, k, v, dout, out, lse, outs, dsum, qh, kh, vh, doh, kw
     torch.cuda.empty_cache()
     return row
@@ -4866,26 +4930,53 @@ def first_layers(tree, n: int):
     return tree[:n]
 
 
-def long_grad_parity(cfg, params, seed: int, S: int = LONG_S, window=None,
-                     tag: str = "[long-train]"):
-    """(b) an arch at full width, 2 layers, one S-token sequence in bf16:
-    the flat LoRA gradient of `loss_fn(window=)` through the flash kernels,
-    and the same with `chunked_attention` (plain torch on the card,
-    differentiated by autograd) put in the kernel's place on the attention
-    module; launches on the route of the arch's head size (and, under a
-    window, every one tagged windowed)."""
+def layer_cut(cfg, params, L: int = 2):
+    """(cfg, params) of `cfg`'s first L layers at full width."""
+    p = dict(params)
+    p["groups"] = {"g0": first_layers(params["groups"]["g0"], L)}
+    return dataclasses.replace(cfg, num_layers=L), p
+
+
+def block_counts(cfg) -> tuple:
+    """(attention blocks, Mamba blocks) of a config: every attn_mlp and
+    hybrid block attends, every hybrid block also scans."""
+    from repro_torch.models import model as mdl
+    kinds = [k for ks, n in mdl._group_kinds(cfg) for k in ks * n]
+    return (sum(k in (mdl.ATTN_MLP, mdl.HYBRID) for k in kinds),
+            sum(k == mdl.HYBRID for k in kinds))
+
+
+def plain_scan(u, w_dt, dt_bias, A_log, D_skip, Bc, Cc, h0=None,
+               out_state=None):
+    """`selective_scan_plain` with the wrapper's signature: the plain scan
+    put in the kernel's place on `models/ssm.py`, differentiated by
+    autograd."""
+    from repro_torch.kernels import selective_scan as ss
+    return ss.selective_scan_plain(u, w_dt, dt_bias, A_log, D_skip, Bc, Cc,
+                                   h0)
+
+
+def parity_grads(cfg2, p2, seed: int, S: int, window, tag: str) -> dict:
+    """The flat LoRA gradient of `loss_fn(window=)` of one S-token sequence
+    through a cut `cfg2` / `p2` of an arch, in its compute dtype, through
+    the flash kernels (and, in the hybrid family, the scan's) and with
+    `chunked_attention` and `selective_scan_plain` (plain torch on the
+    card, differentiated by autograd) put in the kernels' place; the
+    launches checked: on the routes of the dtype and head size (and, under
+    a window -- the call's, or the hybrid family's own -- every one tagged
+    windowed), the scan's forward chunked twice a layer (the forward and
+    its recomputation) and its backward once, none on the plain path."""
     import torch
     from repro_torch.core.fedround import FlatMeta
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.models import attention as A
     from repro_torch.models import model as mdl
+    from repro_torch.models import ssm
     from repro_torch.models.config import LoRAConfig
     from repro_torch.models.lora import init_lora
 
-    L = 2
-    cfg2 = dataclasses.replace(cfg, num_layers=L)
-    p2 = dict(params)
-    p2["groups"] = {"g0": first_layers(params["groups"]["g0"], L)}
+    L = cfg2.num_layers
     lcfg = LoRAConfig(rank=8)
     gen = torch.Generator(device="cuda").manual_seed(seed + 19)
     lora = init_lora(cfg2, lcfg, device="cuda", generator=gen)
@@ -4895,7 +4986,7 @@ def long_grad_parity(cfg, params, seed: int, S: int = LONG_S, window=None,
                                            device="cuda")
     meta = FlatMeta.of(lora)
     flat0 = meta.flatten(lora)
-    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+    tokens = torch.randint(0, cfg2.vocab_size, (1, S), generator=gen,
                            device="cuda")
 
     def grad():
@@ -4909,57 +5000,95 @@ def long_grad_parity(cfg, params, seed: int, S: int = LONG_S, window=None,
 
     def chunked(q, k, v, *, causal, scale, window=None):
         return A.chunked_attention(q, k, v, scale, causal=causal,
-                                   window=window, cq=cfg.attn_chunk_q,
-                                   ckv=cfg.attn_chunk_kv)
+                                   window=window, cq=cfg2.attn_chunk_q,
+                                   ckv=cfg2.attn_chunk_kv)
+
+    def scan_counts():
+        return (ss.SCAN.launches, ss.SCAN.launches_by_tag.get("chunked", 0),
+                ss.SCAN_BWD.launches)
 
     launches = {}
     with counted(launches):
-        fa.FLASH.reset()
-        fa.FLASH_BWD.reset()
+        for f in (fa.FLASH, fa.FLASH_BWD, ss.SCAN, ss.SCAN_BWD):
+            f.reset()
         lk, gk = grad()
         routes = [dict(f.launches_by_route) for f in (fa.FLASH, fa.FLASH_BWD)]
         tags = [dict(f.launches_by_tag) for f in (fa.FLASH, fa.FLASH_BWD)]
-    kernel = A.flash_attention
-    A.flash_attention = chunked
+        scans = scan_counts()
+    kernel, scan = A.flash_attention, ssm.selective_scan
+    A.flash_attention, ssm.selective_scan = chunked, plain_scan
     torch.cuda.reset_peak_memory_stats()
     try:
         plain_launches = {}
         with counted(plain_launches):
+            ss.SCAN.reset()
+            ss.SCAN_BWD.reset()
             lp, gp = grad()
+            plain_scans = scan_counts()
     finally:
-        A.flash_attention = kernel
+        A.flash_attention, ssm.selective_scan = kernel, scan
     plain_peak = torch.cuda.max_memory_allocated() / 2**30
-    rel = ((gk - gp).norm() / gp.norm()).item()
-    route = fa.flash_route(torch.bfloat16, cfg.hd)
-    print(f"{tag} gradient parity, {cfg.name} at full width, {L} layers, "
-          f"{S} tokens, window {window}, bf16: loss {lk.item():.6f} (kernels)"
-          f" / {lp.item():.6f} (chunked_attention); flat LoRA gradient (p_len "
-          f"{meta.p_len}) relative L2 error {rel:.3e} (bound "
-          f"{GRAD_REL_L2:g}); flash launches {launches['flash_attention']} "
-          f"forward / {launches['flash_attention_bwd']} backward, by route "
-          f"{routes}, windowed {tags} (plain path "
+    dt = getattr(torch, cfg2.compute_dtype)
+    route = fa.flash_route(dt, cfg2.hd)
+    broute = fa.flash_route(dt, cfg2.hd, backward=True)
+    W = window if window is not None else (
+        cfg2.sliding_window if cfg2.family == "hybrid" else None)
+    mamba = block_counts(cfg2)[1]
+    print(f"{tag} gradient parity, {cfg2.name} at full width, {L} layers, "
+          f"{S} tokens, window {W}, {cfg2.compute_dtype}: loss "
+          f"{lk.item():.6f} (kernels) / {lp.item():.6f} (chunked_attention"
+          f"{', selective_scan_plain' if mamba else ''}); flash launches "
+          f"{launches['flash_attention']} forward / "
+          f"{launches['flash_attention_bwd']} backward, by route {routes}, "
+          f"windowed {tags}; selective_scan {scans[0]} forward ({scans[1]} "
+          f"chunked) / {scans[2]} backward (plain path "
           f"{plain_launches['flash_attention']} / "
-          f"{plain_launches['flash_attention_bwd']}, peak device memory "
-          f"{plain_peak:.2f} GiB)")
+          f"{plain_launches['flash_attention_bwd']} flash, {plain_scans[0]} /"
+          f" {plain_scans[2]} scan, peak device memory {plain_peak:.2f} GiB)")
     check(launches["flash_attention"] == 2 * L
           and launches["flash_attention_bwd"] == L
-          and routes == [{route: 2 * L}, {route: L}]
-          and tags == ([{"window": 2 * L}, {"window": L}] if window
+          and routes == [{route: 2 * L}, {broute: L}]
+          and tags == ([{"window": 2 * L}, {"window": L}] if W
                        else [{}, {}]),
           f"gradient parity: kernel launches {launches}, by route {routes}, "
-          f"windowed {tags}; expected {2 * L} forward and {L} backward on "
-          f"{route}")
+          f"windowed {tags}; expected {2 * L} forward on {route} and {L} "
+          f"backward on {broute}")
+    chunked_scan = 2 * mamba if S > ss.CHUNK else 0
+    check(scans == (2 * mamba, chunked_scan, mamba),
+          f"gradient parity: selective_scan launches {scans}, expected "
+          f"{(2 * mamba, chunked_scan, mamba)}")
     check(plain_launches["flash_attention"] == 0
-          and plain_launches["flash_attention_bwd"] == 0,
-          "gradient parity: the plain path launched a flash kernel")
+          and plain_launches["flash_attention_bwd"] == 0
+          and plain_scans == (0, 0, 0),
+          "gradient parity: the plain path launched a flash or scan kernel")
     check(bool(torch.isfinite(gk).all()) and gk.norm().item() > 0,
           "gradient parity: the kernels' gradient is not finite or is zero")
+    return {"kernels": gk, "plain": gp, "p_len": meta.p_len, "S": S,
+            "window": W, "loss": [lk.item(), lp.item()],
+            "plain_peak_gib": plain_peak, "launches": launches,
+            "scan_launches": scans}
+
+
+def rel_l2(got, want) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def long_grad_parity(cfg, params, seed: int, S: int = LONG_S, window=None,
+                     tag: str = "[long-train]"):
+    """(b) an arch at full width, 2 layers, one S-token sequence in bf16:
+    `parity_grads`, the flat LoRA gradients through the kernels and
+    through the plain path within GRAD_REL_L2 of each other."""
+    import torch
+    cfg2, p2 = layer_cut(cfg, params)
+    res = parity_grads(cfg2, p2, seed, S, window, tag)
+    rel = rel_l2(res.pop("kernels"), res.pop("plain"))
+    print(f"{tag} gradient parity, {cfg.name}: flat LoRA gradient (p_len "
+          f"{res['p_len']}) relative L2 error {rel:.3e} (bound "
+          f"{GRAD_REL_L2:g})")
     check(rel <= GRAD_REL_L2, f"gradient parity: relative L2 error {rel:.3e}"
           f" above {GRAD_REL_L2:g}")
-    del gk, gp, flat0, lora, p2
     torch.cuda.empty_cache()
-    return {"rel_l2": rel, "p_len": meta.p_len, "S": S, "window": window,
-            "loss": [lk.item(), lp.item()], "plain_peak_gib": plain_peak}
+    return {"rel_l2": rel, **res}
 
 
 def long_token_batches(cfg, seed: int, clients: int, S: int):
@@ -4980,15 +5109,23 @@ def long_train_runs(cfg, params, seed: int, runs=LONG_TRAIN,
     density 0.25 / 0.25, rank 8) with one local step of one sequence a
     client, each (tokens, clients, rounds) of `runs` (Yi-9B: 2 rounds of 2
     clients at 8192 tokens, then 1 round of 1 client at 32768); launches
-    asserted, every flash launch on the route of the arch's head size."""
+    asserted, every flash launch on the routes of the arch's head size (a
+    forward and its recomputation, then the backward, for each attention
+    block; all windowed under the hybrid family's own window), and the
+    scan's forward twice and backward once for each Mamba block."""
     import numpy as np
     import torch
     from repro_torch.federated import Experiment
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.models.config import FederatedConfig
 
     L = cfg.num_layers
-    route = fa.flash_route(torch.bfloat16, cfg.hd)
+    attn, mamba = block_counts(cfg)
+    windowed = cfg.family == "hybrid" and cfg.sliding_window is not None
+    if attn:
+        route = fa.flash_route(torch.bfloat16, cfg.hd)
+        broute = fa.flash_route(torch.bfloat16, cfg.hd, backward=True)
     out = {}
     for S, C, R in runs:
         probe = RoundProbe()
@@ -5006,13 +5143,19 @@ def long_train_runs(cfg, params, seed: int, runs=LONG_TRAIN,
                .with_callbacks(probe))
         launches = {}
         with counted(launches):
-            fa.FLASH.reset()
-            fa.FLASH_BWD.reset()
+            for f in (fa.FLASH, fa.FLASH_BWD, ss.SCAN, ss.SCAN_BWD):
+                f.reset()
             probe.t = [time.perf_counter()]
             res = exp.run()
             routes = {"flash_attention": dict(fa.FLASH.launches_by_route),
                       "flash_attention_bwd":
                           dict(fa.FLASH_BWD.launches_by_route)}
+            tags = {"flash_attention": dict(fa.FLASH.launches_by_tag),
+                    "flash_attention_bwd": dict(fa.FLASH_BWD.launches_by_tag)}
+            scans = {"selective_scan": ss.SCAN.launches,
+                     "selective_scan_chunked":
+                         ss.SCAN.launches_by_tag.get("chunked", 0),
+                     "selective_scan_bwd": ss.SCAN_BWD.launches}
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps = C * R                    # one local step a client a round
@@ -5028,21 +5171,36 @@ def long_train_runs(cfg, params, seed: int, runs=LONG_TRAIN,
               f": {R} FLASC round(s) of {C} client(s) x 1 step x 1 x {S} "
               f"tokens (fused, 4-bit up, density 0.25/0.25, rank 8); peak "
               f"device memory {peak:.3f} GiB; launches {json.dumps(launches)}"
-              f", by route {json.dumps(routes)}; {card_line()}")
+              f", by route {json.dumps(routes)}, windowed {json.dumps(tags)}"
+              f", selective_scan {json.dumps(scans)}; {card_line()}")
         check(len(res.history) == R and all(np.isfinite(x) for x in losses),
-              f"long-train {S}: losses {losses}")
-        want = {"flash_attention": 2 * L * steps,
-                "flash_attention_bwd": L * steps,
+              f"{tag} {S}: losses {losses}")
+        want = {"flash_attention": 2 * attn * steps,
+                "flash_attention_bwd": attn * steps,
                 **{k: v * R for k, v in FUSED_PER_ROUND.items()}}
         for name, n in want.items():
-            check(launches[name] == n, f"long-train {S}: {name} launched "
+            check(launches[name] == n, f"{tag} {S}: {name} launched "
                   f"{launches[name]} times, expected {n}")
-        check(routes == {"flash_attention": {route: 2 * L * steps},
-                         "flash_attention_bwd": {route: L * steps}},
-              f"long-train {S}: flash launches by route {routes}")
+        check(routes == ({"flash_attention": {route: 2 * attn * steps},
+                          "flash_attention_bwd": {broute: attn * steps}}
+                         if attn else {"flash_attention": {},
+                                       "flash_attention_bwd": {}}),
+              f"{tag} {S}: flash launches by route {routes}")
+        check(tags == ({"flash_attention": {"window": 2 * attn * steps},
+                        "flash_attention_bwd": {"window": attn * steps}}
+                       if windowed else {"flash_attention": {},
+                                         "flash_attention_bwd": {}}),
+              f"{tag} {S}: flash launches windowed {tags}")
+        want_scans = {"selective_scan": 2 * mamba * steps,
+                      "selective_scan_chunked":
+                          2 * mamba * steps if S > ss.CHUNK else 0,
+                      "selective_scan_bwd": mamba * steps}
+        check(scans == want_scans, f"{tag} {S}: selective_scan launches "
+              f"{scans}, expected {want_scans}")
+        launches.update(scans)
         out[S] = {"clients": C, "rounds": R, "round_ms": round_ms,
                   "step_ms": step_ms, "losses": losses, "peak_gib": peak,
-                  "launches": launches, "routes": routes}
+                  "launches": launches, "routes": routes, "windowed": tags}
         del exp, res, probe
         gc.collect()
         torch.cuda.empty_cache()
@@ -5439,14 +5597,15 @@ def sm_clocks():
     return mx, cur
 
 
-def scan_clocks_per_element() -> float:
+def scan_clocks_per_element(fma_ops: int = SCAN_FMA_OPS) -> float:
     """An SM's least clocks for one (b, t, d, n) element of the scan: one
-    exp2 and SCAN_FMA_OPS FMA-pipe ops, with a share f of the exps
-    computed on the FMA pipes (EX2_POLY_OPS each) so that both pipes
-    finish together: (1 - f) / SFU = (c + f p) / FMA, i.e. (c + p) /
-    (FMA + p SFU) = 1/24 on Hopper (f = 1/3), against 1/16 for the
-    special function units alone."""
-    sfu, fma, c, p = (SFU_EX2_PER_CLOCK, FMA_PER_CLOCK, SCAN_FMA_OPS,
+    exp2 and `fma_ops` FMA-pipe ops, with a share f of the exps computed on
+    the FMA pipes (EX2_POLY_OPS each) so that both pipes finish together:
+    (1 - f) / SFU = (c + f p) / FMA, i.e. (c + p) / (FMA + p SFU) = 1/24
+    on Hopper (f = 1/3) for the forward's c = 4, against 1/16 for the
+    special function units alone; c / FMA where the FMA pipes alone take
+    longer than the exps (the backward's c = 11: 11/128)."""
+    sfu, fma, c, p = (SFU_EX2_PER_CLOCK, FMA_PER_CLOCK, fma_ops,
                       EX2_POLY_OPS)
     return max(c / fma, min(1 / sfu, (c + p) / (fma + p * sfu)))
 
@@ -5873,11 +6032,7 @@ def scan_in_model(cfg2, eng2, lcfg, seed: int) -> float:
     got = logits()
     launches = ss.SCAN.launches
     kernel = ssm.selective_scan
-
-    def plain(*args, out_state=None):
-        return ss.selective_scan_plain(*args)
-
-    ssm.selective_scan = plain
+    ssm.selective_scan = plain_scan
     try:
         want = logits()
     finally:
@@ -6117,6 +6272,364 @@ def recurrent_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the recurrent families train
+# ---------------------------------------------------------------------------
+
+# the least FMA-pipe ops a backward element needs besides its exp (a_t):
+# h_t again (dt*A, ah = a*h_{t-1}, fma(dt*u, B, ah)), g (its decay g*a and
+# fma(C, dy, .)), g*ah (shared by d(dt) and dA), and one fma each for dB,
+# dC, dA, d(dt) and sum_n g B, each sum taken into its product
+SCAN_BWD_FMA_OPS = 11
+HYMBA_TRAIN = ((LONG_S, 2, 2),)                 # (tokens, clients, rounds)
+XLSTM_TRAIN = ((128, 2, 1),)
+# what the mma_sync route launches at hd 64 under a window: D, then dK / dV
+# and dQ
+FLASH_BWD_MMA_WINDOW = ("flash_bwd_dot_kernel<__nv_bfloat16>",
+                        "flash_bwd_dkdv_bf16_window_kernel<64>",
+                        "flash_bwd_dq_bf16_window_kernel<64>")
+SCAN_GRADS = ("du", "dw_dt", "ddt_bias", "dA_log", "dD_skip", "dBc", "dCc",
+              "dh0")
+
+
+def scan_bwd_kernels(dtype: str, N: int = 16, params: bool = False) -> tuple:
+    """The scan backward's kernels in launch order as the profiler names
+    them (the parameter sums only when asked for)."""
+    t = "__nv_bfloat16" if dtype == "bfloat16" else "float"
+    return (f"selective_scan_bwd_chunk_kernel<{N}, {t}>",
+            f"selective_scan_bwd_carry_kernel<{N}>",
+            f"selective_scan_bwd_kernel<{N}, {t}>",
+            "selective_scan_bwd_sum_kernel") + (
+        (f"selective_scan_bwd_param_kernel<{N}>",) if params else ())
+
+
+def scan_bwd_bound(B, S, di, N, dtype, clock_hz: float, sms: int):
+    """(bound_ms, bound_by) of the scan's backward as the LoRA path calls it
+    (no h0, no dh_last, no parameter gradients): u and dy read and du
+    written once, Bc, Cc read and dBc, dCc written, the parameters and the
+    forward's chunk start states read, against B S di N elements of one
+    exp and SCAN_BWD_FMA_OPS FMA-pipe ops (`scan_clocks_per_element`) at
+    the card's clock."""
+    from repro_torch.kernels.selective_scan import CHUNK
+    elt = 2 if dtype == "bfloat16" else 4
+    nc = -(-S // CHUNK)
+    nbytes = ((2 * elt + 4) * B * S * di + 4 * 4 * B * S * N
+              + 4 * di * (N + 4)
+              + (4 * B * nc * di * (N + 1) if nc > 1 else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (B * S * di * N * scan_clocks_per_element(SCAN_BWD_FMA_OPS)
+             / (sms * clock_hz))
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def scan_grad_err(got, want, rounded: bool) -> float:
+    """max |got - want| / max |want| of one gradient against the plain
+    backward's in f64; `rounded` (du in bf16, summed in f32 and rounded
+    once): less each element's own rounding allowance, 2^-8 |want|."""
+    d = (got.double() - want).abs()
+    if rounded:
+        d = (d - 2.0 ** -8 * want.abs()).clamp_min(0.0)
+    return (d.max() / want.abs().max()).item()
+
+
+def scan_bwd_held(gen, B, S, di, N, dtype, h0: bool) -> dict:
+    """One case of the scan backward against `selective_scan_bwd_plain` in
+    f64 on the same inputs (u exact in f64), every gradient within SCAN_TOL
+    of its max|plain| (scan_grad_err), finite, two launches bitwise equal;
+    dh_last and h0 given together (the cases without h0 take none)."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+    args = scan_inputs(gen, B, S, di, N, dtype, h0)
+    dy = torch.randn(B, S, di, generator=gen, device="cuda")
+    dh = torch.randn(B, di, N, generator=gen, device="cuda") if h0 else None
+    _, _, fwd, ins = ss._forward(*args, None)
+    n = ss.SCAN_BWD.launches
+    got = ss.selective_scan_bwd(*ins, fwd, dy, dh)
+    again = ss.selective_scan_bwd(*ins, fwd, dy, dh)
+    torch.cuda.synchronize()
+    same = all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, again))
+    del again
+    want = ss.selective_scan_bwd_plain(
+        *(None if t is None else t.double() for t in args), dy.double(),
+        None if dh is None else dh.double())
+    errs, abs_err, finite = {}, 0.0, True
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        check((g is None) == (w is None), f"scan backward: {name} is "
+              f"{'missing' if g is None else 'unexpected'}")
+        if g is None:
+            continue
+        errs[name] = scan_grad_err(g, w, name == "du" and dtype == "bfloat16")
+        abs_err = max(abs_err, (g.double() - w).abs().max().item())
+        finite = finite and bool(torch.isfinite(g).all())
+    worst = max(errs.values())
+    ok = (finite and same and worst <= SCAN_TOL
+          and ss.SCAN_BWD.launches == n + 2)
+    what = (f"B {B}, S {S}, di {di}, N {N}, u {dtype}, h0 and dh_last "
+            f"{'nonzero' if h0 else 'none'}, chunk {ss.CHUNK}")
+    print(f"[recurrent-train] selective_scan_bwd {what}: against the plain "
+          f"backward in f64, max|err| / max|plain| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+          f"(tol {SCAN_TOL:g}{'; du less its bf16 rounding' if dtype == 'bfloat16' else ''}"
+          f"), max|err| {abs_err:.3e}; a second launch bitwise equal: {same} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"selective_scan_bwd disagrees with its plain version at {what}")
+    return {"case": what, "errs": errs, "max_rel_err": worst,
+            "max_abs_err": abs_err}
+
+
+def scan_bwd_phase(seed: int) -> dict:
+    """(a) Row 11b, the scan's backward (csrc/selective_scan.cu), against
+    its plain version in f64 at SCAN_CASES with S > 1 and
+    scan_edge_cases, then timed at hymba-1.5b's (1, 8192, 3200, 16) in
+    bf16 and f32 as the LoRA path calls it, beside the forward, its bound
+    at the card's clock, the plain backward and (no PyTorch call computes a
+    selective scan) no library call, split into its kernels by
+    torch.profiler; the timed launches' outputs are the wrapper's bits."""
+    import torch
+    from repro_torch.kernels import selective_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 32)
+    clock, cur = sm_clocks()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[recurrent-train] SM clock max {clock / 1e6:.0f} MHz, now "
+          f"{cur / 1e6:.0f} MHz, {sms} SMs")
+    res = {"cases": [], "timings": {}}
+    for case in [c for c in SCAN_CASES if c[1] > 1] + list(scan_edge_cases()):
+        res["cases"].append(scan_bwd_held(gen, *case))
+        torch.cuda.empty_cache()
+    res["max_abs_err"] = max(c["max_abs_err"] for c in res["cases"])
+    res["max_rel_err"] = max(c["max_rel_err"] for c in res["cases"])
+    for dtype in ("bfloat16", "float32"):
+        B, S, di, N = 1, LONG_S, 3200, 16
+        args = scan_inputs(gen, B, S, di, N, dtype, False)
+        dy = torch.randn(B, S, di, generator=gen, device="cuda")
+        _, _, fwd, ins = ss._forward(*args, None)
+        du = torch.empty_like(args[0])
+        dBc = torch.empty(B, S, N, device="cuda")
+        dCc = torch.empty_like(dBc)
+        scratch = ss.scan_bwd_scratch(B, S, di, N, "cuda")
+        y = torch.empty(B, S, di, device="cuda")
+        hl = torch.empty(B, di, N, device="cuda")
+        fscratch = ss.scan_scratch(B, S, di, N, "cuda")
+
+        def kernel(i):
+            ss.SCAN_BWD(u.device, *(None if t is None else t.data_ptr()
+                                    for t in (*ins, fwd, dy, None, du, dBc,
+                                              dCc, None, None, None, None,
+                                              None, scratch)),
+                        B, S, di, N, ss.DTYPES[u.dtype])
+
+        u = ins[0]
+        bound, by = scan_bwd_bound(B, S, di, N, dtype, clock, sms)
+        ms = device_ms(kernel, 10)
+        want = ss.selective_scan_bwd(*ins, fwd, dy, params=False)
+        torch.cuda.synchronize()
+        same = (torch.equal(du, want[0]) and torch.equal(dBc, want[5])
+                and torch.equal(dCc, want[6]))
+        check(same, f"selective_scan_bwd at (1, {S}, {di}, {N}) {dtype}: the "
+              "timed launches differ from a wrapper call")
+        row = {"B": B, "S": S, "di": di, "N": N, "dtype": dtype,
+               "chunk": ss.CHUNK, "ms": ms,
+               "wrapper_ms": device_ms(lambda i: ss.selective_scan_bwd(
+                   *ins, fwd, dy, params=False), 10),
+               "split_ms": kernel_split_ms(kernel, 5, scan_bwd_kernels(dtype),
+                                           ms=ms),
+               "forward_ms": device_ms(
+                   lambda i: scan_launch(args, y, hl, fscratch), 10),
+               "plain_ms": cuda_ms(lambda i: ss.selective_scan_bwd_plain(
+                   *args, dy), 1, warmup=0),
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "library": "none: no PyTorch call computes a selective scan",
+               "clock_mhz": clock / 1e6, "timed_bits_as_wrapper": same}
+        print(f"[recurrent-train] timing {json.dumps(row)}")
+        print(f"[recurrent-train] selective_scan_bwd (1, {S}, {di}, {N}) u "
+              f"{dtype}: {1e3 * ms:.1f} us a launch against a bound of "
+              f"{1e3 * bound:.1f} us ({by}, {100 * bound / ms:.1f}%); the "
+              f"forward {1e3 * row['forward_ms']:.1f} us; the plain loop "
+              f"{row['plain_ms']:.1f} ms; {card_line()}")
+        res["timings"][dtype] = row
+        del args, dy, fwd, ins, du, dBc, dCc, scratch, y, hl, fscratch, want
+        torch.cuda.empty_cache()
+    return res
+
+
+# (c): hymba's flat LoRA gradient through the kernels against the plain
+# path's in f32, where the two differ only by the kernels' arithmetic (sums
+# in other orders, ex2.approx against torch.exp), on PARITY_F32_S tokens
+# (the cut's flash threshold lowered to them)
+GRAD_REL_L2_F32 = 1e-4
+PARITY_F32_S = 4096
+# ... and in bf16 at 8192 tokens, where the two round differently (P and dS
+# to bf16 in the flash kernels): scripts/hymba_grad_parity.py on an H100
+# read 2.561e-2 to 2.964e-2 on seeds 0-3, and 4.186e-2 to 6.021e-2 for a
+# control (the plain scan with its state rounded to bf16 every step),
+# which this limit fails
+GRAD_REL_L2_BF16 = 3.5e-2
+
+
+def tree_float(tree):
+    """A tree of tensors with every floating leaf in f32."""
+    if isinstance(tree, dict):
+        return {k: tree_float(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def recurrent_grad_parity(cfg, params, seed: int, S: int = LONG_S,
+                          tag: str = "[recurrent-train]") -> dict:
+    """(c) hymba-1.5b's LoRA gradient on a 2-layer cut at full width
+    (`parity_grads`): through the kernels and through the plain path within
+    GRAD_REL_L2_F32 of each other in f32 (the bf16 weights upcast) on
+    PARITY_F32_S tokens, and within GRAD_REL_L2_BF16 in bf16 on S."""
+    import torch
+    cfg16, p16 = layer_cut(cfg, params)
+    cfg32 = dataclasses.replace(cfg16, param_dtype="float32",
+                                compute_dtype="float32",
+                                chunked_attn_threshold=PARITY_F32_S)
+    t0 = time.perf_counter()
+    r32 = parity_grads(cfg32, tree_float(p16), seed, PARITY_F32_S, None, tag)
+    t1 = time.perf_counter()
+    r16 = parity_grads(cfg16, p16, seed, S, None, tag)
+    rel32 = rel_l2(r32.pop("kernels"), r32.pop("plain"))
+    rel16 = rel_l2(r16.pop("kernels"), r16.pop("plain"))
+    print(f"{tag} gradient parity, {cfg.name}: flat LoRA gradient (p_len "
+          f"{r16['p_len']}) relative L2, kernels against the plain path: "
+          f"{rel32:.3e} in f32 at {PARITY_F32_S} tokens (bound "
+          f"{GRAD_REL_L2_F32:g}; {t1 - t0:.1f}s), {rel16:.3e} in bf16 at {S} "
+          f"(bound {GRAD_REL_L2_BF16:g}; {time.perf_counter() - t1:.1f}s)")
+    check(rel32 <= GRAD_REL_L2_F32, f"gradient parity in f32: relative L2 "
+          f"error {rel32:.3e} above {GRAD_REL_L2_F32:g}")
+    check(rel16 <= GRAD_REL_L2_BF16, f"gradient parity in bf16: relative L2 "
+          f"error {rel16:.3e} above {GRAD_REL_L2_BF16:g}")
+    torch.cuda.empty_cache()
+    return {"rel_l2_f32": rel32, "rel_l2": rel16, "f32": r32, **r16}
+
+
+def train_step_split(cfg, params, seed: int, S: int, tag: str) -> dict:
+    """One client step of `cfg` on one S-token sequence (the loss and its
+    LoRA gradient, as `_client_update` takes them), after one unprofiled
+    step: its wall ms and, by torch.profiler (profiled_kernels), device ms
+    by part -- the scan's backward and forward, the flash backward and
+    forward, cuBLAS GEMMs, the rest (its five largest kernels named) --
+    and the device's busy share of the wall time."""
+    import torch
+    from repro_torch.core.fedround import FlatMeta
+    from repro_torch.models import model as mdl
+    from repro_torch.models.config import LoRAConfig
+    from repro_torch.models.lora import init_lora
+
+    lcfg = LoRAConfig(rank=8)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 33)
+    lora = init_lora(cfg, lcfg, device="cuda", generator=gen)
+    meta = FlatMeta.of(lora)
+    flat0 = meta.flatten(lora)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device="cuda")
+
+    def step(i):
+        f = flat0.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = mdl.loss_fn(params, cfg, {"tokens": tokens},
+                               lora=meta.unflatten(f), lora_scale=lcfg.scale)
+            torch.autograd.grad(loss, f)
+
+    step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(0)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    for _ in range(4):
+        ms, counts, _ = profiled_kernels(step, 1)
+        if ms:
+            break
+    check(bool(ms), f"{tag} the profiler recorded no kernel of a step")
+    parts = {"scan_bwd": 0.0, "scan_fwd": 0.0, "flash_bwd": 0.0,
+             "flash_fwd": 0.0, "gemm": 0.0}
+    rest = {}
+    for name, t in ms.items():
+        key = ("scan_bwd" if "selective_scan_bwd" in name else
+               "scan_fwd" if "selective_scan" in name else
+               "flash_bwd" if "flash_bwd_" in name else
+               "flash_fwd" if "flash_" in name else
+               "gemm" if GEMM_NAME.search(name) else None)
+        if key is None:
+            rest[name] = t
+        else:
+            parts[key] += t
+    parts["rest"] = sum(rest.values())
+    device = sum(ms.values())
+    out = {"tokens": S, "wall_ms": wall, "device_ms": device,
+           "busy_share": device / wall, "launches": sum(counts.values()),
+           "parts_ms": parts,
+           "rest_top": dict(sorted(rest.items(), key=lambda kv: -kv[1])[:5])}
+    print(f"{tag} {cfg.name}: one {S}-token client step by kernel "
+          f"(torch.profiler): {json.dumps(out)}")
+    del lora, flat0, tokens
+    return out
+
+
+def recurrent_params(arch: str, seed: int):
+    """(cfg, params) of `arch` at full width and depth, random weights on
+    the card from `seed` (phase 24's draw)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as mdl
+    from repro_torch.models.layers import init_params
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 35)
+    return cfg, init_params(mdl.model_spec(cfg), device="cuda", generator=gen)
+
+
+def recurrent_train_phase(seed: int) -> dict:
+    """Phase 24: (a) the scan's backward (`scan_bwd_phase`); (b) the
+    windowed mma_sync flash backward at hymba's (1, 8192, 25/5, 64), W
+    1024, held to the f64 plain backward and timed (`bwd_timing`) beside
+    SDPA's backward on the band and without the window; (c) hymba-1.5b's
+    LoRA gradient on a 2-layer cut at full width, f32 and bf16, through
+    the kernels against the plain scan's and chunked_attention's autograd
+    (`recurrent_grad_parity`); (d) FLASC rounds of full hymba-1.5b at 8192
+    tokens (HYMBA_TRAIN) and a profiled client step; (e) FLASC rounds of
+    full xlstm-1.3b at 128 tokens (XLSTM_TRAIN)."""
+    import torch
+
+    tag = "[recurrent-train]"
+    t0 = time.perf_counter()
+    res = {"scan_bwd": scan_bwd_phase(seed)}
+    print(f"{tag} (a) done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    B, S, H, KV, hd, W = HYMBA_WINDOW_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed + 34)
+    res["window_bwd"] = bwd_timing(gen, B, S, H, KV, hd, W,
+                                   FLASH_BWD_MMA_WINDOW, tag=tag)
+    print(f"{tag} (b) done in {time.perf_counter() - t0:.1f}s")
+    for arch, runs in (("hymba-1.5b", HYMBA_TRAIN),
+                       ("xlstm-1.3b", XLSTM_TRAIN)):
+        t0 = time.perf_counter()
+        cfg, params = recurrent_params(arch, seed)
+        torch.cuda.synchronize()
+        print(f"{tag} {cfg.name}: {cfg.num_layers} blocks d{cfg.d_model} "
+              f"{cfg.param_dtype}, {cfg.param_count() / 1e9:.3f} B params, "
+              f"built in {time.perf_counter() - t0:.1f}s")
+        if arch == "hymba-1.5b":
+            res["parity"] = recurrent_grad_parity(cfg, params, seed, tag=tag)
+            print(f"{tag} (c) done in {time.perf_counter() - t0:.1f}s")
+        t1 = time.perf_counter()
+        res[arch] = {"runs": long_train_runs(cfg, params, seed, runs,
+                                             tag=tag),
+                     "layers": cfg.num_layers}
+        print(f"{tag} {arch} rounds done in {time.perf_counter() - t1:.1f}s")
+        if arch == "hymba-1.5b":
+            res[arch]["split"] = train_step_split(cfg, params, seed, LONG_S,
+                                                  tag)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{tag} {arch} done in {time.perf_counter() - t0:.1f}s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6264,6 +6777,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rec = recurrent_phase(args.seed)
     print(f"[recurrent] done in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    rtrain = recurrent_train_phase(args.seed)
+    print(f"[recurrent-train] done in {time.perf_counter() - t0:.1f}s")
     print(f"[total] {time.perf_counter() - t_start:.1f}s")
     hym, xl = rec["hymba"], rec["xlstm"]
     lt_runs = lt_res["runs"]
@@ -6566,6 +7083,59 @@ def main() -> int:
         "chunk": st["chunk"], "split_ms": st["split_ms"],
         "wrapper_ms": st["wrapper_ms"], "timings": sc["timings"],
         "prefill_split": hym["long"][LONG_S]["split"]})
+    hrun = rtrain["hymba-1.5b"]["runs"][HYMBA_TRAIN[0][0]]
+    sb, sbt = rtrain["scan_bwd"], rtrain["scan_bwd"]["timings"]["bfloat16"]
+    parity = rtrain["parity"]
+    hymba_path = (f"recurrent-train (d): hymba-1.5b, {hrun['rounds']} FLASC "
+                  f"rounds of {hrun['clients']} clients at "
+                  f"{HYMBA_TRAIN[0][0]} tokens, 32 a client step; (c) "
+                  f"parity, 2 layers")
+    entries.append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/ssm.py:75",
+        "replaces_note": "no Pallas kernel: XLA's autodiff of _ssm_coeffs "
+                         "(:62), _chunk_scan's associative_scan (:75) and "
+                         "mamba_forward_state's readout (:115)",
+        "kernel_names": scan_bwd_kernels("bfloat16"),
+        "launches": hrun["launches"]["selective_scan_bwd"],
+        "path": hymba_path + f" ({parity['scan_launches'][2]} launches)",
+        "shape": "(B, S, di, N) = (1, 8192, 3200, 16), u bf16",
+        "max_abs_err": sb["max_abs_err"],
+        "max_err_over_max_plain": sb["max_rel_err"],
+        "cases": [c["case"] for c in sb["cases"]],
+        "model_grad_rel_l2": parity["rel_l2"],
+        "model_grad_rel_l2_f32": parity["rel_l2_f32"],
+        "ms": sbt["ms"], "plain_ms": sbt["plain_ms"],
+        "bound_ms": sbt["bound_ms"], "bound_by": sbt["bound_by"],
+        "library_ms": None, "library": sbt["library"],
+        "forward_ms": sbt["forward_ms"], "split_ms": sbt["split_ms"],
+        "wrapper_ms": sbt["wrapper_ms"], "timings": sb["timings"]})
+    hb = rtrain["window_bwd"]
+    entries.append({
+        "name": "flash_attention_bwd_hd64", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:102",
+        "replaces_note": "no Pallas kernel: the reference trains through "
+                         "XLA's autodiff of the jnp chunked_attention (its "
+                         "window's chunk skip at :161)",
+        "kernel_names": FLASH_BWD_MMA_WINDOW,
+        "launches": hrun["launches"]["flash_attention_bwd"],
+        "launches_by_route": hrun["routes"]["flash_attention_bwd"],
+        "path": hymba_path + f" ({parity['launches']['flash_attention_bwd']}"
+                             " launches)",
+        "shape": "q (1, 8192, 25, 64), k/v (1, 8192, 5, 64) bf16 causal, "
+                 "window 1024",
+        "max_abs_err": hb["max_abs_err"],
+        "max_row_err_vs_f64": hb["max_row_err"],
+        "shape_checked": hb["checked"],
+        "ms": hb["ms"], "plain_ms": hb["plain_ms"], "plain": hb["plain"],
+        "bound_ms": hb["bound_ms"], "bound_by": hb["bound_by"],
+        "library_ms": hb["library_ms"], "library": hb["library"],
+        "library_causal_ms": hb["library_causal_ms"],
+        "library_causal": hb["library_causal"],
+        "route_timed": hb["route"], "wrapper_ms": hb["wrapper_ms"],
+        "kernel_ms": hb["kernel_ms"]})
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

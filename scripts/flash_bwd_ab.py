@@ -32,11 +32,13 @@ same order give the same bits; others need not).  The script exits 1 if a
 check fails or a tree does not build (the others still run).
 
 Cases that only some trees have -- a causal window on route 0 (W 63, 65
-and 8192 over S 1000, T 1100) and the hd-256 route ("hd256", in either
+and 8192 over S 1000, T 1100), the hd-256 route ("hd256", in either
 design: the first version's warp pairs or the TMA + wgmma kernels; 16 / 16
-and 8 / 2 heads, causal and full, a window of 65) -- run on the trees whose
-source has them, held the same way; each other tree prints a note that it
-lacks them.
+and 8 / 2 heads, causal and full, a window of 65) and hymba-1.5b's heads
+at hd 64 on route 1 ("mma_sync", 25 / 5, causal, with a window of 65 and
+without) -- run on the
+trees whose source has them, held the same way; each other tree prints a
+note that it lacks them.
 
 Timing at the Yi-9B shape: device time per launch (chip_smoke.device_ms,
 the C entry point on preallocated outputs and scratch) of each label in
@@ -44,9 +46,10 @@ the order given and then reversed (A B B A), twice, five launches a turn;
 each tree's kernels split by torch.profiler; beside the bound and the
 backward of F.scaled_dot_product_attention (its forward and backward less
 its forward) on the same inputs.  Then, on the trees that have them,
-gemma-7b's (1, 8192, 16/16, 256) causal and full and Yi-9B's (1, 32768,
-32/4, 128) causal under a window of 8192, in turns the same way, beside
-their bounds.  One JSON object per line; the card's name and power limit first.
+gemma-7b's (1, 8192, 16/16, 256) causal and full, Yi-9B's (1, 32768,
+32/4, 128) causal under a window of 8192 and hymba-1.5b's (1, 8192, 25/5,
+64) causal under its window of 1024 (route 1), in turns the same way,
+beside their bounds.  One JSON object per line; the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -67,11 +70,14 @@ NEW_CASES = [(2, 1000, 1100, H, KV, HD, True, 63),
              (2, 1000, 1100, H, KV, HD, True, 8192),
              (2, 1000, 1100, 16, 16, 256, True, None),
              (2, 1025, 1100, 8, 2, 256, False, None),
-             (2, 1000, 1100, 16, 16, 256, True, 65)]
+             (2, 1000, 1100, 16, 16, 256, True, 65),
+             (2, 1000, 1100, 25, 5, 64, True, 65),
+             (2, 1000, 1100, 25, 5, 64, True, None)]
 # (B, S, H, KV, hd, window, causal), timed on the trees that take them
 NEW_TIMING = [(1, 8192, 16, 16, 256, None, True),
               (1, 8192, 16, 16, 256, None, False),
-              (1, 32768, H, KV, HD, 8192, True)]
+              (1, 32768, H, KV, HD, 8192, True),
+              (1, 8192, 25, 5, 64, 1024, True)]
 ITERS = 5                      # launches a timed turn
 TURNS = 2
 SEED = 25
@@ -117,7 +123,8 @@ def main() -> int:
             srcs, "flash_attention_bwd.cu",
             lambda name: name.startswith("flash_bwd_") and (
                 "wgmma" in name or "128" in name or "256" in name
-                or "rows" in name or "__nv_bfloat16" in name)).items():
+                or "<64>" in name or "rows" in name
+                or "__nv_bfloat16" in name)).items():
         fn = so.flash_attention_bwd
         win = takes_window(srcs[label])
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
@@ -139,7 +146,7 @@ def main() -> int:
         lib = libs[label]
         B, S, Hq, hd = q.shape
         T, KVq = k.shape[1], k.shape[2]
-        route = 3 if hd == 256 else lib["route"]
+        route = 3 if hd == 256 else 1 if hd == 64 else lib["route"]
         rc = lib["fn"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                        *(t.data_ptr() for t in grads), scratch.data_ptr(), B,

@@ -619,12 +619,19 @@ dq_bf16(const __nv_bfloat16* __restrict__ q,
   const int lo = first_key_tile(q0, span, KEYS);
   const int qpos0 = q0 + warp * 16 + g;      // rows g and g + 8
   float row_lse[2], row_d[2];
+  // under a window, the keys each row sees: key_lo .. key_hi (none when
+  // key_hi < key_lo), two compares an element where the five terms of the
+  // mask without a window made ptxas spill 12 bytes at hd 64 (PERF.md,
+  // row 10bw: this mask, 178 registers and no spill)
+  int key_lo[2], key_hi[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int qpos = qpos0 + 8 * rr;
     const size_t i = (static_cast<size_t>(b) * H + h) * S + qpos;
     row_lse[rr] = qpos < S ? lse[i] : 0.0f;
     row_d[rr] = qpos < S ? dsum[i] : 0.0f;
+    key_lo[rr] = qpos - span + 1;
+    key_hi[rr] = qpos < S ? (causal ? min(qpos, T - 1) : T - 1) : -1;
   }
   float dq_acc[DT][4];
 #pragma unroll
@@ -654,10 +661,14 @@ dq_bf16(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qpos = qpos0 + (e & 2) * 4;
         const int key = j0 + nt * 8 + 2 * t + (e & 1);
-        const bool live = qpos < S && key < T && !(causal && key > qpos) &&
-                          (!WIN || key + span > qpos);
+        bool live;
+        if constexpr (WIN) {
+          live = key >= key_lo[e >> 1] && key <= key_hi[e >> 1];
+        } else {
+          const int qpos = qpos0 + (e & 2) * 4;
+          live = qpos < S && key < T && !(causal && key > qpos);
+        }
         s[nt][e] = live ? expf(s[nt][e] * scale - row_lse[e >> 1]) : 0.0f;
       }
     }

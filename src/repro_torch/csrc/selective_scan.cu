@@ -67,6 +67,53 @@
 // of u ahead, chunk lengths that fill whole waves of blocks, and L 64,
 // 128, 224, 256, 320 and 416 (192 is the fastest at hymba's 8192-token
 // prefill; 416 is 3% faster at 32768 tokens and 5% slower at 8192).
+//
+// The backward (selective_scan_bwd, at the end of the file): given dy (B,
+// S, di) and dh_last (B, di, N) f32 (either may be zero) it returns du (in
+// u's dtype, summed in f32 and rounded once), dBc and dCc (B, S, N), dh0
+// and the per-channel sums dw_dt, ddt_bias, dA_log and dD_skip.  With a_t =
+// exp(dt_t A) and the adjoint g_t = dL/dh_t = a_{t+1} g_{t+1} + C_t dy_t
+// (from dh_last): dBc = sum_d g dt u, dCc = sum_d h_t dy_t, d(dt) = sum_n g
+// (A a_t h_{t-1} + u B_t), dA = sum_t g dt a_t h_{t-1}, du = D dy + dt
+// sum_n g B + w_dt d(dt) sigmoid(x).  What bounds it: one exp and 11
+// FMA-pipe ops an element (h_t again: dt A, ah = a h_{t-1}, fma(dt u, B,
+// ah); g: g a, fma(C, dy, .); g ah, shared by d(dt) and dA; then one fma
+// each for dB, dC, dA, d(dt) and sum_n g B, each sum taken into its
+// product), B S di N of them: 11/128 clock an element on the FMA pipes,
+// about 138 us at hymba-1.5b's 8192 tokens.  The
+// adjoint is the forward's recurrence run backward, so it takes the same
+// decomposition in reverse, five kernels in one launch of the entry point:
+//   1. selective_scan_bwd_chunk_kernel, chunks 1 .. nc - 1: each chunk's
+//      adjoint from zero at its start, g = (g + C dy) a back to its first
+//      step, and its sum of s (the forward's scratch has none for the last
+//      chunk).
+//   2. selective_scan_bwd_carry_kernel, one thread per (b, d, n): G =
+//      dh_last, then in reverse chunk order each chunk's incoming adjoint
+//      written, G = l_c + exp2(A sum_c s) G.
+//   3. selective_scan_bwd_kernel, grid (channel blocks, chunks, B), N / 4
+//      threads a channel, four states a thread: the chunk again from its
+//      start state (the forward's scratch, which it keeps for this: the
+//      (B, S, di, N) states are never written), the state at every kSub-th
+//      step kept in shared memory; then each sub-chunk, last first,
+//      rescanned from its checkpoint with h_{t-1}, s, u and dy kept in
+//      registers, and walked backward with the adjoint forming every
+//      gradient.  h is never inverted (a_t underflows to 0 at large dt
+//      |A|).  A channel's sums over its states take 2 or 3 shuffles a step;
+//      dBc and dCc sum over the warp's channels by a transposing butterfly
+//      (7 shuffles for 8 values), then over the block's warps in shared
+//      memory, into per-block partials.
+//   4. selective_scan_bwd_sum_kernel: the partials of dBc and dCc summed
+//      over the blocks in block order.
+//   5. selective_scan_bwd_param_kernel (when the caller asks for them): the
+//      per-chunk sums of dA, dw_dt, ddt_bias and dD_skip over (b, chunk) in
+//      order.
+// No atomics: two launches are bitwise equal.  Four exps an element
+// (kernel 1, kernel 3's two passes and its backward walk) against the
+// bound's one.  Measured on an H100 and replaced (PERF.md §6, row 11b): the
+// first version held a channel's 16 states in one thread, as the forward
+// does, which left no registers for a sub-chunk's history: kept in 64 KB
+// of shared memory a warp, it ran three warps an SM, 2.74 ms for kernel 3
+// at hymba-1.5b's 8192 tokens.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -436,4 +483,489 @@ extern "C" int selective_scan_fwd(const void* u, const void* w_dt,
                                         ho, sc, B, S, di)
              : launch<8, float>(s, u, w, bias, al, ds, bc, cc, hi, yo, ho, sc,
                                 B, S, di);
+}
+
+// ---------------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kSub = 8;                        // steps a sub-chunk
+constexpr int kCkpts = (kChunk + kSub - 1) / kSub;
+
+__device__ __forceinline__ void from_f32(float& dst, float x) { dst = x; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16& dst, float x) {
+  dst = __float2bfloat16_rn(x);
+}
+
+// The same step for the four states a thread of kernel 3 holds (states
+// 4 q .. 4 q + 3, bq = B_t's four values).
+__device__ __forceinline__ void scan_step4(float (&h)[4], const float (&A)[4],
+                                           float sv, float dtu, float4 bq) {
+  const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = fmaf(ex2_ftz(sv * A[i]), h[i], dtu * bv[i]);
+  }
+}
+
+// One level of a transposing butterfly: lanes apart by `o` exchange halves
+// of their M values, each keeping one half and adding its partner's copy of
+// it (the upper lane the upper half), so M values become M / 2 and three
+// levels sum 8 values over 8 lanes with 7 shuffles; a fixed order.
+template <int M, int N>
+__device__ __forceinline__ void halve(float (&v)[N], int lane, int o) {
+  const bool up = (lane & o) != 0;
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) {
+    const float send = up ? v[i] : v[i + M / 2];
+    const float keep = up ? v[i + M / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// Kernel 1: chunk c's adjoint from zero at its start, g = (g + C_t dy_t)
+// a_t from its last step to its first, and its sum of s, for chunks 1 ..
+// nc - 1 (the last may be short).  gl (B, nc, di, N), gs (B, nc, di).
+template <int N, typename T>
+__global__ void __launch_bounds__(kThreads, 4) selective_scan_bwd_chunk_kernel(
+    const T* __restrict__ u, const float* __restrict__ w_dt,
+    const float* __restrict__ dt_bias, const float* __restrict__ A_log,
+    const float* __restrict__ Cc, const float* __restrict__ dy,
+    float* __restrict__ gl, float* __restrict__ gs, int S, int di, int L) {
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  const int c = blockIdx.y + 1, b = blockIdx.z, nc = gridDim.y + 1;
+  const int t0 = c * L, steps = min(L, S - t0);
+  if (d >= di) return;
+  const float w2 = w_dt[d] * kLog2e, b2 = dt_bias[d] * kLog2e;
+  float A[N], g[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    A[n] = -expf(A_log[static_cast<size_t>(d) * N + n]);
+    g[n] = 0.f;
+  }
+  const size_t row = static_cast<size_t>(b) * S + t0;
+  const T* ub = u + row * di + d;
+  const float* dyb = dy + row * di + d;
+  const float4* Cb = reinterpret_cast<const float4*>(Cc + row * N);
+  float ds = 0.f;
+#pragma unroll 4
+  for (int j = steps - 1; j >= 0; --j) {
+    const float uv = to_f32(ub[static_cast<size_t>(j) * di]);
+    const float dyv = dyb[static_cast<size_t>(j) * di];
+    const float sv = softplus_log2(fmaf(uv, w2, b2));
+    ds += sv;
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 cq = __ldg(Cb + j * (N / 4) + q);
+      const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 4 * q + e;
+        g[n] = fmaf(cv[e], dyv, g[n]) * ex2_ftz(sv * A[n]);
+      }
+    }
+  }
+  const size_t o = (static_cast<size_t>(b) * nc + c) * di + d;
+#pragma unroll
+  for (int n = 0; n < N; ++n) gl[o * N + n] = g[n];
+  gs[o] = ds;
+}
+
+// Kernel 2: one thread per (b, d, n).  G = dh_last (or 0); for each chunk
+// c from the last, gl[c] becomes G, the adjoint entering the chunk at its
+// end, and, above chunk 0, G = l_c + exp2(A sum_c s) G with l_c the value
+// gl[c] held.  Loads run kAhead chunks ahead of the chain.
+template <int N>
+__global__ void __launch_bounds__(kThreads) selective_scan_bwd_carry_kernel(
+    const float* __restrict__ A_log, const float* __restrict__ dh_last,
+    float* gl, const float* __restrict__ gs, int B, int di, int nc) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= B * di * N) return;
+  const int n = i % N, d = (i / N) % di, b = i / (N * di);
+  const float A = -expf(A_log[static_cast<size_t>(d) * N + n]);
+  float G = dh_last != nullptr ? dh_last[i] : 0.f;
+  const size_t cs = static_cast<size_t>(di) * N;
+  float* gb = gl + static_cast<size_t>(b) * nc * cs +
+              static_cast<size_t>(d) * N + n;
+  const float* sb = gs + static_cast<size_t>(b) * nc * di + d;
+  for (int c0 = nc - 1; c0 >= 0; c0 -= kAhead) {
+    float l[kAhead], a[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const bool in = c0 - j >= 1;
+      l[j] = in ? gb[(c0 - j) * cs] : 0.f;
+      a[j] = in ? sb[static_cast<size_t>(c0 - j) * di] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (c0 - j >= 0) {
+        gb[(c0 - j) * cs] = G;
+        G = fmaf(ex2_ftz(A * a[j]), G, l[j]);
+      }
+    }
+  }
+}
+
+// Kernel 3: chunk c of kThreads / (N / 4) channels, N / 4 threads a
+// channel (thread q holds states 4 q .. 4 q + 3).  start: each chunk's
+// start state (the forward's scratch, or h0 at one chunk; null: zeros);
+// gin: the adjoint entering each chunk at its end (kernel 2's gl, or
+// dh_last at one chunk; null: zeros), floats start_b / gin_b between batch
+// rows and start_c / gin_c between chunks.  The states at every kSub-th
+// step go to shared memory; a sub-chunk's h_{t-1}, s, u and dy stay in
+// registers.  Writes du, the chunk's dA and its dw, db, dD partials
+// (dA_part (B, nc, di, N), which may be gin itself: each thread reads its
+// adjoint before it writes; p_part (3, B, nc, di)), the block's dB and dC
+// partials (B, blocks, S, N) and, at chunk 0, dh0.
+template <int N, typename T>
+__global__ void __launch_bounds__(kThreads) selective_scan_bwd_kernel(
+    const T* __restrict__ u, const float* __restrict__ w_dt,
+    const float* __restrict__ dt_bias, const float* __restrict__ A_log,
+    const float* __restrict__ D_skip, const float* __restrict__ Bc,
+    const float* __restrict__ Cc, const float* __restrict__ dy,
+    const float* __restrict__ start, size_t start_b, size_t start_c,
+    const float* gin, size_t gin_b, size_t gin_c, T* __restrict__ du,
+    float* dA_part, float* __restrict__ p_part, float* __restrict__ dB_part,
+    float* __restrict__ dC_part, float* __restrict__ dh0, int S, int di,
+    int L) {
+  constexpr int Q = N / 4;                     // threads a channel
+  constexpr int kChan = kThreads / Q;          // channels a block
+  extern __shared__ float4 smem4[];
+  float4* ck = smem4;                          // [kCkpts][kThreads]
+  float* red = reinterpret_cast<float*>(smem4 + kCkpts * kThreads);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q = tid % Q;
+  const int d = blockIdx.x * kChan + tid / Q;
+  const int c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int t0 = c * L, steps = min(L, S - t0);
+  const bool live = d < di;
+  float A[4], h[4], g[4], dA[4];
+  float wn = 0.f, w2 = 0.f, b2 = 0.f, Dsk = 0.f;
+  if (live) {
+    wn = w_dt[d];
+    w2 = wn * kLog2e;
+    b2 = dt_bias[d] * kLog2e;
+    Dsk = D_skip[d];
+  }
+  const size_t sn = static_cast<size_t>(d) * N + 4 * q;   // the states
+  const float* st = start == nullptr ? nullptr
+                                     : start + b * start_b + c * start_c + sn;
+  const float* gi = gin == nullptr ? nullptr : gin + b * gin_b + c * gin_c + sn;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    A[i] = live ? -expf(A_log[sn + i]) : 0.f;
+    h[i] = (live && st != nullptr) ? st[i] : 0.f;
+    g[i] = (live && gi != nullptr) ? gi[i] : 0.f;
+    dA[i] = 0.f;
+  }
+  const size_t row = static_cast<size_t>(b) * S + t0;
+  const T* ub = u + row * di + d;
+  const float* dyb = dy + row * di + d;
+  const float4* Bb = reinterpret_cast<const float4*>(Bc + row * N) + q;
+  const float4* Cb = reinterpret_cast<const float4*>(Cc + row * N) + q;
+
+  // the state at the start of every sub-chunk
+#pragma unroll 4
+  for (int j = 0; j < steps; ++j) {
+    if (j % kSub == 0) {
+      ck[(j / kSub) * kThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
+    }
+    const float uv = live ? to_f32(ub[static_cast<size_t>(j) * di]) : 0.f;
+    const float sv = softplus_log2(fmaf(uv, w2, b2));
+    scan_step4(h, A, sv, sv * (uv * kLn2), __ldg(Bb + j * Q));
+  }
+
+  float dw = 0.f, db = 0.f, dD = 0.f;
+  for (int j0 = ((steps - 1) / kSub) * kSub; j0 >= 0; j0 -= kSub) {
+    const int len = min(kSub, steps - j0);
+    const float4 c4 = ck[(j0 / kSub) * kThreads + tid];
+    h[0] = c4.x;
+    h[1] = c4.y;
+    h[2] = c4.z;
+    h[3] = c4.w;
+    // the sub-chunk again, each step's h_{t-1}, s, u and dy kept
+    float hp[kSub][4], sr[kSub], ur[kSub], dyr[kSub];
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      if (k < len) {
+        const int j = j0 + k;
+        ur[k] = live ? to_f32(ub[static_cast<size_t>(j) * di]) : 0.f;
+        dyr[k] = live ? dyb[static_cast<size_t>(j) * di] : 0.f;
+        sr[k] = softplus_log2(fmaf(ur[k], w2, b2));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hp[k][i] = h[i];
+        scan_step4(h, A, sr[k], sr[k] * (ur[k] * kLn2), __ldg(Bb + j * Q));
+      }
+    }
+    // ... and walked backward
+#pragma unroll
+    for (int k = kSub - 1; k >= 0; --k) {
+      if (k < len) {
+        const int j = j0 + k;
+        const float sv = sr[k], uv = ur[k], dyv = dyr[k];
+        const float dt = sv * kLn2, dtu = sv * (uv * kLn2);
+        const float4 bq = __ldg(Bb + j * Q), cq = __ldg(Cb + j * Q);
+        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+        const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
+        float v[8];                            // dB, then dC, of the states
+        float ddt = 0.f, dus = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = ex2_ftz(sv * A[i]);
+          g[i] = fmaf(cv[i], dyv, g[i]);                   // g_t
+          v[i] = g[i] * dtu;
+          v[4 + i] = fmaf(a, hp[k][i], dtu * bv[i]) * dyv;  // h_t dy_t
+          const float qv = g[i] * a * hp[k][i];
+          ddt = fmaf(A[i], qv, ddt);
+          dus = fmaf(g[i], bv[i], dus);
+          dA[i] = fmaf(dt, qv, dA[i]);
+          g[i] *= a;                                       // onto h_{t-1}
+        }
+        // the channel's sums over its Q threads (adjacent lanes)
+        if constexpr (Q == 4) {
+          const bool up = (lane & 2) != 0;
+          float x = (up ? dus : ddt) +
+                    __shfl_xor_sync(0xffffffffu, up ? ddt : dus, 2);
+          x += __shfl_xor_sync(0xffffffffu, x, 1);
+          const float y = __shfl_xor_sync(0xffffffffu, x, 2);
+          ddt = up ? y : x;
+          dus = up ? x : y;
+        } else {
+          ddt += __shfl_xor_sync(0xffffffffu, ddt, 1);
+          dus += __shfl_xor_sync(0xffffffffu, dus, 1);
+        }
+        // d(dt) through softplus: sigmoid(x) from z = e^-|x|, x = u w + b
+        ddt = fmaf(uv, dus, ddt);
+        const float y = fmaf(uv, w2, b2);
+        const float z = ex2_ftz(-fabsf(y));
+        const float dx = ddt * ((y >= 0.f ? 1.f : z) / (1.f + z));
+        if (live && q == 0) {
+          from_f32(du[(row + j) * di + d],
+                   fmaf(Dsk, dyv, fmaf(dt, dus, dx * wn)));
+        }
+        dw = fmaf(dx, uv, dw);
+        db += dx;
+        dD = fmaf(dyv, uv, dD);
+        // dB and dC over the warp's channels (lanes of the same q): lane l
+        // keeps value ((l >> 4) & 1) * 4 + ((l >> 3) & 1) * 2 + ((l >> 2) &
+        // 1) of v, for the states of q = l % Q
+        halve<8>(v, lane, 16);
+        halve<4>(v, lane, 8);
+        halve<2>(v, lane, 4);
+        if constexpr (Q == 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
+        red[k * kThreads + tid] = v[0];
+      }
+    }
+    // ... and over the block's warps, a step's values in warp order
+    __syncthreads();
+    for (int i = tid; i < len * 32; i += kThreads) {
+      const int k = i / 32, l = i % 32;
+      if (Q == 2 && (l & 2)) continue;         // the same sums twice
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) {
+        sum += red[k * kThreads + w * 32 + l];
+      }
+      const int idx = ((l >> 4) & 1) * 4 + ((l >> 3) & 1) * 2 + ((l >> 2) & 1);
+      const size_t o = ((static_cast<size_t>(b) * gridDim.x + blockIdx.x) * S +
+                        t0 + j0 + k) * N + 4 * (l % Q) + (idx & 3);
+      (idx < 4 ? dB_part : dC_part)[o] = sum;
+    }
+    __syncthreads();
+  }
+  if (live) {
+    const size_t o = (static_cast<size_t>(b) * nc + c) * di + d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dA_part[o * N + 4 * q + i] = dA[i];
+    if (q == 0) {
+      const size_t plane = static_cast<size_t>(gridDim.z) * nc * di;
+      p_part[o] = dw;
+      p_part[plane + o] = db;
+      p_part[2 * plane + o] = dD;
+    }
+    if (c == 0 && dh0 != nullptr) {
+      float* dh = dh0 + (static_cast<size_t>(b) * di + d) * N + 4 * q;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dh[i] = g[i];
+    }
+  }
+}
+
+// Kernel 4: dBc and dCc (B, S, N), the blocks' partials summed in block
+// order; one thread per (b, t, n).
+__global__ void __launch_bounds__(kThreads) selective_scan_bwd_sum_kernel(
+    const float* __restrict__ dB_part, const float* __restrict__ dC_part,
+    float* __restrict__ dBc, float* __restrict__ dCc, int B, int S, int N,
+    int blocks) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const size_t per = static_cast<size_t>(S) * N;
+  if (i >= B * per) return;
+  const size_t b = i / per, r = i % per;
+  float sb = 0.f, sc = 0.f;
+  for (int p = 0; p < blocks; ++p) {
+    const size_t o = (b * blocks + p) * per + r;
+    sb += dB_part[o];
+    sc += dC_part[o];
+  }
+  dBc[i] = sb;
+  dCc[i] = sc;
+}
+
+// Kernel 5: one thread per (d, n): dA_log = A sum over (b, chunk) of dA;
+// the thread of n = 0 also sums dw_dt, ddt_bias and dD_skip.
+template <int N>
+__global__ void __launch_bounds__(kThreads) selective_scan_bwd_param_kernel(
+    const float* __restrict__ A_log, const float* __restrict__ dA_part,
+    const float* __restrict__ p_part, float* __restrict__ dw_dt,
+    float* __restrict__ ddt_bias, float* __restrict__ dA_log,
+    float* __restrict__ dD_skip, int B, int nc, int di) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= di * N) return;
+  const int n = i % N, d = i / N;
+  const int rows = B * nc;                     // (b, chunk) in order
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) {
+    s += dA_part[(static_cast<size_t>(r) * di + d) * N + n];
+  }
+  dA_log[i] = s * -expf(A_log[i]);
+  if (n == 0) {
+    const size_t plane = static_cast<size_t>(rows) * di;
+    float w = 0.f, bs = 0.f, ds = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const size_t o = static_cast<size_t>(r) * di + d;
+      w += p_part[o];
+      bs += p_part[plane + o];
+      ds += p_part[2 * plane + o];
+    }
+    dw_dt[d] = w;
+    ddt_bias[d] = bs;
+    dD_skip[d] = ds;
+  }
+}
+
+template <int N, typename T>
+int launch_bwd(cudaStream_t s, const void* u_, const float* w_dt,
+               const float* dt_bias, const float* A_log, const float* D_skip,
+               const float* Bc, const float* Cc, const float* h0,
+               const float* fwd, const float* dy, const float* dh_last,
+               void* du_, float* dBc, float* dCc, float* dh0, float* dw_dt,
+               float* ddt_bias, float* dA_log, float* dD_skip, float* scratch,
+               int B, int S, int di) {
+  const T* u = static_cast<const T*>(u_);
+  T* du = static_cast<T*>(du_);
+  constexpr int L = kChunk;
+  const int nc = (S + L - 1) / L;
+  const int blocks = (di + kThreads - 1) / kThreads;
+  constexpr int kChan = kThreads / (N / 4);      // kernel 3's channels a block
+  const int warps = (di + kChan - 1) / kChan;
+  const size_t cells = static_cast<size_t>(B) * nc * di;
+  float* gl = scratch;                           // (B, nc, di, N)
+  float* gs = gl + cells * N;                    // (B, nc, di)
+  float* pp = gs + cells;                        // (3, B, nc, di)
+  float* dBp = pp + 3 * cells;                   // (B, blocks, S, N)
+  float* dCp = dBp + static_cast<size_t>(B) * warps * S * N;
+  const float* start = h0;
+  size_t start_b = static_cast<size_t>(di) * N, start_c = 0;
+  const float* gin = dh_last;
+  size_t gin_b = static_cast<size_t>(di) * N, gin_c = 0;
+  if (nc > 1) {
+    selective_scan_bwd_chunk_kernel<N, T><<<dim3(blocks, nc - 1, B), kThreads,
+                                            0, s>>>(
+        u, w_dt, dt_bias, A_log, Cc, dy, gl, gs, S, di, L);
+    const int states = B * di * N;
+    selective_scan_bwd_carry_kernel<N><<<(states + kThreads - 1) / kThreads,
+                                         kThreads, 0, s>>>(
+        A_log, dh_last, gl, gs, B, di, nc);
+    start = fwd;
+    start_b = gin_b = static_cast<size_t>(nc) * di * N;
+    start_c = gin_c = static_cast<size_t>(di) * N;
+    gin = gl;
+  }
+  constexpr int smem = kCkpts * kThreads * static_cast<int>(sizeof(float4)) +
+                       kSub * kThreads * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel<N, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  selective_scan_bwd_kernel<N, T><<<dim3(warps, nc, B), kThreads, smem,
+                                    s>>>(
+      u, w_dt, dt_bias, A_log, D_skip, Bc, Cc, dy, start, start_b, start_c,
+      gin, gin_b, gin_c, du, gl, pp, dBp, dCp, dh0, S, di, L);
+  const size_t outs = static_cast<size_t>(B) * S * N;
+  selective_scan_bwd_sum_kernel<<<static_cast<unsigned>(
+                                      (outs + kThreads - 1) / kThreads),
+                                  kThreads, 0, s>>>(dBp, dCp, dBc, dCc, B, S,
+                                                    N, warps);
+  if (dA_log != nullptr) {
+    selective_scan_bwd_param_kernel<N><<<(di * N + kThreads - 1) / kThreads,
+                                         kThreads, 0, s>>>(
+        A_log, gl, pp, dw_dt, ddt_bias, dA_log, dD_skip, B, nc, di);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The backward of selective_scan_fwd at the same inputs.  fwd_scratch: the
+// forward's scratch after its launch (the chunks' start states; null when
+// S <= kChunk); dy (B, S, di) f32; dh_last (B, di, N) f32 or null (zeros).
+// Writes du (u's dtype), dBc and dCc (B, S, N), dh0 (B, di, N) when not
+// null, and dw_dt (di), ddt_bias (di), dA_log (di, N), dD_skip (di) when
+// dA_log is not null (all four, or none).  scratch: B * nc * di * (N + 4) +
+// 2 * B * ceil(di N / 512) * S * N floats, nc = ceil(S / kChunk).  Bc and
+// Cc 16-byte aligned.
+extern "C" int selective_scan_bwd(
+    const void* u, const void* w_dt, const void* dt_bias, const void* A_log,
+    const void* D_skip, const void* Bc, const void* Cc, const void* h0,
+    const void* fwd_scratch, const void* dy, const void* dh_last, void* du,
+    void* dBc, void* dCc, void* dh0, void* dw_dt, void* ddt_bias,
+    void* dA_log, void* dD_skip, void* scratch, int B, int S, int di, int N,
+    int dtype, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || di < 1 || (N != 8 && N != 16) ||
+      (dtype != 0 && dtype != 1) || (S + kChunk - 1) / kChunk > 65535 ||
+      (S > kChunk && fwd_scratch == nullptr) || scratch == nullptr ||
+      (dA_log != nullptr &&
+       (dw_dt == nullptr || ddt_bias == nullptr || dD_skip == nullptr)) ||
+      static_cast<long long>(B) * di * N > 2147483647LL ||
+      static_cast<long long>(di) * N > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* w = static_cast<const float*>(w_dt);
+  const float* bias = static_cast<const float*>(dt_bias);
+  const float* al = static_cast<const float*>(A_log);
+  const float* dsk = static_cast<const float*>(D_skip);
+  const float* bc = static_cast<const float*>(Bc);
+  const float* cc = static_cast<const float*>(Cc);
+  const float* hi = static_cast<const float*>(h0);
+  const float* fw = static_cast<const float*>(fwd_scratch);
+  const float* dyo = static_cast<const float*>(dy);
+  const float* dhl = static_cast<const float*>(dh_last);
+  float* dbc = static_cast<float*>(dBc);
+  float* dcc = static_cast<float*>(dCc);
+  float* dh = static_cast<float*>(dh0);
+  float* dw = static_cast<float*>(dw_dt);
+  float* dbias = static_cast<float*>(ddt_bias);
+  float* dal = static_cast<float*>(dA_log);
+  float* dds = static_cast<float*>(dD_skip);
+  float* sc = static_cast<float*>(scratch);
+  if (N == 16) {
+    return dtype == 0
+               ? launch_bwd<16, __nv_bfloat16>(s, u, w, bias, al, dsk, bc, cc,
+                                               hi, fw, dyo, dhl, du, dbc, dcc,
+                                               dh, dw, dbias, dal, dds, sc, B,
+                                               S, di)
+               : launch_bwd<16, float>(s, u, w, bias, al, dsk, bc, cc, hi, fw,
+                                       dyo, dhl, du, dbc, dcc, dh, dw, dbias,
+                                       dal, dds, sc, B, S, di);
+  }
+  return dtype == 0
+             ? launch_bwd<8, __nv_bfloat16>(s, u, w, bias, al, dsk, bc, cc, hi,
+                                            fw, dyo, dhl, du, dbc, dcc, dh, dw,
+                                            dbias, dal, dds, sc, B, S, di)
+             : launch_bwd<8, float>(s, u, w, bias, al, dsk, bc, cc, hi, fw,
+                                    dyo, dhl, du, dbc, dcc, dh, dw, dbias, dal,
+                                    dds, sc, B, S, di);
 }

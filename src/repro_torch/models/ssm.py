@@ -6,16 +6,19 @@ sharding constraints.  Where the reference scans, the port:
 
 * Mamba: the coefficients, the recurrence and the readout (`h C + D u`) go
   through `kernels/selective_scan.py` (on the card the hand-written CUDA
-  kernel, on the CPU its plain version), in `mamba_forward_state` and
+  kernels, on the CPU their plain versions), in `mamba_forward_state` and
   `mamba_decode` alike: decode is the scan at S = 1 from the lane's state.
+  Training takes the same call: while autograd records, the scan's
+  Function runs the forward kernels and, in the backward pass, the
+  backward's (the reference differentiates its scan with `jax.grad`).
   The reference's chunked `associative_scan` sums in another order than the
   sequential scan; any S is taken (the reference asserts S % 256 == 0 past
   256 tokens, ROADMAP queue 3 item 5(f)).
 * mLSTM: the reference's stabilized chunk form (`_mlstm_chunk`), a Python
   loop over chunks of `cfg.mlstm_chunk`, with its identity-gate padding.
 * sLSTM: the reference's cell, a Python loop over t.
-The mLSTM chunk and sLSTM step loops are plain PyTorch (their kernels are
-ROADMAP queue 1 item 13).
+The mLSTM chunk and sLSTM step loops are plain PyTorch, which autograd
+differentiates (their kernels are ROADMAP queue 1 item 13).
 
 Decode updates the state it is given IN PLACE (as the port's KV cache) and
 returns it.  A paged adapter (a `gidx` leaf, `serving/cache.py::

@@ -194,6 +194,18 @@ def test_tag_counts_start_empty_and_reset():
      "selective_scan_chunk_kernel<16, __nv_bfloat16>"),
     ("void <unnamed>::selective_scan_carry_kernel<(int)8>",
      "selective_scan_carry_kernel<8>"),
+    ("void <unnamed>::selective_scan_bwd_kernel<(int)16, __nv_bfloat16>",
+     "selective_scan_bwd_kernel<16, __nv_bfloat16>"),
+    ("void <unnamed>::selective_scan_bwd_chunk_kernel<(int)8, float>",
+     "selective_scan_bwd_chunk_kernel<8, float>"),
+    ("void <unnamed>::selective_scan_bwd_carry_kernel<(int)16>",
+     "selective_scan_bwd_carry_kernel<16>"),
+    ("void <unnamed>::selective_scan_bwd_param_kernel<(int)8>",
+     "selective_scan_bwd_param_kernel<8>"),
+    ("void <unnamed>::selective_scan_bwd_sum_kernel",
+     "selective_scan_bwd_sum_kernel"),
+    ("void <unnamed>::flash_bwd_dq_bf16_window_kernel<(int)64>",
+     "flash_bwd_dq_bf16_window_kernel<64>"),
     ("void <unnamed>::flash_wgmma_kernel<(int)128>", "flash_wgmma_kernel<128>"),
     ("void <unnamed>::flash_wgmma_kernel<(int)64>", "flash_wgmma_kernel<64>"),
 ])
@@ -258,8 +270,7 @@ def test_build_report_names_the_hd_256_backward_kernels():
     assert chip_smoke.FLASH_BWD_HD256 == (
         "flash_bwd_rows_kernel<256>", "flash_bwd_dkdv_wgmma_hd256_kernel",
         "flash_bwd_dq_wgmma_hd256_kernel")
-    reported = (chip_smoke.GATED_KERNELS + chip_smoke.FLASH_BWD_REPORTED
-                + chip_smoke.FLASH_FWD_KERNELS)
+    reported = chip_smoke.GATED_KERNELS + chip_smoke.FLASH_FWD_KERNELS
     for gone in ("flash_bwd_dkdv_hd256_kernel", "flash_bwd_dq_bf16_kernel<256>",
                  "flash_bwd_dq_bf16_window_kernel<256>",
                  "flash_bwd_rows_kernel"):
@@ -317,6 +328,26 @@ def test_the_selective_scan_builds_from_its_source_without_a_header():
                                                 "selective_scan_fwd")
     assert len(ss.SCAN.argtypes) == 17 and ss.SCAN.launches == 0
     assert ss.STATE_SIZES == (8, 16)
+
+
+def test_the_scan_backward_binds_its_entry_point_and_sizes_its_scratch():
+    # selective_scan_bwd: 20 pointers, B, S, di, N, dtype and the stream;
+    # its scratch holds each chunk's adjoint (then dA), its sum of dt and
+    # three parameter partials, and the dBc / dCc partials of every block
+    # of kThreads threads of four states
+    from repro_torch.kernels import selective_scan as ss
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    assert 'extern "C" int selective_scan_bwd(' in src
+    assert "constexpr int kThreads = 128;" in src and ss.BWD_STATES == 512
+    assert (ss.SCAN_BWD.source, ss.SCAN_BWD.symbol) == (
+        "selective_scan", "selective_scan_bwd")
+    assert len(ss.SCAN_BWD.argtypes) == 26 and ss.SCAN_BWD.launches == 0
+    for B, S, di, N in ((1, 8192, 3200, 16), (3, 389, 100, 8), (2, 1, 17, 8)):
+        nc = -(-S // ss.CHUNK)
+        blocks = -(-di // (512 // N))
+        got = ss.scan_bwd_scratch(B, S, di, N, "cpu")
+        assert got.dtype == torch.float32
+        assert got.numel() == B * nc * di * (N + 4) + 2 * B * blocks * S * N
 
 
 def _chip_smoke():
@@ -433,3 +464,80 @@ def test_the_ab_scripts_read_each_trees_entry_point(tmp_path):
     (tmp_path / "flash_attention.cu").write_text(
         "(route == 1 && dtype == 0 && (hd == 32 || hd == 64))")
     assert flash_ab.hd64_route(tmp_path) == 1
+
+
+def test_scan_backward_bound_and_error_measure():
+    # the backward's bound: 11 FMA-pipe ops an element outrun its one exp
+    # (11/128 clock an element an SM), 137.9 us at hymba-1.5b's (1, 8192,
+    # 3200, 16) on 132 SMs at 1,980 MHz; a bf16 du is held less each
+    # element's own rounding (2^-8 of it)
+    cs = _chip_smoke()
+    assert cs.SCAN_BWD_FMA_OPS == 11
+    assert cs.scan_clocks_per_element(cs.SCAN_BWD_FMA_OPS) == 11 / 128
+    assert cs.scan_clocks_per_element() == 1 / 24
+    ms, by = cs.scan_bwd_bound(1, 8192, 3200, 16, "bfloat16", 1.98e9, 132)
+    assert by == "operations" and abs(ms - 0.13791) < 1e-4
+    want = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+    got = want * (1 + 2.0 ** -9)
+    assert cs.scan_grad_err(got, want, rounded=True) == 0.0
+    assert cs.scan_grad_err(got, want, rounded=False) == 2.0 ** -9
+    assert cs.scan_bwd_kernels("float32", 8, params=True)[-1] == \
+        "selective_scan_bwd_param_kernel<8>"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_parity_control_scan_rounds_only_its_state(dtype):
+    # scripts/hymba_grad_parity.py's control is selective_scan_plain with
+    # its state rounded to u's dtype every step: the same function when u
+    # is f32, a state that bf16 holds exactly when u is bf16
+    scripts = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           "scripts")
+    sys.path.insert(0, scripts)
+    try:
+        import hymba_grad_parity
+    finally:
+        sys.path.remove(scripts)
+    from repro_torch.kernels import selective_scan as ss
+    gen = torch.Generator().manual_seed(7)
+    B, S, di, N = 2, 21, 6, 8
+    u = torch.randn(B, S, di, generator=gen).to(dtype)
+    w_dt = 0.3 * torch.randn(di, 1, generator=gen)
+    dt_bias = 0.1 * torch.randn(di, generator=gen)
+    A_log = 0.2 * torch.randn(di, N, generator=gen)
+    D_skip = torch.randn(di, generator=gen)
+    Bc, Cc = (torch.randn(B, S, N, generator=gen) for _ in range(2))
+    args = (u, w_dt, dt_bias, A_log, D_skip, Bc, Cc)
+    y, h = hymba_grad_parity.rounded_state_scan(*args)
+    y0, h0 = ss.selective_scan_plain(*args)
+    assert y.dtype == y0.dtype == torch.float32
+    if dtype == torch.float32:
+        assert torch.equal(y, y0) and torch.equal(h, h0)
+    else:
+        assert torch.equal(h, h.to(dtype).float())
+        assert not torch.equal(h, h0)
+        assert ((y - y0).norm() / y0.norm()).item() < 2e-2
+
+
+def test_layer_cut_keeps_the_first_layers_at_full_width():
+    cs = _chip_smoke()
+    cfg = get_config("hymba-1.5b")
+    params = {"embed": torch.zeros(3, 4),
+              "groups": {"g0": {"w": torch.arange(32.0)[:, None].expand(
+                  32, 5), "n": {"b": torch.ones(32, 2)}}}}
+    cfg2, p2 = cs.layer_cut(cfg, params)
+    assert cfg2.num_layers == 2 and cfg2.d_model == cfg.d_model
+    assert cfg.num_layers == 32 and p2["embed"] is params["embed"]
+    assert p2["groups"]["g0"]["w"].shape == (2, 5)
+    assert p2["groups"]["g0"]["w"][:, 0].tolist() == [0.0, 1.0]
+    assert p2["groups"]["g0"]["n"]["b"].shape == (2, 2)
+    assert params["groups"]["g0"]["w"].shape == (32, 5)
+
+
+@pytest.mark.parametrize("arch,blocks", [("hymba-1.5b", (32, 32)),
+                                         ("xlstm-1.3b", (0, 0)),
+                                         ("yi-9b", (48, 0))])
+def test_block_counts_give_the_training_launches(arch, blocks):
+    # phase 24 (d)/(e) and 18 (c) expect 2 flash forward and 1 backward
+    # launches an attention block a client step, and 2 scan forward and 1
+    # backward a Mamba block
+    assert _chip_smoke().block_counts(get_config(arch)) == blocks

@@ -1557,21 +1557,74 @@ def test_selective_scan_matches_plain(B, S, di, N, dtype, h0):
 @pytest.mark.cuda
 def test_selective_scan_on_cuda_never_falls_back_and_has_no_backward(
         monkeypatch):
+    # a CUDA call launches the kernel, and never the plain loop; one that
+    # autograd records runs the same forward launch and, in the backward
+    # pass, the backward's kernels once, never a plain version
     _need_card()
     from repro_torch.kernels import selective_scan as ss
     args = _scan_inputs(3, 1, 9, 32, 16, torch.float32, True)
     called = []
     monkeypatch.setattr(ss, "selective_scan_plain",
                         lambda *a, **k: called.append(1))
-    before = ss.SCAN.launches
+    monkeypatch.setattr(ss, "selective_scan_bwd_plain",
+                        lambda *a, **k: called.append(2))
+    before, bwd = ss.SCAN.launches, ss.SCAN_BWD.launches
     ss.selective_scan(*args)
     assert ss.SCAN.launches == before + 1 and not called
     u = args[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ss.selective_scan(u, *args[1:])
+    y, _ = ss.selective_scan(u, *args[1:])
+    (du,) = torch.autograd.grad(y.sum(), u)
+    torch.cuda.synchronize()
+    assert ss.SCAN.launches == before + 2 and not called
+    assert ss.SCAN_BWD.launches == bwd + 1
+    assert du.shape == u.shape and bool(torch.isfinite(du).all())
     with pytest.raises(ValueError, match="state size"):
         ss.selective_scan(*_scan_inputs(4, 1, 3, 32, 4, torch.float32, False))
     assert not called
+
+
+# the scan's backward (csrc/selective_scan.cu) against the plain backward in
+# f64 on the same inputs, at the chunk edges (L = CHUNK, 192), from h0 with
+# a nonzero dh_last and without either: every gradient within 1e-4 of its
+# max|plain| (du in bf16 less its own rounding, 2^-8 of each element), two
+# launches bitwise equal
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,dtype,h0", [
+    (1, 1, 3200, 16, torch.float32, True),
+    (1, 191, 3200, 16, torch.bfloat16, False),
+    (1, 192, 3200, 16, torch.bfloat16, True),
+    (1, 193, 3200, 16, torch.bfloat16, True),
+    (1, 387, 3200, 16, torch.float32, False),
+    (4, 421, 3200, 16, torch.bfloat16, True),
+    (3, 389, 100, 8, torch.float32, True),
+    (2, 64, 17, 8, torch.bfloat16, False)])
+def test_selective_scan_backward_matches_plain(B, S, di, N, dtype, h0):
+    _need_card()
+    from repro_torch.kernels import selective_scan as ss
+    args = _scan_inputs(B + S + 7, B, S, di, N, dtype, h0)
+    rng = np.random.default_rng(S)
+    dy = torch.from_numpy(rng.standard_normal((B, S, di)).astype(
+        np.float32)).cuda()
+    dh = (torch.from_numpy(rng.standard_normal((B, di, N)).astype(
+        np.float32)).cuda() if h0 else None)
+    _, _, fwd, ins = ss._forward(*args, None)
+    before = ss.SCAN_BWD.launches
+    got = ss.selective_scan_bwd(*ins, fwd, dy, dh)
+    again = ss.selective_scan_bwd(*ins, fwd, dy, dh)
+    torch.cuda.synchronize()
+    assert ss.SCAN_BWD.launches == before + 2
+    want = ss.selective_scan_bwd_plain(
+        *(None if t is None else t.double() for t in args), dy.double(),
+        None if dh is None else dh.double())
+    for i, (g, g2, w) in enumerate(zip(got, again, want)):
+        assert (g is None) == (w is None) == (g2 is None)
+        if g is None:
+            continue
+        assert torch.equal(g, g2)
+        d = (g.double() - w).abs()
+        if i == 0 and dtype == torch.bfloat16:
+            d = (d - 2.0 ** -8 * w.abs()).clamp_min(0.0)
+        assert d.max() <= 1e-4 * w.abs().max(), i
 
 
 # the chunked scan at the kernels' chunk length L (CHUNK, 192): a step

@@ -45,6 +45,7 @@ from repro.models import model as JM
 from repro.models.config import LoRAConfig as JLoRAConfig
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.checkpoint.io import tree_from_numpy
+from repro_torch.configs.registry import get_config
 from repro_torch.core.fedround import FlatMeta
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as TA
@@ -284,6 +285,10 @@ CFG = ModelConfig(name="t", family="dense", num_layers=3, d_model=64,
 LONG = dataclasses.replace(CFG, chunked_attn_threshold=32, attn_chunk_q=16,
                            attn_chunk_kv=16)
 LCFG = LoRAConfig(rank=4, alpha=8.0)
+# hymba-smoke (hybrid attention + Mamba blocks, 2 layers, d 128): its scan
+# records through kernels/selective_scan.py's Function, whose saved
+# tensors a training forward without recomputation keeps as well
+HYMBA = get_config("hymba-1.5b", smoke=True)
 
 
 def _model(cfg, seed=0):
@@ -382,8 +387,8 @@ def _saved_bytes(params, lora, fn):
     return sum(seen.values())
 
 
-@pytest.mark.parametrize("cfg,S", [(CFG, 16), (LONG, 64)],
-                         ids=["short", "long"])
+@pytest.mark.parametrize("cfg,S", [(CFG, 16), (LONG, 64), (HYMBA, 64)],
+                         ids=["short", "long", "hymba"])
 def test_recomputation_bounds_the_saved_activations(cfg, S):
     params, lora, meta = _model(cfg)
     batch = _batch(cfg, 2, S)
@@ -398,11 +403,9 @@ def test_recomputation_bounds_the_saved_activations(cfg, S):
 
     def without():
         x = TM.embed_tokens(params, cfg, batch["tokens"])
-        gp, gl = params["groups"]["g0"], meta.unflatten(flat)["g0"]
-        for i in range(L):
-            x, _ = TM.block_forward(TL.layer_slice(gp, i), x, cfg,
-                                    lora=TL.layer_slice(gl, i),
-                                    ls=LCFG.scale)
+        for _, _, kind, lp, ll, _ in TM._layers(cfg, params,
+                                                meta.unflatten(flat)):
+            x, _ = TM.block_forward(lp, x, cfg, kind, lora=ll, ls=LCFG.scale)
         TL.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     kept = _saved_bytes(params, lora, with_recompute)

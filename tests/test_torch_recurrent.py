@@ -12,6 +12,11 @@ seed with numpy, at the SMOKE sizes (2-4 blocks, d 128).
   reference asserts S % 256 == 0);
 * `forward`, `prefill`, teacher-forced `decode_step` and `cache_spec` of
   both models (hymba's window of 16 rolls its cache);
+* training: the scan's backward (`selective_scan_bwd_plain` against
+  autograd of the plain scan in f64, rtol = atol = 1e-9; the scan's
+  Function against `jax.vjp` of the reference's scan at 2e-4), both
+  models' LoRA gradients, and one FLASC round of each through both
+  packages' `Experiment` (`tests/_fed_parity.py`'s comparisons);
 * `ServingEngine` on both, each request against the reference's
   single-adapter `prefill` and `decode_step` (the reference's own engine
   fails on xLSTM with paged adapters: ROADMAP queue 3 item 5(e)).
@@ -380,6 +385,90 @@ def test_scan_plain_matches_the_reference_recurrence_and_takes_h0():
 
 
 # ---------------------------------------------------------------------------
+# the scan's backward (the CPU side of csrc/selective_scan.cu's backward)
+# ---------------------------------------------------------------------------
+
+def _scan_f64(seed, B, S, di, N):
+    """Every input of the scan and h0 in f64 at a trained model's scales,
+    and the upstream dy, dh_last."""
+    rng = np.random.default_rng(seed)
+
+    def d(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale + shift)
+    ins = [d(B, S, di), d(di, 1, scale=di ** -0.5),
+           d(di, scale=0.5, shift=-1.0),
+           torch.from_numpy(rng.uniform(-4.0, 1.0, (di, N))),
+           d(di, scale=0.1, shift=1.0), d(B, S, N), d(B, S, N), d(B, di, N)]
+    return ins, d(B, S, di), d(B, di, N)
+
+
+# f64 on both sides, the same function summed in another order
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("S", [1, 5, 300])
+def test_scan_backward_plain_matches_autograd_of_the_plain_scan(S, N):
+    ins, dy, dh = _scan_f64(S + N, 2, S, 6, N)
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    y, h = sscan.selective_scan_plain(*leaves)
+    want = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), leaves,
+                               retain_graph=True)
+    got = sscan.selective_scan_bwd_plain(*ins, dy, dh)
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-9,
+                                   atol=1e-9)
+    # no dh_last: the gradient of y alone
+    want = torch.autograd.grad((y * dy).sum(), leaves)
+    got = sscan.selective_scan_bwd_plain(*ins, dy)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-9,
+                                   atol=1e-9)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+def test_scan_gradient_through_the_function_matches_reference_vjp(
+        h0, monkeypatch):
+    # the port's _scan under autograd (the Function, its plain backward on
+    # the CPU) against jax.vjp of the reference's _ssm_coeffs, _chunk_scan
+    # and readout, for u and every parameter the scan reads
+    params = _perturbed(JS.mamba_spec(HYMBA), 80)
+    keys = ("w_B", "w_C", "w_dt", "dt_bias", "A_log", "D_skip")
+    sub = {k: params[k] for k in keys}
+    di, N = JS.mamba_inner_dim(HYMBA), HYMBA.ssm_state_size
+    B, S = 2, 40
+    u, dy, dh = _x(81, (B, S, di)), _x(82, (B, S, di)), _x(83, (B, di, N))
+    h_init = _x(84, (B, di, N)) if h0 else np.zeros((B, di, N), np.float32)
+
+    def ref(p, u, hi):
+        a, bu, Cc = JS._ssm_coeffs(p, u)
+        h, h_last = JS._chunk_scan(a, bu, hi)
+        y = jnp.einsum("bsdn,bsn->bsd", h, Cc) + p["D_skip"] * u
+        return y, h_last
+    (yj, hj), vjp = jax.vjp(ref, sub, jnp.asarray(u), jnp.asarray(h_init))
+    gp, gu, gh = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    calls = []
+    plain = sscan.selective_scan_bwd_plain
+    monkeypatch.setattr(sscan, "selective_scan_bwd_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    tp = {k: _t(v).requires_grad_(True) for k, v in sub.items()}
+    tu = _t(u).requires_grad_(True)
+    th = _t(h_init).requires_grad_(True) if h0 else None
+    y, h = TS._scan(tp, tu, h0=th)
+    _close(y, yj, SSM_TOL)
+    _close(h, hj, SSM_TOL)
+    leaves = [tu, *(tp[k] for k in keys)] + ([th] if h0 else [])
+    grads = torch.autograd.grad((y * _t(dy)).sum() + (h * _t(dh)).sum(),
+                                leaves)
+    assert calls == [1]
+    _close(grads[0], gu, SSM_TOL)
+    for k, g in zip(keys, grads[1:]):
+        assert g.shape == tp[k].shape
+        _close(g, gp[k], SSM_TOL)
+    if h0:
+        _close(grads[-1], gh, SSM_TOL)
+
+
+# ---------------------------------------------------------------------------
 # the models
 # ---------------------------------------------------------------------------
 
@@ -461,23 +550,99 @@ def test_xlstm_forward_prefill_decode_match_reference(S, gen):
     _run_both(XLSTM, S, gen, 61)
 
 
-def test_hymba_loss_gradient_matches_reference():
-    # the CPU training path: the LoRA gradient through the plain scan (the
-    # card's scan has no backward yet: ROADMAP queue 1 item 12)
-    params, lora = _weights(HYMBA, 62)
-    toks = np.random.default_rng(63).integers(0, HYMBA.vocab_size, (2, 16))
-    gj = jax.grad(lambda lt: JM.loss_fn(params, HYMBA,
+def _lora_gradient_matches_reference(cfg, S, seed, tol):
+    """The LoRA gradient of `loss_fn` on 2 sequences of S tokens against
+    jax.grad of the reference's, leaf by leaf."""
+    params, lora = _weights(cfg, seed)
+    toks = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (2, S))
+    gj = jax.grad(lambda lt: JM.loss_fn(params, cfg,
                                         {"tokens": jnp.asarray(toks)},
                                         lora=lt, lora_scale=LCFG.scale))(lora)
     tl = _tree(lora)
     leaves = list(TL.tree_leaves(tl))
     for t in leaves:
         t.requires_grad_(True)
-    loss = TM.loss_fn(_tree(params), _tcfg(HYMBA), {"tokens": _t(toks)},
+    loss = TM.loss_fn(_tree(params), _tcfg(cfg), {"tokens": _t(toks)},
                       lora=tl, lora_scale=LCFG.scale)
     grads = torch.autograd.grad(loss, leaves)
-    for g, w in zip(grads, jax.tree.leaves(gj)):
-        _close(g, w, SSM_TOL)
+    wl = jax.tree.leaves(gj)
+    assert len(grads) == len(wl)
+    for g, w in zip(grads, wl):
+        _close(g, w, tol)
+
+
+def test_hymba_loss_gradient_matches_reference():
+    # the CPU training path: the LoRA gradient through the scan's Function
+    # (its plain forward and backward on the CPU; on the card the same
+    # Function launches the kernels)
+    _lora_gradient_matches_reference(HYMBA, 16, 62, SSM_TOL)
+
+
+# xLSTM's mLSTM and sLSTM loops are plain PyTorch, differentiated by
+# autograd; S 12 and 29 end in a padded mLSTM chunk, 64 spans several
+@pytest.mark.parametrize("S", [12, 29, 64])
+def test_xlstm_loss_gradient_matches_reference(S):
+    _lora_gradient_matches_reference(XLSTM, S, 64, XLSTM_TOL)
+
+
+# one FLASC round of each family through both packages' task-less
+# Experiment: the same converted backbone and LoRA tree, 4 clients x 1 step
+# x 4 sequences of 16 tokens, held by tests/_fed_parity.py's compare.  Its
+# flat atol is 1e-6 for hymba and 1e-5 for xLSTM: xLSTM's recurrences
+# amplify rounding (XLSTM_TOL), so the two packages' client uploads differ
+# by up to 3.0e-6 on the entries both keep (hymba's by 5.8e-8), which
+# FedAdam's first step g / (|g| + eps) turns into up to 4.3e-6 of an update
+@pytest.mark.parametrize("cfg,gap,atol", [(HYMBA, 1e-7, 1e-6),
+                                          (XLSTM, 5e-6, 1e-5)],
+                         ids=["hymba", "xlstm"])
+def test_flasc_round_matches_reference(cfg, gap, atol, monkeypatch):
+    from _fed_parity import FED, Run, _keeper, capturing, compare
+    from repro.core import strategies as jst
+    from repro.federated import api as japi
+    from repro.models.config import FederatedConfig as JFederatedConfig
+    from repro_torch.core import strategies as tst
+    from repro_torch.core.fedround import FlatMeta
+    from repro_torch.federated import Experiment
+    from repro_torch.federated import engine as teng
+    from repro_torch.models.config import FederatedConfig
+
+    params, lora = _weights(cfg, 90)
+    monkeypatch.setattr(jax_lora, "init_lora",
+                        lambda *a, **k: jax.tree.map(jnp.asarray, lora))
+    monkeypatch.setattr(torch_lora, "init_lora",
+                        lambda *a, **k: _tree(lora))
+    spec = dict(kind="flasc", selector="fused")
+    jstrat = capturing(type(jst.resolve(jst.StrategySpec(**spec))), True)(
+        jst.StrategySpec(**spec))
+    tstrat = capturing(type(tst.resolve(tst.StrategySpec(**spec))), False)(
+        tst.StrategySpec(**spec))
+    jstrat.kept, tstrat.kept = [], []
+    toks = np.random.default_rng(91).integers(
+        0, cfg.vocab_size, (FED["n_clients"], 1, 4, 16)).astype(np.int32)
+    runs = {}
+    for tag, exp, keep, data in (
+            ("j", japi.Experiment(None, strategy=jstrat,
+                                  federation=JFederatedConfig(**FED))
+             .with_params(jax.tree.map(jnp.asarray, params), cfg),
+             _keeper(japi.eng.Callback), {"tokens": jnp.asarray(toks)}),
+            ("t", Experiment(None, strategy=tstrat,
+                             federation=FederatedConfig(**FED), device="cpu")
+             .with_params(_tree(params), _tcfg(cfg)),
+             _keeper(teng.Callback), {"tokens": _t(toks)})):
+        res = (exp.with_lora(rank=LCFG.rank, alpha=LCFG.alpha)
+               .with_training(rounds=1, eval_every=0, seed=0)
+               .with_data(lambda r, _d=data: _d).with_callbacks(keep).run())
+        runs[tag] = Run(exp.strategy, type("S", (), {"history": res.history}),
+                        res.ledger, keep.flats, keep.sstates)
+    assert len(runs["t"].state.history) == 1
+    assert np.isfinite(runs["t"].state.history[0]["loss"])
+    both = (jstrat.kept[0] != 0) & (tstrat.kept[0] != 0)
+    apart = np.abs(jstrat.kept[0] - tstrat.kept[0])[both].max()
+    print(f"{cfg.name}: the entries both upload apart by at most "
+          f"{apart:.3e}")
+    assert apart <= gap
+    compare(f"flasc {cfg.name}", runs["j"], runs["t"],
+            FlatMeta.of({"lora": _tree(lora)}), atol=atol)
 
 
 # ---------------------------------------------------------------------------
@@ -566,11 +731,16 @@ def test_cli_serves_the_recurrent_archs_on_cpu(arch, capsys):
 def test_on_cuda_the_scan_never_falls_back(monkeypatch):
     # the wrapper's choice is by the tensors' device: a CUDA tensor goes to
     # the kernel's launch (recorded here in place of the card) and never to
-    # the plain loop; under autograd it raises instead
-    called, launched = [], []
+    # the plain loop; under autograd the forward launches the same kernel
+    # and the backward the backward's, once, and never a plain version
+    called, launched, launched_bwd = [], [], []
     monkeypatch.setattr(sscan, "selective_scan_plain",
                         lambda *a, **k: called.append(1))
+    monkeypatch.setattr(sscan, "selective_scan_bwd_plain",
+                        lambda *a, **k: called.append(2))
     monkeypatch.setattr(sscan, "SCAN", lambda *a, **k: launched.append(a))
+    monkeypatch.setattr(sscan, "SCAN_BWD",
+                        lambda *a, **k: launched_bwd.append(a))
 
     class FakeCuda(torch.Tensor):
         is_cuda = True
@@ -584,10 +754,20 @@ def test_on_cuda_the_scan_never_falls_back(monkeypatch):
     assert launched[0][-6] is None          # one chunk: no scratch
     assert tuple(y.shape) == (1, 2, 16) and tuple(h.shape) == (1, 16, 8)
     u.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sscan.selective_scan(u, *args)
+    y, h = sscan.selective_scan(u, *args)
+    assert len(launched) == 2 and not launched_bwd
+    (du,) = torch.autograd.grad(y.sum(), u)
+    assert len(launched_bwd) == 1 and not called
+    # (.., dy, dh_last, du, ...): h_last unused, so no dh_last; no h0 or
+    # parameter gradient asked for; B, S, di, N and u's dtype
+    assert launched_bwd[0][11] is None and launched_bwd[0][15] is None
+    assert launched_bwd[0][16:20] == (None,) * 4
+    assert launched_bwd[0][-5:] == (1, 2, 16, 8, sscan.DTYPES[torch.float32])
+    assert tuple(du.shape) == (1, 2, 16)
+    with pytest.raises(ValueError, match="out_state"):
+        sscan.selective_scan(u, *args, out_state=torch.zeros(1, 16, 8))
     with pytest.raises(ValueError, match="state size"):
         sscan.selective_scan(torch.zeros(1, 2, 16).as_subclass(FakeCuda),
                              args[0], args[1], torch.zeros(16, 4), args[3],
                              torch.zeros(1, 2, 4), torch.zeros(1, 2, 4))
-    assert len(launched) == 1 and not called
+    assert len(launched) == 2 and len(launched_bwd) == 1 and not called
